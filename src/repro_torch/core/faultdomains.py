@@ -1,0 +1,200 @@
+"""Fault-domain and campaign parameter types (a subset of the reference).
+
+Counterpart of ``src/repro/core/faultdomains.py``.  This slice of the
+port carries only what :class:`repro_torch.core.params.Params` needs to
+keep its fields -- :class:`FaultTopology`, :class:`CampaignEvent`,
+:class:`Campaign` -- and :func:`scenario_key`, which the CTMC engine's
+refusal reads.  Correlated shocks and campaigns do not run on the port's
+engine yet (ROADMAP queue 1 item 9): ``vectorized.supports`` refuses them.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+__all__ = ["FaultTopology", "CampaignEvent", "Campaign", "scenario_key",
+           "KILL", "MAINT_START", "MAINT_END"]
+
+#: campaign schedule entry codes
+KILL, MAINT_START, MAINT_END = 0, 1, 2
+
+
+# ---------------------------------------------------------------------------
+# topology
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class FaultTopology:
+    """Rack → pod fault-domain hierarchy with per-level shock rates.
+
+    Domains are indexed ``0..n_racks-1`` (racks) followed by
+    ``n_racks..n_racks+n_pods-1`` (pods).  ``racks_per_pod == 0``
+    disables the pod level entirely.
+
+    >>> t = FaultTopology(n_racks=4, racks_per_pod=2,
+    ...                   rack_shock_rate=1e-4)
+    >>> t.n_pods, t.n_domains
+    (2, 6)
+    >>> [t.rack_of(s) for s in range(6)]
+    [0, 1, 2, 3, 0, 1]
+    >>> t.domain_members(4, total=8)     # pod 0 = racks {0, 1}
+    [0, 1, 4, 5]
+    """
+
+    n_racks: int
+    racks_per_pod: int = 0
+    rack_shock_rate: float = 0.0
+    pod_shock_rate: float = 0.0
+
+    def validate(self, total_servers: int) -> None:
+        if self.n_racks < 1:
+            raise ValueError(f"n_racks must be >= 1, got {self.n_racks}")
+        if self.racks_per_pod < 0:
+            raise ValueError("racks_per_pod must be >= 0")
+        if self.rack_shock_rate < 0 or self.pod_shock_rate < 0:
+            raise ValueError("shock rates must be >= 0")
+        if self.pod_shock_rate > 0 and self.racks_per_pod == 0:
+            raise ValueError(
+                "pod_shock_rate > 0 requires racks_per_pod >= 1")
+        if self.n_racks > total_servers:
+            raise ValueError(
+                f"n_racks={self.n_racks} exceeds the fleet size "
+                f"{total_servers}: every rack must hold a server")
+
+    @property
+    def n_pods(self) -> int:
+        if not self.racks_per_pod:
+            return 0
+        return math.ceil(self.n_racks / self.racks_per_pod)
+
+    @property
+    def n_domains(self) -> int:
+        return self.n_racks + self.n_pods
+
+    def rack_of(self, sid: int) -> int:
+        return sid % self.n_racks
+
+    def pod_of_rack(self, rack: int) -> int:
+        return rack // self.racks_per_pod
+
+    def domain_members(self, domain: int, total: int) -> List[int]:
+        """Server ids (workers + spares) belonging to ``domain``."""
+        if domain < self.n_racks:
+            return [s for s in range(total) if s % self.n_racks == domain]
+        pod = domain - self.n_racks
+        return [s for s in range(total)
+                if (s % self.n_racks) // self.racks_per_pod == pod]
+
+    def domain_rates(self) -> np.ndarray:
+        """Per-domain shock rates, racks first then pods — shape (D,)."""
+        return np.concatenate([
+            np.full(self.n_racks, self.rack_shock_rate, np.float64),
+            np.full(self.n_pods, self.pod_shock_rate, np.float64)])
+
+    def domain_fractions(self, total: int) -> np.ndarray:
+        """Fraction of the fleet in each domain — shape (D,).
+
+        The CTMC engine carries compartment *counts*, not identities, so
+        a shock removes ``fraction * count`` servers from every pool
+        (stochastically rounded).  With round-robin assignment the
+        striping is uniform, so the per-domain fraction is the exact
+        expectation of the event engine's member count in every pool.
+        """
+        sizes = np.array([len(self.domain_members(d, total))
+                          for d in range(self.n_domains)], np.float64)
+        return sizes / max(total, 1)
+
+
+# ---------------------------------------------------------------------------
+# campaigns
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class CampaignEvent:
+    """One scripted injection.
+
+    ``kind="kill"``: fail every server in ``domain`` at ``time``.
+    ``kind="maintenance"``: disable the repair shop over
+    ``[time, time + duration]`` — in-flight repairs pause and resume
+    with their remaining stage time.
+    """
+
+    time: float
+    kind: str = "kill"
+    domain: int = 0
+    duration: float = 0.0
+
+    def validate(self, topology: Optional[FaultTopology]) -> None:
+        if self.kind not in ("kill", "maintenance"):
+            raise ValueError(f"unknown campaign event kind {self.kind!r}")
+        if self.time < 0:
+            raise ValueError("campaign event time must be >= 0")
+        if self.kind == "maintenance" and self.duration <= 0:
+            raise ValueError("maintenance windows need duration > 0")
+        if self.kind == "kill":
+            if topology is None:
+                raise ValueError(
+                    "campaign kills require Params.fault_domains")
+            if not 0 <= self.domain < topology.n_domains:
+                raise ValueError(
+                    f"kill domain {self.domain} out of range "
+                    f"[0, {topology.n_domains})")
+
+
+@dataclass(frozen=True)
+class Campaign:
+    """An ordered, validated schedule of :class:`CampaignEvent`.
+
+    >>> c = Campaign(events=({"time": 10.0, "kind": "maintenance",
+    ...                       "duration": 5.0},
+    ...              CampaignEvent(time=2.0, kind="kill", domain=1)))
+    >>> c.schedule()
+    [(2.0, 0, 1), (10.0, 1, 0), (15.0, 2, 0)]
+    """
+
+    events: Tuple[CampaignEvent, ...] = field(default_factory=tuple)
+
+    def __post_init__(self):
+        norm = tuple(CampaignEvent(**e) if isinstance(e, dict) else e
+                     for e in self.events)
+        object.__setattr__(self, "events", norm)
+
+    def validate(self, topology: Optional[FaultTopology]) -> None:
+        for e in self.events:
+            e.validate(topology)
+
+    def schedule(self) -> List[Tuple[float, int, int]]:
+        """Flatten to a time-sorted list of ``(time, code, domain)``.
+
+        Maintenance windows become two entries (start/end).  The sort is
+        stable, so simultaneous entries fire in declaration order on
+        both engines.
+        """
+        flat: List[Tuple[float, int, int]] = []
+        for e in self.events:
+            if e.kind == "kill":
+                flat.append((float(e.time), KILL, e.domain))
+            else:
+                flat.append((float(e.time), MAINT_START, 0))
+                flat.append((float(e.time + e.duration), MAINT_END, 0))
+        flat.sort(key=lambda x: x[0])
+        return flat
+
+
+# ---------------------------------------------------------------------------
+# CTMC engine key
+# ---------------------------------------------------------------------------
+
+def scenario_key(p) -> Optional[Tuple[int, Tuple[int, ...]]]:
+    """Scenario structure ``(D, codes)`` — or None when no scenario."""
+    if p.fault_domains is None and p.campaign is None:
+        return None
+    d = p.fault_domains.n_domains if p.fault_domains is not None else 0
+    codes = tuple(code for _, code, _ in p.campaign.schedule()) \
+        if p.campaign is not None else ()
+    return (d, codes)
+

@@ -1,0 +1,837 @@
+"""Vectorized PyTorch CTMC engine: thousands of AIReSim replicas per device.
+
+Counterpart of ``src/repro/core/vectorized.py``, on the path the paper's
+default model takes: exponential failures and repairs, one job, no fault
+domains.  Under that model the cluster is a continuous-time Markov chain
+over server *compartments* -- servers are exchangeable within (origin x
+health) classes, so counts are sufficient state.  Each step races the 16
+exponential clock families against the deterministic timers (job
+completion, recovery/host-selection timer, checkpoint write) with
+:func:`repro_torch.kernels.ops.event_race` -- the hand-written CUDA kernel
+on the card -- and then applies the winning transition with masked
+updates.  The step carries checkpoint rollback, goodput, the per-replica
+run-duration ring buffer and the streaming histograms exactly as the
+reference does.
+
+State is a dict of tensors with the reference's keys
+(``_initial_state_batch``), on an explicit device.  The scan is a Python
+loop over steps inside a loop over chunks of :data:`DEFAULT_CHUNK_STEPS`;
+the early-exit test (every replica DONE) reads the device once per chunk.
+
+Random numbers copy the *shape* of the reference's draws, not its bits
+(torch's Philox cannot reproduce JAX's threefry): each chunk makes one
+``(chunk, next_pow2(R), 8)`` draw from a ``torch.Generator`` on the run
+device seeded from ``(seed, chunk index)``, clamped into ``[1e-12, 1)``,
+sliced to R and tiled across the P points of a sweep.  That shape gives
+common random numbers across sweep points and keeps pow2-bucketed sweeps
+bit-identical to unbucketed ones on their real rows.
+
+Sweeps flatten a (points x replicas) grid into one batch axis: every
+point shares one compartment layout, so structural parameters enter as
+initial occupancies, and the point and replica counts round up to powers
+of two with inert rows (phase DONE from step 0) that extraction drops.
+
+Not ported yet, and refused by :func:`unsupported_reasons` with the
+ROADMAP item that will bring it: non-exponential failure and repair
+families (queue 1 items 7-8), fault domains and campaigns (item 9),
+replica sharding (item 11) and ``age_dtype="float64"`` (item 8).
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..kernels import ops
+from . import faultdomains, hazards
+from .histograms import HIST_CHANNELS
+from .params import Params
+
+COMPUTE, OVERHEAD, STALL, DONE = 0, 1, 2, 3
+K_EXP = 16
+
+_METRICS = ("total_time", "n_failures", "n_random_failures",
+            "n_systematic_failures", "n_preemptions", "n_auto_repairs",
+            "n_manual_repairs", "n_failed_repairs", "n_host_selections",
+            "n_standby_swaps", "n_undiagnosed", "n_misdiagnosed",
+            "stall_time", "recovery_overhead", "lost_work", "useful_work",
+            "checkpoint_overhead", "n_repair_overflow", "n_domain_shocks",
+            "n_shock_killed", "n_campaign_events")
+
+#: uniform draws per step on the exponential path
+N_UNIFORMS = 8
+
+_NOT_PORTED = "not yet ported to the PyTorch engine"
+
+
+def resolve_device(device=None) -> torch.device:
+    """The run device: ``None`` means the card, and refuses without one.
+
+    The port's entry points run on CUDA unless the caller asks for the
+    CPU; they never fall back to it quietly.
+    """
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available and no device was given: the "
+                "port runs on the card by default; pass device='cpu' to run "
+                "it on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def unsupported_reasons(params: Params) -> list:
+    """Why these params are outside the port's CTMC path (empty = inside).
+
+    Keeps every reason the reference gives and adds one for each part of
+    the reference's fast path this slice has not ported, naming the
+    ROADMAP item that will.
+
+    >>> unsupported_reasons(Params())
+    []
+    >>> unsupported_reasons(Params(retirement_threshold=3))
+    ['retirement policies are event-engine-only']
+    """
+    reasons = []
+    fdist = params.failure_distribution.lower()
+    rdist = params.repair_distribution.lower()
+    if hazards.hazard_kind(params) is None:
+        if fdist in hazards.HAZARD_KINDS:
+            reasons.append(
+                f"failure distribution {fdist!r} is {_NOT_PORTED} "
+                "(ROADMAP queue 1 item 7: non-exponential failure hazards)")
+        else:
+            reasons.append(
+                "failure distribution has no fast-path hazard family "
+                "(closed-form exponential/weibull/bathtub/lognormal, an "
+                "empirical fit, or a registered distribution with valid "
+                "hazard_segments())")
+    if hazards.repair_kind(params) is None:
+        if rdist in hazards.REPAIR_KINDS:
+            reasons.append(
+                f"repair distribution {rdist!r} is {_NOT_PORTED} "
+                "(ROADMAP queue 1 item 8: non-exponential repairs)")
+        else:
+            reasons.append(
+                "repair distribution has no fast-path repair family "
+                "(exponential/weibull/lognormal/deterministic, an empirical "
+                "fit, or a registered distribution with valid "
+                "hazard_segments())")
+    if faultdomains.scenario_key(params) is not None:
+        if rdist != "exponential":
+            reasons.append(
+                "fault domains / campaigns require exponential repairs on "
+                "the fast path (a struck in-shop server would need a "
+                "per-slot redraw)")
+        reasons.append(
+            f"fault domains and campaigns are {_NOT_PORTED} "
+            "(ROADMAP queue 1 item 9)")
+    if params.repair_servers != 0:
+        reasons.append(
+            "finite repair-shop capacity (repair_servers > 0) — the "
+            "multi-job CTMC engine models it; the single-job program "
+            "has no queue compartment")
+    if params.retirement_threshold != 0:
+        reasons.append("retirement policies are event-engine-only")
+    if params.bad_set_regeneration_period != 0:
+        reasons.append("bad-set regeneration is event-engine-only")
+    if params.standbys_can_fail:
+        reasons.append("failing warm standbys are event-engine-only")
+    if params.engine_shards > 0:
+        reasons.append(
+            f"replica sharding (engine_shards > 0) is {_NOT_PORTED} "
+            "(ROADMAP queue 1 item 11)")
+    if params.age_dtype == "float64":
+        reasons.append(
+            f"age_dtype='float64' is {_NOT_PORTED} (ROADMAP queue 1 item 8)")
+    return reasons
+
+
+def supports(params: Params) -> bool:
+    """Can the port's CTMC engine simulate these params?
+
+    >>> supports(Params())                                    # Table-I default
+    True
+    >>> supports(Params(failure_distribution="weibull"))      # not yet ported
+    False
+    """
+    return not unsupported_reasons(params)
+
+
+def _unsupported_error(params: Params) -> ValueError:
+    reasons = unsupported_reasons(params) \
+        or ["unknown reason — please report"]
+    return ValueError(
+        "these Params are outside the port's CTMC engine: "
+        + "; ".join(reasons))
+
+
+# ---------------------------------------------------------------------------
+# state
+# ---------------------------------------------------------------------------
+
+def _initial_counts(p: Params):
+    total = p.working_pool_size + p.spare_pool_size
+    n_bad = int(round(p.systematic_failure_fraction * total))
+    bad_w = round(n_bad * p.working_pool_size / total)
+    bad_s = n_bad - bad_w
+
+    def split(n_take, pool_good, pool_bad):
+        frac_bad = pool_bad / max(pool_good + pool_bad, 1)
+        take_bad = int(round(n_take * frac_bad))
+        return n_take - take_bad, take_bad
+
+    w_good, w_bad = p.working_pool_size - bad_w, bad_w
+    run_g, run_b = split(p.job_size, w_good, w_bad)
+    w_good -= run_g
+    w_bad -= run_b
+    n_sb = min(p.warm_standbys, w_good + w_bad)
+    sb_g, sb_b = split(n_sb, w_good, w_bad)
+    w_good -= sb_g
+    w_bad -= sb_b
+    return {
+        "run": [run_g, run_b, 0, 0],
+        "sb": [sb_g, sb_b, 0, 0],
+        "fw": [w_good, w_bad, 0, 0],
+        "fs": [0, 0, p.spare_pool_size - bad_s, bad_s],
+    }
+
+
+def _initial_state_batch(pts: Sequence[Params], R: int, max_runs: int,
+                         device) -> Dict[str, torch.Tensor]:
+    """Padded initial state for a structural grid, point-major (P*R, ...).
+
+    All points share one compartment layout, so structural parameters
+    (job_size, pool sizes, warm_standbys, systematic fraction, job_length,
+    host-selection offset) enter purely as per-point initial values:
+    compartments a small point does not populate sit at zero occupancy and
+    carry zero rates.  The keys are the reference's on its exponential,
+    scenario-free path.
+    """
+    P = len(pts)
+    B = P * R
+    counts = [_initial_counts(p) for p in pts]
+    f32 = dict(dtype=torch.float32, device=device)
+
+    def tile(key):
+        arr = np.asarray([c[key] for c in counts], np.float32)   # (P, 4)
+        return torch.as_tensor(np.repeat(arr, R, axis=0), **f32)
+
+    def per_point(vals):
+        return torch.as_tensor(np.repeat(np.asarray(vals, np.float32), R),
+                               **f32)
+
+    state = {k: tile(k) for k in ("run", "sb", "fw", "fs")}
+    state["auto"] = torch.zeros((B, 4), **f32)
+    state["man"] = torch.zeros((B, 4), **f32)
+    state["t"] = per_point([p.host_selection_time for p in pts])
+    state["work_left"] = per_point([p.job_length for p in pts])
+    state["timer"] = torch.full((B,), torch.inf, **f32)
+    state["stall_start"] = torch.zeros((B,), **f32)
+    state["phase"] = torch.full((B,), COMPUTE, dtype=torch.int32,
+                                device=device)
+    #: phase age: compute minutes since the job last (re)started (the
+    #: hazard clock of the non-exponential families; inert here)
+    state["age"] = torch.zeros((B,), **f32)
+    state["cur_run"] = torch.zeros((B,), **f32)
+    #: compute minutes since the last durable checkpoint
+    state["ckpt_work"] = torch.zeros((B,), **f32)
+    #: 1.0 while the OVERHEAD phase is a checkpoint *write*
+    state["in_ckpt"] = torch.zeros((B,), **f32)
+    state["n_runs"] = torch.zeros((B,), dtype=torch.int32, device=device)
+    state["run_durations"] = torch.zeros((B, max_runs), **f32)
+    spec = pts[0].histogram
+    sel = _selected_channels(spec)
+    if sel:
+        # only the selected channels are carried; the grid shares the
+        # first point's bin layout, with edges in float32 as in the
+        # reference's scan
+        state["hist"] = torch.zeros((B, len(sel), spec.n_counts), **f32)
+        state["hist_edges"] = torch.as_tensor(spec.edges(), **f32)
+    for m in _METRICS:
+        state[m] = torch.zeros((B,), **f32)
+    return state
+
+
+#: state entries with no leading replica axis
+_UNBATCHED_STATE = ("hist_edges",)
+
+
+def _selected_channels(spec) -> tuple:
+    """Channels carried through the scan, in fixed HIST_CHANNELS order."""
+    if spec is None:
+        return ()
+    return tuple(ch for ch in HIST_CHANNELS if ch in spec.channels)
+
+
+def _next_pow2(n: int) -> int:
+    return 1 if n <= 1 else 1 << (n - 1).bit_length()
+
+
+def _bucket_pad_state(state: Dict[str, torch.Tensor], P: int, R: int,
+                      P_pad: int, R_pad: int) -> Dict[str, torch.Tensor]:
+    """Pad a (P*R, ...) point-major state to (P_pad*R_pad, ...).
+
+    Padding rows start in phase DONE with zero occupancies, so they carry
+    zero rates and are inert for the whole scan, early-exit test
+    included.  Extraction drops them.
+    """
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in state.items():
+        if k in _UNBATCHED_STATE:
+            out[k] = v
+            continue
+        v = v.reshape((P, R) + v.shape[1:])
+        padded = v.new_zeros((P_pad, R_pad) + v.shape[2:])
+        padded[:P, :R] = v
+        out[k] = padded.reshape((P_pad * R_pad,) + v.shape[2:])
+    phase = out["phase"].reshape(P_pad, R_pad)
+    phase[P:] = DONE
+    phase[:, R:] = DONE
+    return out
+
+
+def _initial_state(p: Params, R: int, max_runs: Optional[int] = None,
+                   device="cpu") -> Dict[str, torch.Tensor]:
+    return _initial_state_batch(
+        [p], R, p.max_run_records if max_runs is None else max_runs, device)
+
+
+def state_from_numpy(arrays: Dict[str, np.ndarray],
+                     device) -> Dict[str, torch.Tensor]:
+    """The port's state from a dict of numpy arrays (dtypes kept).
+
+    ``{k: np.asarray(v) for k, v in reference_state.items()}`` goes in
+    unchanged, which is how the step-parity tests hand one state to both
+    engines.
+    """
+    return {k: torch.as_tensor(np.array(v, copy=True), device=device)
+            for k, v in arrays.items()}
+
+
+def state_to_numpy(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """A dict of numpy arrays from the port's state (dtypes kept)."""
+    return {k: v.detach().cpu().numpy() for k, v in state.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def _lane_consts(device: torch.device):
+    """``(bad_mask (4,) f32, lanes (4,) i32)`` on ``device``, made once.
+
+    Building them per step from Python lists would copy host to device
+    on every step.  ``bad_mask`` is pinned to float32.
+    """
+    lanes = torch.arange(4, dtype=torch.int32, device=device)
+    return (lanes % 2).to(torch.float32), lanes
+
+
+def _pick_classes(counts: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Categorical draws proportional to counts: (R, G, 4) x (R, G) -> (R, G)."""
+    total = counts.sum(-1).clamp_min(1e-30)
+    cdf = counts.cumsum(-1) / total[..., None]
+    return (u[..., None] >= cdf).sum(-1).clamp_max(3).to(torch.int32)
+
+
+def _onehot(c: torch.Tensor) -> torch.Tensor:
+    """float32 one-hot over the 4 classes (an out-of-range index gives a
+    zero row, as ``jax.nn.one_hot`` does; no host sync)."""
+    _, lanes = _lane_consts(c.device)
+    return (c[..., None] == lanes).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# one transition
+# ---------------------------------------------------------------------------
+
+def _step_u(s: Dict[str, torch.Tensor], u: torch.Tensor, pv: torch.Tensor,
+            impl: Optional[str] = None,
+            hist_channels: tuple = HIST_CHANNELS) -> Dict[str, torch.Tensor]:
+    """One CTMC transition for a batch of replicas, with given uniforms.
+
+    ``u`` is ``(B, 8)``.  ``pv`` is either one parameter vector shared by
+    the batch or a ``(B, n_cols)`` matrix with one row per replica (the
+    sweep layout); columns 0..15 are the base model parameters.
+    ``hist_channels`` is the tuple of channels ``s["hist"]`` carries.
+    Returns a new state dict; ``s`` is left as it was.
+    """
+    if pv.ndim == 1:
+        cols = [pv[i] for i in range(16)]
+        _c = lambda x: x            # noqa: E731  param vs (B, 4) arrays
+    else:
+        cols = [pv[:, i] for i in range(16)]
+        _c = lambda x: x[:, None]   # noqa: E731
+    (r_rand, r_sys, recovery, host_sel, waiting, auto_t, man_t,
+     auto_fail, man_fail, p_auto, dp, du, ckpt, preempt_cost,
+     warm_standbys, ckpt_cost) = cols
+    u_time, u_pick, u_diag, u_wrong, u_cls, u_esc, u_succ, u_pool = \
+        u.unbind(1)
+
+    phase = s["phase"]
+    computing = phase == COMPUTE
+    in_overhead = phase == OVERHEAD
+    stalled = phase == STALL
+    active = phase != DONE
+    # OVERHEAD flavor: a checkpoint *write* (timer expiry resumes compute
+    # without resetting the hazard age) vs a recovery/restart (which does)
+    in_ckpt_flag = s["in_ckpt"] > 0
+    B = phase.shape[0]
+    device = phase.device
+
+    # ---- rates (B, 16) ------------------------------------------------
+    run = s["run"]
+    bad_mask, _ = _lane_consts(device)
+    fail_rand = run * _c(r_rand) * computing[:, None]
+    fail_sys = run * bad_mask[None, :] * _c(r_sys) * computing[:, None]
+    auto_rate = s["auto"] / _c(auto_t).clamp_min(1e-9)
+    man_rate = s["man"] / _c(man_t).clamp_min(1e-9)
+    rates = torch.cat([fail_rand, fail_sys, auto_rate, man_rate], -1) \
+        * active[:, None]
+
+    # residual column order decides exact ties (the race takes the first
+    # minimum): job completion, then the recovery timer, then the
+    # checkpoint write, appended last so a completion beats a
+    # same-instant write.  At checkpoint_interval == 0 that column is
+    # +inf throughout.
+    residuals = torch.stack([
+        torch.where(computing, s["work_left"], torch.inf),
+        torch.where(in_overhead, s["timer"], torch.inf),
+        torch.where(computing & (ckpt > 0),
+                    (ckpt - s["ckpt_work"]).clamp_min(0.0), torch.inf),
+    ], dim=-1)
+
+    dt, ev = ops.event_race(rates, residuals, u_time, u_pick, impl=impl)
+    dt = torch.where(active & torch.isfinite(dt), dt, 0.0)
+
+    cls = ev % 4
+    is_fail = active & (ev < 8)
+    is_sys = active & (ev >= 4) & (ev < 8)
+    is_auto = active & (ev >= 8) & (ev < 12)
+    is_man = active & (ev >= 12) & (ev < 16)
+    is_complete = active & (ev == K_EXP)
+    is_timer = active & (ev == K_EXP + 1)
+    is_ckpt = active & (ev == K_EXP + 2)
+
+    ns = dict(s)
+    ns["t"] = s["t"] + dt
+
+    # ---- progress accounting -------------------------------------------
+    # work accrues during every COMPUTE interval whichever event ends it;
+    # a failure rolls back to the last durable checkpoint (``ckpt_work``
+    # is the work since the last write), so ``banked`` goes negative on
+    # a failing step.  checkpoint_interval == 0 never loses work.
+    progress = torch.where(computing, dt, 0.0)
+    rollback = is_fail
+    new_ckpt_work = s["ckpt_work"] + progress
+    lost = torch.where(rollback & (ckpt > 0), new_ckpt_work, 0.0)
+    banked = progress - lost
+    ns["work_left"] = s["work_left"] - banked
+    ns["useful_work"] = s["useful_work"] + banked
+    ns["lost_work"] = s["lost_work"] + lost
+    ns["ckpt_work"] = torch.where(rollback | is_ckpt | is_complete,
+                                  0.0, new_ckpt_work)
+
+    # ---- completion / timer ----------------------------------------------
+    timer_dec = torch.where(in_overhead, s["timer"] - dt, s["timer"])
+    phase_n = torch.where(is_complete, DONE, phase)
+    phase_n = torch.where(is_timer, COMPUTE, phase_n)
+    timer_n = torch.where(is_timer, torch.inf, timer_dec)
+    ns["total_time"] = torch.where(is_complete, ns["t"], s["total_time"])
+
+    # ---- checkpoint writes ----------------------------------------------
+    # a paid write runs as an OVERHEAD interval flagged in_ckpt; a free
+    # write (checkpoint_cost == 0) banks the checkpoint without leaving
+    # COMPUTE
+    paid_ckpt = is_ckpt & (ckpt_cost > 0)
+    phase_n = torch.where(paid_ckpt, OVERHEAD, phase_n)
+    timer_n = torch.where(paid_ckpt, ckpt_cost, timer_n)
+    ns["in_ckpt"] = torch.where(is_timer, 0.0,
+                                torch.where(paid_ckpt, 1.0, s["in_ckpt"]))
+    ns["checkpoint_overhead"] = s["checkpoint_overhead"] \
+        + torch.where(in_ckpt_flag, dt, 0.0)
+
+    # ---- exact run durations -------------------------------------------
+    # a run is one useful-compute interval between restarts; records land
+    # in a ring buffer at slot n_runs % max_runs (max_runs == 0 leaves
+    # the buffer out)
+    record = is_fail | is_complete
+    run_val = s["cur_run"] + progress
+    max_runs = s["run_durations"].shape[1]
+    if max_runs:
+        rows = torch.arange(B, device=device)
+        slot = (s["n_runs"] % max_runs).long()
+        kept = s["run_durations"][rows, slot]
+        buf = s["run_durations"].clone()
+        buf.index_put_((rows, slot), torch.where(record, run_val, kept))
+        ns["run_durations"] = buf
+    ns["n_runs"] = s["n_runs"] + record.to(torch.int32)
+    ns["cur_run"] = torch.where(record, 0.0, run_val)
+
+    # ---- phase age --------------------------------------------------------
+    ns["age"] = torch.where(is_timer & ~in_ckpt_flag, 0.0,
+                            s["age"] + progress)
+
+    # ---- failure handling ---------------------------------------------------
+    ns["n_failures"] = s["n_failures"] + is_fail.to(torch.float32)
+    ns["n_systematic_failures"] = s["n_systematic_failures"] \
+        + is_sys.to(torch.float32)
+    ns["n_random_failures"] = s["n_random_failures"] \
+        + (is_fail & ~is_sys).to(torch.float32)
+
+    diagnosed = is_fail & (u_diag < dp)
+    wrong = diagnosed & (u_wrong < du)
+    ns["n_undiagnosed"] = s["n_undiagnosed"] \
+        + (is_fail & ~diagnosed).to(torch.float32)
+    ns["n_misdiagnosed"] = s["n_misdiagnosed"] + wrong.to(torch.float32)
+
+    # one stacked categorical draw for all four pools; rep1h (the one-hot
+    # of the raced class) doubles as the right-diagnosis removal mask
+    picks = _pick_classes(
+        torch.stack([run, s["sb"], s["fw"], s["fs"]], dim=1),
+        torch.stack([u_cls, u_cls, u_pool, u_pool], dim=1))    # (B, 4)
+    pick1h = _onehot(picks)                                    # (B, 4, 4)
+    rep1h = _onehot(cls)
+    rm1h = torch.where(wrong[:, None], pick1h[:, 0], rep1h) \
+        * diagnosed[:, None]
+    run_n = run - rm1h
+    auto_n = s["auto"] + rm1h
+
+    # replacement waterfall (only when a server was removed)
+    use_sb = diagnosed & (s["sb"].sum(-1) > 0)
+    use_fw = diagnosed & ~use_sb & (s["fw"].sum(-1) > 0)
+    use_fs = diagnosed & ~use_sb & ~use_fw & (s["fs"].sum(-1) > 0)
+    goes_stall = diagnosed & ~use_sb & ~use_fw & ~use_fs
+
+    take = (pick1h[:, 1] * use_sb[:, None]
+            + pick1h[:, 2] * use_fw[:, None]
+            + pick1h[:, 3] * use_fs[:, None])
+    sb_n = s["sb"] - pick1h[:, 1] * use_sb[:, None]
+    fw_n = s["fw"] - pick1h[:, 2] * use_fw[:, None]
+    fs_n = s["fs"] - pick1h[:, 3] * use_fs[:, None]
+    run_n = run_n + take
+    ns["n_standby_swaps"] = s["n_standby_swaps"] + use_sb.to(torch.float32)
+    ns["n_host_selections"] = s["n_host_selections"] \
+        + (use_fw | use_fs).to(torch.float32)
+    ns["n_preemptions"] = s["n_preemptions"] + use_fs.to(torch.float32)
+
+    fail_timer = (recovery
+                  + torch.where(use_fw | use_fs, host_sel, 0.0)
+                  + torch.where(use_fs, waiting + preempt_cost, 0.0))
+    resolves = is_fail & ~goes_stall
+    timer_n = torch.where(resolves, fail_timer, timer_n)
+    phase_n = torch.where(resolves, OVERHEAD, phase_n)
+    phase_n = torch.where(goes_stall, STALL, phase_n)
+    ns["stall_start"] = torch.where(goes_stall, ns["t"], s["stall_start"])
+    recovery_oh = s["recovery_overhead"] + torch.where(resolves, recovery,
+                                                       0.0)
+
+    # ---- repair completions ----------------------------------------------
+    auto_n = auto_n - rep1h * is_auto[:, None]
+    ns["n_auto_repairs"] = s["n_auto_repairs"] + is_auto.to(torch.float32)
+    escalate = is_auto & (u_esc >= p_auto)
+    man_n = s["man"] + rep1h * escalate[:, None]
+    man_n = man_n - rep1h * is_man[:, None]
+    ns["n_manual_repairs"] = s["n_manual_repairs"] \
+        + is_man.to(torch.float32)
+
+    finishes = (is_auto & ~escalate) | is_man
+    fail_prob = torch.where(is_man, man_fail, auto_fail)
+    healed = finishes & (u_succ >= fail_prob)
+    ns["n_failed_repairs"] = s["n_failed_repairs"] \
+        + (finishes & ~healed).to(torch.float32)
+    out_cls = torch.where(healed, cls - (cls % 2), cls)  # bad -> good
+    out1h = _onehot(out_cls)
+
+    # returning server: stalled job > standby refill > origin pool
+    to_stalled = finishes & stalled
+    to_sb = finishes & ~to_stalled & (sb_n.sum(-1) < warm_standbys)
+    to_pool = finishes & ~to_stalled & ~to_sb
+    spare_origin = out_cls >= 2
+    run_n = run_n + out1h * to_stalled[:, None]
+    sb_n = sb_n + out1h * to_sb[:, None]
+    fw_n = fw_n + out1h * (to_pool & ~spare_origin)[:, None]
+    fs_n = fs_n + out1h * (to_pool & spare_origin)[:, None]
+    unstall = to_stalled
+    phase_n = torch.where(unstall, OVERHEAD, phase_n)
+    timer_n = torch.where(unstall, recovery, timer_n)
+    ns["stall_time"] = s["stall_time"] \
+        + torch.where(unstall, ns["t"] - s["stall_start"], 0.0)
+    ns["recovery_overhead"] = recovery_oh + torch.where(unstall, recovery,
+                                                        0.0)
+    ns.update(run=run_n, sb=sb_n, fw=fw_n, fs=fs_n, auto=auto_n, man=man_n,
+              phase=phase_n, timer=timer_n)
+
+    # ---- streaming histograms -------------------------------------------
+    # bin layout mirrors histograms.Histogram: searchsorted(right=True)
+    # over the float32 edges with under/overflow slots.  A failure
+    # resolved through the waterfall records its downtime at once; a
+    # stalled one when the repaired server restarts the job.
+    if "hist" in s:
+        stall_wait = ns["t"] - s["stall_start"]
+        ended = resolves | unstall
+        downtime = torch.where(resolves, fail_timer, stall_wait + recovery)
+        acquire_wait = torch.where(resolves, fail_timer - recovery,
+                                   stall_wait)
+        channel_vals = {"run_duration": (run_val, record),
+                        "recovery": (downtime, ended),
+                        "waiting": (acquire_wait, ended),
+                        "goodput": (ns["useful_work"]
+                                    / ns["t"].clamp_min(1e-9),
+                                    is_complete)}
+        vals = torch.stack([channel_vals[ch][0] for ch in hist_channels],
+                           dim=1)
+        masks = torch.stack([channel_vals[ch][1] for ch in hist_channels],
+                            dim=1)                      # (B, n_sel)
+        idx = torch.searchsorted(s["hist_edges"], vals, right=True)
+        rows = torch.arange(B, device=device)[:, None].expand_as(idx)
+        chan = torch.arange(vals.shape[1], device=device)[None, :] \
+            .expand_as(idx)
+        # (row, channel) pairs are unique, so the accumulation order
+        # cannot change the result
+        hist = s["hist"].clone()
+        hist.index_put_((rows, chan, idx), masks.to(torch.float32),
+                        accumulate=True)
+        ns["hist"] = hist
+    return ns
+
+
+# ---------------------------------------------------------------------------
+# run loop
+# ---------------------------------------------------------------------------
+
+def _params_vector(p: Params) -> np.ndarray:
+    """``(16 + N_HAZARD_COLS + N_REPAIR_COLS,)`` float32 parameter row."""
+    base = np.asarray([
+        p.random_failure_rate, p.systematic_failure_rate, p.recovery_time,
+        p.host_selection_time, p.waiting_time, p.auto_repair_time,
+        p.manual_repair_time, p.auto_repair_failure_probability,
+        p.manual_repair_failure_probability, p.automated_repair_probability,
+        p.diagnosis_probability, p.diagnosis_uncertainty,
+        p.checkpoint_interval, p.preemption_cost, float(p.warm_standbys),
+        p.checkpoint_cost,
+    ], np.float32)
+    return np.concatenate([base, hazards.hazard_columns(p),
+                           hazards.repair_columns(p)])
+
+
+def default_max_steps(p: Params, safety: float = 2.0) -> int:
+    """Expected events (failures x ~3 repair/replace hops) + head-room."""
+    lam = hazards.effective_event_rate(p)
+    horizon = p.job_length * (1.0 + lam * (p.recovery_time + 2.0))
+    steps = max(128, int(lam * horizon * 3.2 * safety))
+    if p.checkpoint_interval > 0:
+        # every checkpoint_interval minutes of compute burns one
+        # write-event step (plus its expiry step when the write is paid)
+        writes = p.job_length / max(p.checkpoint_interval, 1e-9)
+        steps += int(writes * (2.0 if p.checkpoint_cost > 0 else 1.0)
+                     * safety)
+    return steps + int(hazards.phantom_steps(p) * safety)
+
+
+#: steps simulated per early-exit check
+DEFAULT_CHUNK_STEPS = 64
+
+
+def _struct_key(p: Params):
+    """Hashable identity of a point's pool *structure* (the grouping key
+    of the ``padded=False`` sweep path)."""
+    return (p.job_size, p.working_pool_size, p.spare_pool_size,
+            p.warm_standbys, round(p.systematic_failure_fraction, 6),
+            round(p.job_length, 3), round(p.host_selection_time, 3))
+
+
+def _chunk_seed(seed: int, i: int) -> int:
+    """64-bit generator seed for chunk ``i`` of a run seeded ``seed``."""
+    ss = np.random.SeedSequence([seed % (1 << 64), i])
+    return int(ss.generate_state(1, np.uint64)[0])
+
+
+def _any_active(state: Dict[str, torch.Tensor]) -> bool:
+    """One device-to-host read: is any replica still running?"""
+    return bool((state["phase"] != DONE).any())
+
+
+def _chunk_loop(pv: torch.Tensor, seed: int, P: int, R: int, chunk: int,
+                n_chunks: int, rem: int, impl: Optional[str],
+                early_exit: bool, hist_channels: tuple,
+                init_state: Dict[str, torch.Tensor],
+                ) -> Dict[str, torch.Tensor]:
+    """Chunked scan with early exit; batch axis is B = P * R (point-major).
+
+    Runs ``n_chunks * chunk + rem`` steps, less the chunks early exit
+    skips once every replica is DONE (finished replicas are inert, so
+    skipping them changes nothing).  Each chunk draws its uniforms in one
+    call at the power-of-two width ``next_pow2(R)``, slices them to R and
+    tiles them across the P points.
+    """
+    device = init_state["phase"].device
+    R_draw = _next_pow2(R)
+
+    def run_chunk(state, i, n_steps):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(_chunk_seed(seed, i))
+        us = torch.rand((n_steps, R_draw, N_UNIFORMS), generator=gen,
+                        dtype=torch.float32, device=device)
+        us = us.clamp_min_(1e-12)
+        if R_draw != R:
+            us = us[:, :R]
+        if P > 1:
+            us = us.repeat(1, P, 1)
+        for k in range(n_steps):
+            state = _step_u(state, us[k], pv, impl, hist_channels)
+        return state
+
+    state = init_state
+    i = 0
+    while i < n_chunks and not (early_exit and not _any_active(state)):
+        state = run_chunk(state, i, chunk)
+        i += 1
+    if rem and not (early_exit and not _any_active(state)):
+        # partial final chunk so an explicit max_steps is honored exactly
+        state = run_chunk(state, n_chunks, rem)
+    state = dict(state)
+    done = state["phase"] == DONE
+    state["completed"] = done.to(torch.float32)
+    state["total_time"] = torch.where(done, state["total_time"], state["t"])
+    return state
+
+
+#: non-_METRICS outputs worth returning: completion flag + the exact
+#: run-duration records (ring buffer, attempt count, in-flight interval)
+_EXTRA_OUTPUTS = ("completed", "run_durations", "n_runs", "cur_run")
+
+
+def _host_outputs(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The state entries extraction reads, copied to the host once."""
+    keep = set(_METRICS + _EXTRA_OUTPUTS + ("hist", "hist_edges"))
+    return state_to_numpy({k: v for k, v in state.items() if k in keep})
+
+
+def _extract(host: Dict[str, np.ndarray], sl=slice(None),
+             channels=()) -> Dict[str, np.ndarray]:
+    out = {k: v[sl] for k, v in host.items()
+           if k in _METRICS + _EXTRA_OUTPUTS}
+    if "hist" in host and channels:
+        # the in-scan accumulator carries exactly the selected channels,
+        # in HIST_CHANNELS order
+        hist = np.asarray(host["hist"][sl], np.float64)
+        for ci, ch in enumerate(channels):
+            out[f"hist_{ch}"] = hist[:, ci]
+        out["hist_edges"] = np.asarray(host["hist_edges"], np.float64)
+    return out
+
+
+def _hist_channels(pts) -> tuple:
+    return _selected_channels(pts[0].histogram)
+
+
+def simulate_ctmc(params: Params, n_replicas: int = 1024, seed: int = 0,
+                  max_steps: Optional[int] = None,
+                  impl: Optional[str] = None,
+                  chunk_steps: Optional[int] = None,
+                  early_exit: bool = True,
+                  max_runs: Optional[int] = None,
+                  device=None) -> Dict[str, np.ndarray]:
+    """Vectorized replication study. Returns {metric: np.ndarray (R,)}.
+
+    Runs on ``device`` (default the card; ``device="cpu"`` must be asked
+    for).  The scan runs in ``chunk_steps``-sized pieces and stops at the
+    first chunk boundary where every replica is DONE; ``early_exit=False``
+    runs the whole ``max_steps`` budget with bit-identical results.
+    ``max_runs`` (default ``params.max_run_records``) sizes the per-run
+    duration ring buffer; 0 leaves it out.  ``impl`` (default
+    ``params.event_race_impl``) selects the event-race kernel.
+    """
+    dev = resolve_device(device)
+    if not supports(params):
+        raise _unsupported_error(params)
+    params.validate()
+    impl = params.event_race_impl if impl is None else impl
+    max_steps = max_steps or default_max_steps(params)
+    chunk = min(chunk_steps or DEFAULT_CHUNK_STEPS, max_steps)
+    channels = _hist_channels([params])
+    init_state = _initial_state(params, n_replicas, max_runs, dev)
+    pv = torch.as_tensor(_params_vector(params), device=dev)
+    out = _chunk_loop(pv, seed, 1, n_replicas, chunk, max_steps // chunk,
+                      max_steps % chunk, impl, early_exit, channels,
+                      init_state)
+    return _extract(_host_outputs(out), channels=channels)
+
+
+def simulate_ctmc_sweep(params_list, n_replicas: int = 1024, seed: int = 0,
+                        max_steps: Optional[int] = None,
+                        impl: Optional[str] = None,
+                        chunk_steps: Optional[int] = None,
+                        early_exit: bool = True,
+                        padded: bool = True,
+                        bucketed: bool = True,
+                        max_runs: Optional[int] = None,
+                        device=None):
+    """Batched sweep: the whole grid as one flat batch on one device.
+
+    ``params_list`` is a sequence of :class:`Params`.  With ``padded=True``
+    (default) every point, structural ones included, goes into one
+    ``(P * R,)`` batch with one parameter row per replica; ``padded=False``
+    runs one batch per pool structure (:func:`_struct_key`), with the same
+    per-point results.  ``bucketed=True`` (default, padded path only)
+    rounds P and R up to powers of two with inert rows, and rounds a
+    derived step budget up to whole chunks; an explicit ``max_steps`` is
+    honored exactly, and real rows are then bit-identical to
+    ``bucketed=False``.  Uniforms are shared across points (common random
+    numbers).  ``impl`` overrides every point's ``event_race_impl``;
+    otherwise points split by it.
+
+    Returns a list of ``{metric: np.ndarray (R,)}`` dicts in input order.
+    """
+    dev = resolve_device(device)
+    params_list = list(params_list)
+    for p in params_list:
+        if not supports(p):
+            raise _unsupported_error(p)
+        p.validate()
+    if not params_list:
+        return []
+    if len({p.histogram for p in params_list}) > 1:
+        raise ValueError(
+            "all points of a batched CTMC sweep must share the same "
+            "Params.histogram spec (the in-scan accumulator layout is "
+            "per-batch); split the grid or unify the spec")
+
+    groups: Dict[tuple, list] = {}
+    for i, p in enumerate(params_list):
+        gkey = (None if padded else _struct_key(p),
+                impl if impl is not None else p.event_race_impl)
+        groups.setdefault(gkey, []).append(i)
+    mr = (max(p.max_run_records for p in params_list) if max_runs is None
+          else max_runs)
+
+    bucket = padded and bucketed
+    channels = _hist_channels(params_list)
+    results: list = [None] * len(params_list)
+    for (_skey, impl_eff), idxs in groups.items():
+        pts = [params_list[i] for i in idxs]
+        P, R = len(pts), n_replicas
+        steps = max_steps or max(default_max_steps(p) for p in pts)
+        chunk = min(chunk_steps or DEFAULT_CHUNK_STEPS, steps)
+        P_run, R_run = (_next_pow2(P), _next_pow2(R)) if bucket else (P, R)
+        if bucket and max_steps is None:
+            steps = -(-steps // chunk) * chunk
+        pv = np.stack([_params_vector(p) for p in pts])         # (P, n_cols)
+        if P_run != P:
+            # padding rows are inert (phase DONE); repeating the last real
+            # row keeps every column benign
+            pv = np.concatenate([pv, np.repeat(pv[-1:], P_run - P, 0)])
+        pv_flat = torch.as_tensor(np.repeat(pv, R_run, axis=0), device=dev)
+        init_state = _initial_state_batch(pts, R, mr, dev)
+        if (P_run, R_run) != (P, R):
+            init_state = _bucket_pad_state(init_state, P, R, P_run, R_run)
+        out = _chunk_loop(pv_flat, seed, P_run, R_run, chunk, steps // chunk,
+                          steps % chunk, impl_eff, early_exit, channels,
+                          init_state)
+        host = _host_outputs(out)
+        for j, i in enumerate(idxs):
+            results[i] = _extract(host, slice(j * R_run, j * R_run + R),
+                                  channels)
+    return results
