@@ -3,36 +3,65 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path -- a Table-I capacity-planning sweep through
-``repro_torch.core.OneWaySweep`` -- on the card, and holds the
-hand-written event-race kernel against its plain PyTorch version.
+Drives the port's two main paths on the card -- a Table-I
+capacity-planning sweep through ``repro_torch.core.OneWaySweep``, and LLM
+serving (prefill + greedy decode) of qwen2.5-3b and falcon-mamba-7b at
+their full published widths through ``repro_torch.models.build_model`` --
+and holds each hand-written kernel against its plain PyTorch version.
 Phases, each of which fails the run loudly:
 
-1. the card's name and power limit; build the kernel from
-   ``src/repro_torch/csrc/event_race.cu`` with nvcc;
-2. the kernel against ``event_race_ref`` on the card, at the main path's
-   shape (4,096 x 16 x 3) and at odd shapes, with all-zero-rate rows and
-   exact residual ties: events exact, dt within rtol 1e-6; then the
-   kernel's and the plain version's times beside the kernel's bound;
-3. the main path: ``OneWaySweep`` over ``warm_standbys`` in {4, 8, 16,
-   32} at the paper's full width (job_size 4096, working pool 4160,
+1. the card's name and power limit; build the three kernels
+   (``src/repro_torch/csrc/{event_race,flash_attention,mamba_scan}.cu``)
+   with nvcc, all at once;
+2. the event-race kernel against ``event_race_ref`` on the card, at the
+   main path's shape (4,096 x 16 x 3) and at odd shapes, with all-zero-rate
+   rows and exact residual ties: events exact, dt within rtol 1e-6; then
+   the kernel's and the plain version's times beside the kernel's bound;
+3. the attention kernel against ``attention_ref``: the serving path's
+   prefill (4 x 512, 16 query heads over 2 KV heads, d 128, bf16,
+   causal) and decode (one query over a 544-slot cache, kv_len 513..544)
+   shapes, the ``ATTN_CASES`` of ``tests/test_kernels.py`` in float32 and
+   bf16, and ragged ones (within 2e-5 float32, 2e-2 bf16); then its time
+   beside its bound, the plain version's and
+   ``scaled_dot_product_attention``'s (a yardstick the port never calls);
+4. the scan kernel against ``selective_scan_ref``: falcon-mamba's prefill
+   shape (4 x 512 x 8192, N 16, bf16, B and C column slices of one
+   projection), the ``SCAN_CASES`` and ragged shapes, and a continuation
+   from ``h0`` (within 1e-4 float32, 3e-2 bf16); then its times;
+5. the CTMC main path: ``OneWaySweep`` over ``warm_standbys`` in {4, 8,
+   16, 32} at the paper's full width (job_size 4096, working pool 4160,
    spare pool 200), 1,024 replicas a point, ``job_length`` cut from 64 to
    16 days; then two more points at the same width through
    ``run_replications`` with closed-form answers (no failures; repairs
    that never heal);
-4. the same sweep with the plain event race (``event_race_impl="ref"``)
+6. the same sweep with the plain event race (``event_race_impl="ref"``)
    on the same uniform stream: per-replica integer metrics and means
    must agree;
-5. a traced window of the main path (two chunks, torch.profiler): the
-   device's busy share and the ops that take the host's time.
+7. a traced window of the CTMC main path (two chunks, torch.profiler):
+   the device's busy share and the ops that take the host's time;
+8. the serving main path: 4 prompts of 512 random token ids, 32 new
+   tokens each by greedy argmax, through the full qwen2.5-3b and then the
+   full falcon-mamba-7b in bf16 with random weights from a seed: init,
+   prefill and decode times, the kernels' launch counts (one attention
+   launch per attention layer per prefill and per decode step, one scan
+   launch per Mamba layer per prefill), finite logits, and a traced
+   prefill + 3 decode steps (device busy share, top device kernels);
+9. the same models in float32 through ``impl="cuda"`` and ``impl="ref"``
+   on the same weights: each layer on the same input (the share of its
+   output within 1e-3 of its scale), then free-running (the largest
+   relative difference of the prefill logits and the share of identical
+   greedy tokens, held for models without attention).
 
-Prints a ``{"kernels": [...]}`` line and, as its last line,
-``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
-when there is no CUDA device or the repository's sources are missing.
+Prints a ``{"serving": ...}`` line, a ``{"kernels": [...]}`` line and, as
+its last line, ``{"ok": true, "device": {...}}``.  Exits non-zero, with
+no result line, when there is no CUDA device or the repository's sources
+are missing.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import gc
 import json
 import math
 import os
@@ -46,9 +75,38 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 #: H100 SXM peaks from NVIDIA's data sheet (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 TPU_KERNEL = "src/repro/kernels/des_step.py:46"
 KERNEL_SOURCE = "src/repro_torch/csrc/event_race.cu"
+ATTN_TPU_KERNEL = "src/repro/kernels/flash_attention.py:34"
+ATTN_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+SCAN_TPU_KERNEL = "src/repro/kernels/mamba_scan.py:30"
+SCAN_SOURCE = "src/repro_torch/csrc/mamba_scan.cu"
+
+#: the ATTN_CASES of tests/test_kernels.py, plus Sq = Sk = 200:
+#: (B, Sq, Sk, Hq, Hkv, d, causal)
+ATTN_CASES = [(1, 128, 128, 4, 4, 64, True), (2, 256, 256, 4, 2, 64, True),
+              (1, 256, 256, 8, 1, 128, True), (2, 128, 128, 4, 2, 128, False),
+              (1, 384, 384, 2, 2, 64, True), (1, 200, 200, 4, 2, 64, True)]
+#: the SCAN_CASES of tests/test_kernels.py, plus S = 100, di = 96:
+#: (B, S, di, N)
+SCAN_CASES = [(1, 64, 64, 8), (2, 128, 128, 16), (2, 64, 256, 16),
+              (1, 100, 96, 16)]
+
+SERVE_ARCHS = ("qwen2.5-3b", "falcon-mamba-7b")
+SERVE_BATCH, PROMPT_LEN, GEN_TOKENS = 4, 512, 32
+S_MAX = PROMPT_LEN + GEN_TOKENS        # cache slots: prompt + new tokens
+SEED = 0
+#: float32 A/B of the kernels against the plain versions (PERF.md section
+#: 2 gives the reasons).  Layer by layer, on the same input: the share of
+#: a layer's output elements within AB_ELEM_TOL of its largest magnitude.
+AB_ELEM_TOL, AB_ELEM_SHARE = 1e-3, 0.999
+#: Free-running, for models without attention (with random weights the
+#: near one-hot softmax makes attention models chaotic): the largest
+#: prefill-logit difference over the largest logit, and the share of
+#: greedy tokens that agree.
+AB_LOGIT_TOL, AB_TOKEN_SHARE = 1e-3, 0.9
 
 SWEEP_VALUES = [4, 8, 16, 32]          # Table I's warm_standbys range
 N_REPLICAS = 1024
@@ -87,11 +145,11 @@ def device_ms(fn, iters: int):
     return total_s / iters * 1e3 if total_s > 0 else None
 
 
-def event_ms(fn, iters: int) -> float:
+def event_ms(fn, iters: int, warmup: int = 20) -> float:
     """Milliseconds per call between CUDA events over back-to-back calls
     (host dispatch included, as the step loop pays it)."""
     import torch
-    for _ in range(20):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -163,6 +221,460 @@ def capture_final_states(vectorized):
     return states, restore
 
 
+def build_kernels(libraries) -> None:
+    """Build every kernel library at once (one nvcc each) and print each
+    build's time and nvcc's -Xptxas -v report."""
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(libraries)) as pool:
+        paths = list(pool.map(lambda lib: lib.build(), libraries))
+    print(f"kernel builds: {time.perf_counter() - t0:.2f} s for all "
+          f"{len(libraries)}, in parallel")
+    for lib, path in zip(libraries, paths):
+        print(f"  {lib.name}: nvcc {lib.build_seconds:.2f} s -> "
+              f"{os.path.relpath(path, ROOT)}")
+        for line in lib.build_log.strip().splitlines():
+            print(f"    {line}")
+
+
+def close_err(got, want, tol: float):
+    """(max abs err, within) under the tests' rule |a-b| <= tol + tol*|b|;
+    non-finite output is never within."""
+    import torch
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    within = bool(torch.isfinite(g).all()) and \
+        bool((diff <= tol + tol * w.abs()).all())
+    return float(diff.max()), within
+
+
+def seeded(seed: int):
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return gen
+
+
+def attn_inputs(B, Sq, Sk, Hq, Hkv, d, dtype, seed):
+    import torch
+    gen = seeded(seed)
+    return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            for shape in ((B, Sq, Hq, d), (B, Sk, Hkv, d), (B, Sk, Hkv, d))]
+
+
+def attn_bound_ms(q, k, causal, q_offset=0, kv_len=None):
+    """Least time for one attention call on these inputs: q, the k/v rows
+    it needs and the output moved once; 4 d operations per visible
+    (query, key) pair at the inputs' peak."""
+    B, Sq, Hq, d = q.shape
+    Hkv = k.shape[2]
+    limit = k.shape[1] if kv_len is None else min(kv_len, k.shape[1])
+    rows = range(q_offset, q_offset + Sq)
+    visible = [min(limit, r + 1) if causal else limit for r in rows]
+    pairs = B * Hq * sum(visible)
+    nbytes = q.element_size() * (2 * B * Sq * Hq * d
+                                 + 2 * B * max(visible) * Hkv * d)
+    peak = BF16_OPS_PER_S if q.element_size() == 2 else FP32_OPS_PER_S
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 4 * d * pairs / peak * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms \
+        else "operations"
+
+
+def attention_phase(fa, ref):
+    """Phase 6: the attention kernel against its plain version, then its
+    times at the serving path's prefill and decode shapes."""
+    import torch
+    import torch.nn.functional as F
+    tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+    bf16 = torch.bfloat16
+
+    def check(label, q, k, v, **kw):
+        got = fa.flash_attention_cuda(q, k, v, **kw)
+        want = ref.attention_ref(q, k, v, **kw)
+        err, within = close_err(got, want, tol[q.dtype])
+        if not within:
+            fail(f"attention kernel disagrees with attention_ref at {label} "
+                 f"(max abs err {err:.3e}, tolerance {tol[q.dtype]})")
+        return err
+
+    q, k, v = attn_inputs(SERVE_BATCH, PROMPT_LEN, PROMPT_LEN, 16, 2, 128,
+                          bf16, seed=1)
+    main_err = check("the prefill shape", q, k, v, causal=True)
+    print(f"  prefill {tuple(q.shape)} over kv {tuple(k.shape)} bf16 causal: "
+          f"max abs err {main_err:.3e}")
+    qd, kc, vc = attn_inputs(SERVE_BATCH, 1, S_MAX, 16, 2, 128, bf16, seed=2)
+    dec_err = max(check(f"decode kv_len={n}", qd, kc, vc, causal=False,
+                        kv_len=n) for n in range(PROMPT_LEN + 1, S_MAX + 1))
+    print(f"  decode {tuple(qd.shape)} over a {S_MAX}-slot cache, kv_len "
+          f"{PROMPT_LEN + 1}..{S_MAX}: max abs err {dec_err:.3e}")
+    for i, case in enumerate(ATTN_CASES):
+        for dtype in (torch.float32, bf16):
+            B, Sq, Sk, Hq, Hkv, d, causal = case
+            err = check(f"{case} {dtype}",
+                        *attn_inputs(B, Sq, Sk, Hq, Hkv, d, dtype, 10 + i),
+                        causal=causal)
+            print(f"  {case} {str(dtype)[6:]}: max abs err {err:.3e}")
+    for label, shape, kw in (
+            ("q_offset 200", (2, 100, 300, 4, 2, 32), dict(causal=True,
+                                                          q_offset=200)),
+            ("kv_len 41", (1, 37, 53, 2, 1, 16), dict(causal=False,
+                                                     kv_len=41))):
+        for dtype in (torch.float32, bf16):
+            err = check(label, *attn_inputs(*shape, dtype, seed=20), **kw)
+            print(f"  ragged {shape} {label} {str(dtype)[6:]}: max abs err "
+                  f"{err:.3e}")
+
+    t = {}
+    launches = fa.LAUNCHES
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    t["ms"] = device_ms(lambda: fa.flash_attention_cuda(q, k, v), 20)
+    t["call_ms"] = event_ms(lambda: fa.flash_attention_cuda(q, k, v), 50)
+    t["plain_ms"] = device_ms(lambda: ref.attention_ref(q, k, v), 5)
+    t["plain_call_ms"] = event_ms(lambda: ref.attention_ref(q, k, v), 10,
+                                  warmup=3)
+    t["library_ms"] = device_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+    t["bound_ms"], t["bound_by"] = attn_bound_ms(q, k, causal=True)
+    kv = PROMPT_LEN + GEN_TOKENS // 2
+    kct, vct = (a[:, :kv].transpose(1, 2) for a in (kc, vc))
+    qdt = qd.transpose(1, 2)
+    t["decode_ms"] = device_ms(lambda: fa.flash_attention_cuda(
+        qd, kc, vc, causal=False, kv_len=kv), 50)
+    t["decode_call_ms"] = event_ms(lambda: fa.flash_attention_cuda(
+        qd, kc, vc, causal=False, kv_len=kv), 200)
+    t["decode_plain_ms"] = device_ms(lambda: ref.attention_ref(
+        qd, kc, vc, causal=False, kv_len=kv), 20)
+    t["decode_library_ms"] = device_ms(
+        lambda: F.scaled_dot_product_attention(qdt, kct, vct,
+                                               enable_gqa=True), 50)
+    t["decode_bound_ms"], t["decode_bound_by"] = attn_bound_ms(
+        qd, kc, causal=False, kv_len=kv)
+    fa.LAUNCHES = launches
+    print(f"  prefill shape, per call: device {t['ms']} ms (host-clocked "
+          f"{t['call_ms']:.6f} ms); plain {t['plain_ms']} ms (host-clocked "
+          f"{t['plain_call_ms']:.6f} ms); scaled_dot_product_attention "
+          f"{t['library_ms']} ms; bound {t['bound_ms']:.6f} ms "
+          f"({t['bound_by']})")
+    print(f"  decode shape (kv_len {kv}), per call: device {t['decode_ms']} "
+          f"ms (host-clocked {t['decode_call_ms']:.6f} ms); plain "
+          f"{t['decode_plain_ms']} ms; scaled_dot_product_attention "
+          f"{t['decode_library_ms']} ms; bound {t['decode_bound_ms']:.6f} "
+          f"ms ({t['decode_bound_by']})")
+    return dict(t, max_abs_err=main_err, decode_max_abs_err=dec_err)
+
+
+def scan_inputs(B, S, di, N, dtype, seed, dt_rank=0):
+    """Scan inputs as tests/test_kernels.py draws them; with ``dt_rank``,
+    B and C are column slices of one (B, S, dt_rank + 2N) projection, as
+    the Mamba layer hands them over."""
+    import torch
+    import torch.nn.functional as F
+    gen = seeded(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    x = (randn(B, S, di) * 0.5).to(dtype)
+    dt = (F.softplus(randn(B, S, di)) * 0.1).to(dtype)
+    A = -torch.exp(randn(di, N) * 0.5)
+    if dt_rank:
+        dbc = randn(B, S, dt_rank + 2 * N).to(dtype)
+        Bm, Cm = dbc[..., dt_rank:dt_rank + N], dbc[..., dt_rank + N:]
+    else:
+        Bm, Cm = randn(B, S, N).to(dtype), randn(B, S, N).to(dtype)
+    return x, dt, A, Bm, Cm
+
+
+def scan_bound_ms(x, Bm, N):
+    """Least time for one scan on these inputs: x, dt, B, C, A, h0 read
+    once and y, h_final written once; 7 fp32 operations per (b, t, c, n)
+    (dt*A, exp, decay*h, drive, add, and y's multiply-add) plus dt*x."""
+    B, S, di = x.shape
+    nbytes = (x.element_size() * (3 * B * S * di + 2 * B * S * N)
+              + 4 * (di * N + 2 * B * di * N))
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = B * S * di * (7 * N + 1) / FP32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms \
+        else "operations"
+
+
+def scan_phase(ms, ref):
+    """Phase 7: the scan kernel against its plain version, then its times
+    at falcon-mamba's prefill shape."""
+    import torch
+    tol = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+    bf16 = torch.bfloat16
+
+    def check(label, x, dt, A, Bm, Cm, h0=None):
+        y, h = ms.selective_scan_cuda(x, dt, A, Bm, Cm, h0)
+        y_r, h_r = ref.selective_scan_ref(x, dt, A, Bm, Cm, h0)
+        err_y, ok_y = close_err(y, y_r, tol[x.dtype])
+        err_h, ok_h = close_err(h, h_r, tol[x.dtype])
+        if not (ok_y and ok_h) or y.dtype != x.dtype:
+            fail(f"scan kernel disagrees with selective_scan_ref at {label} "
+                 f"(y err {err_y:.3e}, h err {err_h:.3e}, tolerance "
+                 f"{tol[x.dtype]})")
+        return max(err_y, err_h)
+
+    main = scan_inputs(SERVE_BATCH, PROMPT_LEN, 8192, 16, bf16, seed=3,
+                       dt_rank=256)
+    main_err = check("the prefill shape", *main)
+    print(f"  prefill {tuple(main[0].shape)}, N 16, bf16, strided B/C: max "
+          f"abs err {main_err:.3e}")
+    for i, case in enumerate(SCAN_CASES):
+        for dtype in (torch.float32, bf16):
+            x, dt, A, Bm, Cm = scan_inputs(*case, dtype, seed=30 + i)
+            h0 = torch.randn((case[0], case[2], case[3]),
+                             generator=seeded(40 + i), device="cuda") * 0.1
+            err = check(f"{case} {dtype}", x, dt, A, Bm, Cm, h0)
+            print(f"  {case} {str(dtype)[6:]} from a random h0: max abs err "
+                  f"{err:.3e}")
+    x, dt, A, Bm, Cm = scan_inputs(2, 256, 1024, 16, torch.float32, seed=50)
+    y_full, h_full = ms.selective_scan_cuda(x, dt, A, Bm, Cm)
+    y1, h1 = ms.selective_scan_cuda(x[:, :128], dt[:, :128], A,
+                                    Bm[:, :128], Cm[:, :128])
+    y2, h2 = ms.selective_scan_cuda(x[:, 128:], dt[:, 128:], A,
+                                    Bm[:, 128:], Cm[:, 128:], h1)
+    err_y, ok_y = close_err(torch.cat([y1, y2], 1), y_full, 1e-4)
+    err_h, ok_h = close_err(h2, h_full, 1e-4)
+    if not (ok_y and ok_h):
+        fail(f"scan continuation from h0 disagrees with one scan (y err "
+             f"{err_y:.3e}, h err {err_h:.3e})")
+    print(f"  continuation (2, 256, 1024, 16) f32 in two halves through h0: "
+          f"max abs err {max(err_y, err_h):.3e}")
+
+    t = {}
+    launches = ms.LAUNCHES
+    t["ms"] = device_ms(lambda: ms.selective_scan_cuda(*main), 10)
+    t["call_ms"] = event_ms(lambda: ms.selective_scan_cuda(*main), 20,
+                            warmup=3)
+    t["plain_ms"] = device_ms(lambda: ref.selective_scan_ref(*main), 1)
+    t["plain_call_ms"] = event_ms(lambda: ref.selective_scan_ref(*main), 2,
+                                  warmup=1)
+    t["bound_ms"], t["bound_by"] = scan_bound_ms(main[0], main[3], 16)
+    ms.LAUNCHES = launches
+    print(f"  prefill shape, per call: device {t['ms']} ms (host-clocked "
+          f"{t['call_ms']:.6f} ms); plain {t['plain_ms']} ms (host-clocked "
+          f"{t['plain_call_ms']:.6f} ms); bound {t['bound_ms']:.6f} ms "
+          f"({t['bound_by']}); library: none")
+    return dict(t, max_abs_err=main_err, library_ms=None)
+
+
+def generate(bundle, model, prompts, impl, fa, ms, n_new=None):
+    """Prefill ``prompts``, then greedy-decode until ``n_new`` new tokens:
+    times (host clock around work that ends in a synchronize), the last
+    prefill logits, the new ids and the kernels' launches."""
+    import torch
+    n_new = GEN_TOKENS if n_new is None else n_new
+    B, S = prompts.shape
+    cache = bundle.make_cache(B, S + n_new)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = bundle.prefill(model, {"tokens": prompts}, cache,
+                                   impl=impl)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    after_prefill = (fa.LAUNCHES, ms.LAUNCHES)
+    first = logits[:, -1].float().clone()
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    ids, finite = [tok], torch.isfinite(logits).all()
+    t0 = time.perf_counter()
+    for step in range(n_new - 1):
+        logits, cache = bundle.decode(model, tok, cache, S + step, impl=impl)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        ids.append(tok)
+        finite &= torch.isfinite(logits).all()
+    torch.cuda.synchronize()
+    return {"prefill_s": prefill_s, "decode_s": time.perf_counter() - t0,
+            "logits": first, "ids": torch.cat(ids, 1).cpu(),
+            "finite": bool(finite), "after_prefill": after_prefill,
+            "after_decode": (fa.LAUNCHES, ms.LAUNCHES)}
+
+
+def release() -> None:
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def prompts_for(cfg):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED)
+    ids = rng.integers(0, cfg.vocab_size, (SERVE_BATCH, PROMPT_LEN))
+    return torch.as_tensor(ids, device="cuda")
+
+
+def serving_phase(arch, fa, ms):
+    """Phase 8 for one model: the serving main path in bf16."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.module import tree_param_count, tree_size_bytes
+    cfg = get_config(arch)
+    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+    n_attn, n_ssm = kinds.count("attn"), kinds.count("ssm")
+    bundle = build_model(cfg, device="cuda")
+    t0 = time.perf_counter()
+    model = bundle.init(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    sd = model.state_dict()
+    n_params, n_bytes = tree_param_count(sd), tree_size_bytes(sd)
+    if n_params != cfg.param_count():
+        fail(f"{arch}: {n_params} parameters, the config counts "
+             f"{cfg.param_count()}")
+    prompts = prompts_for(cfg)
+    generate(bundle, model, prompts[:, :16], None, fa, ms, n_new=3)
+    fa.LAUNCHES = ms.LAUNCHES = 0            # the main path's run
+    out = generate(bundle, model, prompts, None, fa, ms)
+    want_prefill = (n_attn, n_ssm)
+    want_total = (n_attn * GEN_TOKENS, n_ssm)
+    if out["after_prefill"] != want_prefill \
+            or out["after_decode"] != want_total:
+        fail(f"{arch}: kernel launches (attention, scan) "
+             f"{out['after_prefill']} after the prefill and "
+             f"{out['after_decode']} in all; want {want_prefill} and "
+             f"{want_total}")
+    if not out["finite"]:
+        fail(f"{arch}: non-finite logits")
+    if out["ids"].shape != (SERVE_BATCH, GEN_TOKENS):
+        fail(f"{arch}: generated ids of shape {tuple(out['ids'].shape)}")
+    steps = GEN_TOKENS - 1
+    rec = {"arch": arch, "dtype": "bfloat16", "params": n_params,
+           "bytes": n_bytes, "init_s": init_s,
+           "prefill_s": out["prefill_s"],
+           "prefill_tokens_per_s": SERVE_BATCH * PROMPT_LEN
+           / out["prefill_s"],
+           "decode_ms_per_step": out["decode_s"] / steps * 1e3,
+           "decode_tokens_per_s": SERVE_BATCH * steps / out["decode_s"],
+           "attention_launches": out["after_decode"][0],
+           "scan_launches": out["after_decode"][1]}
+    print(f"  {arch}: {n_params:,} parameters, {n_bytes / 1e9:.3f} GB; "
+          f"init {init_s:.3f} s")
+    print(f"  prefill {SERVE_BATCH} x {PROMPT_LEN} tokens: "
+          f"{out['prefill_s'] * 1e3:.3f} ms ({rec['prefill_tokens_per_s']:.1f}"
+          f" tokens/s)")
+    print(f"  decode {steps} steps x {SERVE_BATCH} requests: "
+          f"{rec['decode_ms_per_step']:.3f} ms a step "
+          f"({rec['decode_tokens_per_s']:.1f} tokens/s)")
+    print(f"  launches: attention {out['after_prefill'][0]} in the prefill, "
+          f"{out['after_decode'][0]} in all; scan {out['after_prefill'][1]} "
+          f"in the prefill, {out['after_decode'][1]} in all")
+    print(f"  request 0 ids: {out['ids'][0].tolist()}")
+
+    launches = (fa.LAUNCHES, ms.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        generate(bundle, model, prompts, None, fa, ms, n_new=4)
+        traced_wall = time.perf_counter() - t0
+    fa.LAUNCHES, ms.LAUNCHES = launches
+    busy = device_seconds(prof)
+    rec["traced_wall_s"], rec["traced_device_busy_s"] = traced_wall, busy
+    print(f"  traced prefill + 3 decode steps: wall {traced_wall:.4f} s, "
+          f"device busy {busy:.4f} s = {busy / traced_wall * 100:.2f}%")
+    dev = [e for e in prof.key_averages()
+           if str(e.device_type).endswith("CUDA")]
+    for e in sorted(dev, key=lambda e: -getattr(
+            e, "self_device_time_total", 0.0))[:8]:
+        print(f"    device {e.key[:70]}: {e.count} calls, "
+              f"{getattr(e, 'self_device_time_total', 0.0) / 1e3:.3f} ms")
+    del model, sd
+    release()
+    return rec
+
+
+def layerwise_ab(bundle, model, prompts):
+    """Each layer through the kernels and through the plain versions on
+    the same input -- the plain path's hidden state -- for the prefill and
+    one decode step.  Returns the worst share of a layer's output elements
+    within AB_ELEM_TOL of its largest magnitude, the largest relative
+    difference, and the (request, position, layer) rows with an element
+    beyond that tolerance."""
+    import torch
+    from repro_torch.models.layers import embed
+    impls = ("ref", "cuda")
+    caches = {impl: bundle.make_cache(prompts.shape[0], S_MAX)
+              for impl in impls}
+    worst_share, worst_rel, rows_off = 1.0, 0.0, 0
+    tokens, pos = prompts, 0
+    with torch.no_grad():
+        for _ in range(2):                   # the prefill, one decode step
+            x = embed(model.embed, tokens)
+            for i, layer in enumerate(model.stack):
+                out = {impl: layer(x, cache=caches[impl][i], pos=pos,
+                                   causal=True, impl=impl)
+                       for impl in impls}
+                diff = (out["cuda"] - out["ref"]).abs()
+                scale = out["ref"].abs().max()
+                off = diff > AB_ELEM_TOL * scale
+                worst_share = min(worst_share,
+                                  1.0 - float(off.float().mean()))
+                worst_rel = max(worst_rel, float(diff.max() / scale))
+                rows_off += int(off.any(-1).sum())
+                x = out["ref"]
+            logits = model._logits(model.final_norm(x[:, -1:]))
+            pos += tokens.shape[1]
+            tokens = logits[:, -1].argmax(-1, keepdim=True)
+    return worst_share, worst_rel, rows_off
+
+
+def ab_phase(arch, fa, ms):
+    """Phase 9 for one model: float32 weights through the kernels and
+    through the plain versions, layer by layer and free-running."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(arch)
+    has_attention = any(cfg.layer_kind(i) == "attn"
+                        for i in range(cfg.n_layers))
+    bundle = build_model(cfg, device="cuda", dtype=torch.float32)
+    model = bundle.init(SEED)
+    prompts = prompts_for(cfg)
+    share_l, rel_l, rows_off = layerwise_ab(bundle, model, prompts)
+    print(f"  {arch} float32, layer by layer on the same input (prefill + "
+          f"1 decode step): worst share of elements within "
+          f"{AB_ELEM_TOL} of the scale {share_l * 100:.4f}%, largest "
+          f"relative difference {rel_l:.3e}, rows beyond it {rows_off}")
+    if share_l < AB_ELEM_SHARE:
+        fail(f"{arch} float32: a layer through the kernels disagrees with "
+             f"the plain one on {(1 - share_l) * 100:.4f}% of its elements "
+             f"(> {(1 - AB_ELEM_SHARE) * 100:.4f}%)")
+    runs = {}
+    for impl in ("cuda", "ref"):
+        generate(bundle, model, prompts[:, :16], impl, fa, ms, n_new=3)
+        before = (fa.LAUNCHES, ms.LAUNCHES)
+        runs[impl] = out = generate(bundle, model, prompts, impl, fa, ms)
+        launched = out["after_decode"] != before
+        if launched != (impl == "cuda") or not out["finite"]:
+            fail(f"{arch} float32 impl={impl}: kernels launched {launched}, "
+                 f"finite logits {out['finite']}")
+    a, b = runs["cuda"], runs["ref"]
+    rel = float((a["logits"] - b["logits"]).abs().max()
+                / b["logits"].abs().max())
+    share = float((a["ids"] == b["ids"]).float().mean())
+    print(f"  free-running: prefill {a['prefill_s'] * 1e3:.3f} ms with the "
+          f"kernels, {b['prefill_s'] * 1e3:.3f} ms plain; decode "
+          f"{a['decode_s'] * 1e3:.3f} ms / {b['decode_s'] * 1e3:.3f} ms")
+    print(f"  free-running: prefill logits, largest |cuda - ref| / largest "
+          f"|ref|: {rel:.3e}; identical greedy tokens: {share * 100:.2f}%"
+          + ("" if not has_attention else
+             " (printed only: attention makes the random model chaotic)"))
+    if not has_attention and (rel > AB_LOGIT_TOL or share < AB_TOKEN_SHARE):
+        fail(f"{arch} float32: the kernels' path disagrees with the plain "
+             f"one (logit rel err {rel:.3e} > {AB_LOGIT_TOL} or token share "
+             f"{share:.4f} < {AB_TOKEN_SHARE})")
+    del model
+    release()
+    return {"arch": arch, "dtype": "float32",
+            "layer_share_within": share_l, "layer_max_rel_err": rel_l,
+            "layer_rows_beyond": rows_off, "logit_rel_err": rel,
+            "token_share": share, "prefill_s": a["prefill_s"],
+            "plain_prefill_s": b["prefill_s"], "decode_s": a["decode_s"],
+            "plain_decode_s": b["decode_s"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -174,9 +686,14 @@ def main() -> int:
                                   analytical, run_replications,
                                   run_replications_batch, vectorized)
     from repro_torch.kernels import des_step, ref
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
+    # float32 products in full float32 on the card, for the A/B of phase 9
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     # ---- phase 1: card and build ------------------------------------------
-    phase("phase 1: card and kernel build")
+    phase("phase 1: card and kernel builds")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
@@ -185,13 +702,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"device: {kind} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.device_count()} visible)")
-    t0 = time.perf_counter()
-    lib = des_step.build()
-    print(f"kernel build: {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {des_step.BUILD_SECONDS:.2f} s) -> "
-          f"{os.path.relpath(lib, ROOT)}")
-    if des_step.BUILD_LOG.strip():
-        print(des_step.BUILD_LOG.strip())
+    build_kernels([des_step.LIBRARY, fa.LIBRARY, ms.LIBRARY])
 
     # ---- phase 2: kernel against plain version ----------------------------
     phase("phase 2: event_race kernel vs plain PyTorch version")
@@ -226,8 +737,14 @@ def main() -> int:
     print(f"  device time per call (torch.profiler): kernel {k_dev} ms, "
           f"plain {r_dev} ms; bound {bound_ms:.6f} ms ({bound_by})")
 
-    # ---- phase 3: the main path -------------------------------------------
-    phase(f"phase 3: OneWaySweep warm_standbys={SWEEP_VALUES}, "
+    # ---- phases 3-4: the serving kernels against their plain versions -----
+    phase("phase 3: flash_attention kernel vs plain PyTorch version")
+    attn = attention_phase(fa, ref)
+    phase("phase 4: selective_scan kernel vs plain PyTorch version")
+    scan = scan_phase(ms, ref)
+
+    # ---- phase 5: the CTMC main path ---------------------------------------
+    phase(f"phase 5: OneWaySweep warm_standbys={SWEEP_VALUES}, "
           f"{N_REPLICAS} replicas, Table-I width, job_length cut from 64 "
           f"to {JOB_DAYS} days")
     base = Params(job_length=JOB_DAYS * MINUTES_PER_DAY)
@@ -281,7 +798,7 @@ def main() -> int:
           f"({n_events / wall:.1f} replica-events/s), event_race launches "
           f"{launches}")
 
-    # ---- phase 3b: closed-form points at the same width --------------------
+    # ---- phase 5b: closed-form points at the same width --------------------
     calm = base.replace(random_failure_rate=0.0, systematic_failure_rate=0.0)
     rep = run_replications(calm, N_REPLICAS, device="cuda")
     want = calm.host_selection_time + calm.job_length
@@ -302,8 +819,8 @@ def main() -> int:
     if abs(got / exp - 1.0) > 0.15 or rep.stats["completed"].mean != 1.0:
         fail("never-healing point is outside 15% of the closed form")
 
-    # ---- phase 4: A/B against the plain event race --------------------------
-    phase("phase 4: the same sweep with event_race_impl='ref'")
+    # ---- phase 6: A/B against the plain event race --------------------------
+    phase("phase 6: the same sweep with event_race_impl='ref'")
     sweep_ref = OneWaySweep("warm standbys", "warm_standbys", SWEEP_VALUES,
                             n_replications=N_REPLICAS,
                             base_params=base.replace(event_race_impl="ref"),
@@ -345,8 +862,8 @@ def main() -> int:
     if worst >= 3.5:
         fail(f"means disagree with the plain race (|z| = {worst:.3f})")
 
-    # ---- phase 5: traced window ------------------------------------------
-    phase("phase 5: traced window of the main path (two chunks)")
+    # ---- phase 7: traced window ------------------------------------------
+    phase("phase 7: traced window of the CTMC main path (two chunks)")
     from torch.profiler import ProfilerActivity, profile
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", RuntimeWarning)   # cut on purpose
@@ -366,7 +883,7 @@ def main() -> int:
     steps = 2 * vectorized.DEFAULT_CHUNK_STEPS
     print(f"  traced wall {traced_wall:.3f} s for {steps} steps "
           f"({traced_wall / steps * 1e3:.3f} ms/step traced, "
-          f"{wall / launches * 1e3:.3f} ms/step untraced in phase 3); "
+          f"{wall / launches * 1e3:.3f} ms/step untraced in phase 5); "
           f"device busy {dev_s:.4f} s = "
           f"{dev_s / traced_wall * 100:.2f}% of the traced wall; "
           f"{n_kernels / steps:.1f} device kernels a step")
@@ -374,6 +891,23 @@ def main() -> int:
     for e in top:
         print(f"    host {e.key}: {e.count} calls, self "
               f"{e.self_cpu_time_total / 1e3:.1f} ms")
+
+    # ---- phase 8: the serving main path -----------------------------------
+    serving, serve_launches = [], {}
+    for arch in SERVE_ARCHS:
+        phase(f"phase 8: serving {arch} (full config, bf16, random weights "
+              f"from seed {SEED}): {SERVE_BATCH} prompts x {PROMPT_LEN} "
+              f"tokens, {GEN_TOKENS} new tokens each, greedy")
+        rec = serving_phase(arch, fa, ms)
+        serving.append(rec)
+        serve_launches[arch] = (rec["attention_launches"],
+                                rec["scan_launches"])
+
+    # ---- phase 9: float32 A/B of the kernels against the plain versions ----
+    ab = []
+    for arch in SERVE_ARCHS:
+        phase(f"phase 9: {arch} in float32, impl='cuda' against impl='ref'")
+        ab.append(ab_phase(arch, fa, ms))
 
     mism, rel, abs_err = main_err
     record = {"name": "event_race", "route": "cuda", "source": KERNEL_SOURCE,
@@ -386,7 +920,17 @@ def main() -> int:
               "plain_ms": r_ms if r_dev is None else r_dev,
               "call_ms": k_ms, "plain_call_ms": r_ms, "bound_ms": bound_ms,
               "bound_by": bound_by, "library_ms": None}
-    print(json.dumps({"kernels": [record]}))
+    kernels = [record]
+    for name, source, replaces, launches_, t in (
+            ("flash_attention", ATTN_SOURCE, ATTN_TPU_KERNEL,
+             serve_launches["qwen2.5-3b"][0], attn),
+            ("selective_scan", SCAN_SOURCE, SCAN_TPU_KERNEL,
+             serve_launches["falcon-mamba-7b"][1], scan)):
+        kernels.append(dict(t, name=name, route="cuda", source=source,
+                            replaces=replaces, launches=launches_,
+                            ms=t["call_ms"] if t["ms"] is None else t["ms"]))
+    print(json.dumps({"serving": serving, "ab_float32": ab}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

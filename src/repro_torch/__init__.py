@@ -1,12 +1,15 @@
 """AIReSim on PyTorch and CUDA: the port of the JAX package ``repro``.
 
 The JAX package stays the reference; this package mirrors its layout
-(``core``, ``kernels``, ``csrc``) and imports neither JAX nor ``repro``.
-This slice runs the exponential single-job CTMC replication path --
-``run_replications``, ``run_replications_batch``, ``OneWaySweep``,
-``TwoWaySweep`` -- on an NVIDIA H100, with the next-event race in a
-hand-written CUDA kernel (``csrc/event_race.cu``).  Entry points run on
-the card unless the caller passes ``device="cpu"``.
+(``core``, ``kernels``, ``models``, ``configs``, ``csrc``) and imports
+neither JAX nor ``repro``.  It runs the exponential single-job CTMC
+replication path -- ``run_replications``, ``run_replications_batch``,
+``OneWaySweep``, ``TwoWaySweep`` -- with the next-event race in a
+hand-written CUDA kernel (``csrc/event_race.cu``), and serves decoder-only
+LMs (``repro_torch.models.build_model``: prefill and greedy decode) with
+attention and the Mamba scan in hand-written CUDA kernels
+(``csrc/flash_attention.cu``, ``csrc/mamba_scan.cu``), on an NVIDIA H100.
+Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
 from .core import (OneWaySweep, Params, Replications, SweepResult,

@@ -1,0 +1,15 @@
+"""granite-34b [dense]: 88L, d_model=6144, 48H (MQA kv=1), d_ff=24576,
+vocab=49152.  Llama-arch code model.  [arXiv:2405.04324; hf]
+"""
+
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-34b", family="dense",
+    n_layers=88, d_model=6144, n_heads=48, n_kv_heads=1, d_ff=24576,
+    vocab_size=49152,
+)
+
+SMOKE_CONFIG = CONFIG.replace(
+    n_layers=2, d_model=64, n_heads=4, n_kv_heads=1, d_ff=128,
+    vocab_size=256)

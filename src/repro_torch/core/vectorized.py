@@ -45,6 +45,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..kernels import ops
 from . import faultdomains, hazards
 from .histograms import HIST_CHANNELS
@@ -65,22 +66,6 @@ _METRICS = ("total_time", "n_failures", "n_random_failures",
 N_UNIFORMS = 8
 
 _NOT_PORTED = "not yet ported to the PyTorch engine"
-
-
-def resolve_device(device=None) -> torch.device:
-    """The run device: ``None`` means the card, and refuses without one.
-
-    The port's entry points run on CUDA unless the caller asks for the
-    CPU; they never fall back to it quietly.
-    """
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available and no device was given: the "
-                "port runs on the card by default; pass device='cpu' to run "
-                "it on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 def unsupported_reasons(params: Params) -> list:

@@ -1,6 +1,7 @@
-"""Kernels of the port: hand-written Hopper kernels beside their plain versions."""
+"""The port's kernels: hand-written Hopper kernels beside plain versions.
 
-from .ops import event_race
-from .ref import event_race_ref
-
-__all__ = ["event_race", "event_race_ref"]
+``ops`` dispatches each entry point (``event_race``, ``flash_attention``,
+``selective_scan``, ``selective_scan_step``) to its CUDA kernel
+(``des_step``, ``flash_attention``, ``mamba_scan``) or its plain PyTorch
+version (``ref``).
+"""

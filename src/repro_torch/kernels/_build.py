@@ -1,0 +1,106 @@
+"""Build a CUDA source of ``repro_torch/csrc`` with nvcc; bind it with ctypes.
+
+Each kernel module owns one :class:`CudaLibrary`.  The library is built
+on first use into ``build/repro_torch/`` at the repository root, named
+``<name>_<hash of the source>.so``, so an edited ``.cu`` builds anew and
+an unchanged one is reused.  Nothing is built at import: the CPU tests
+import every kernel module on a machine with no ``nvcc`` and no card.
+The C entry points return ``cudaGetLastError()`` after their launch, and
+:func:`check_launch` turns anything but 0 into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+from typing import Callable, Optional
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and under $CUDA_HOME/bin, default "
+        "/usr/local/cuda/bin): the port's CUDA kernels are built from "
+        "source at first use and need the CUDA toolkit")
+
+
+class CudaLibrary:
+    """One ``csrc/<name>.cu`` built into a shared library and loaded once.
+
+    ``bind`` sets ``argtypes``/``restype`` of the library's entry points
+    (``ctypes.c_void_p`` for every pointer and the stream, or ctypes cuts
+    them to 32 bits).  ``build_seconds`` and ``build_log`` (nvcc's
+    ``-Xptxas -v`` register report) describe the last build; both stay
+    empty when a built library was reused.
+    """
+
+    def __init__(self, name: str, bind: Callable[[ctypes.CDLL], None]):
+        self.name = name
+        self.source = CSRC / f"{name}.cu"
+        self._bind = bind
+        self._lib: Optional[ctypes.CDLL] = None
+        self._lock = threading.Lock()
+        self.build_seconds = 0.0
+        self.build_log = ""
+
+    def library_path(self) -> Path:
+        """Where the built library for the current source lives."""
+        digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:16]
+        return BUILD_DIR / f"{self.name}_{digest}.so"
+
+    def build(self) -> Path:
+        """Build the library if this source has not been built yet."""
+        out = self.library_path()
+        if out.exists():
+            return out
+        out.parent.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        # build into a temporary name and rename, so a concurrent or cut
+        # build never leaves a half-written library under the final name
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+        os.close(fd)
+        try:
+            proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp,
+                                   str(self.source)],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed to build {self.source} (exit "
+                    f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
+            os.replace(tmp, out)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+        self.build_seconds = time.perf_counter() - t0
+        self.build_log = proc.stdout + proc.stderr
+        return out
+
+    def load(self) -> ctypes.CDLL:
+        with self._lock:
+            if self._lib is None:
+                lib = ctypes.CDLL(str(self.build()))
+                self._bind(lib)
+                self._lib = lib
+        return self._lib
+
+
+def check_launch(err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error for its launch."""
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")

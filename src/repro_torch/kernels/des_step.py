@@ -6,11 +6,8 @@ Counterpart of ``src/repro/kernels/des_step.py`` (the Pallas TPU kernel
 into a plain-C shared library on first use, binds it with ``ctypes`` and
 launches it on PyTorch's current stream.
 
-The library lands in ``build/repro_torch/`` at the repository root,
-named by a hash of the source's contents, so an edited ``.cu`` builds
-anew and an unchanged one is reused.  Nothing is built or imported at
-module import: the CPU tests import this module on a machine with no
-``nvcc`` and no card.
+The build (nvcc into ``build/repro_torch/``, named by a hash of the
+source) is shared with the other kernels: see :mod:`._build`.
 
 ``LAUNCHES`` counts kernel launches (one per :func:`event_race_cuda`
 call that reaches the card), so a run can show that its main path went
@@ -20,100 +17,35 @@ through the kernel.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-import time
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
+
+from ._build import CudaLibrary, check_launch
 
 #: launches of the event-race kernel since import (or the last reset)
 LAUNCHES = 0
 
-#: seconds the last build took (0.0 when a built library was reused)
-BUILD_SECONDS = 0.0
 
-#: nvcc's output from the last build (``-Xptxas -v`` register report)
-BUILD_LOG = ""
-
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "event_race.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-_lib: Optional[ctypes.CDLL] = None
-_lock = threading.Lock()
+def _bind(lib: ctypes.CDLL) -> None:
+    fn = lib.event_race_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                   ctypes.c_void_p, ctypes.c_int64,
+                   ctypes.c_void_p, ctypes.c_int64,
+                   ctypes.c_void_p, ctypes.c_int64,
+                   ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError(
-        "nvcc not found (looked on PATH and under $CUDA_HOME/bin, default "
-        "/usr/local/cuda/bin): the event-race CUDA kernel is built from "
-        "source at first use and needs the CUDA toolkit")
+LIBRARY = CudaLibrary("event_race", _bind)
 
 
 def library_path() -> Path:
     """Where the built library for the current source lives."""
-    digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:16]
-    return _BUILD_DIR / f"event_race_{digest}.so"
-
-
-def build() -> Path:
-    """Build the kernel library if this source has not been built yet."""
-    global BUILD_SECONDS, BUILD_LOG
-    out = library_path()
-    if out.exists():
-        BUILD_SECONDS = 0.0
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    # build into a temporary name and rename, so a concurrent or cut
-    # build never leaves a half-written library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", tmp,
-                               str(_SOURCE)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed to build {_SOURCE} (exit {proc.returncode}):\n"
-                f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    BUILD_SECONDS = time.perf_counter() - t0
-    BUILD_LOG = proc.stdout + proc.stderr
-    return out
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.event_race_launch
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_int64,
-                           ctypes.c_void_p, ctypes.c_int64,
-                           ctypes.c_void_p, ctypes.c_int64,
-                           ctypes.c_void_p, ctypes.c_int64,
-                           ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+    return LIBRARY.library_path()
 
 
 def _check(rates: torch.Tensor, residuals: torch.Tensor,
@@ -165,7 +97,7 @@ def event_race_cuda(rates: torch.Tensor, residuals: torch.Tensor,
     event = torch.empty((R,), dtype=torch.int32, device=rates.device)
     if R == 0:
         return dt, event
-    lib = _load()
+    lib = LIBRARY.load()
     with torch.cuda.device(rates.device):
         stream = torch.cuda.current_stream(rates.device).cuda_stream
         err = lib.event_race_launch(
@@ -175,9 +107,7 @@ def event_race_cuda(rates: torch.Tensor, residuals: torch.Tensor,
             u_pick.data_ptr(), u_pick.stride(0),
             dt.data_ptr(), event.data_ptr(), R, k_exp,
             residuals.shape[1], stream)
-    if err != 0:
-        raise RuntimeError(f"event_race kernel launch failed: CUDA error "
-                           f"{err} (R={R}, K_exp={k_exp}, "
-                           f"K_det={residuals.shape[1]})")
+    check_launch(err, f"event_race (R={R}, K_exp={k_exp}, "
+                      f"K_det={residuals.shape[1]})")
     LAUNCHES += 1
     return dt, event

@@ -1,6 +1,14 @@
-"""Kernel dispatch of the port: the device picks the kernel or its plain version.
+"""Kernel dispatch of the port: the device picks a kernel or its plain twin.
 
-Counterpart of ``src/repro/kernels/ops.py`` (its ``event_race`` part).
+Counterpart of ``src/repro/kernels/ops.py``.  Every entry point takes
+``impl``: ``None`` chooses by the tensors' device -- the CUDA kernel for
+CUDA tensors, the plain PyTorch version in :mod:`.ref` for CPU tensors;
+``"ref"`` forces the plain version on any device; ``"cuda"`` forces the
+kernel and raises for CPU tensors.  On a CUDA tensor the kernel launches
+or raises: no shape, offset or length gives way to the plain version
+(the JAX ``ops`` fell back to its reference for traced offsets and
+shapes that did not divide its blocks; these kernels take runtime
+offsets and any shape).  The kernels are forward only.
 """
 
 from __future__ import annotations
@@ -9,10 +17,24 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import des_step, ref
+from . import des_step, flash_attention as _attn, mamba_scan as _scan, ref
 
-#: accepted ``impl`` values of :func:`event_race`
-EVENT_RACE_IMPLS = (None, "ref", "cuda")
+#: accepted ``impl`` values of every entry point
+IMPLS = (None, "ref", "cuda")
+
+
+def _use_kernel(name: str, impl: Optional[str], t: torch.Tensor) -> bool:
+    """True for the CUDA kernel, False for the plain version."""
+    if impl not in IMPLS:
+        raise ValueError(f"{name} impl={impl!r} must be None, 'ref' or "
+                         "'cuda'")
+    on_cuda = t.device.type == "cuda"
+    if impl == "cuda" and not on_cuda:
+        raise ValueError(
+            f"{name} impl='cuda' needs CUDA tensors (got tensors on "
+            f"{t.device}); use impl='ref' or impl=None for the plain "
+            f"PyTorch version on the CPU")
+    return impl != "ref" and on_cuda
 
 
 def event_race(rates: torch.Tensor, residuals: torch.Tensor,
@@ -21,15 +43,9 @@ def event_race(rates: torch.Tensor, residuals: torch.Tensor,
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Next-event race; see ``csrc/event_race.cu`` for what it computes.
 
-    ``impl``: ``None`` chooses by the tensors' device -- the CUDA kernel
-    for CUDA tensors, :func:`ref.event_race_ref` for CPU tensors.
-    ``"ref"`` forces the plain version on any device; ``"cuda"`` forces
-    the kernel and raises for CPU tensors.  On a CUDA tensor the kernel
-    launches or raises: there is no fallback to the plain version.
-    Zero-width lane blocks are refused on every path.
-
-    With all rates zero the deterministic side wins and the event index
-    is ``K_exp + argmin(residuals)``:
+    Zero-width lane blocks are refused on every path.  With all rates
+    zero the deterministic side wins and the event index is
+    ``K_exp + argmin(residuals)``:
 
     >>> rates = torch.zeros((1, 2))
     >>> resid = torch.tensor([[3.0, 1.5]])
@@ -38,9 +54,7 @@ def event_race(rates: torch.Tensor, residuals: torch.Tensor,
     >>> float(dt[0]), int(ev[0])
     (1.5, 3)
     """
-    if impl not in EVENT_RACE_IMPLS:
-        raise ValueError(f"event_race impl={impl!r} must be None, 'ref' or "
-                         "'cuda'")
+    use_kernel = _use_kernel("event_race", impl, rates)
     k_exp, k_det = rates.shape[-1], residuals.shape[-1]
     if k_exp == 0 or k_det == 0:
         raise ValueError(
@@ -48,12 +62,56 @@ def event_race(rates: torch.Tensor, residuals: torch.Tensor,
             f"deterministic lane (got K_exp={k_exp}, K_det={k_det}); a "
             f"zero-width lane block has no next event to race -- disable "
             f"the empty side with zero rates / +inf residuals instead")
-    on_cuda = rates.device.type == "cuda"
-    if impl == "cuda" and not on_cuda:
-        raise ValueError(
-            f"event_race impl='cuda' needs CUDA tensors (got tensors on "
-            f"{rates.device}); use impl='ref' or impl=None for the plain "
-            f"PyTorch version on the CPU")
-    if impl == "ref" or not on_cuda:
+    if not use_kernel:
         return ref.event_race_ref(rates, residuals, u_time, u_pick)
     return des_step.event_race_cuda(rates, residuals, u_time, u_pick)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_offset: int = 0,
+                    kv_len: Optional[int] = None,
+                    impl: Optional[str] = None) -> torch.Tensor:
+    """GQA attention. q (B,Sq,Hq,d), k/v (B,Sk,Hkv,d) -> (B,Sq,Hq,d).
+
+    See ``csrc/flash_attention.cu`` for what it computes.  ``q_offset``
+    and ``kv_len`` are host integers; ``kv_len < 1`` and a negative
+    ``q_offset`` are refused on every path (no query row may be left
+    without a key).
+    """
+    use_kernel = _use_kernel("flash_attention", impl, q)
+    q_offset = int(q_offset)
+    kv_len = None if kv_len is None else int(kv_len)
+    if q_offset < 0:
+        raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
+    if kv_len is not None and kv_len < 1:
+        raise ValueError(f"flash_attention: kv_len {kv_len} < 1 would leave "
+                         "every query row without a key")
+    if not use_kernel:
+        return ref.attention_ref(q, k, v, causal=causal, q_offset=q_offset,
+                                 kv_len=kv_len)
+    return _attn.flash_attention_cuda(q, k, v, causal=causal,
+                                      q_offset=q_offset, kv_len=kv_len)
+
+
+def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   Bmat: torch.Tensor, Cmat: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None, *,
+                   impl: Optional[str] = None,
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba scan. x/dt (B,S,di), A (di,N), B/C (B,S,N), h0 (B,di,N).
+
+    Returns ``(y (B, S, di) in x's dtype, h_final (B, di, N) float32)``;
+    see ``csrc/mamba_scan.cu`` for what it computes.
+    """
+    if not _use_kernel("selective_scan", impl, x):
+        return ref.selective_scan_ref(x, dt, A, Bmat, Cmat, h0)
+    return _scan.selective_scan_cuda(x, dt, A, Bmat, Cmat, h0)
+
+
+def selective_scan_step(x_t: torch.Tensor, dt_t: torch.Tensor,
+                        A: torch.Tensor, B_t: torch.Tensor,
+                        C_t: torch.Tensor, h: torch.Tensor,
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decode step of the scan: plain PyTorch on every device, as in
+    the reference (it has no TPU kernel either)."""
+    return ref.selective_scan_step_ref(x_t, dt_t, A, B_t, C_t, h)

@@ -7,9 +7,13 @@ CUDA kernels are held against on the card.  Counterpart of
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+
+#: the reference's finite mask value: a masked score is -1e30, not -inf,
+#: so a fully masked row softmaxes to uniform weights as in JAX
+NEG_INF = -1e30
 
 
 def event_race_ref(rates: torch.Tensor, residuals: torch.Tensor,
@@ -60,3 +64,106 @@ def event_race_ref(rates: torch.Tensor, residuals: torch.Tensor,
     dt = torch.minimum(t_exp, t_det)
     event = torch.where(t_exp <= t_det, pick_exp, pick_det)
     return dt, event
+
+
+# ---------------------------------------------------------------------------
+# attention (GQA, causal/full, optional kv-length mask)
+# ---------------------------------------------------------------------------
+
+def _attn_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                causal: bool, q_pos: torch.Tensor, k_pos: torch.Tensor,
+                kv_len: Optional[int]) -> torch.Tensor:
+    """Full-materialization attention for one query block.
+
+    q: (B, Sq, Hkv, G, d), k/v: (B, Sk, Hkv, d) -> (B, Sq, Hkv, G, d) fp32.
+    """
+    scale = 1.0 / torch.sqrt(torch.tensor(float(q.shape[-1])))
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * scale
+    mask = None
+    if causal:
+        mask = q_pos[:, None] >= k_pos[None, :]           # (Sq, Sk)
+    if kv_len is not None:
+        len_mask = k_pos[None, :] < kv_len                 # (1, Sk)
+        mask = len_mask if mask is None else (mask & len_mask)
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, q_offset: int = 0,
+                  kv_len: Optional[int] = None,
+                  q_block: Optional[int] = None) -> torch.Tensor:
+    """Grouped-query attention, math in fp32, output in q's dtype.
+
+    q: (B, Sq, Hq, d); k/v: (B, Sk, Hkv, d); Hq % Hkv == 0 (GQA by a
+    reshape of the query heads, no copies of k/v).  ``q_offset``: absolute
+    position of q[0]; ``kv_len``: keys at positions >= kv_len are masked.
+    Masked scores are the finite :data:`NEG_INF`.  ``q_block``: if set,
+    smaller than Sq and a divisor of it, queries go through in blocks of
+    that size (memory O(q_block * Sk) instead of O(Sq * Sk)), as in the
+    reference.
+    """
+    B, Sq, Hq, d = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if Hq % Hkv:
+        raise ValueError(f"attention_ref: {Hq} query heads are not a "
+                         f"multiple of {Hkv} kv heads")
+    qg = q.reshape(B, Sq, Hkv, Hq // Hkv, d)
+    k_pos = torch.arange(Sk, device=q.device)
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    if q_block is None or Sq <= q_block or Sq % q_block:
+        out = _attn_block(qg, k, v, causal=causal, q_pos=q_pos, k_pos=k_pos,
+                          kv_len=kv_len)
+    else:
+        out = torch.cat([
+            _attn_block(qg[:, i:i + q_block], k, v, causal=causal,
+                        q_pos=q_pos[i:i + q_block], k_pos=k_pos,
+                        kv_len=kv_len)
+            for i in range(0, Sq, q_block)], dim=1)
+    return out.reshape(B, Sq, Hq, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# mamba selective scan
+# ---------------------------------------------------------------------------
+
+def selective_scan_step_ref(x_t: torch.Tensor, dt_t: torch.Tensor,
+                            A: torch.Tensor, B_t: torch.Tensor,
+                            C_t: torch.Tensor, h: torch.Tensor,
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One step: x_t/dt_t (B, di); B_t/C_t (B, N); h (B, di, N) fp32.
+
+    Returns ``(y_t (B, di) in x_t's dtype, h_new (B, di, N) fp32)``.
+    """
+    dtf = dt_t.float()
+    decay = torch.exp(dtf[..., None] * A.float()[None])
+    drive = (dtf * x_t.float())[..., None] * B_t.float()[:, None, :]
+    h_new = decay * h + drive
+    y = (h_new * C_t.float()[:, None, :]).sum(-1)
+    return y.to(x_t.dtype), h_new
+
+
+def selective_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                       Bmat: torch.Tensor, Cmat: torch.Tensor,
+                       h0: Optional[torch.Tensor] = None,
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-1 selective scan, a loop over time in fp32.
+
+    x, dt: (B, S, di); A: (di, N); Bmat, Cmat: (B, S, N); h0 (B, di, N).
+    h_t = exp(dt_t * A) * h_{t-1} + (dt_t * x_t) outer B_t,
+    y_t = (h_t * C_t).sum(N).  Returns ``(y (B, S, di) in x's dtype,
+    h_final (B, di, N) fp32)``.
+    """
+    Bsz, S, di = x.shape
+    h = (torch.zeros((Bsz, di, A.shape[-1]), dtype=torch.float32,
+                     device=x.device) if h0 is None else h0.float())
+    ys = []
+    for t in range(S):
+        y_t, h = selective_scan_step_ref(x[:, t].float(), dt[:, t], A,
+                                         Bmat[:, t], Cmat[:, t], h)
+        ys.append(y_t)
+    y = (torch.stack(ys, dim=1) if ys else
+         torch.zeros((Bsz, 0, di), dtype=torch.float32, device=x.device))
+    return y.to(x.dtype), h

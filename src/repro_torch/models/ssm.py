@@ -1,0 +1,151 @@
+"""Mamba-1 selective state-space block.
+
+Counterpart of ``src/repro/models/ssm.py``.  Structure (falcon-mamba /
+jamba SSM layers):
+
+    x, z = in_proj(u)                   # (B, S, di) each, di = expand*D
+    x    = silu(causal_conv1d(x))       # depthwise, width ssm_conv
+    dt, B, C = x_proj(x)                # dt via low-rank + softplus
+    y    = selective_scan(x, dt, A, B, C) + D * x
+    out  = out_proj(y * silu(z))
+
+Prefill runs the scan through :func:`repro_torch.kernels.ops.selective_scan`
+(the CUDA kernel on the card); decode keeps a (conv window, ssm state)
+cache and takes one plain step a token.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels import ops
+from .config import ModelConfig
+from .module import TensorSpec, dense_init_, empty_param
+
+Cache = Dict[str, torch.Tensor]
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``log(1 + exp(x))`` as ``jax.nn.softplus`` computes it.
+
+    ``torch.nn.functional.softplus`` returns x itself above its
+    ``threshold=20``; JAX does not, so the port writes it out.
+    """
+    return torch.log1p(torch.exp(-x.abs())) + x.clamp_min(0)
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 window: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv via shifted adds. x (B,S,di), w (W,di), the
+    previous inputs ``window`` (B,W-1,di).
+
+    Returns the output in fp32 and the padded input ``(B, S+W-1, di)``,
+    whose last W-1 rows are the next conv window.
+    """
+    W = w.shape[0]
+    xp = torch.cat([window.to(x.dtype), x], dim=1)         # (B, S+W-1, di)
+    S = x.shape[1]
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(W):
+        out = out + xp[:, i:i + S, :].float() * w[i].float()
+    return out + b.float(), xp
+
+
+def mamba_cache_spec(cfg: ModelConfig, batch: int,
+                     dtype: torch.dtype = torch.float32,
+                     ) -> Dict[str, TensorSpec]:
+    return {
+        "conv": TensorSpec((batch, cfg.ssm_conv - 1, cfg.d_inner), dtype),
+        "ssm": TensorSpec((batch, cfg.d_inner, cfg.ssm_state), dtype),
+    }
+
+
+class Mamba(nn.Module):
+    def __init__(self, cfg: ModelConfig, device=None, dtype=None):
+        super().__init__()
+        D, di, N, R = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank
+        W = cfg.ssm_conv
+        self.cfg = cfg
+        self.in_proj = empty_param((D, 2 * di), device, dtype)
+        self.conv_w = empty_param((W, di), device, dtype)
+        self.conv_b = empty_param((di,), device, dtype)
+        self.x_proj = empty_param((di, R + 2 * N), device, dtype)
+        self.dt_w = empty_param((R, di), device, dtype)
+        self.dt_b = empty_param((di,), device, dtype)
+        self.A_log = empty_param((di, N), device, torch.float32)
+        self.D = empty_param((di,), device, torch.float32)
+        self.out_proj = empty_param((di, D), device, dtype)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        cfg = self.cfg
+        dense_init_(self.in_proj, gen)
+        dense_init_(self.conv_w, gen, scale=1.0 / math.sqrt(cfg.ssm_conv))
+        dense_init_(self.x_proj, gen)
+        dense_init_(self.dt_w, gen)
+        dense_init_(self.out_proj, gen, scale=1.0 / math.sqrt(cfg.d_inner))
+        with torch.no_grad():
+            self.conv_b.zero_()
+            self.dt_b.fill_(-4.6)                          # softplus^-1(0.01)
+            # S4D-real initialization: A = -(1..N) for every channel
+            n = torch.arange(1, cfg.ssm_state + 1, dtype=torch.float32,
+                             device=self.A_log.device)
+            self.A_log.copy_(torch.log(n).expand(cfg.d_inner, -1))
+            self.D.fill_(1.0)
+
+    def forward(self, u: torch.Tensor, *, cache: Cache,
+                impl: Optional[str] = None) -> torch.Tensor:
+        """u: (B, S, D) -> out (B, S, D).
+
+        cache: {"conv": (B, W-1, di), "ssm": (B, di, N)}, both fp32,
+        overwritten **in place** with the state after the last token.  S > 1
+        is a prefill from the cached state, S == 1 a decode step.  The
+        conv window holds the pre-conv x.
+
+        The elementwise chains between two products (conv + silu, the dt
+        softplus, the D skip and the z gate) run in fp32 and round to the
+        model's dtype once at their end, where XLA's fusions round too.
+        """
+        R, N = self.cfg.dt_rank, self.cfg.ssm_state
+        xz = torch.einsum("bsd,de->bse", u, self.in_proj)
+        x, z = xz.chunk(2, dim=-1)                         # (B, S, di)
+        A = -torch.exp(self.A_log)                         # (di, N) fp32
+
+        if u.shape[1] == 1:
+            # ---- decode step: conv from the cached window, one scan step
+            window = torch.cat([cache["conv"], x.to(cache["conv"].dtype)],
+                               dim=1)                      # (B, W, di)
+            xc = (torch.einsum("bwd,wd->bd", window.float(),
+                               self.conv_w.float()) + self.conv_b.float())
+            xc = F.silu(xc).to(u.dtype)                    # (B, di)
+            dbc = xc @ self.x_proj
+            dt_low, Bm, Cm = torch.split(dbc, [R, N, N], dim=-1)
+            dt = softplus((dt_low @ self.dt_w).float()
+                          + self.dt_b.float()).to(u.dtype)
+            y, h_new = ops.selective_scan_step(xc, dt, A, Bm, Cm,
+                                               cache["ssm"])
+            cache["conv"].copy_(window[:, 1:])
+            cache["ssm"].copy_(h_new)
+            y, xc = y[:, None, :], xc[:, None, :]
+        else:
+            # ---- prefill ----
+            xc, xp = _causal_conv(x, self.conv_w, self.conv_b, cache["conv"])
+            xc = F.silu(xc).to(u.dtype)
+            dbc = torch.einsum("bsd,de->bse", xc, self.x_proj)
+            dt_low, Bm, Cm = torch.split(dbc, [R, N, N], dim=-1)
+            dt = softplus(torch.einsum("bsr,rd->bsd", dt_low,
+                                       self.dt_w).float()
+                          + self.dt_b.float()).to(u.dtype)
+            y, h_final = ops.selective_scan(xc, dt, A, Bm, Cm, cache["ssm"],
+                                            impl=impl)
+            W = self.cfg.ssm_conv
+            cache["conv"].copy_(xp[:, xp.shape[1] - (W - 1):])
+            cache["ssm"].copy_(h_final)
+
+        out = ((y.float() + xc.float() * self.D) * F.silu(z.float())
+               ).to(u.dtype)
+        return torch.einsum("bse,ed->bsd", out, self.out_proj)
