@@ -19,9 +19,12 @@ Phases, each of which fails the run loudly:
    the kernel's and the plain version's times beside the kernel's bound;
 3. the attention kernel against ``attention_ref``: the serving path's
    prefill (4 x 512, 16 query heads over 2 KV heads, d 128, bf16,
-   causal) and decode (one query over a 544-slot cache, kv_len 513..544)
-   shapes, the ``ATTN_CASES`` of ``tests/test_kernels.py`` in float32 and
-   bf16, and ragged ones (within 2e-5 float32, 2e-2 bf16); then its time
+   causal) and decode (one query over a 544-slot cache, every kv_len
+   1..544) shapes, the ``ATTN_CASES`` of ``tests/test_kernels.py`` in
+   float32 and bf16, ragged ones, group sizes 1 and 48 at d 64 and 128,
+   3 queries x group 8 (24 rows, a row tile a warp in the decode kernel)
+   and inputs scaled like the serving path's (within 2e-5 float32, 2e-2
+   bf16); the bf16 kernels' dynamic shared memory; then its time
    beside its bound, the plain version's and
    ``scaled_dot_product_attention``'s (a yardstick the port never calls);
 4. the scan kernel against ``selective_scan_ref``: falcon-mamba's prefill
@@ -45,7 +48,8 @@ Phases, each of which fails the run loudly:
    prefill and decode times, the kernels' launch counts (one attention
    launch per attention layer per prefill and per decode step, one scan
    launch per Mamba layer per prefill), finite logits, and a traced
-   prefill + 3 decode steps (device busy share, top device kernels);
+   prefill + 3 decode steps (device busy share, the top device kernels
+   and the ranks of the port's own);
 9. the same models in float32 through ``impl="cuda"`` and ``impl="ref"``
    on the same weights: each layer on the same input (the share of its
    output within 1e-3 of its scale), then free-running (the largest
@@ -143,6 +147,20 @@ def device_ms(fn, iters: int):
         torch.cuda.synchronize()
     total_s = device_seconds(prof)
     return total_s / iters * 1e3 if total_s > 0 else None
+
+
+def device_kernels_ms(fn, iters: int):
+    """Device time per call of each kernel ``fn`` launches, by name, from
+    torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return [(e.key, getattr(e, "self_device_time_total", 0.0) / iters / 1e3)
+            for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")]
 
 
 def event_ms(fn, iters: int, warmup: int = 20) -> float:
@@ -254,11 +272,15 @@ def seeded(seed: int):
     return gen
 
 
-def attn_inputs(B, Sq, Sk, Hq, Hkv, d, dtype, seed):
+def attn_inputs(B, Sq, Sk, Hq, Hkv, d, dtype, seed, scales=(1, 1, 1)):
+    """q, k, v from a seed; ``scales`` multiply them before the cast
+    ((11, 32, 1) gives the spreads of the serving path's random-weight
+    attention, PERF.md section 2)."""
     import torch
     gen = seeded(seed)
-    return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
-            for shape in ((B, Sq, Hq, d), (B, Sk, Hkv, d), (B, Sk, Hkv, d))]
+    return [(torch.randn(shape, generator=gen, device="cuda") * f).to(dtype)
+            for shape, f in zip(((B, Sq, Hq, d), (B, Sk, Hkv, d),
+                                 (B, Sk, Hkv, d)), scales)]
 
 
 def attn_bound_ms(q, k, causal, q_offset=0, kv_len=None):
@@ -281,7 +303,7 @@ def attn_bound_ms(q, k, causal, q_offset=0, kv_len=None):
 
 
 def attention_phase(fa, ref):
-    """Phase 6: the attention kernel against its plain version, then its
+    """Phase 3: the attention kernels against their plain version, then
     times at the serving path's prefill and decode shapes."""
     import torch
     import torch.nn.functional as F
@@ -304,9 +326,33 @@ def attention_phase(fa, ref):
           f"max abs err {main_err:.3e}")
     qd, kc, vc = attn_inputs(SERVE_BATCH, 1, S_MAX, 16, 2, 128, bf16, seed=2)
     dec_err = max(check(f"decode kv_len={n}", qd, kc, vc, causal=False,
-                        kv_len=n) for n in range(PROMPT_LEN + 1, S_MAX + 1))
-    print(f"  decode {tuple(qd.shape)} over a {S_MAX}-slot cache, kv_len "
-          f"{PROMPT_LEN + 1}..{S_MAX}: max abs err {dec_err:.3e}")
+                        kv_len=n) for n in range(1, S_MAX + 1))
+    print(f"  decode {tuple(qd.shape)} over a {S_MAX}-slot cache, every "
+          f"kv_len 1..{S_MAX}: max abs err {dec_err:.3e}")
+    for label, shape, kw in (
+            ("group 1, d 64, decode", (SERVE_BATCH, 1, S_MAX, 2, 2, 64),
+             dict(causal=False, kv_len=S_MAX - 7)),
+            ("group 1, d 64, prefill", (2, 300, 300, 8, 8, 64),
+             dict(causal=True)),
+            ("Sq 3 x group 8, decode", (2, 3, S_MAX, 16, 2, 128),
+             dict(causal=True, q_offset=S_MAX - 20)),
+            ("group 48, decode", (2, 1, S_MAX, 48, 1, 128),
+             dict(causal=False, kv_len=300)),
+            ("group 48, prefill", (1, 130, 130, 48, 1, 128),
+             dict(causal=True))):
+        for dtype in (torch.float32, bf16):
+            err = check(label, *attn_inputs(*shape, dtype, seed=21), **kw)
+            print(f"  {label} {shape} {str(dtype)[6:]}: max abs err "
+                  f"{err:.3e}")
+    for label, shape, kw in (
+            ("prefill", (SERVE_BATCH, PROMPT_LEN, PROMPT_LEN, 16, 2, 128),
+             dict(causal=True)),
+            ("decode", (SERVE_BATCH, 1, S_MAX, 16, 2, 128),
+             dict(causal=False, kv_len=PROMPT_LEN + GEN_TOKENS // 2))):
+        err = check(f"serving-scale {label}", *attn_inputs(
+            *shape, bf16, seed=22, scales=(11, 32, 1)), **kw)
+        print(f"  serving-scale inputs (q x 11, k x 32), {label} {shape} "
+              f"bf16: max abs err {err:.3e}")
     for i, case in enumerate(ATTN_CASES):
         for dtype in (torch.float32, bf16):
             B, Sq, Sk, Hq, Hkv, d, causal = case
@@ -323,6 +369,12 @@ def attention_phase(fa, ref):
             err = check(label, *attn_inputs(*shape, dtype, seed=20), **kw)
             print(f"  ragged {shape} {label} {str(dtype)[6:]}: max abs err "
                   f"{err:.3e}")
+
+    # registers and spills: phase 1's nvcc report; the bfloat16 kernels'
+    # dynamic shared memory is Q's 64 rows and a 2-stage K/V ring of 64
+    # rows each, rows padded to d + 8 bf16
+    print("  bf16 kernels' dynamic shared memory: " + ", ".join(
+        f"d {d} {(64 + 4 * 64) * (d + 8) * 2} B" for d in fa.HEAD_DIMS))
 
     t = {}
     launches = fa.LAUNCHES
@@ -349,7 +401,11 @@ def attention_phase(fa, ref):
                                                enable_gqa=True), 50)
     t["decode_bound_ms"], t["decode_bound_by"] = attn_bound_ms(
         qd, kc, causal=False, kv_len=kv)
+    split = device_kernels_ms(lambda: fa.flash_attention_cuda(
+        qd, kc, vc, causal=False, kv_len=kv), 50)
     fa.LAUNCHES = launches
+    print("  decode shape, device time per call by kernel: " + "; ".join(
+        f"{name[:60]} {ms:.6f} ms" for name, ms in split))
     print(f"  prefill shape, per call: device {t['ms']} ms (host-clocked "
           f"{t['call_ms']:.6f} ms); plain {t['plain_ms']} ms (host-clocked "
           f"{t['plain_call_ms']:.6f} ms); scaled_dot_product_attention "
@@ -576,10 +632,12 @@ def serving_phase(arch, fa, ms):
           f"device busy {busy:.4f} s = {busy / traced_wall * 100:.2f}%")
     dev = [e for e in prof.key_averages()
            if str(e.device_type).endswith("CUDA")]
-    for e in sorted(dev, key=lambda e: -getattr(
-            e, "self_device_time_total", 0.0))[:8]:
-        print(f"    device {e.key[:70]}: {e.count} calls, "
-              f"{getattr(e, 'self_device_time_total', 0.0) / 1e3:.3f} ms")
+    ranked = sorted(dev, key=lambda e: -getattr(
+        e, "self_device_time_total", 0.0))
+    for rank, e in enumerate(ranked, 1):
+        if rank <= 8 or "attn_" in e.key or "selective_scan" in e.key:
+            print(f"    device #{rank} {e.key[:70]}: {e.count} calls, "
+                  f"{getattr(e, 'self_device_time_total', 0.0) / 1e3:.3f} ms")
     del model, sd
     release()
     return rec

@@ -7,7 +7,11 @@ the same numpy inputs, with the tolerances of ``tests/test_kernels.py``:
 2e-5 in float32 (another summation order), 2e-2 in bfloat16 (the output
 is rounded to bf16).  The CUDA kernel is held against the port's plain
 version on the card (marked ``gpu``), at the same shapes and at the
-ragged and decode shapes the JAX ``ops`` sent to its reference.
+ragged and decode shapes the JAX ``ops`` sent to its reference; the
+bfloat16 tile and split-KV decode kernels also at every decode kv_len,
+group sizes 1, 8 and 48, every head dim, cache views and inputs scaled
+like the serving path's, and one m16n8k16 tile against ``torch.matmul``.
+On the CPU run the wrapper's layout refusals and the decode split plan.
 """
 
 import numpy as np
@@ -180,3 +184,183 @@ def test_cuda_kernel_matches_ref(case, dtype):
     want = attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     _assert_close(got.cpu(), want.float().cpu().numpy(), DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("n_heads", [1, 8, 48, 200])
+def test_decode_splits_cover_every_key_once(n_heads):
+    """Every kv_len 1..4096: >= 1 split, no empty one, and the splits
+    [i * keys, min((i + 1) * keys, n)) tile [0, n) exactly."""
+    for n in range(1, 4097):
+        n_split, keys = fa.plan_decode_splits(n, n_heads, 132)
+        assert n_split >= 1 and keys % fa.SPLIT_KEY_MULTIPLE == 0
+        starts = [i * keys for i in range(n_split)]
+        ends = [min(s + keys, n) for s in starts]
+        assert starts[0] == 0 and ends[-1] == n
+        assert all(e > s for s, e in zip(starts, ends))
+        assert all(a == b for a, b in zip(ends[:-1], starts[1:]))
+
+
+def test_decode_splits_fill_the_card():
+    """At the serving shape (B * Hkv = 8, ~530 keys) the grid covers the
+    132 SMs; with as many heads as SMs one split is enough."""
+    n_split, keys = fa.plan_decode_splits(528, 8, 132)
+    assert 8 * n_split >= 128 and (n_split, keys) == (17, 32)
+    assert fa.plan_decode_splits(4096, 132, 132) == (1, 4096)
+    with pytest.raises(ValueError, match="n_keys 0"):
+        fa.plan_decode_splits(0, 8, 132)
+
+
+def _bf16_qkv():
+    q = torch.zeros((2, 8, 4, 64), dtype=torch.bfloat16)
+    cache = torch.zeros((2, 40, 2, 64), dtype=torch.bfloat16)
+    return q, cache
+
+
+@pytest.mark.parametrize("what", ["pointer", "sequence stride",
+                                  "head stride", "batch stride"])
+def test_layout_refuses_unaligned_bf16(what):
+    """The bfloat16 kernels load 16-byte chunks: a view whose rows do not
+    start on 16 bytes is refused, never given to the plain version."""
+    q, cache = _bf16_qkv()
+    k = v = cache
+    if what == "pointer":
+        k = cache.flatten()[4:4 + 2 * 39 * 2 * 64].view(2, 39, 2, 64)
+    elif what == "sequence stride":
+        k = torch.zeros((2, 40, 2 * 64 + 4),
+                        dtype=torch.bfloat16)[..., :128].view(2, 40, 2, 64)
+    elif what == "head stride":
+        q = torch.zeros((2, 8, 4, 68), dtype=torch.bfloat16)[..., :64]
+    else:
+        v = torch.zeros((2 * 40 * 2 * 64 + 4),
+                        dtype=torch.bfloat16)[:2 * 40 * 2 * 64].as_strided(
+            (2, 40, 2, 64), (40 * 2 * 64 + 4, 128, 64, 1))
+    match = "16-byte aligned" if what == "pointer" else "multiples of 8"
+    with pytest.raises(ValueError, match=match):
+        fa.check_layout(q, k, v)
+
+
+def test_layout_takes_cache_views_and_float32():
+    """A KV-cache view at any ``pos`` keeps 16-byte rows; the stride of a
+    size-1 dim is never used; float32 is not held to 16 bytes."""
+    q, cache = _bf16_qkv()
+    for pos in (0, 1, 17):
+        fa.check_layout(q[:, :1], cache[:, pos:pos + 9], cache[:, pos:])
+    odd = torch.zeros((1, 1, 3, 64), dtype=torch.bfloat16).as_strided(
+        (1, 1, 2, 64), (7, 5, 64, 1))
+    fa.check_layout(odd, cache, cache)
+    f = torch.zeros((1, 5, 3, 17), dtype=torch.float32)[..., 1:]
+    fa.check_layout(f, f, f)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.check_layout(q.transpose(2, 3), cache, cache)
+
+
+def test_grid_limit_only_on_the_decode_route():
+    """B * Hkv lies on grid.y only in the split-KV decode: a bf16 decode
+    call past 65,535 is refused, the same heads through the tile or the
+    float32 kernel are not.  (Stride-0 views: only shapes are read.)"""
+    def qkv(dtype, sq):
+        return (torch.zeros((), dtype=dtype).expand(65536, sq, 1, 16),
+                torch.zeros((), dtype=dtype).expand(65536, 4, 1, 16))
+    q, k = qkv(torch.bfloat16, 1)
+    assert fa.takes_decode(q, k)
+    with pytest.raises(ValueError, match="B \\* Hkv 65536"):
+        fa.check_args(q, k, k, 0, None)
+    for dtype, sq in ((torch.bfloat16, fa.DECODE_MAX_ROWS + 1),
+                      (torch.float32, 1)):
+        q, k = qkv(dtype, sq)
+        assert not fa.takes_decode(q, k)
+        fa.check_args(q, k, k, 0, None)
+
+
+def _cuda_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+def _serving_scale(B, Sq, Sk, Hq, Hkv, d, seed):
+    """q x 11, k x 32: the spreads of the zoo's random-weight attention
+    (PERF.md section 2), which make the softmax nearly one-hot."""
+    q, k, v = _to_torch(_inputs(B, Sq, Sk, Hq, Hkv, d, seed=seed),
+                        "bfloat16")
+    return (q.float() * 11).bfloat16().cuda(), \
+        (k.float() * 32).bfloat16().cuda(), v.cuda()
+
+
+def _check_cuda(q, k, v, **kw):
+    before = fa.LAUNCHES
+    got = fa.flash_attention_cuda(q, k, v, **kw)
+    assert fa.LAUNCHES == before + 1
+    want = attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _assert_close(got.cpu(), want.float().cpu().numpy(),
+                  DTYPES["bfloat16" if q.dtype == torch.bfloat16
+                         else "float32"][2])
+
+
+@pytest.mark.gpu
+def test_cuda_mma_tile_matches_matmul():
+    """One m16n8k16 tile through the kernels' fragment loaders: QK^T and
+    bf16(S) V against torch.matmul in fp32."""
+    _cuda_or_skip()
+    q, k, v = (t.cuda() for t in _to_torch(
+        [a[0, :, 0] for a in _inputs(1, 16, 16, 1, 1, 16, seed=9)],
+        "bfloat16"))
+    s, o = fa.mma_tile(q, k, v)
+    want_s = q.float() @ k.float().T
+    want_o = s.bfloat16().float() @ v.float()
+    torch.cuda.synchronize()
+    _assert_close(s.cpu(), want_s.cpu().numpy(), 1e-5)
+    _assert_close(o.cpu(), want_o.cpu().numpy(), 1e-5)
+
+
+#: decode kv_lens: 1..80, and 16-key split boundaries and their
+#: neighbours up to a 544-slot cache
+DECODE_KV_LENS = sorted(set(range(1, 81)) | {
+    n + e for n in range(96, 545, 16) for e in (-1, 0, 1) if n + e <= 544})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("group,d", [(1, 64), (8, 128), (48, 128), (8, 16),
+                                     (8, 32), (8, 64)])
+def test_cuda_decode_every_kv_len(group, d):
+    """The split-KV decode kernel over a 544-slot cache at every kv_len
+    of DECODE_KV_LENS, for group sizes 1, 8 and 48 and each head dim."""
+    _cuda_or_skip()
+    q, kc, vc = (t.cuda() for t in _to_torch(
+        _inputs(2, 1, 544, 2 * group, 2, d, seed=11), "bfloat16"))
+    for n in DECODE_KV_LENS:
+        _check_cuda(q, kc, vc, causal=False, kv_len=n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    (2, 70, 150, 8, 2, 64, True, 80),      # q_offset, ragged Sq and Sk
+    (1, 9, 100, 16, 2, 64, True, 91),      # 72 rows per kv head: tiles
+    (3, 8, 57, 16, 2, 32, True, 49),       # 64 rows per kv head: decode
+    (2, 3, 60, 16, 2, 64, True, 50),       # 24 rows: decode, a tile a warp
+    (1, 130, 130, 48, 1, 128, True, 0),    # group 48 prefill
+])
+def test_cuda_offsets_and_cache_views(case):
+    """q_offset > 0 with ragged Sq and Sk, reading K/V as views of a
+    larger cache sliced at a nonzero ``pos``."""
+    _cuda_or_skip()
+    B, Sq, Sk, Hq, Hkv, d, causal, q_offset = case
+    q, kc, vc = (t.cuda() for t in _to_torch(
+        _inputs(B, Sq, Sk + 40, Hq, Hkv, d, seed=12), "bfloat16"))
+    for pos in (0, 13, 40):
+        _check_cuda(q, kc[:, pos:pos + Sk], vc[:, pos:pos + Sk],
+                    causal=causal, q_offset=q_offset)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,kw", [
+    ((4, 512, 512, 16, 2, 128), dict(causal=True)),
+    ((4, 1, 544, 16, 2, 128), dict(causal=False, kv_len=528)),
+    ((2, 1, 544, 48, 1, 128), dict(causal=False, kv_len=300)),
+    ((2, 200, 200, 32, 32, 64), dict(causal=True)),
+])
+def test_cuda_serving_scale_inputs(shape, kw):
+    """Scores in the hundreds (near one-hot softmax): bf16 P must not turn
+    a row into NaN or 0/0."""
+    _cuda_or_skip()
+    _check_cuda(*_serving_scale(*shape, seed=13), **kw)
