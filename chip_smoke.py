@@ -10,9 +10,10 @@ their full published widths through ``repro_torch.models.build_model`` --
 and holds each hand-written kernel against its plain PyTorch version.
 Phases, each of which fails the run loudly:
 
-1. the card's name and power limit; build the three kernels
-   (``src/repro_torch/csrc/{event_race,flash_attention,mamba_scan}.cu``)
-   with nvcc, all at once;
+1. the card's name and power limit; build the four kernel libraries
+   (``src/repro_torch/csrc/{event_race,ctmc_chunk,flash_attention,
+   mamba_scan}.cu``) with nvcc, all at once, and print nvcc's register,
+   spill and shared-memory report;
 2. the event-race kernel against ``event_race_ref`` on the card, at the
    main path's shape (4,096 x 16 x 3) and at odd shapes, with all-zero-rate
    rows and exact residual ties: events exact, dt within rtol 1e-6; then
@@ -34,14 +35,21 @@ Phases, each of which fails the run loudly:
 5. the CTMC main path: ``OneWaySweep`` over ``warm_standbys`` in {4, 8,
    16, 32} at the paper's full width (job_size 4096, working pool 4160,
    spare pool 200), 1,024 replicas a point, ``job_length`` cut from 64 to
-   16 days; then two more points at the same width through
-   ``run_replications`` with closed-form answers (no failures; repairs
-   that never heal);
-6. the same sweep with the plain event race (``event_race_impl="ref"``)
-   on the same uniform stream: per-replica integer metrics and means
-   must agree;
-7. a traced window of the CTMC main path (two chunks, torch.profiler):
-   the device's busy share and the ops that take the host's time;
+   16 days, each chunk of 64 steps one launch of the chunk kernel
+   (``csrc/ctmc_chunk.cu``): its launches must equal the chunks run, its
+   steps the steps run, with no launch of the standalone race; then two
+   more points at the same width through ``run_replications`` with
+   closed-form answers (no failures; repairs that never heal); then the
+   chunk kernel against the plain step loop (``_steps_ref``) on the
+   sweep's first chunk, every lane, and both one's times beside the
+   kernel's bound;
+6. the same sweep through the plain step loop (``event_race_impl="ref"``)
+   on the same uniforms: every replica's integer metrics and histogram
+   counts identical, float lanes within 1e-6 relative (the bit-different
+   elements counted), and the means' z-test;
+7. the whole sweep again under torch.profiler: device kernels a step,
+   the device's busy share, the chunk kernel's device time a launch and
+   the ops that take the host's time;
 8. the serving main path: 4 prompts of 512 random token ids, 32 new
    tokens each by greedy argmax, through the full qwen2.5-3b and then the
    full falcon-mamba-7b in bf16 with random weights from a seed: init,
@@ -72,7 +80,6 @@ import os
 import subprocess
 import sys
 import time
-import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -80,9 +87,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+#: special-function results (exp2, log2, rcp) a second: 16 a clock on each
+#: of the 132 SMs (the CUDA C++ Programming Guide's throughput table for
+#: compute capability 9.0) at the 1.98 GHz maximum SM clock
+#: (nvidia-smi clocks.max.sm)
+SFU_OPS_PER_S = 132 * 16 * 1.98e9
 
 TPU_KERNEL = "src/repro/kernels/des_step.py:46"
 KERNEL_SOURCE = "src/repro_torch/csrc/event_race.cu"
+CHUNK_SOURCE = "src/repro_torch/csrc/ctmc_chunk.cu"
+#: the lax.scan of one _step_u a step that the chunk kernel also replaces
+CHUNK_SCAN = "src/repro/core/vectorized.py:1495"
 ATTN_TPU_KERNEL = "src/repro/kernels/flash_attention.py:34"
 ATTN_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 SCAN_TPU_KERNEL = "src/repro/kernels/mamba_scan.py:30"
@@ -115,6 +130,17 @@ AB_LOGIT_TOL, AB_TOKEN_SHARE = 1e-3, 0.9
 SWEEP_VALUES = [4, 8, 16, 32]          # Table I's warm_standbys range
 N_REPLICAS = 1024
 JOB_DAYS = 16                          # cut from the default 64 days
+#: float32 operations of one live row-step of the exponential step, read
+#: off _step_u: rates 44 (products, 8 divisions, the active mask), residuals
+#: 2, race 70 (16 + 16 sums, 16 cdf divisions and comparisons, log, divide,
+#: min), progress, timer, checkpoint, ring and age 25, counters 15, the four
+#: pool picks 56 (sums, cumsums, 16 divisions, comparisons), compartment
+#: updates 60, histogram values 8
+STEP_OPS = 280
+#: bytes of one row's state the chunk kernel reads and writes (6 x 4
+#: compartments, 8 lanes, 2 int32 lanes, 17 metrics) and of its parameters
+ROW_STATE_BYTES = (6 * 4 + 8 + 2 + 17) * 4
+ROW_PARAM_BYTES = 16 * 4
 
 
 def fail(msg: str) -> None:
@@ -222,21 +248,34 @@ def compare_race(R: int, k_exp: int, k_det: int):
 
 
 def capture_final_states(vectorized):
-    """Wrap the engine's chunk loop to keep each batch's final state (for
-    conservation and per-replica A/B checks).  Returns (list, restore)."""
-    states = []
-    orig = vectorized._chunk_loop
+    """Wrap the engine's chunk loop to keep each batch's arguments and final
+    state, and its chunk seeding to count the chunks and steps it runs.
+    Returns (record, restore): record["states"], record["calls"] (each
+    call's arguments), record["chunks"], record["steps"]."""
+    record = {"states": [], "calls": [], "chunks": 0, "steps": 0}
+    orig_loop, orig_seed = vectorized._chunk_loop, vectorized._chunk_seed
 
-    def wrapped(*args, **kwargs):
-        out = orig(*args, **kwargs)
-        states.append(out)
+    def loop(*args, **kwargs):
+        chunk, n_chunks, rem = args[4:7]
+        record["calls"].append(args)
+        record["plan"] = (chunk, n_chunks, rem)
+        out = orig_loop(*args, **kwargs)
+        record["states"].append(out)
         return out
 
-    vectorized._chunk_loop = wrapped
+    def seed(seed_, i):
+        # one call per chunk; chunk n_chunks is the remainder
+        chunk, n_chunks, rem = record["plan"]
+        record["chunks"] += 1
+        record["steps"] += chunk if i < n_chunks else rem
+        return orig_seed(seed_, i)
+
+    vectorized._chunk_loop, vectorized._chunk_seed = loop, seed
 
     def restore():
-        vectorized._chunk_loop = orig
-    return states, restore
+        vectorized._chunk_loop = orig_loop
+        vectorized._chunk_seed = orig_seed
+    return record, restore
 
 
 def build_kernels(libraries) -> None:
@@ -443,12 +482,15 @@ def scan_inputs(B, S, di, N, dtype, seed, dt_rank=0):
 def scan_bound_ms(x, Bm, N):
     """Least time for one scan on these inputs: x, dt, B, C, A, h0 read
     once and y, h_final written once; 7 fp32 operations per (b, t, c, n)
-    (dt*A, exp, decay*h, drive, add, and y's multiply-add) plus dt*x."""
+    (dt*A, exp, decay*h, drive, add, and y's multiply-add) plus dt*x at
+    the fp32 peak, or the one exp per (b, t, c, n) at the special-function
+    units' rate, whichever takes longer."""
     B, S, di = x.shape
     nbytes = (x.element_size() * (3 * B * S * di + 2 * B * S * N)
               + 4 * (di * N + 2 * B * di * N))
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = B * S * di * (7 * N + 1) / FP32_OPS_PER_S * 1e3
+    ops_ms = max(B * S * di * (7 * N + 1) / FP32_OPS_PER_S,
+                 B * S * di * N / SFU_OPS_PER_S) * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms \
         else "operations"
 
@@ -513,6 +555,93 @@ def scan_phase(ms, ref):
           f"{t['plain_call_ms']:.6f} ms); bound {t['bound_ms']:.6f} ms "
           f"({t['bound_by']}); library: none")
     return dict(t, max_abs_err=main_err, library_ms=None)
+
+
+def chunk_bound_ms(live_rows, n_steps, R, n_edges, hist_adds, ring_writes):
+    """Least time for one chunk launch on these inputs: the uniforms the
+    rows read (n_steps x R x 32 B), each live row's state read and written
+    and its parameters read once, the bin edges, each histogram bin added
+    to read and written, each ring slot written; STEP_OPS float32
+    operations a live row-step at the float32 peak."""
+    nbytes = (n_steps * R * 8 * 4
+              + live_rows * (2 * ROW_STATE_BYTES + ROW_PARAM_BYTES)
+              + 4 * n_edges + 8 * hist_adds + 4 * ring_writes)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = live_rows * n_steps * STEP_OPS / FP32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms \
+        else "operations"
+
+
+def chunk_phase(cc, vectorized, call):
+    """Phase 5's kernel check: the chunk kernel against the plain step loop
+    on the main path's first chunk (its initial state, parameters and
+    draw), every lane; then both one's times and the kernel's bound."""
+    import torch
+    pv, seed, P, R, chunk = call[:5]
+    channels, init = call[9], call[10]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(vectorized._chunk_seed(seed, 0))
+    us = torch.rand((chunk, vectorized._next_pow2(R), vectorized.N_UNIFORMS),
+                    generator=gen, device="cuda").clamp_min_(1e-12)
+    counts = (cc.LAUNCHES, cc.STEPS)
+    got = cc.ctmc_chunk_cuda(init, us, pv, R, P, channels)
+    want = vectorized._steps_ref(init, us, pv, R, P, "ref", channels)
+    torch.cuda.synchronize()
+    mism, bits, err = 0, 0, 0.0
+    for k, w in want.items():
+        g = got[k]
+        if not w.dtype.is_floating_point or k == "hist":
+            mism += int((g != w).sum())
+            continue
+        if not torch.equal(torch.isfinite(g), torch.isfinite(w)):
+            fail(f"chunk kernel and plain loop disagree on infinities in {k}")
+        fin = torch.isfinite(w)
+        diff = (g[fin] - w[fin]).abs()
+        if diff.numel():
+            err = max(err, float(diff.max()))
+            if bool((diff > 1e-6 * w[fin].abs()).any()):
+                fail(f"chunk kernel disagrees with the plain loop in {k} "
+                     f"(max abs err {float(diff.max()):.3e})")
+        bits += int((g.view(torch.int32) != w.view(torch.int32)).sum())
+    live = int((init["phase"] != vectorized.DONE).sum())
+    finished = int((want["phase"] == vectorized.DONE).sum()) \
+        - (init["phase"].numel() - live)
+    print(f"  first chunk of the sweep ({init['phase'].numel()} rows, {chunk}"
+          f" steps): integer and histogram mismatches {mism}, bit-different "
+          f"float elements {bits}, max abs err {err:.3e}; rows live {live}, "
+          f"finished within the chunk {finished}")
+    if mism:
+        fail(f"chunk kernel disagrees with the plain loop ({mism} integer or "
+             "histogram elements)")
+    t = {"max_abs_err": err, "bit_different": bits}
+    split = device_kernels_ms(lambda: cc.ctmc_chunk_cuda(
+        init, us, pv, R, P, channels), 20)
+    t["ms"] = sum(ms for name, ms in split if "ctmc_chunk_kernel" in name) \
+        or None
+    t["call_ms"] = event_ms(lambda: cc.ctmc_chunk_cuda(
+        init, us, pv, R, P, channels), 50, warmup=5)
+    t["plain_ms"] = device_ms(lambda: vectorized._steps_ref(
+        init, us, pv, R, P, "ref", channels), 1)
+    t["plain_call_ms"] = event_ms(lambda: vectorized._steps_ref(
+        init, us, pv, R, P, "ref", channels), 1, warmup=1)
+    cc.LAUNCHES, cc.STEPS = counts
+    hist_adds = int((want["hist"] - init["hist"]).sum()) \
+        if "hist" in want else 0
+    ring = int((want["n_runs"] - init["n_runs"]).sum()) \
+        if want["run_durations"].shape[1] else 0
+    n_edges = init["hist_edges"].numel() if "hist_edges" in init else 0
+    t["bound_ms"], t["bound_by"] = chunk_bound_ms(live, chunk, R, n_edges,
+                                                  hist_adds, ring)
+    t["ms_per_step"] = None if t["ms"] is None else t["ms"] / chunk
+    print("  device time per launch by kernel (clones included): " + "; ".join(
+        f"{name[:50]} {ms:.6f} ms" for name, ms in split))
+    print(f"  chunk kernel: device {t['ms']} ms a launch of {chunk} steps "
+          f"({t['ms_per_step']} ms a step), host-clocked {t['call_ms']:.6f} "
+          f"ms a call; plain step loop {t['plain_ms']} ms device, "
+          f"{t['plain_call_ms']:.6f} ms host-clocked; bound "
+          f"{t['bound_ms']:.6f} ms ({t['bound_by']}; {hist_adds} bin adds, "
+          f"{ring} ring writes)")
+    return t
 
 
 def generate(bundle, model, prompts, impl, fa, ms, n_new=None):
@@ -741,8 +870,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.core import (MINUTES_PER_DAY, OneWaySweep, Params,
-                                  analytical, run_replications,
-                                  run_replications_batch, vectorized)
+                                  analytical, run_replications, vectorized)
+    from repro_torch.kernels import ctmc_chunk as cc
     from repro_torch.kernels import des_step, ref
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba_scan as ms
@@ -760,7 +889,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"device: {kind} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.device_count()} visible)")
-    build_kernels([des_step.LIBRARY, fa.LIBRARY, ms.LIBRARY])
+    build_kernels([des_step.LIBRARY, cc.LIBRARY, fa.LIBRARY, ms.LIBRARY])
 
     # ---- phase 2: kernel against plain version ----------------------------
     phase("phase 2: event_race kernel vs plain PyTorch version")
@@ -809,19 +938,29 @@ def main() -> int:
     sweep = OneWaySweep("warm standbys", "warm_standbys", SWEEP_VALUES,
                         n_replications=N_REPLICAS, base_params=base,
                         device="cuda")
-    states, restore = capture_final_states(vectorized)
+    main_run, restore = capture_final_states(vectorized)
     try:
-        des_step.LAUNCHES = 0
+        cc.LAUNCHES = cc.STEPS = des_step.LAUNCHES = 0   # the main path's run
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = sweep.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = des_step.LAUNCHES
+        launches, chunk_steps, race_launches = (cc.LAUNCHES, cc.STEPS,
+                                                des_step.LAUNCHES)
     finally:
         restore()
-    if launches <= 0:
-        fail("the main path launched the event-race kernel no time")
+    states, steps = main_run["states"], main_run["steps"]
+    print(f"  chunk kernel: {launches} launches, {chunk_steps} steps; chunks "
+          f"run {main_run['chunks']}, steps run {steps}; standalone race "
+          f"launches {race_launches}")
+    if launches != main_run["chunks"] or chunk_steps != steps or steps <= 0:
+        fail(f"the main path ran {main_run['chunks']} chunks of {steps} steps"
+             f" but the chunk kernel counted {launches} launches of "
+             f"{chunk_steps} steps")
+    if race_launches:
+        fail(f"the main path launched the standalone race {race_launches} "
+             "times")
     if len(states) != 1:
         fail(f"expected one batch for the sweep, got {len(states)}")
     final = states[0]
@@ -851,9 +990,9 @@ def main() -> int:
               f"{st['stall_time'].mean:.2f}, goodput "
               f"{st['goodput'].mean:.5f}, recovery_p99 "
               f"{st['recovery_dist'].percentiles[99]:.2f}")
-    print(f"  wall {wall:.3f} s, {launches} scan steps ({launches / wall:.1f} "
+    print(f"  wall {wall:.6f} s, {steps} scan steps ({steps / wall:.1f} "
           f"steps/s), {n_events:.0f} replica-events "
-          f"({n_events / wall:.1f} replica-events/s), event_race launches "
+          f"({n_events / wall:.1f} replica-events/s), chunk kernel launches "
           f"{launches}")
 
     # ---- phase 5b: closed-form points at the same width --------------------
@@ -877,37 +1016,62 @@ def main() -> int:
     if abs(got / exp - 1.0) > 0.15 or rep.stats["completed"].mean != 1.0:
         fail("never-healing point is outside 15% of the closed form")
 
-    # ---- phase 6: A/B against the plain event race --------------------------
-    phase("phase 6: the same sweep with event_race_impl='ref'")
+    # the chunk kernel against the plain loop on the sweep's first chunk
+    chunk = chunk_phase(cc, vectorized, main_run["calls"][0])
+    if chunk["ms_per_step"] is not None and k_dev is not None:
+        print(f"  chunk kernel {chunk['ms_per_step'] * 1e3:.4f} us a step "
+              f"against the standalone race's {k_dev * 1e3:.4f} us a call")
+
+    # ---- phase 6: A/B against the plain step loop ---------------------------
+    phase("phase 6: the same sweep through the plain step loop "
+          "(event_race_impl='ref')")
     sweep_ref = OneWaySweep("warm standbys", "warm_standbys", SWEEP_VALUES,
                             n_replications=N_REPLICAS,
                             base_params=base.replace(event_race_impl="ref"),
                             device="cuda")
-    states_ref, restore = capture_final_states(vectorized)
+    ref_run, restore = capture_final_states(vectorized)
     try:
-        launches_before = des_step.LAUNCHES
+        counts = (cc.LAUNCHES, des_step.LAUNCHES)
         t0 = time.perf_counter()
         res_ref = sweep_ref.run()
         torch.cuda.synchronize()
         wall_ref = time.perf_counter() - t0
     finally:
         restore()
-    if des_step.LAUNCHES != launches_before:
-        fail("impl='ref' launched the CUDA kernel")
-    final_ref = states_ref[0]
+    if (cc.LAUNCHES, des_step.LAUNCHES) != counts:
+        fail("impl='ref' launched a CUDA kernel")
+    final_ref = ref_run["states"][0]
     int_metrics = ("n_failures", "n_random_failures",
                    "n_systematic_failures", "n_preemptions",
                    "n_auto_repairs", "n_manual_repairs", "n_failed_repairs",
                    "n_host_selections", "n_standby_swaps", "n_undiagnosed",
                    "n_misdiagnosed")
     same = torch.ones_like(final["n_failures"], dtype=torch.bool)
-    for m in int_metrics:
+    for m in int_metrics + ("phase", "n_runs"):
         same &= final[m] == final_ref[m]
     frac = float(same.float().mean())
-    print(f"  wall {wall_ref:.3f} s; replicas with identical integer "
-          f"metrics: {frac * 100:.3f}%")
-    if frac < 0.99:
-        fail(f"only {frac:.4f} of replicas agree with the plain race")
+    hist_same = torch.equal(final["hist"], final_ref["hist"])
+    bits, worst_rel = 0, 0.0
+    for k, w in final_ref.items():
+        g = final[k]
+        if k in int_metrics or k in ("hist", "hist_edges") \
+                or not w.dtype.is_floating_point:
+            continue
+        if not torch.equal(torch.isfinite(g), torch.isfinite(w)):
+            fail(f"{k}: the kernel's and the plain loop's infinities differ")
+        fin = torch.isfinite(w)
+        rel = (g[fin] - w[fin]).abs() / w[fin].abs().clamp_min(1e-30)
+        worst_rel = max(worst_rel, float(rel.max()) if rel.numel() else 0.0)
+        bits += int((g.view(torch.int32) != w.view(torch.int32)).sum())
+    print(f"  wall {wall_ref:.3f} s ({steps} steps, {ref_run['steps']} in "
+          f"this run); replicas with identical integer metrics: "
+          f"{frac * 100:.3f}%; histogram counts identical: {hist_same}; "
+          f"float lanes: largest relative difference {worst_rel:.3e}, "
+          f"bit-different elements {bits}")
+    if frac < 1.0 or not hist_same or worst_rel > 1e-6:
+        fail(f"the chunk kernel's sweep differs from the plain loop's "
+             f"(identical replicas {frac:.6f}, histograms identical "
+             f"{hist_same}, float rel diff {worst_rel:.3e} > 1e-6)")
     worst = 0.0
     for pt, pt_ref in zip(res.points, res_ref.points):
         for m in ("total_time", "n_failures", "stall_time", "goodput",
@@ -916,35 +1080,44 @@ def main() -> int:
             se = math.sqrt((a.std ** 2 + b.std ** 2) / N_REPLICAS)
             z = abs(a.mean - b.mean) / max(se, 1e-12)
             worst = max(worst, z)
-    print(f"  largest |z| of the means against the plain race: {worst:.3f}")
+    print(f"  largest |z| of the means against the plain loop: {worst:.3f}")
     if worst >= 3.5:
-        fail(f"means disagree with the plain race (|z| = {worst:.3f})")
+        fail(f"means disagree with the plain loop (|z| = {worst:.3f})")
 
-    # ---- phase 7: traced window ------------------------------------------
-    phase("phase 7: traced window of the CTMC main path (two chunks)")
+    # ---- phase 7: traced sweep -------------------------------------------
+    phase("phase 7: the whole sweep again under torch.profiler")
     from torch.profiler import ProfilerActivity, profile
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", RuntimeWarning)   # cut on purpose
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run_replications_batch(
-                [base.replace(warm_standbys=v) for v in SWEEP_VALUES],
-                N_REPLICAS, max_steps=2 * vectorized.DEFAULT_CHUNK_STEPS,
-                device="cuda")
-            torch.cuda.synchronize()
-            traced_wall = time.perf_counter() - t0
+    counts = (cc.LAUNCHES, cc.STEPS)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sweep.run()
+        torch.cuda.synchronize()
+        traced_wall = time.perf_counter() - t0
+    traced_steps = cc.STEPS - counts[1]
+    traced_launches = cc.LAUNCHES - counts[0]
+    cc.LAUNCHES, cc.STEPS = counts
     events = prof.key_averages()
     dev_s = device_seconds(prof)
-    n_kernels = sum(e.count for e in events
-                    if str(e.device_type).endswith("CUDA"))
-    steps = 2 * vectorized.DEFAULT_CHUNK_STEPS
-    print(f"  traced wall {traced_wall:.3f} s for {steps} steps "
-          f"({traced_wall / steps * 1e3:.3f} ms/step traced, "
-          f"{wall / launches * 1e3:.3f} ms/step untraced in phase 5); "
-          f"device busy {dev_s:.4f} s = "
-          f"{dev_s / traced_wall * 100:.2f}% of the traced wall; "
-          f"{n_kernels / steps:.1f} device kernels a step")
+    dev_events = [e for e in events if str(e.device_type).endswith("CUDA")]
+    n_kernels = sum(e.count for e in dev_events)
+    chunk_evs = [e for e in dev_events if "ctmc_chunk_kernel" in e.key]
+    chunk_total_ms = sum(getattr(e, "self_device_time_total", 0.0)
+                         for e in chunk_evs) / 1e3
+    chunk["sweep_ms_per_launch"] = chunk_total_ms / max(traced_launches, 1)
+    chunk["sweep_ms_per_step"] = chunk_total_ms / max(traced_steps, 1)
+    print(f"  traced wall {traced_wall:.6f} s for {traced_steps} steps in "
+          f"{traced_launches} launches (untraced in phase 5: {wall:.6f} s); "
+          f"device busy {dev_s:.6f} s = {dev_s / traced_wall * 100:.2f}% of "
+          f"the traced wall; {n_kernels} device kernels and copies = "
+          f"{n_kernels / traced_steps:.4f} a step")
+    print(f"  chunk kernel over the sweep: {chunk_total_ms:.6f} ms in "
+          f"{traced_launches} launches = {chunk['sweep_ms_per_launch']:.6f} "
+          f"ms a launch, {chunk['sweep_ms_per_step'] * 1e3:.4f} us a step")
+    for e in sorted(dev_events, key=lambda e: -e.count)[:8]:
+        print(f"    device {e.key[:60]}: {e.count} calls, "
+              f"{getattr(e, 'self_device_time_total', 0.0) / 1e3:.3f} ms")
     top = sorted(events, key=lambda e: -e.self_cpu_time_total)[:8]
     for e in top:
         print(f"    host {e.key}: {e.count} calls, self "
@@ -972,13 +1145,21 @@ def main() -> int:
               "replaces": TPU_KERNEL,
               "replaces_function": "src/repro/kernels/des_step.py:"
                                    "_event_race_kernel",
-              "launches": launches, "max_abs_err": abs_err,
+              "launches": race_launches, "max_abs_err": abs_err,
               "event_mismatches": mism, "dt_max_rel_err": rel,
               "ms": k_ms if k_dev is None else k_dev,
               "plain_ms": r_ms if r_dev is None else r_dev,
               "call_ms": k_ms, "plain_call_ms": r_ms, "bound_ms": bound_ms,
               "bound_by": bound_by, "library_ms": None}
-    kernels = [record]
+    chunk_record = dict(
+        chunk, name="ctmc_chunk", route="cuda", source=CHUNK_SOURCE,
+        replaces=TPU_KERNEL,
+        replaces_function="src/repro/kernels/des_step.py:_event_race_kernel"
+                          f" and the lax.scan of {CHUNK_SCAN}",
+        launches=launches, steps=chunk_steps,
+        ms=chunk["call_ms"] if chunk["ms"] is None else chunk["ms"],
+        library_ms=None)
+    kernels = [record, chunk_record]
     for name, source, replaces, launches_, t in (
             ("flash_attention", ATTN_SOURCE, ATTN_TPU_KERNEL,
              serve_launches["qwen2.5-3b"][0], attn),

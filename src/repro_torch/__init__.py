@@ -4,8 +4,9 @@ The JAX package stays the reference; this package mirrors its layout
 (``core``, ``kernels``, ``models``, ``configs``, ``csrc``) and imports
 neither JAX nor ``repro``.  It runs the exponential single-job CTMC
 replication path -- ``run_replications``, ``run_replications_batch``,
-``OneWaySweep``, ``TwoWaySweep`` -- with the next-event race in a
-hand-written CUDA kernel (``csrc/event_race.cu``), and serves decoder-only
+``OneWaySweep``, ``TwoWaySweep`` -- with each chunk of steps, event race
+included, in one hand-written CUDA kernel (``csrc/ctmc_chunk.cu``; the
+standalone race is ``csrc/event_race.cu``), and serves decoder-only
 LMs (``repro_torch.models.build_model``: prefill and greedy decode) with
 attention and the Mamba scan in hand-written CUDA kernels
 (``csrc/flash_attention.cu``, ``csrc/mamba_scan.cu``), on an NVIDIA H100.

@@ -172,10 +172,11 @@ class Params:
     #: is not ported yet (ROADMAP queue 1 item 11): the port's engine
     #: refuses any value above 0.
     engine_shards: int = 0
-    #: event-race kernel dispatch of the CTMC engine: ``None`` (default)
-    #: chooses by device — the CUDA kernel for tensors on the card, the
-    #: plain PyTorch version on the CPU.  ``"ref"`` forces the plain
-    #: version, ``"cuda"`` the kernel (raises for CPU tensors).
+    #: kernel dispatch of the CTMC engine: ``None`` (default) chooses by
+    #: device — the CUDA chunk kernel (steps and event race fused) for
+    #: tensors on the card, the plain PyTorch step loop on the CPU.
+    #: ``"ref"`` forces the plain loop, ``"cuda"`` the kernel (raises for
+    #: CPU tensors).
     event_race_impl: Optional[str] = None
 
     # -------------------------------------------------------------------------

@@ -6,17 +6,21 @@ domains.  Under that model the cluster is a continuous-time Markov chain
 over server *compartments* -- servers are exchangeable within (origin x
 health) classes, so counts are sufficient state.  Each step races the 16
 exponential clock families against the deterministic timers (job
-completion, recovery/host-selection timer, checkpoint write) with
-:func:`repro_torch.kernels.ops.event_race` -- the hand-written CUDA kernel
-on the card -- and then applies the winning transition with masked
-updates.  The step carries checkpoint rollback, goodput, the per-replica
-run-duration ring buffer and the streaming histograms exactly as the
-reference does.
+completion, recovery/host-selection timer, checkpoint write) and then
+applies the winning transition with masked updates.  The step carries
+checkpoint rollback, goodput, the per-replica run-duration ring buffer and
+the streaming histograms exactly as the reference does.
 
 State is a dict of tensors with the reference's keys
-(``_initial_state_batch``), on an explicit device.  The scan is a Python
-loop over steps inside a loop over chunks of :data:`DEFAULT_CHUNK_STEPS`;
-the early-exit test (every replica DONE) reads the device once per chunk.
+(``_initial_state_batch``), on an explicit device.  The scan runs in
+chunks of :data:`DEFAULT_CHUNK_STEPS` steps; the early-exit test (every
+replica DONE) reads the device once per chunk.  On the card a chunk is one
+launch of the hand-written CUDA kernel of
+:mod:`repro_torch.kernels.ctmc_chunk`, which runs every step of the chunk
+for every replica with the state in registers.  :func:`_steps_ref` is its
+plain version, a Python loop of :func:`_step_u` with the plain event race,
+taken on the CPU and for ``impl="ref"``; on the same state and draw the
+two agree bit for bit.
 
 Random numbers copy the *shape* of the reference's draws, not its bits
 (torch's Philox cannot reproduce JAX's threefry): each chunk makes one
@@ -46,7 +50,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..kernels import ops
+from ..kernels import ctmc_chunk, ops
 from . import faultdomains, hazards
 from .histograms import HIST_CHANNELS
 from .params import Params
@@ -638,6 +642,25 @@ def _any_active(state: Dict[str, torch.Tensor]) -> bool:
     return bool((state["phase"] != DONE).any())
 
 
+def _steps_ref(state: Dict[str, torch.Tensor], us: torch.Tensor,
+               pv: torch.Tensor, R: int, P: int, impl: Optional[str],
+               hist_channels: tuple) -> Dict[str, torch.Tensor]:
+    """``us.shape[0]`` steps of the plain step loop on one chunk's draw.
+
+    The plain version of the chunk kernel.  ``us`` is the chunk's
+    ``(n_steps, R_draw, 8)`` draw; it is sliced to R replicas and tiled
+    across the P points of a ``(P * R,)`` batch, so row b reads replica
+    ``b % R``'s uniforms.  ``impl`` goes to the event race of each step.
+    """
+    if us.shape[1] != R:
+        us = us[:, :R]
+    if P > 1:
+        us = us.repeat(1, P, 1)
+    for k in range(us.shape[0]):
+        state = _step_u(state, us[k], pv, impl, hist_channels)
+    return state
+
+
 def _chunk_loop(pv: torch.Tensor, seed: int, P: int, R: int, chunk: int,
                 n_chunks: int, rem: int, impl: Optional[str],
                 early_exit: bool, hist_channels: tuple,
@@ -648,24 +671,31 @@ def _chunk_loop(pv: torch.Tensor, seed: int, P: int, R: int, chunk: int,
     Runs ``n_chunks * chunk + rem`` steps, less the chunks early exit
     skips once every replica is DONE (finished replicas are inert, so
     skipping them changes nothing).  Each chunk draws its uniforms in one
-    call at the power-of-two width ``next_pow2(R)``, slices them to R and
-    tiles them across the P points.
+    call at the power-of-two width ``next_pow2(R)``; row b of the batch
+    reads replica ``b % R``'s.  A chunk is one launch of the chunk kernel
+    for ``impl=None`` or ``"cuda"`` on the card, and :func:`_steps_ref`
+    with the plain race for ``impl="ref"`` and on the CPU (where
+    ``impl="cuda"`` raises).  ``init_state`` is left as it was.
     """
     device = init_state["phase"].device
     R_draw = _next_pow2(R)
+    fused = ops._use_kernel("ctmc_chunk", impl, init_state["phase"])
+    owned = False
 
     def run_chunk(state, i, n_steps):
+        nonlocal owned
         gen = torch.Generator(device=device)
         gen.manual_seed(_chunk_seed(seed, i))
         us = torch.rand((n_steps, R_draw, N_UNIFORMS), generator=gen,
                         dtype=torch.float32, device=device)
         us = us.clamp_min_(1e-12)
-        if R_draw != R:
-            us = us[:, :R]
-        if P > 1:
-            us = us.repeat(1, P, 1)
-        for k in range(n_steps):
-            state = _step_u(state, us[k], pv, impl, hist_channels)
+        if not fused:
+            return _steps_ref(state, us, pv, R, P, impl, hist_channels)
+        # the first launch clones the lanes it writes; later ones update
+        # those clones in place
+        state = ctmc_chunk.ctmc_chunk_cuda(state, us, pv, R, P,
+                                           hist_channels, inplace=owned)
+        owned = True
         return state
 
     state = init_state
@@ -727,7 +757,8 @@ def simulate_ctmc(params: Params, n_replicas: int = 1024, seed: int = 0,
     runs the whole ``max_steps`` budget with bit-identical results.
     ``max_runs`` (default ``params.max_run_records``) sizes the per-run
     duration ring buffer; 0 leaves it out.  ``impl`` (default
-    ``params.event_race_impl``) selects the event-race kernel.
+    ``params.event_race_impl``) selects the chunk kernel (``None`` or
+    ``"cuda"``) or the plain step loop (``"ref"``).
     """
     dev = resolve_device(device)
     if not supports(params):

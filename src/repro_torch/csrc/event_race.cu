@@ -5,21 +5,9 @@
 // src/repro/kernels/des_step.py::_event_race_kernel (entered through
 // src/repro/kernels/ops.py::event_race).  For each replica row it races
 // k_exp exponential clock families (propensities `rates`) against k_det
-// deterministic timers (`residuals`):
-//
-//     total  = sum_j rates[j]                       (sequential)
-//     t_exp  = -log(u_time) / max(total, 1e-30)     (+inf if total == 0)
-//     pick   = #{j : u_pick >= cumsum_j / max(total, 1e-30)}, clipped to
-//              k_exp - 1                           (inverse-CDF pick)
-//     t_det  = min_j residuals[j], first index on ties (strict <), an
-//              all-+inf row gives lane 0
-//     dt     = min(t_exp, t_det)
-//     event  = pick if t_exp <= t_det else k_exp + argmin
-//
-// The arithmetic mirrors repro_torch/kernels/ref.py::event_race_ref step
-// for step: a sequential sum and running cumsum, the cdf as a true
-// division (not a multiply by a reciprocal), full-precision logf.  Build
-// without --use_fast_math so the division and logf stay IEEE/accurate.
+// deterministic timers (`residuals`), one row a thread, with the race of
+// event_race.cuh (which says what it computes and how it mirrors
+// repro_torch/kernels/ref.py::event_race_ref).
 // u_time is not clamped (the TPU kernel clamps at 1e-38, the references
 // do not); the engine draws uniforms in [1e-12, 1), where both agree.
 //
@@ -31,12 +19,11 @@
 // replica row, a 1-D grid of 256-thread blocks, lanes looped over in
 // registers, no shared memory.  The TPU's (8, 128) lane and row padding
 // is not carried over: the kernel takes the real k_exp, k_det, row count
-// and row strides and masks the ragged edge itself.  Fusing it with the
-// rest of the step is later work.
+// and row strides and masks the ragged edge itself.  The CTMC main path
+// runs the same race fused into its step (ctmc_chunk.cu); this kernel
+// serves callers that race lanes of their own.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "event_race.cuh"
 
 namespace {
 
@@ -56,36 +43,9 @@ __global__ void event_race_kernel(const float* __restrict__ rates,
   const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x
                     + threadIdx.x;
   if (r >= n_rows) return;
-  const float* rr = rates + r * rates_stride;
-  const float* dr = residuals + r * resid_stride;
-
-  float total = 0.0f;
-  for (int j = 0; j < k_exp; ++j) total += rr[j];
-  const float safe = fmaxf(total, 1e-30f);
-  const float t_exp = total > 0.0f ? -logf(u_time[r * u_time_stride]) / safe
-                                   : INFINITY;
-
-  const float up = u_pick[r * u_pick_stride];
-  float cum = 0.0f;
-  int pick = 0;
-  for (int j = 0; j < k_exp; ++j) {
-    cum += rr[j];
-    pick += (up >= cum / safe) ? 1 : 0;
-  }
-  pick = min(pick, k_exp - 1);
-
-  float t_det = dr[0];
-  int arg = 0;
-  for (int j = 1; j < k_det; ++j) {
-    const float v = dr[j];
-    if (v < t_det) {
-      t_det = v;
-      arg = j;
-    }
-  }
-
-  dt[r] = fminf(t_exp, t_det);
-  event[r] = t_exp <= t_det ? pick : k_exp + arg;
+  event_race_row(rates + r * rates_stride, k_exp,
+                 residuals + r * resid_stride, k_det, u_time[r * u_time_stride],
+                 u_pick[r * u_pick_stride], dt + r, event + r);
 }
 
 }  // namespace

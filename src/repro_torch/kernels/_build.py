@@ -2,8 +2,9 @@
 
 Each kernel module owns one :class:`CudaLibrary`.  The library is built
 on first use into ``build/repro_torch/`` at the repository root, named
-``<name>_<hash of the source>.so``, so an edited ``.cu`` builds anew and
-an unchanged one is reused.  Nothing is built at import: the CPU tests
+``<name>_<hash>.so``, where the hash covers the ``.cu`` source, every
+shared header ``csrc/*.cuh`` and the library's nvcc flags, so an edited
+source, header or flag builds anew and an unchanged one is reused.  Nothing is built at import: the CPU tests
 import every kernel module on a machine with no ``nvcc`` and no card.
 The C entry points return ``cudaGetLastError()`` after their launch, and
 :func:`check_launch` turns anything but 0 into an exception.
@@ -20,7 +21,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -45,14 +46,17 @@ class CudaLibrary:
 
     ``bind`` sets ``argtypes``/``restype`` of the library's entry points
     (``ctypes.c_void_p`` for every pointer and the stream, or ctypes cuts
-    them to 32 bits).  ``build_seconds`` and ``build_log`` (nvcc's
+    them to 32 bits).  ``extra_flags`` go to nvcc after
+    :data:`NVCC_FLAGS`.  ``build_seconds`` and ``build_log`` (nvcc's
     ``-Xptxas -v`` register report) describe the last build; both stay
     empty when a built library was reused.
     """
 
-    def __init__(self, name: str, bind: Callable[[ctypes.CDLL], None]):
+    def __init__(self, name: str, bind: Callable[[ctypes.CDLL], None],
+                 extra_flags: Tuple[str, ...] = ()):
         self.name = name
         self.source = CSRC / f"{name}.cu"
+        self.flags = NVCC_FLAGS + tuple(extra_flags)
         self._bind = bind
         self._lib: Optional[ctypes.CDLL] = None
         self._lock = threading.Lock()
@@ -60,9 +64,12 @@ class CudaLibrary:
         self.build_log = ""
 
     def library_path(self) -> Path:
-        """Where the built library for the current source lives."""
-        digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:16]
-        return BUILD_DIR / f"{self.name}_{digest}.so"
+        """Where the built library for the current sources and flags lives."""
+        h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):
+            h.update(header.name.encode() + b"\0" + header.read_bytes())
+        h.update("\0".join(self.flags).encode())
+        return BUILD_DIR / f"{self.name}_{h.hexdigest()[:16]}.so"
 
     def build(self) -> Path:
         """Build the library if this source has not been built yet."""
@@ -76,7 +83,7 @@ class CudaLibrary:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
         os.close(fd)
         try:
-            proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp,
+            proc = subprocess.run([nvcc(), *self.flags, "-o", tmp,
                                    str(self.source)],
                                   capture_output=True, text=True)
             if proc.returncode != 0:

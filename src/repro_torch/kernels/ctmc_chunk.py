@@ -1,0 +1,243 @@
+"""Hopper CUDA kernel that runs a chunk of CTMC steps in one launch.
+
+Counterpart, on the exponential single-job path, of the Pallas TPU kernel
+``src/repro/kernels/des_step.py::_event_race_kernel`` together with the
+``lax.scan`` of ``src/repro/core/vectorized.py::_chunk_loop`` around it.
+The kernel lives in ``repro_torch/csrc/ctmc_chunk.cu`` (what it computes,
+its bound and its design are noted there); :mod:`._build` builds it with
+``nvcc -fmad=false`` on first use and binds it with ``ctypes``, and
+:func:`ctmc_chunk_cuda` launches it on PyTorch's current stream.
+
+The state is the engine's dict of tensors.  The kernel knows exactly the
+lanes of the exponential step: :func:`chunk_layout` refuses any other key
+and any lane dtype but the exponential path's, so a lane that a later
+engine adds cannot be dropped without notice.
+
+``LAUNCHES`` counts kernel launches and ``STEPS`` the steps they ran, so a
+run can show that its main path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Sequence
+
+import torch
+
+from ._build import CudaLibrary, check_launch
+
+#: launches of the chunk kernel since import (or the last reset)
+LAUNCHES = 0
+#: steps those launches ran
+STEPS = 0
+
+#: (B, 4) pool compartments, in the kernel's slot order
+COMPARTMENTS = ("run", "sb", "fw", "fs", "auto", "man")
+#: (B,) float32 lanes, in the kernel's slot order
+LANES = ("t", "work_left", "timer", "stall_start", "age", "cur_run",
+         "ckpt_work", "in_ckpt")
+#: (B,) float32 metrics the step writes, in the kernel's slot order
+METRICS = ("total_time", "n_failures", "n_random_failures",
+           "n_systematic_failures", "n_preemptions", "n_auto_repairs",
+           "n_manual_repairs", "n_failed_repairs", "n_host_selections",
+           "n_standby_swaps", "n_undiagnosed", "n_misdiagnosed",
+           "stall_time", "recovery_overhead", "lost_work", "useful_work",
+           "checkpoint_overhead")
+#: (B,) int32 lanes
+INT_LANES = ("phase", "n_runs")
+#: (B,) float32 metrics of engines not ported yet: the exponential step
+#: leaves them as they are, so they pass through untouched
+CARRIED = ("n_repair_overflow", "n_domain_shocks", "n_shock_killed",
+           "n_campaign_events")
+#: histogram channels by kernel code (``core.histograms.HIST_CHANNELS``)
+CHANNELS = ("run_duration", "recovery", "waiting", "goodput")
+
+#: every lane the kernel writes (cloned unless the caller owns the state)
+WRITTEN = COMPARTMENTS + LANES + METRICS + INT_LANES + ("run_durations",
+                                                       "hist")
+_KNOWN = frozenset(WRITTEN + CARRIED + ("hist_edges",))
+_N_PARAMS = 16
+_MAX_SHARED = 227 * 1024
+
+
+class ChunkArgs(ctypes.Structure):
+    """``CtmcChunkArgs`` of ``csrc/ctmc_chunk.cu``, field for field."""
+    _fields_ = [("comp", ctypes.c_void_p * len(COMPARTMENTS)),
+                ("lane", ctypes.c_void_p * len(LANES)),
+                ("metric", ctypes.c_void_p * len(METRICS)),
+                ("phase", ctypes.c_void_p), ("n_runs", ctypes.c_void_p),
+                ("run_durations", ctypes.c_void_p),
+                ("hist", ctypes.c_void_p), ("hist_edges", ctypes.c_void_p),
+                ("pv", ctypes.c_void_p), ("us", ctypes.c_void_p),
+                ("pv_stride", ctypes.c_int64), ("n_rows", ctypes.c_int64),
+                ("R", ctypes.c_int64), ("R_draw", ctypes.c_int64),
+                ("n_steps", ctypes.c_int32), ("max_runs", ctypes.c_int32),
+                ("n_sel", ctypes.c_int32), ("n_edges", ctypes.c_int32),
+                ("chan", ctypes.c_int32 * 4)]
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    fn = lib.ctmc_chunk_launch
+    fn.argtypes = [ctypes.POINTER(ChunkArgs), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+
+LIBRARY = CudaLibrary("ctmc_chunk", _bind, extra_flags=("-fmad=false",))
+
+
+def _fail(msg: str) -> None:
+    raise ValueError(f"ctmc_chunk: {msg}")
+
+
+def _check(name: str, t: torch.Tensor, shape: tuple, dtype: torch.dtype,
+           device: torch.device) -> None:
+    if t.dtype != dtype:
+        _fail(f"{name} has dtype {t.dtype}; the exponential path's is "
+              f"{dtype}")
+    if tuple(t.shape) != shape:
+        _fail(f"{name} has shape {tuple(t.shape)}, not {shape}")
+    if t.device != device:
+        _fail(f"{name} is on {t.device}, phase on {device}")
+    if not t.is_contiguous():
+        _fail(f"{name} is not contiguous (strides {t.stride()})")
+
+
+def chunk_layout(state: Dict[str, torch.Tensor], us: torch.Tensor,
+                 pv: torch.Tensor, R: int, P: int,
+                 hist_channels: Sequence[str]) -> dict:
+    """The launch's layout, after every check the kernel needs.
+
+    ``state`` is the engine's state dict over ``B = P * R`` rows, ``us``
+    one chunk's ``(n_steps, R_draw, 8)`` float32 draw with ``R_draw >=
+    R``, ``pv`` one shared parameter row or a ``(B, n_cols)`` matrix, and
+    ``hist_channels`` the channels ``state["hist"]`` carries.  Returns a
+    dict: ``pointers`` (lane name -> data pointer), ``pv_stride`` (0 for
+    a shared row), ``n_rows``, ``R``, ``P``, ``R_draw``, ``n_steps``,
+    ``max_runs``, ``n_sel``, ``n_edges`` and ``chan`` (the kernel's code
+    of each carried channel, its index in :data:`CHANNELS`).
+    Raises ``ValueError`` on a key the kernel does not know or lacks, a
+    dtype, shape, device, stride or alignment it does not take.  Works on
+    tensors of any device.
+    """
+    unknown = sorted(set(state) - _KNOWN)
+    if unknown:
+        _fail(f"state keys {unknown} are lanes the kernel does not carry "
+              "(it runs the exponential single-job step only)")
+    has_hist = "hist" in state
+    needed = set(_KNOWN) - ({"hist", "hist_edges"} if not has_hist else set())
+    missing = sorted(needed - set(state))
+    if missing:
+        _fail(f"state lacks {missing}")
+    phase = state["phase"]
+    device = phase.device
+    B = phase.shape[0] if phase.ndim == 1 else -1
+    if B != P * R or R < 1:
+        _fail(f"phase {tuple(phase.shape)} is not (P * R,) = ({P} * {R},)")
+    f32 = torch.float32
+    for k in COMPARTMENTS:
+        _check(k, state[k], (B, 4), f32, device)
+    for k in LANES + METRICS + CARRIED:
+        _check(k, state[k], (B,), f32, device)
+    for k in INT_LANES:
+        _check(k, state[k], (B,), torch.int32, device)
+    ring = state["run_durations"]
+    max_runs = ring.shape[1] if ring.ndim == 2 else -1
+    _check("run_durations", ring, (B, max_runs), f32, device)
+    n_sel = n_edges = 0
+    chan = [0, 0, 0, 0]
+    if has_hist:
+        edges = state["hist_edges"]
+        n_edges = edges.shape[0] if edges.ndim == 1 else 0
+        _check("hist_edges", edges, (n_edges,), f32, device)
+        if n_edges < 1 or n_edges * 4 > _MAX_SHARED:
+            _fail(f"{n_edges} histogram edges; the kernel stages 1.."
+                  f"{_MAX_SHARED // 4} in shared memory")
+        hist_channels = tuple(hist_channels)
+        n_sel = len(hist_channels)
+        if not 1 <= n_sel <= 4 or any(c not in CHANNELS
+                                      for c in hist_channels):
+            _fail(f"histogram channels {hist_channels} are not 1-4 of "
+                  f"{CHANNELS}")
+        _check("hist", state["hist"], (B, n_sel, n_edges + 1), f32, device)
+        for i, c in enumerate(hist_channels):
+            chan[i] = CHANNELS.index(c)
+    if us.ndim != 3 or us.shape[2] != 8 or us.shape[1] < R:
+        _fail(f"uniforms {tuple(us.shape)} are not (n_steps, R_draw >= "
+              f"{R}, 8)")
+    _check("uniforms", us, tuple(us.shape), f32, device)
+    if us.shape[0] >= 2 ** 31:
+        _fail(f"{us.shape[0]} steps in one launch")
+    if pv.ndim == 1:
+        _check("pv", pv, tuple(pv.shape), f32, device)
+        pv_stride = 0
+    elif pv.ndim == 2 and pv.shape[0] == B:
+        if pv.dtype != f32 or pv.device != device or (pv.shape[1] > 1
+                                                     and pv.stride(1) != 1):
+            _fail(f"pv {pv.dtype} on {pv.device} with strides {pv.stride()}"
+                  " is not float32 rows on the state's device")
+        pv_stride = pv.stride(0)
+    else:
+        _fail(f"pv {tuple(pv.shape)} is neither one row nor (B={B}, n_cols)")
+    if pv.shape[-1] < _N_PARAMS:
+        _fail(f"pv has {pv.shape[-1]} columns; the step reads {_N_PARAMS}")
+    pointers = {k: v.data_ptr() for k, v in state.items()}
+    pointers.update(pv=pv.data_ptr(), us=us.data_ptr())
+    for k in COMPARTMENTS + ("us",):
+        if pointers[k] % 16:
+            _fail(f"{k} is not 16-byte aligned (the kernel loads it as "
+                  "float4)")
+    return {"pointers": pointers, "pv_stride": pv_stride, "n_rows": B,
+            "R": R, "P": P, "R_draw": us.shape[1], "n_steps": us.shape[0],
+            "max_runs": max_runs, "n_sel": n_sel, "n_edges": n_edges,
+            "chan": tuple(chan)}
+
+
+def _args(layout: dict) -> ChunkArgs:
+    ptr = layout["pointers"]
+    args = ChunkArgs()
+    args.comp[:] = [ptr[k] for k in COMPARTMENTS]
+    args.lane[:] = [ptr[k] for k in LANES]
+    args.metric[:] = [ptr[k] for k in METRICS]
+    args.phase, args.n_runs = ptr["phase"], ptr["n_runs"]
+    args.run_durations = ptr["run_durations"] if layout["max_runs"] else None
+    args.hist = ptr.get("hist")
+    args.hist_edges = ptr.get("hist_edges")
+    args.pv, args.us = ptr["pv"], ptr["us"]
+    for k in ("pv_stride", "n_rows", "R", "R_draw", "n_steps", "max_runs",
+              "n_sel", "n_edges"):
+        setattr(args, k, layout[k])
+    args.chan[:] = list(layout["chan"])
+    return args
+
+
+def ctmc_chunk_cuda(state: Dict[str, torch.Tensor], us: torch.Tensor,
+                    pv: torch.Tensor, R: int, P: int,
+                    hist_channels: Sequence[str], *,
+                    inplace: bool = False) -> Dict[str, torch.Tensor]:
+    """Launch the kernel: ``us.shape[0]`` steps for every row at once.
+
+    Returns the new state dict.  By default the lanes the kernel writes
+    are cloned first, so ``state`` is left as it was (as ``_step_u``
+    leaves it); ``inplace=True`` writes into ``state``'s own tensors, for
+    a caller that owns them.  Takes CUDA tensors only and raises on
+    anything :func:`chunk_layout` refuses; nothing synchronises.
+    """
+    global LAUNCHES, STEPS
+    new = dict(state) if inplace else {
+        k: v.clone() if k in WRITTEN else v for k, v in state.items()}
+    layout = chunk_layout(new, us, pv, R, P, hist_channels)
+    device = new["phase"].device
+    if device.type != "cuda":
+        _fail(f"the state is on {device}, not a CUDA device")
+    if layout["n_rows"] == 0 or layout["n_steps"] == 0:
+        return new
+    args = _args(layout)
+    lib = LIBRARY.load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.ctmc_chunk_launch(ctypes.byref(args), stream)
+    check_launch(err, f"ctmc_chunk (B={layout['n_rows']}, "
+                      f"steps={layout['n_steps']})")
+    LAUNCHES += 1
+    STEPS += layout["n_steps"]
+    return new

@@ -1,0 +1,404 @@
+"""The CTMC chunk kernel of the port and its plain version.
+
+On the CPU: the kernel's layout and refusals (``kernels/ctmc_chunk.py``),
+the plain chunk (``vectorized._steps_ref``) against the loop it was
+factored out of (bit for bit) and against the JAX reference's ``_step_u``
+over 64 steps on the same numpy uniforms (integer lanes under the
+pick-flip budget of ``test_torch_step.py``).  On the card (marked
+``gpu``): the kernel against ``_steps_ref`` on the same state and draw,
+every lane, over configurations that reach each branch of the step.
+Integer lanes and histogram counts must match exactly and float lanes
+within 1e-6 relative; both run the same float32 operations in the same
+order, so they are expected to agree bit for bit.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import vectorized as tv
+from repro_torch.core.histograms import HIST_CHANNELS, HistogramSpec
+from repro_torch.core.params import MINUTES_PER_DAY as DAY
+from repro_torch.core.params import Params
+from repro_torch.kernels import _build, ctmc_chunk, des_step
+
+torch.set_num_threads(1)
+
+BASE = Params(job_size=64, working_pool_size=72, spare_pool_size=16,
+              warm_standbys=4, job_length=0.5 * DAY,
+              random_failure_rate=2.0 / DAY)
+SMALL = Params(job_size=16, working_pool_size=20, spare_pool_size=4,
+               warm_standbys=2, job_length=0.5 * DAY,
+               random_failure_rate=2.0 / DAY)
+#: name -> (points, replicas a point, ring size or None for the default,
+#: per-row pv, pow2-bucketed, chunks of 64 steps)
+CASES = {
+    # the configurations of test_torch_ctmc.py
+    "default": ([BASE], 64, None, False, False, 3),
+    "starved": ([Params(job_size=32, working_pool_size=33, spare_pool_size=2,
+                        warm_standbys=1, job_length=0.5 * DAY,
+                        random_failure_rate=4.0 / DAY,
+                        auto_repair_time=240.0, manual_repair_time=2880.0,
+                        diagnosis_probability=1.0)], 64, None, False, False,
+                3),
+    "diagnosis": ([BASE.replace(diagnosis_probability=0.6,
+                                diagnosis_uncertainty=0.3)], 48, None, True,
+                  False, 3),
+    "small": ([SMALL], 32, None, False, False, 4),
+    # checkpoint interval 0 and > 0, cost 0 and > 0
+    "ckpt_paid": ([BASE.replace(checkpoint_interval=60.0,
+                                checkpoint_cost=2.0)], 64, None, False, False,
+                  3),
+    "ckpt_free": ([BASE.replace(checkpoint_interval=45.0,
+                                checkpoint_cost=0.0)], 64, None, True, False,
+                  3),
+    "ckpt_off_cost": ([BASE.replace(checkpoint_interval=0.0,
+                                    checkpoint_cost=3.0)], 64, None, False,
+                      False, 3),
+    # no ring buffer, and a ring that wraps many times
+    "ring_none": ([BASE], 64, 0, False, False, 3),
+    "ring_wraps": ([BASE], 64, 2, True, False, 3),
+    # histograms off and each channel subset
+    "hist_none": ([BASE.replace(histogram=None)], 64, None, False, False, 3),
+    **{f"hist_{ch}": ([BASE.replace(histogram=HistogramSpec(channels=(ch,)))],
+                      64, None, False, False, 3) for ch in HIST_CHANNELS},
+    "hist_all": ([BASE.replace(histogram=HistogramSpec(
+        channels=HIST_CHANNELS, n_bins=40))], 64, None, False, False, 3),
+    # P > 1 with R not a power of two, unbucketed and bucketed
+    "sweep_p3_r20": ([BASE.replace(warm_standbys=w) for w in (0, 2, 4)], 20,
+                     None, True, False, 3),
+    "sweep_p3_r20_bucketed": ([BASE.replace(warm_standbys=w)
+                               for w in (0, 2, 4)], 20, None, True, True, 3),
+    "sweep_structural": ([SMALL, SMALL.replace(job_size=12),
+                          BASE.replace(checkpoint_interval=30.0,
+                                       checkpoint_cost=1.0)], 24, 4, True,
+                         True, 4),
+    # rows that finish mid-chunk and chunks that start with finished rows
+    "finish_mid_chunk": ([SMALL.replace(job_length=0.1 * DAY)], 96, None,
+                         False, False, 3),
+}
+
+
+def _setup(name, device):
+    """(state, pv, R, P, channels) of a case, on ``device``."""
+    pts, R, mr, per_row, bucket, _ = CASES[name]
+    P = len(pts)
+    mr = max(p.max_run_records for p in pts) if mr is None else mr
+    state = tv._initial_state_batch(pts, R, mr, device)
+    rows = np.stack([tv._params_vector(p) for p in pts])
+    if bucket:
+        P_run, R_run = tv._next_pow2(P), tv._next_pow2(R)
+        state = tv._bucket_pad_state(state, P, R, P_run, R_run)
+        rows = np.concatenate([rows, np.repeat(rows[-1:], P_run - P, 0)])
+        P, R = P_run, R_run
+    if per_row:
+        pv = torch.as_tensor(np.repeat(rows, R, axis=0), device=device)
+    else:
+        assert len(pts) == 1
+        pv = torch.as_tensor(rows[0], device=device)
+    return state, pv, R, P, tv._hist_channels(pts)
+
+
+def _draw(R, i, n_steps=64, device="cpu", seed=17):
+    """Chunk i's uniforms as ``_chunk_loop`` draws them for ``seed``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(tv._chunk_seed(seed, i))
+    return torch.rand((n_steps, tv._next_pow2(R), 8), generator=gen,
+                      device=device).clamp_min_(1e-12)
+
+
+# ---------------------------------------------------------------------------
+# layout and refusals (CPU)
+# ---------------------------------------------------------------------------
+
+def test_kernel_lanes_are_the_exponential_state():
+    state = tv._initial_state_batch([BASE], 4, 3, "cpu")
+    known = set(ctmc_chunk.WRITTEN + ctmc_chunk.CARRIED + ("hist_edges",))
+    assert set(state) == known
+    assert set(tv._METRICS) == set(ctmc_chunk.METRICS + ctmc_chunk.CARRIED)
+    assert ctmc_chunk.CHANNELS == HIST_CHANNELS
+
+
+@pytest.mark.parametrize("name", ["default", "hist_none", "ring_none",
+                                  "hist_goodput", "hist_all", "sweep_p3_r20",
+                                  "sweep_p3_r20_bucketed",
+                                  "sweep_structural"])
+def test_layout(name):
+    state, pv, R, P, channels = _setup(name, "cpu")
+    us = _draw(R, 0, n_steps=5)
+    lay = ctmc_chunk.chunk_layout(state, us, pv, R, P, channels)
+    B = state["phase"].shape[0]
+    assert lay["n_rows"] == B == P * R
+    assert (lay["R"], lay["P"], lay["n_steps"]) == (R, P, 5)
+    assert lay["R_draw"] == tv._next_pow2(R) >= R
+    assert lay["max_runs"] == state["run_durations"].shape[1]
+    assert lay["pv_stride"] == (0 if pv.ndim == 1 else pv.shape[1])
+    assert lay["pointers"]["us"] == us.data_ptr()
+    for k, v in state.items():
+        assert lay["pointers"][k] == v.data_ptr(), k
+    if "hist" in state:
+        assert lay["n_sel"] == len(channels) == state["hist"].shape[1]
+        assert lay["n_edges"] == state["hist_edges"].shape[0]
+        assert lay["chan"][:len(channels)] == tuple(
+            HIST_CHANNELS.index(c) for c in channels)
+    else:
+        assert lay["n_sel"] == lay["n_edges"] == 0
+    args = ctmc_chunk._args(lay)
+    assert args.n_rows == B and args.R == R and args.pv_stride \
+        == lay["pv_stride"]
+    assert list(args.comp) == [lay["pointers"][k]
+                               for k in ctmc_chunk.COMPARTMENTS]
+    assert (args.run_durations or 0) == (lay["pointers"]["run_durations"]
+                                         if lay["max_runs"] else 0)
+
+
+def _valid():
+    state, pv, R, P, channels = _setup("default", "cpu")
+    return state, _draw(R, 0, n_steps=2), pv, R, P, channels
+
+
+def test_wrapper_refuses_cpu_tensors():
+    state, us, pv, R, P, channels = _valid()
+    ctmc_chunk.chunk_layout(state, us, pv, R, P, channels)   # valid layout
+    before = (ctmc_chunk.LAUNCHES, ctmc_chunk.STEPS)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        ctmc_chunk.ctmc_chunk_cuda(state, us, pv, R, P, channels)
+    assert (ctmc_chunk.LAUNCHES, ctmc_chunk.STEPS) == before
+
+
+@pytest.mark.parametrize("key", ["shock_lane", "slot_t", "n_repair_queue"])
+def test_wrapper_refuses_unknown_state_key(key):
+    state, us, pv, R, P, channels = _valid()
+    state[key] = torch.zeros_like(state["t"])
+    with pytest.raises(ValueError, match="does not carry"):
+        ctmc_chunk.ctmc_chunk_cuda(state, us, pv, R, P, channels)
+    with pytest.raises(ValueError, match=key):
+        ctmc_chunk.chunk_layout(state, us, pv, R, P, channels)
+
+
+@pytest.mark.parametrize("key,dtype", [("age", torch.float64),
+                                       ("t", torch.float64),
+                                       ("phase", torch.int64),
+                                       ("n_runs", torch.float32),
+                                       ("run", torch.float64),
+                                       ("hist", torch.float64)])
+def test_wrapper_refuses_wrong_lane_dtype(key, dtype):
+    state, us, pv, R, P, channels = _valid()
+    state[key] = state[key].to(dtype)
+    with pytest.raises(ValueError, match=f"{key} has dtype"):
+        ctmc_chunk.ctmc_chunk_cuda(state, us, pv, R, P, channels)
+
+
+@pytest.mark.parametrize("what", ["missing", "shape", "uniforms", "pv",
+                                  "channels", "batch"])
+def test_layout_refuses_bad_shapes(what):
+    state, us, pv, R, P, channels = _valid()
+    if what == "missing":
+        del state["n_runs"]
+    elif what == "shape":
+        state["timer"] = state["timer"][:-1]
+    elif what == "uniforms":
+        us = us[:, :R - 1]
+    elif what == "pv":
+        pv = pv[:12]
+    elif what == "channels":
+        channels = channels + ("goodput",)
+    elif what == "batch":
+        P = 2
+    with pytest.raises(ValueError, match="ctmc_chunk"):
+        ctmc_chunk.chunk_layout(state, us, pv, R, P, channels)
+
+
+def test_library_hash_covers_headers_and_flags(tmp_path, monkeypatch):
+    path = ctmc_chunk.LIBRARY.library_path()
+    assert path.name.startswith("ctmc_chunk_") and path.suffix == ".so"
+    assert "-fmad=false" in ctmc_chunk.LIBRARY.flags
+    assert "-fmad=false" not in des_step.LIBRARY.flags
+    other = _build.CudaLibrary("ctmc_chunk", ctmc_chunk._bind)
+    assert other.library_path() != path                 # flags differ
+    # an edited header names another library
+    (tmp_path / "ctmc_chunk.cu").write_bytes(ctmc_chunk.LIBRARY.source
+                                             .read_bytes())
+    (tmp_path / "event_race.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    lib = _build.CudaLibrary("ctmc_chunk", ctmc_chunk._bind)
+    first = lib.library_path()
+    (tmp_path / "event_race.cuh").write_text("// two\n")
+    assert lib.library_path() != first
+
+
+# ---------------------------------------------------------------------------
+# the plain chunk (CPU)
+# ---------------------------------------------------------------------------
+
+def _assert_same(a, b):
+    assert sorted(a) == sorted(b)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.parametrize("name", ["default", "ckpt_paid", "hist_all",
+                                  "sweep_p3_r20", "sweep_p3_r20_bucketed"])
+def test_steps_ref_is_the_prefactoring_loop(name):
+    state, pv, R, P, channels = _setup(name, "cpu")
+    us = _draw(R, 3, n_steps=20)
+    got = tv._steps_ref(state, us, pv, R, P, None, channels)
+    # the loop as run_chunk ran it before the plain chunk was factored out
+    want = state
+    tiled = us[:, :R] if us.shape[1] != R else us
+    if P > 1:
+        tiled = tiled.repeat(1, P, 1)
+    for k in range(tiled.shape[0]):
+        want = tv._step_u(want, tiled[k], pv, None, channels)
+    _assert_same(got, want)
+
+
+def test_chunk_loop_on_cpu_takes_the_plain_chunk():
+    state, pv, R, P, channels = _setup("small", "cpu")
+    before = (ctmc_chunk.LAUNCHES, des_step.LAUNCHES)
+    out = tv._chunk_loop(pv, 0, P, R, 64, 2, 5, None, False, channels, state)
+    assert (ctmc_chunk.LAUNCHES, des_step.LAUNCHES) == before
+    want = state
+    for i, n in ((0, 64), (1, 64), (2, 5)):
+        want = tv._steps_ref(want, _draw(R, i, n_steps=n, seed=0), pv, R, P,
+                             "ref", channels)
+    for k in want:
+        assert torch.equal(out[k], want[k]), k
+    with pytest.raises(ValueError, match="ctmc_chunk impl='cuda'"):
+        tv._chunk_loop(pv, 0, P, R, 64, 1, 0, "cuda", True, channels, state)
+
+
+@pytest.fixture(scope="module")
+def jax_vectorized():
+    pytest.importorskip("jax")
+    from repro.core import vectorized as jv
+    return jv
+
+
+@pytest.mark.parametrize("name", ["default", "ckpt_paid", "hist_all"])
+def test_steps_ref_64_steps_against_jax(name, jax_vectorized):
+    """64 steps of the plain chunk against 64 calls of the reference's
+    ``_step_u`` on the same numpy uniforms, each package on its own state:
+    at least 99% of rows end with identical integer lanes (the pick-flip
+    budget of ``test_torch_step.py::test_trajectory_integer_lanes_agree``)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.core.params import Params as JParams
+    jv = jax_vectorized
+    pts, R, mr, _, _, _ = CASES[name]
+    jp = JParams.from_dict(pts[0].to_dict())
+    mr = jp.max_run_records if mr is None else mr
+    js = jv._initial_state(jp, R, mr)
+    ts = tv.state_from_numpy({k: np.asarray(v) for k, v in js.items()},
+                             "cpu")
+    channels = jv._hist_channels([jp])
+    step = jax.jit(lambda s, u, pv: jv._step_u(
+        s, u, pv, "ref", "exponential", "exponential", channels))
+    rng = np.random.default_rng(29)
+    us = rng.uniform(1e-12, 1.0, (64, R, 8)).astype(np.float32)
+    jpv = jv._params_vector(jp)
+    for k in range(64):
+        js = step(js, jnp.asarray(us[k]), jpv)
+    ts = tv._steps_ref(ts, torch.as_tensor(us),
+                       torch.as_tensor(tv._params_vector(pts[0])), R, 1,
+                       None, channels)
+    same = np.ones(R, bool)
+    for k in ("phase", "n_runs", "n_failures", "n_random_failures",
+              "n_systematic_failures", "n_preemptions", "n_auto_repairs",
+              "n_manual_repairs", "n_failed_repairs", "n_host_selections",
+              "n_standby_swaps", "n_undiagnosed", "n_misdiagnosed", "run",
+              "sb", "fw", "fs", "auto", "man"):
+        a, b = np.asarray(js[k]), ts[k].numpy()
+        same &= (a == b).reshape(R, -1).all(-1)
+    assert same.mean() >= 0.99, same.mean()
+    assert float(ts["n_failures"].sum()) > 0
+
+
+# ---------------------------------------------------------------------------
+# the kernel against the plain chunk (card)
+# ---------------------------------------------------------------------------
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+def _compare_states(got, want, label):
+    """Integer lanes and histogram counts exact, float lanes within 1e-6
+    relative; returns the count of bit-different float elements."""
+    assert sorted(got) == sorted(want), label
+    bits = 0
+    for k in want:
+        a, b = got[k].cpu(), want[k].cpu()
+        assert a.dtype == b.dtype and a.shape == b.shape, (label, k)
+        if k == "hist" or not a.dtype.is_floating_point:
+            assert torch.equal(a, b), (label, k)
+            continue
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6, atol=0,
+                                   err_msg=f"{label} {k}")
+        bits += int((a.view(torch.int32) != b.view(torch.int32)).sum())
+    return bits
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(CASES))
+def test_chunk_kernel_matches_steps_ref(name):
+    _needs_card()
+    state, pv, R, P, channels = _setup(name, "cuda")
+    snapshot = {k: v.clone() for k, v in state.items()}
+    n_chunks = CASES[name][5]
+    got = want = state
+    for i in range(n_chunks):
+        us = _draw(R, i, device="cuda")
+        launches, steps = ctmc_chunk.LAUNCHES, ctmc_chunk.STEPS
+        race = des_step.LAUNCHES
+        got = ctmc_chunk.ctmc_chunk_cuda(got, us, pv, R, P, channels)
+        want = tv._steps_ref(want, us, pv, R, P, "ref", channels)
+        torch.cuda.synchronize()
+        assert ctmc_chunk.LAUNCHES == launches + 1
+        assert ctmc_chunk.STEPS == steps + 64
+        assert des_step.LAUNCHES == race
+        assert _compare_states(got, want, f"{name} chunk {i}") == 0
+    for k, v in snapshot.items():                 # the caller's dict
+        assert torch.equal(state[k], v), k
+    assert float(want["n_failures"].sum()) > 0
+    if name == "finish_mid_chunk":
+        done = want["phase"] == tv.DONE
+        assert 0.2 < float(done.float().mean()) <= 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_steps", [1, 7])
+def test_chunk_kernel_short_chunks_and_inplace(n_steps):
+    _needs_card()
+    state, pv, R, P, channels = _setup("sweep_structural", "cuda")
+    us = _draw(R, 0, n_steps=n_steps, device="cuda")
+    want = tv._steps_ref(state, us, pv, R, P, "ref", channels)
+    own = {k: v.clone() for k, v in state.items()}
+    got = ctmc_chunk.ctmc_chunk_cuda(own, us, pv, R, P, channels,
+                                     inplace=True)
+    torch.cuda.synchronize()
+    for k in ctmc_chunk.WRITTEN:
+        if k in own:
+            assert got[k].data_ptr() == own[k].data_ptr(), k
+    assert _compare_states(got, want, f"{n_steps} steps") == 0
+
+
+@pytest.mark.gpu
+def test_sweep_through_the_kernel_matches_the_plain_loop():
+    _needs_card()
+    grid = [SMALL.replace(warm_standbys=w) for w in (0, 1, 2)]
+    kw = dict(n_replicas=40, seed=6, device="cuda")
+    launches, steps = ctmc_chunk.LAUNCHES, ctmc_chunk.STEPS
+    race = des_step.LAUNCHES
+    fused = tv.simulate_ctmc_sweep(grid, **kw)
+    assert ctmc_chunk.LAUNCHES > launches
+    assert ctmc_chunk.STEPS == steps + 64 * (ctmc_chunk.LAUNCHES - launches)
+    plain = tv.simulate_ctmc_sweep(grid, impl="ref", **kw)
+    assert des_step.LAUNCHES == race
+    for a, b in zip(fused, plain):
+        assert a["completed"].all()
+        assert sorted(a) == sorted(b)
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
