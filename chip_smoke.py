@@ -30,8 +30,13 @@ Phases, each of which fails the run loudly:
    ``scaled_dot_product_attention``'s (a yardstick the port never calls);
 4. the scan kernel against ``selective_scan_ref``: falcon-mamba's prefill
    shape (4 x 512 x 8192, N 16, bf16, B and C column slices of one
-   projection), the ``SCAN_CASES`` and ragged shapes, and a continuation
-   from ``h0`` (within 1e-4 float32, 3e-2 bf16); then its times;
+   projection), the ``SCAN_CASES`` and ragged shapes, a continuation
+   from ``h0``, and the edges of the kernel's launch plan (N 8, d_inner
+   not a multiple of the block or of 8, S = 1, S not a multiple of the
+   span, B and C slices at falcon-mamba's and at an odd offset, dt * A
+   where expf underflows) (within 1e-4 float32, 3e-2 bf16); then its
+   launch plan, registers, spills and shared memory from nvcc's report,
+   and its time beside its bound and the share of the bound reached;
 5. the CTMC main path: ``OneWaySweep`` over ``warm_standbys`` in {4, 8,
    16, 32} at the paper's full width (job_size 4096, working pool 4160,
    spare pool 200), 1,024 replicas a point, ``job_length`` cut from 64 to
@@ -55,9 +60,10 @@ Phases, each of which fails the run loudly:
    full falcon-mamba-7b in bf16 with random weights from a seed: init,
    prefill and decode times, the kernels' launch counts (one attention
    launch per attention layer per prefill and per decode step, one scan
-   launch per Mamba layer per prefill), finite logits, and a traced
+   launch per Mamba layer per prefill), finite logits, a traced
    prefill + 3 decode steps (device busy share, the top device kernels
-   and the ranks of the port's own);
+   and the ranks of the port's own), and a traced prefill alone (the
+   port's kernels' share of its device time);
 9. the same models in float32 through ``impl="cuda"`` and ``impl="ref"``
    on the same weights: each layer on the same input (the share of its
    output within 1e-3 of its scale), then free-running (the largest
@@ -112,6 +118,13 @@ ATTN_CASES = [(1, 128, 128, 4, 4, 64, True), (2, 256, 256, 4, 2, 64, True),
 #: (B, S, di, N)
 SCAN_CASES = [(1, 64, 64, 8), (2, 128, 128, 16), (2, 64, 256, 16),
               (1, 100, 96, 16)]
+#: the edges of the scan kernel's launch plan, as tests/test_torch_scan.py's
+#: CUDA_EDGE_CASES: (B, S, di, N, B/C column offset in one projection,
+#: dt * A where expf underflows)
+SCAN_EDGE_CASES = [(2, 70, 200, 8, 0, False), (2, 45, 100, 16, 0, False),
+                   (1, 33, 97, 16, 0, False), (3, 1, 128, 16, 0, False),
+                   (2, 77, 192, 16, 0, False), (2, 64, 256, 16, 256, False),
+                   (2, 40, 128, 8, 3, False), (2, 40, 64, 16, 0, True)]
 
 SERVE_ARCHS = ("qwen2.5-3b", "falcon-mamba-7b")
 SERVE_BATCH, PROMPT_LEN, GEN_TOKENS = 4, 512, 32
@@ -458,10 +471,11 @@ def attention_phase(fa, ref):
     return dict(t, max_abs_err=main_err, decode_max_abs_err=dec_err)
 
 
-def scan_inputs(B, S, di, N, dtype, seed, dt_rank=0):
+def scan_inputs(B, S, di, N, dtype, seed, dt_rank=0, underflow=False):
     """Scan inputs as tests/test_kernels.py draws them; with ``dt_rank``,
     B and C are column slices of one (B, S, dt_rank + 2N) projection, as
-    the Mamba layer hands them over."""
+    the Mamba layer hands them over; ``underflow`` scales every other
+    channel's A by 400, so that dt * A reaches -100 and below."""
     import torch
     import torch.nn.functional as F
     gen = seeded(seed)
@@ -471,6 +485,8 @@ def scan_inputs(B, S, di, N, dtype, seed, dt_rank=0):
     x = (randn(B, S, di) * 0.5).to(dtype)
     dt = (F.softplus(randn(B, S, di)) * 0.1).to(dtype)
     A = -torch.exp(randn(di, N) * 0.5)
+    if underflow:
+        A[::2] *= 400
     if dt_rank:
         dbc = randn(B, S, dt_rank + 2 * N).to(dtype)
         Bm, Cm = dbc[..., dt_rank:dt_rank + N], dbc[..., dt_rank + N:]
@@ -495,9 +511,41 @@ def scan_bound_ms(x, Bm, N):
         else "operations"
 
 
+def ptxas_report(log: str, kernel: str):
+    """(entry function, registers, spill bytes, static shared bytes) for
+    each entry in nvcc's ``-Xptxas -v`` log whose name holds ``kernel``;
+    the function as ``kernel<type, n, ...>`` where its mangled template
+    arguments are float, bf16 and integers."""
+    import re
+    rows, name, spill = [], None, 0
+    types = {"f": "float", "13__nv_bfloat16": "bf16"}
+    args = re.compile(kernel + r"I(f|13__nv_bfloat16)((?:Li\d+E)*)")
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1) if kernel in m.group(1) else None
+            spill = 0
+            t = name and args.search(name)
+            if t:
+                name = f"{kernel}<" + ", ".join(
+                    [types[t.group(1)]]
+                    + re.findall(r"Li(\d+)E", t.group(2))) + ">"
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), spill,
+                         int(m.group(2) or 0)))
+            name = None
+    return rows
+
+
 def scan_phase(ms, ref):
-    """Phase 7: the scan kernel against its plain version, then its times
-    at falcon-mamba's prefill shape."""
+    """Phase 4: the scan kernel against its plain version, then its plan,
+    nvcc's report and its times at falcon-mamba's prefill shape."""
     import torch
     tol = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
     bf16 = torch.bfloat16
@@ -539,10 +587,30 @@ def scan_phase(ms, ref):
              f"{err_y:.3e}, h err {err_h:.3e})")
     print(f"  continuation (2, 256, 1024, 16) f32 in two halves through h0: "
           f"max abs err {max(err_y, err_h):.3e}")
+    for i, (B, S, di, N, offset, underflow) in enumerate(SCAN_EDGE_CASES):
+        for dtype in (torch.float32, bf16):
+            x, dt, A, Bm, Cm = scan_inputs(B, S, di, N, dtype, seed=60 + i,
+                                           dt_rank=offset,
+                                           underflow=underflow)
+            h0 = torch.randn((B, di, N), generator=seeded(70 + i),
+                             device="cuda") * 0.1
+            err = check(f"{(B, S, di, N)} {dtype}", x, dt, A, Bm, Cm, h0)
+            print(f"  {(B, S, di, N)} {str(dtype)[6:]}, B/C offset {offset}"
+                  f"{', dt * A < -100' if underflow else ''}: copy widths "
+                  f"{ms.launch_plan(x, dt, Bm, Cm).widths}, max abs err "
+                  f"{err:.3e}")
+
+    plan = ms.launch_plan(*main[:2], *main[3:5])
+    print(f"  prefill launch plan: {plan}")
+    for name, regs, spill, smem in ptxas_report(ms.LIBRARY.build_log,
+                                                "selective_scan_kernel"):
+        print(f"  nvcc: {name}: {regs} registers, {spill} bytes spilled, "
+              f"{smem} bytes static shared memory (the rest is the "
+              f"plan's dynamic)")
 
     t = {}
     launches = ms.LAUNCHES
-    t["ms"] = device_ms(lambda: ms.selective_scan_cuda(*main), 10)
+    t["ms"] = device_ms(lambda: ms.selective_scan_cuda(*main), 20)
     t["call_ms"] = event_ms(lambda: ms.selective_scan_cuda(*main), 20,
                             warmup=3)
     t["plain_ms"] = device_ms(lambda: ref.selective_scan_ref(*main), 1)
@@ -554,6 +622,10 @@ def scan_phase(ms, ref):
           f"{t['call_ms']:.6f} ms); plain {t['plain_ms']} ms (host-clocked "
           f"{t['plain_call_ms']:.6f} ms); bound {t['bound_ms']:.6f} ms "
           f"({t['bound_by']}); library: none")
+    kernel_ms = t["call_ms"] if t["ms"] is None else t["ms"]
+    print(f"  prefill shape: kernel {kernel_ms * 1e3:.3f} us against its "
+          f"bound {t['bound_ms'] * 1e3:.3f} us = "
+          f"{t['bound_ms'] / kernel_ms * 100:.1f}% of the bound")
     return dict(t, max_abs_err=main_err, library_ms=None)
 
 
@@ -767,6 +839,21 @@ def serving_phase(arch, fa, ms):
         if rank <= 8 or "attn_" in e.key or "selective_scan" in e.key:
             print(f"    device #{rank} {e.key[:70]}: {e.count} calls, "
                   f"{getattr(e, 'self_device_time_total', 0.0) / 1e3:.3f} ms")
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        generate(bundle, model, prompts, None, fa, ms, n_new=1)
+    fa.LAUNCHES, ms.LAUNCHES = launches
+    pre_s = device_seconds(prof)
+    own = {"attention": "attn_", "scan": "selective_scan"}
+    own_s = {k: sum(getattr(e, "self_device_time_total", 0.0)
+                    for e in prof.key_averages()
+                    if str(e.device_type).endswith("CUDA") and tag in e.key)
+             / 1e6 for k, tag in own.items()}
+    rec["traced_prefill_device_s"] = pre_s
+    rec.update({f"traced_prefill_{k}_s": v for k, v in own_s.items()})
+    print(f"  traced prefill alone: device {pre_s * 1e3:.3f} ms; "
+          + "; ".join(f"{k} kernels {v * 1e3:.3f} ms = "
+                      f"{v / pre_s * 100:.2f}%" for k, v in own_s.items()))
     del model, sd
     release()
     return rec

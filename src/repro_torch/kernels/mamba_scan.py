@@ -7,12 +7,16 @@ Counterpart of ``src/repro/kernels/mamba_scan.py`` (the Pallas TPU kernel
 current stream.
 
 ``LAUNCHES`` counts kernel launches, so a run can show that its main
-path went through the kernel.
+path went through the kernel.  :func:`launch_plan` decides what the
+kernel is told besides the tensors: the lanes a channel's N states are
+split over, and for each of x, dt, B, C and y the widest copy that every
+row of it is aligned to.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
@@ -25,6 +29,13 @@ LAUNCHES = 0
 #: state sizes N the kernel is compiled for
 STATE_SIZES = (8, 16)
 
+#: lanes that split one channel's N states (``kLanes`` in the kernel)
+LANES = 2
+
+#: channels of d_inner a block takes, and time steps a ring stage holds
+#: (``kChannels`` and ``kSpan`` in the kernel)
+BLOCK_CHANNELS, SPAN = 64, 32
+
 _DTYPES = (torch.float32, torch.bfloat16)
 _INT32_MAX = 2 ** 31 - 1
 
@@ -34,7 +45,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.selective_scan_launch
     fn.argtypes = [ptr, i64, i64, ptr, i64, i64, ptr, ptr, i64, i64,
                    ptr, i64, i64, ptr, ptr, ptr, i32, i32, i32, i32, i32,
-                   ptr]
+                   i32, i32, i32, i32, i32, i32, ptr]
     fn.restype = ctypes.c_int
 
 
@@ -80,6 +91,67 @@ def check_args(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          "the kernel's grid")
 
 
+@dataclass(frozen=True)
+class LaunchPlan:
+    """What :func:`selective_scan_cuda` tells the kernel besides tensors."""
+
+    lanes: int                  #: lanes that split a channel's N states
+    #: threads a block: BLOCK_CHANNELS * lanes consumers, one producer warp
+    threads: int
+    grid: Tuple[int, int]       #: (channel blocks, batch)
+    #: bytes a copy for x, dt, B, C (global -> shared) and y (shared ->
+    #: global): 16, 8, 4 or one element
+    widths: Tuple[int, int, int, int, int]
+    smem_bytes: int             #: dynamic shared memory a block
+
+
+def _copy_width(t: torch.Tensor, row_len: int) -> int:
+    """Widest copy (16, 8 or 4 bytes, else one element) that every row of
+    ``t``'s last dim starts on and that divides ``row_len`` elements of
+    it, so that a copy is wholly inside or wholly outside a row.  A stride
+    of a dim of size 1 is never used and does not count."""
+    es = t.element_size()
+    offsets = [t.data_ptr(), row_len * es] + [
+        t.stride(d) * es for d in range(t.ndim - 1) if t.shape[d] > 1]
+    for w in (16, 8, 4):
+        if w >= es and all(o % w == 0 for o in offsets):
+            return w
+    return es
+
+
+def launch_plan(x: torch.Tensor, dt: torch.Tensor, Bmat: torch.Tensor,
+                Cmat: torch.Tensor) -> LaunchPlan:
+    """The kernel's launch for these (checked) inputs on any device.
+
+    y is allocated contiguous by the wrapper (PyTorch aligns a new
+    tensor to at least 16 bytes), so its width follows from d_inner
+    alone.  Shared memory, two spans of each: x, dt (SPAN x
+    BLOCK_CHANNELS) and B, C (SPAN x N) in the inputs' type, y in it,
+    and in bf16 B and C converted to fp32.
+    """
+    Bsz, _, di = x.shape
+    N = Bmat.shape[-1]
+    es = x.element_size()
+    y_width = next((w for w in (16, 8, 4) if w >= es and di * es % w == 0),
+                   es)
+    stage = 2 * SPAN * BLOCK_CHANNELS * es + 2 * SPAN * N * es
+    y_span = SPAN * BLOCK_CHANNELS * es
+    converted = SPAN * 2 * N * 4 if es == 2 else 0
+    return LaunchPlan(
+        lanes=LANES, threads=BLOCK_CHANNELS * LANES + 32,
+        grid=(-(-di // BLOCK_CHANNELS), Bsz),
+        widths=(_copy_width(x, di), _copy_width(dt, di),
+                _copy_width(Bmat, N), _copy_width(Cmat, N), y_width),
+        smem_bytes=2 * (stage + y_span + converted))
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned (the kernel moves A, h0 and
+    h_final as float4 rows)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def selective_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                         Bmat: torch.Tensor, Cmat: torch.Tensor,
                         h0: Optional[torch.Tensor] = None,
@@ -100,7 +172,7 @@ def selective_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     N = A.shape[1]
     if h0 is None:
         h0 = torch.zeros((Bsz, di, N), dtype=torch.float32, device=x.device)
-    A, h0 = A.contiguous(), h0.contiguous()
+    A, h0 = _aligned(A), _aligned(h0)
     for name, t in (("x", x), ("dt", dt), ("A", A), ("B", Bmat),
                     ("C", Cmat), ("h0", h0)):
         if t.device.type != "cuda" or t.device != x.device:
@@ -109,6 +181,7 @@ def selective_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         if t.stride(-1) != 1 and t.shape[-1] > 1:
             raise ValueError(f"selective_scan_cuda: {name} last dim must be "
                              f"contiguous (strides {t.stride()})")
+    plan = launch_plan(x, dt, Bmat, Cmat)
     y = torch.empty((Bsz, S, di), dtype=x.dtype, device=x.device)
     h_final = torch.empty((Bsz, di, N), dtype=torch.float32, device=x.device)
     lib = LIBRARY.load()
@@ -120,7 +193,8 @@ def selective_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             Bmat.data_ptr(), Bmat.stride(0), Bmat.stride(1),
             Cmat.data_ptr(), Cmat.stride(0), Cmat.stride(1),
             h0.data_ptr(), y.data_ptr(), h_final.data_ptr(), Bsz, S, di, N,
-            int(x.dtype == torch.bfloat16), stream)
+            plan.lanes, *plan.widths, int(x.dtype == torch.bfloat16),
+            stream)
     check_launch(err, f"selective_scan (x {tuple(x.shape)}, N={N}, "
                       f"{x.dtype})")
     LAUNCHES += 1
