@@ -7,7 +7,9 @@ Drives the port's two main paths on the card -- a Table-I
 capacity-planning sweep through ``repro_torch.core.OneWaySweep``, and LLM
 serving (prefill + greedy decode) of qwen2.5-3b and falcon-mamba-7b at
 their full published widths through ``repro_torch.models.build_model`` --
-and holds each hand-written kernel against its plain PyTorch version.
+and holds each hand-written kernel against its plain PyTorch version;
+then the event engine with the reference's routing, the optimizer and an
+experiment file, whose CTMC points run through the chunk kernel.
 Phases, each of which fails the run loudly:
 
 1. the card's name and power limit; build the four kernel libraries
@@ -68,10 +70,23 @@ Phases, each of which fails the run loudly:
    on the same weights: each layer on the same input (the share of its
    output within 1e-3 of its scale), then free-running (the largest
    relative difference of the prefill logits and the share of identical
-   greedy tokens, held for models without attention).
+   greedy tokens, held for models without attention);
+10. the event engine and the reference's routing: a retirement study
+    under ``engine="auto"`` runs on the event engine on the host with no
+    chunk launch, a Weibull study is refused naming ROADMAP item 7, and
+    ``simulate`` twice with one seed gives identical ``RunResult``s;
+11. run parity on tests/test_vectorized.py's three configs: the CTMC
+    engine on the card (768 replicas, through the chunk kernel) against
+    the event engine (48), every compared metric within |z| < 3.5;
+12. ``optimize_checkpoint_interval`` on tests/test_checkpoint_opt.py's
+    config, twice: the same search both times (objective, interval,
+    launches), within one grid notch of Young/Daly; then a third call
+    under torch.profiler (device busy share, chunk kernel time);
+13. a json experiment file (tests/test_sweeps.py's spec) through
+    ``load_experiment`` and ``.run()`` on the card.
 
-Prints a ``{"serving": ...}`` line, a ``{"kernels": [...]}`` line and, as
-its last line, ``{"ok": true, "device": {...}}``.  Exits non-zero, with
+Prints a ``{"serving": ..., "host_paths": ...}`` line, a ``{"kernels":
+[...]}`` line and, as its last line, ``{"ok": true, "device": {...}}``.  Exits non-zero, with
 no result line, when there is no CUDA device or the repository's sources
 are missing.
 """
@@ -143,6 +158,38 @@ AB_LOGIT_TOL, AB_TOKEN_SHARE = 1e-3, 0.9
 SWEEP_VALUES = [4, 8, 16, 32]          # Table I's warm_standbys range
 N_REPLICAS = 1024
 JOB_DAYS = 16                          # cut from the default 64 days
+DAY = 24 * 60.0                        # minutes
+#: phase 11: tests/test_vectorized.py's configs (Params keywords, the day
+#: counts of job_length and of 1 / random_failure_rate) and the metrics
+#: compared, each through the CTMC engine on the card (PARITY_CTMC
+#: replicas) and the event engine on the host (PARITY_EVENT)
+PARITY_CONFIGS = {
+    "default": (dict(job_size=64, working_pool_size=72, spare_pool_size=16,
+                     warm_standbys=4, seed=3), 4, 0.5,
+                ("total_time", "n_failures", "n_random_failures",
+                 "n_systematic_failures", "n_auto_repairs",
+                 "n_manual_repairs", "n_standby_swaps",
+                 "recovery_overhead")),
+    "starved": (dict(job_size=32, working_pool_size=33, spare_pool_size=2,
+                     warm_standbys=1, auto_repair_time=240.0,
+                     manual_repair_time=2880.0, diagnosis_probability=1.0,
+                     seed=5), 2, 2.0,
+                ("total_time", "n_failures", "n_preemptions",
+                 "n_host_selections", "stall_time")),
+    "diagnosis": (dict(job_size=48, working_pool_size=56, spare_pool_size=8,
+                       warm_standbys=4, diagnosis_probability=0.6,
+                       diagnosis_uncertainty=0.3, seed=7), 2, 1.0,
+                  ("total_time", "n_failures", "n_undiagnosed",
+                   "n_misdiagnosed")),
+}
+PARITY_CTMC, PARITY_EVENT, PARITY_Z = 768, 48, 3.5
+#: phase 12: tests/test_checkpoint_opt.py's rollback-heavy config (4 days,
+#: 0.2 failures a server a day) and its optimizer settings
+OPT_CONFIG = dict(job_size=16, working_pool_size=20, spare_pool_size=4,
+                  warm_standbys=2, seed=3, checkpoint_interval=113.0,
+                  checkpoint_cost=5.0)
+OPT_REPLICAS, OPT_GRID, OPT_REFINE = 256, 12, 8
+
 #: float32 operations of one live row-step of the exponential step, read
 #: off _step_u: rates 44 (products, 8 divisions, the active mask), residuals
 #: 2, race 70 (16 + 16 sums, 16 cdf divisions and comparisons, log, divide,
@@ -949,6 +996,206 @@ def ab_phase(arch, fa, ms):
             "plain_decode_s": b["decode_s"]}
 
 
+def event_engine_phase(core, cc):
+    """Phase 10: the event engine on the host and the reference's routing:
+    ``auto`` sends a retirement study to the event engine without a
+    launch, refuses a Weibull study naming its ROADMAP item, and the
+    engine repeats itself for a seed."""
+    small = core.Params(job_size=8, working_pool_size=12, spare_pool_size=4,
+                        warm_standbys=1, job_length=0.5 * DAY,
+                        random_failure_rate=1.0 / DAY, seed=2)
+    # tests/test_core_simulation.py's retirement config: repairs never
+    # heal, so repeat offenders reach the threshold and retire
+    retire = core.Params(
+        job_size=32, working_pool_size=64, spare_pool_size=32,
+        warm_standbys=4, job_length=16 * DAY, seed=123,
+        retirement_threshold=2, retirement_window=100 * DAY,
+        systematic_failure_fraction=0.5,
+        systematic_failure_rate=0.2 / DAY, random_failure_rate=0.01 / DAY,
+        auto_repair_failure_probability=1.0,
+        manual_repair_failure_probability=1.0, diagnosis_probability=1.0,
+        auto_repair_time=5.0, manual_repair_time=10.0)
+    t0 = time.perf_counter()
+    cc.LAUNCHES = 0
+    rep = core.run_replications(retire, 16, engine="auto")
+    launches = cc.LAUNCHES
+    print(f"  retirement_threshold=2 under engine='auto': engine "
+          f"{rep.engine}, {rep.n} replications, total_time "
+          f"{rep.stats['total_time'].mean:.3f} min, n_retired "
+          f"{rep.stats['n_retired'].mean:.3f}, chunk launches {launches}")
+    if rep.engine != "event" or launches or len(rep.results) != 16:
+        fail(f"retirement study ran on {rep.engine} with {launches} chunk "
+             "launches; the reference runs it on its event engine")
+    if rep.stats["n_retired"].mean <= 0:
+        fail("the retirement study retired no server")
+    if rep.stats["completed"].mean != 1.0 \
+            or any(math.isinf(st.mean) for st in rep.stats.values()):
+        fail("the event engine's retirement study did not complete")
+    weibull = small.replace(failure_distribution="weibull",
+                            distribution_kwargs={"k": 1.5})
+    try:
+        core.run_replications(weibull, 4, engine="auto")
+    except ValueError as exc:
+        if "ROADMAP queue 1 item 7" not in str(exc):
+            fail(f"the Weibull refusal does not name item 7: {exc}")
+        print(f"  weibull failures under engine='auto': refused ({exc})")
+    else:
+        fail("engine='auto' ran a Weibull study the reference runs on its "
+             "CTMC engine")
+    a = [r.to_dict() for r in core.simulate(small, 4, base_seed=11)]
+    b = [r.to_dict() for r in core.simulate(small, 4, base_seed=11)]
+    if a != b:
+        fail("simulate with the same seed gave different RunResults")
+    secs = time.perf_counter() - t0
+    print(f"  simulate twice with seed 11: identical RunResults "
+          f"({len(a)} replications); phase {secs:.3f} s")
+    return {"seconds": secs}
+
+
+def parity_phase(core, cc):
+    """Phase 11: the CTMC engine on the card (chunk kernel) against the
+    event engine on the host, on tests/test_vectorized.py's configs."""
+    out = {}
+    t0 = time.perf_counter()
+    for name, (kw, days, per_days, metrics) in PARITY_CONFIGS.items():
+        p = core.Params(job_length=days * DAY,
+                        random_failure_rate=per_days / DAY, **kw)
+        cc.LAUNCHES = 0
+        t1 = time.perf_counter()
+        ct = core.simulate_ctmc(p, n_replicas=PARITY_CTMC, seed=0,
+                                device="cuda")
+        ctmc_s = time.perf_counter() - t1
+        launches = cc.LAUNCHES
+        t1 = time.perf_counter()
+        ev = core.simulate(p, PARITY_EVENT)
+        event_s = time.perf_counter() - t1
+        if launches <= 0 or ct["completed"].mean() <= 0.99:
+            fail(f"parity {name}: {launches} chunk launches, completed "
+                 f"{ct['completed'].mean():.4f}")
+        zs = {}
+        for m in metrics:
+            e = [float(getattr(r, m)) for r in ev]
+            e_mean = sum(e) / len(e)
+            e_var = sum((x - e_mean) ** 2 for x in e) / (len(e) - 1)
+            c = ct[m]
+            se = math.sqrt(float(c.std()) ** 2 / len(c) + e_var / len(e))
+            zs[m] = (e_mean - float(c.mean())) / max(se, 1e-9)
+        print(f"  {name}: CTMC {PARITY_CTMC} replicas on the card "
+              f"{ctmc_s:.3f} s ({launches} chunk launches), event "
+              f"{PARITY_EVENT} on the host {event_s:.3f} s; z: "
+              + ", ".join(f"{m} {z:+.3f}" for m, z in zs.items()))
+        worst = max(abs(z) for z in zs.values())
+        if worst >= PARITY_Z:
+            fail(f"parity {name}: |z| = {worst:.3f} >= {PARITY_Z}")
+        out[name] = {"launches": launches, "max_abs_z": worst}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase {out['seconds']:.3f} s")
+    return out
+
+
+def optimizer_phase(core, cc):
+    """Phase 12: optimize_checkpoint_interval on the card, twice: the same
+    search both times, within one grid notch of Young/Daly."""
+    import torch
+    from repro_torch.core.optimize import optimize_checkpoint_interval
+    p = core.Params(job_length=4 * DAY, random_failure_rate=0.2 / DAY,
+                    **OPT_CONFIG)
+    runs = []
+    for _ in range(2):
+        cc.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = optimize_checkpoint_interval(
+            p, n_replicas=OPT_REPLICAS, n_grid=OPT_GRID,
+            refine_iters=OPT_REFINE, device="cuda")
+        torch.cuda.synchronize()
+        runs.append((res, cc.LAUNCHES, time.perf_counter() - t0))
+    for res, launches, secs in runs:
+        print(f"  interval {res.interval:.6f} min (Young/Daly "
+              f"{res.young_daly:.6f}), objective {res.objective:.9f}, "
+              f"n_evals {res.n_evals}, {len(res.history)} refinements, "
+              f"chunk launches {launches}, wall {secs:.3f} s")
+    (res, launches, secs), (again, launches2, _) = runs
+    if again != res or launches2 != launches:
+        fail("the optimizer's second run differs from its first "
+             f"({again.objective} vs {res.objective})")
+    if launches <= 0 or res.n_evals != OPT_GRID + 2 * len(res.history):
+        fail(f"optimizer: {launches} chunk launches, n_evals {res.n_evals}")
+    notch = (res.grid[1] / res.grid[0]) ** 1.5
+    if not (res.young_daly / notch <= res.interval
+            <= res.young_daly * notch):
+        fail(f"optimizer interval {res.interval} is not within one notch "
+             f"of Young/Daly {res.young_daly}")
+    # a third call under torch.profiler: where the optimizer's time goes
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        optimize_checkpoint_interval(p, n_replicas=OPT_REPLICAS,
+                                     n_grid=OPT_GRID,
+                                     refine_iters=OPT_REFINE, device="cuda")
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    dev_s = device_seconds(prof)
+    chunk_s = sum(getattr(e, "self_device_time_total", 0.0)
+                  for e in prof.key_averages()
+                  if str(e.device_type).endswith("CUDA")
+                  and "ctmc_chunk_kernel" in e.key) / 1e6
+    print(f"  traced call: wall {traced_s:.6f} s, device busy "
+          f"{dev_s:.6f} s = {dev_s / traced_s * 100:.2f}%, chunk kernel "
+          f"{chunk_s * 1e3:.6f} ms")
+    for e in sorted(prof.key_averages(),
+                    key=lambda e: -e.self_cpu_time_total)[:6]:
+        print(f"    host {e.key}: {e.count} calls, self "
+              f"{e.self_cpu_time_total / 1e3:.1f} ms")
+    return {"launches": launches, "n_evals": res.n_evals,
+            "interval": res.interval, "young_daly": res.young_daly,
+            "wall_s": [r[2] for r in runs], "traced_wall_s": traced_s,
+            "traced_device_busy_s": dev_s, "traced_chunk_kernel_s": chunk_s,
+            "seconds": sum(r[2] for r in runs) + traced_s}
+
+
+def experiment_phase(core, cc):
+    """Phase 13: a json experiment file through load_experiment on the
+    card (tests/test_sweeps.py's spec, more replications)."""
+    import tempfile
+    spec = {"base_params": {"job_size": 16, "working_pool_size": 22,
+                            "spare_pool_size": 4, "warm_standbys": 2,
+                            "job_length": 0.25 * DAY},
+            "n_replications": 256,
+            "sweeps": [{"title": "recovery", "parameter": "recovery_time",
+                        "values": [10, 20]},
+                       {"title": "grid", "parameter_a": "recovery_time",
+                        "values_a": [10], "parameter_b": "warm_standbys",
+                        "values_b": [0, 2]}]}
+    t0 = time.perf_counter()
+    cc.LAUNCHES = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "experiment.json")
+        with open(path, "w") as f:
+            json.dump(spec, f)
+        results = [sweep.run() for sweep in core.load_experiment(path)]
+    launches, secs = cc.LAUNCHES, time.perf_counter() - t0
+    points = [pt for res in results for pt in res.points]
+    if len(points) != 4 or {pt.engine for pt in points} != {"ctmc"} \
+            or launches <= 0:
+        fail(f"experiment file: {len(points)} points on "
+             f"{ {pt.engine for pt in points} }, {launches} chunk launches")
+    for res in results:
+        for row in res.to_rows():
+            if not math.isfinite(row["total_time"]) \
+                    or row["n_incomplete"] != 0.0:
+                fail(f"experiment file: row {row} is not finite or "
+                     "complete")
+            print(f"  {res.name}: " + ", ".join(
+                f"{k}={row[k]}" for k in res.parameter_names)
+                + f": total_time {row['total_time']:.3f} min, "
+                f"n_failures {row['n_failures']:.3f}")
+    print(f"  {len(points)} points, {launches} chunk launches, "
+          f"{secs:.3f} s")
+    return {"launches": launches, "seconds": secs}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1227,6 +1474,22 @@ def main() -> int:
         phase(f"phase 9: {arch} in float32, impl='cuda' against impl='ref'")
         ab.append(ab_phase(arch, fa, ms))
 
+    # ---- phases 10-13: the event engine, routing, optimizer, experiments --
+    import repro_torch.core as core
+    phase("phase 10: the event engine and engine='auto' routing")
+    host_paths = {"event_engine": event_engine_phase(core, cc)}
+    phase(f"phase 11: run parity, CTMC on the card ({PARITY_CTMC} "
+          f"replicas) against the event engine ({PARITY_EVENT})")
+    host_paths["parity"] = parity_phase(core, cc)
+    phase(f"phase 12: optimize_checkpoint_interval on the card, twice "
+          f"({OPT_REPLICAS} replicas, {OPT_GRID}-point grid, "
+          f"{OPT_REFINE} refinements)")
+    host_paths["optimizer"] = optimizer_phase(core, cc)
+    phase("phase 13: a json experiment file through load_experiment")
+    host_paths["experiment"] = experiment_phase(core, cc)
+    print(f"  phases 10-13: "
+          f"{sum(v['seconds'] for v in host_paths.values()):.3f} s")
+
     mism, rel, abs_err = main_err
     record = {"name": "event_race", "route": "cuda", "source": KERNEL_SOURCE,
               "replaces": TPU_KERNEL,
@@ -1244,6 +1507,11 @@ def main() -> int:
         replaces_function="src/repro/kernels/des_step.py:_event_race_kernel"
                           f" and the lax.scan of {CHUNK_SCAN}",
         launches=launches, steps=chunk_steps,
+        optimizer_launches=host_paths["optimizer"]["launches"],
+        parity_launches={k: v["launches"]
+                         for k, v in host_paths["parity"].items()
+                         if k != "seconds"},
+        experiment_launches=host_paths["experiment"]["launches"],
         ms=chunk["call_ms"] if chunk["ms"] is None else chunk["ms"],
         library_ms=None)
     kernels = [record, chunk_record]
@@ -1255,7 +1523,8 @@ def main() -> int:
         kernels.append(dict(t, name=name, route="cuda", source=source,
                             replaces=replaces, launches=launches_,
                             ms=t["call_ms"] if t["ms"] is None else t["ms"]))
-    print(json.dumps({"serving": serving, "ab_float32": ab}))
+    print(json.dumps({"serving": serving, "ab_float32": ab,
+                      "host_paths": host_paths}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

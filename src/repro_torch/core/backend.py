@@ -1,15 +1,25 @@
-"""Engine dispatch: route replication studies to the port's CTMC engine.
+"""Engine dispatch: route replication studies to the right simulator.
 
 Counterpart of ``src/repro/core/backend.py`` (its single-job part).  The
-reference has two engines; this slice of the port has one, the
-vectorized CTMC engine (:mod:`repro_torch.core.vectorized`).  The event
-engine is not ported yet (ROADMAP queue 1 item 5), so where the
-reference's ``engine="auto"`` would fall back to it, the port refuses
-loudly with the reasons the CTMC engine gives -- it never degrades to a
-different model quietly.
+port has the reference's two engines:
 
-Every entry point takes ``device=`` (default: the card; the CPU only
-when the caller passes ``device="cpu"``).
+  * ``event`` — the generator-coroutine DES
+    (:mod:`repro_torch.core.simulation`), host code in pure Python and
+    numpy, bit-identical to the reference's for the same Params and seed.
+  * ``ctmc``  — the vectorized PyTorch engine
+    (:mod:`repro_torch.core.vectorized`), on ``device=`` (default the
+    card, where a chunk of 64 steps is one launch of the chunk kernel).
+
+``engine="auto"`` routes as the reference does wherever the port can: it
+picks ``ctmc`` when the port's CTMC engine runs the params, and ``event``
+when the *reference's* CTMC engine would refuse them (retirement,
+bad-set regeneration, failing warm standbys, ``repair_servers > 0``,
+distributions without a fast-path family).  Where only the port's CTMC
+engine is short (a family or feature the reference runs on its CTMC
+engine and the port has not ported yet), ``auto`` raises with the ROADMAP
+item instead of moving a study the reference runs on its device onto the
+host.  ``engine="ctmc"`` refuses with every reason; ``engine="event"``
+always runs the event engine.  The event engine takes no device.
 """
 
 from __future__ import annotations
@@ -22,43 +32,53 @@ import numpy as np
 
 from . import vectorized
 from .histograms import Histogram
-from .metrics import RunResult, Stat, aggregate_arrays, histograms_from_arrays
+from .metrics import (RunResult, Stat, aggregate, aggregate_arrays,
+                      histograms_from_arrays, histograms_from_results)
 from .params import Params
+from .simulation import simulate
 
 ENGINES = ("auto", "event", "ctmc")
 
 
 def resolve_engine(params: Params, engine: str = "auto") -> str:
-    """Map an engine request to the engine that will run: always ``ctmc``.
+    """Map an engine request to the concrete engine that will run.
 
-    Raises when the params are outside the port's CTMC engine (with its
-    reasons) and for ``engine="event"``, whose engine is not ported yet.
+    >>> resolve_engine(Params(retirement_threshold=3))
+    'event'
+    >>> resolve_engine(Params())
+    'ctmc'
     """
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; expected one of "
                          f"{ENGINES}")
-    reasons = vectorized.unsupported_reasons(params)
     if engine == "event":
-        reasons = ["the event engine is not yet ported to the PyTorch port "
-                   "(ROADMAP queue 1 item 5)"] + reasons
-    if reasons:
+        return engine
+    if vectorized.supports(params):
+        return "ctmc"
+    if engine == "auto":
+        if vectorized.reference_reasons(params):
+            return "event"
         raise ValueError(
-            f"engine={engine!r} cannot run these Params on the PyTorch "
-            "port: " + "; ".join(reasons)
-            + "; the JAX reference package (repro.core) runs them")
-    return "ctmc"
+            "engine='auto' cannot run these Params on the port: the "
+            "reference runs them on its CTMC engine, but "
+            + "; ".join(vectorized.port_reasons(params))
+            + "; pass engine='event' to run them on the event engine")
+    raise ValueError(
+        "engine='ctmc' requested but these Params are outside the port's "
+        "CTMC engine: " + "; ".join(vectorized.unsupported_reasons(params))
+        + "; use engine='event' to run them on the event engine")
 
 
 @dataclass
 class Replications:
     """Aggregated outcome of one replication study (one sweep point)."""
 
-    engine: str                     # concrete engine that ran: ctmc
+    engine: str                     # concrete engine that ran: event | ctmc
     n: int                          # number of replications
     stats: Dict[str, Stat]
     #: per-replication RunResults (event engine only; empty for ctmc)
     results: List[RunResult] = field(default_factory=list)
-    #: raw {metric: (n,) ndarray} (ctmc engine)
+    #: raw {metric: (n,) ndarray} (ctmc engine only)
     arrays: Optional[Dict[str, np.ndarray]] = None
     #: pooled streaming histograms per channel (whenever
     #: ``Params.histogram`` is set)
@@ -87,18 +107,33 @@ def _from_arrays(arrays: Dict[str, np.ndarray], n: int) -> Replications:
                         arrays=arrays, histograms=hists)
 
 
+def _from_results(results: List[RunResult], n: int,
+                  params: Params) -> Replications:
+    hists = histograms_from_results(results, params.histogram)
+    return Replications(engine="event", n=n,
+                        stats=aggregate(results, histograms=hists),
+                        results=results, histograms=hists)
+
+
 def run_replications(params: Params, n: int, engine: str = "auto",
                      base_seed: Optional[int] = None,
                      impl: Optional[str] = None,
                      max_steps: Optional[int] = None,
                      device=None) -> Replications:
-    """Run ``n`` independent replications on the port's CTMC engine."""
-    resolve_engine(params, engine)
-    seed = params.seed if base_seed is None else base_seed
-    arrays = vectorized.simulate_ctmc(params, n_replicas=n, seed=seed,
-                                      impl=impl, max_steps=max_steps,
-                                      device=device)
-    return _from_arrays(arrays, n)
+    """Run ``n`` independent replications on the selected engine.
+
+    The CTMC engine runs on ``device`` (default the card); the event
+    engine is host code and takes no device.
+    """
+    chosen = resolve_engine(params, engine)
+    if chosen == "ctmc":
+        seed = params.seed if base_seed is None else base_seed
+        arrays = vectorized.simulate_ctmc(params, n_replicas=n, seed=seed,
+                                          impl=impl, max_steps=max_steps,
+                                          device=device)
+        return _from_arrays(arrays, n)
+    results = simulate(params, n, base_seed=base_seed)
+    return _from_results(results, n, params)
 
 
 def run_replications_batch(params_list: Sequence[Params], n: int,
@@ -110,23 +145,48 @@ def run_replications_batch(params_list: Sequence[Params], n: int,
                            padded: bool = True,
                            bucketed: bool = True,
                            device=None) -> List[Replications]:
-    """Replication studies for a whole sweep grid in one batched run.
+    """Replication studies for a whole sweep grid, batched where possible.
 
-    Every point runs in a single :func:`vectorized.simulate_ctmc_sweep`
-    call (``padded`` / ``bucketed`` as there).  ``progress(i)`` is called
-    for every point up front, since they all start together.  Results
-    come back in input order.
+    Every point that resolves to the CTMC engine runs in a single
+    :func:`vectorized.simulate_ctmc_sweep` call on ``device`` (``padded``
+    / ``bucketed`` as there); the rest run through the event engine one
+    by one.  ``progress(i)`` is called for every CTMC point up front
+    (they start together), then for each event point as it starts.
+    Results come back in input order regardless of routing.
+
+    >>> calm = Params(job_size=2, working_pool_size=3, spare_pool_size=1,
+    ...               warm_standbys=0, job_length=10.0,
+    ...               random_failure_rate=0.0, systematic_failure_rate=0.0,
+    ...               histogram=None)
+    >>> reps = run_replications_batch(
+    ...     [calm, calm.replace(job_length=20.0)], n=2, engine="event")
+    >>> [round(r.stats["total_time"].mean, 1) for r in reps]  # +3.0 select
+    [13.0, 23.0]
+    >>> [r.engine for r in reps]
+    ['event', 'event']
     """
     params_list = list(params_list)
-    for p in params_list:
-        resolve_engine(p, engine)
-    if not params_list:
-        return []
-    if progress:
-        for i in range(len(params_list)):
-            progress(i)
-    seed = params_list[0].seed if base_seed is None else base_seed
-    arrays_list = vectorized.simulate_ctmc_sweep(
-        params_list, n_replicas=n, seed=seed, impl=impl, max_steps=max_steps,
-        padded=padded, bucketed=bucketed, device=device)
-    return [_from_arrays(arrays, n) for arrays in arrays_list]
+    chosen = [resolve_engine(p, engine) for p in params_list]
+    out: List[Optional[Replications]] = [None] * len(params_list)
+
+    ctmc_idx = [i for i, c in enumerate(chosen) if c == "ctmc"]
+    if ctmc_idx:
+        if progress:
+            for i in ctmc_idx:
+                progress(i)
+        seed = (params_list[ctmc_idx[0]].seed if base_seed is None
+                else base_seed)
+        arrays_list = vectorized.simulate_ctmc_sweep(
+            [params_list[i] for i in ctmc_idx], n_replicas=n, seed=seed,
+            impl=impl, max_steps=max_steps, padded=padded,
+            bucketed=bucketed, device=device)
+        for i, arrays in zip(ctmc_idx, arrays_list):
+            out[i] = _from_arrays(arrays, n)
+
+    for i, c in enumerate(chosen):
+        if c == "event":
+            if progress:
+                progress(i)
+            results = simulate(params_list[i], n, base_seed=base_seed)
+            out[i] = _from_results(results, n, params_list[i])
+    return out

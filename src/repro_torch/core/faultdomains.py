@@ -1,23 +1,25 @@
-"""Fault-domain and campaign parameter types (a subset of the reference).
+"""Correlated failure domains and scripted fault-injection campaigns.
 
-Counterpart of ``src/repro/core/faultdomains.py``.  This slice of the
-port carries only what :class:`repro_torch.core.params.Params` needs to
-keep its fields -- :class:`FaultTopology`, :class:`CampaignEvent`,
-:class:`Campaign` -- and :func:`scenario_key`, which the CTMC engine's
-refusal reads.  Correlated shocks and campaigns do not run on the port's
-engine yet (ROADMAP queue 1 item 9): ``vectorized.supports`` refuses them.
+Counterpart of ``src/repro/core/faultdomains.py``, without the CTMC
+builders.  It carries the parameter types :class:`FaultTopology`,
+:class:`CampaignEvent` and :class:`Campaign`; :func:`scenario_key`, which
+the CTMC engine's refusal reads; and the event engine's
+:class:`ShockInjector`, copied draw for draw, so shocks and campaigns run
+on the port's event engine exactly as on the reference's.  The CTMC
+engine's scenario lanes are not ported yet (ROADMAP queue 1 item 9):
+``vectorized.supports`` refuses them.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["FaultTopology", "CampaignEvent", "Campaign", "scenario_key",
-           "KILL", "MAINT_START", "MAINT_END"]
+__all__ = ["FaultTopology", "CampaignEvent", "Campaign", "ShockInjector",
+           "Injection", "scenario_key", "KILL", "MAINT_START", "MAINT_END"]
 
 #: campaign schedule entry codes
 KILL, MAINT_START, MAINT_END = 0, 1, 2
@@ -198,3 +200,72 @@ def scenario_key(p) -> Optional[Tuple[int, Tuple[int, ...]]]:
         if p.campaign is not None else ()
     return (d, codes)
 
+
+# ---------------------------------------------------------------------------
+# event-engine injector
+# ---------------------------------------------------------------------------
+
+@dataclass
+class Injection:
+    """One injection popped from the merged stream."""
+
+    time: float
+    kind: str                      # "shock" | "kill" | "maint_start" | "maint_end"
+    domain: int
+    members: Sequence[int]         # struck server ids ([] for maintenance)
+
+
+class ShockInjector:
+    """Merged random-shock + campaign stream for the event engine.
+
+    Per-domain shock arrivals are drawn lazily (one exponential gap per
+    pop) from the simulation RNG; the campaign schedule is a pointer
+    walk.  ``peek()`` returns the next injection time (inf when
+    exhausted), ``pop()`` consumes it.  Ties between a shock and a
+    campaign entry resolve campaign-first, matching the CTMC race where
+    deterministic residual ties break on the first (campaign) column.
+    """
+
+    def __init__(self, topology: Optional[FaultTopology],
+                 campaign: Optional[Campaign], total: int, rng) -> None:
+        self.topology = topology
+        self._rng = rng
+        if topology is not None:
+            self._rates = topology.domain_rates()
+            self._members = [topology.domain_members(d, total)
+                             for d in range(topology.n_domains)]
+            self._next = np.array(
+                [rng.exponential(1.0 / r) if r > 0 else math.inf
+                 for r in self._rates])
+        else:
+            self._rates = np.zeros(0)
+            self._members = []
+            self._next = np.zeros(0)
+        self._schedule = campaign.schedule() if campaign is not None else []
+        self._ptr = 0
+
+    def _next_campaign_time(self) -> float:
+        if self._ptr >= len(self._schedule):
+            return math.inf
+        return self._schedule[self._ptr][0]
+
+    def peek(self) -> float:
+        t = self._next_campaign_time()
+        if len(self._next):
+            t = min(t, float(self._next.min()))
+        return t
+
+    def pop(self) -> Injection:
+        t_camp = self._next_campaign_time()
+        t_shock = float(self._next.min()) if len(self._next) else math.inf
+        if t_camp <= t_shock:            # campaign wins ties (see class doc)
+            t, code, dom = self._schedule[self._ptr]
+            self._ptr += 1
+            if code == KILL:
+                return Injection(t, "kill", dom, self._members[dom])
+            kind = "maint_start" if code == MAINT_START else "maint_end"
+            return Injection(t, kind, 0, [])
+        d = int(self._next.argmin())
+        t = self._next[d]
+        self._next[d] = t + self._rng.exponential(1.0 / self._rates[d])
+        return Injection(float(t), "shock", d, self._members[d])

@@ -1,9 +1,11 @@
 """Output metrics of a simulation run (paper §III-B Outputs).
 
-Counterpart of ``src/repro/core/metrics.py`` for the port's CTMC path:
-:class:`RunResult`, :class:`Stat`, :func:`histograms_from_arrays` and
-:func:`aggregate_arrays`, computed on the host in numpy from the
-per-replica arrays the engine returns.
+Counterpart of ``src/repro/core/metrics.py`` for both of the port's
+single-job engines: :class:`RunResult` and :class:`Stat`; the event
+engine's :func:`histograms_from_results`, :func:`aggregate` and
+:func:`summarize` over per-replication results; and the CTMC engine's
+:func:`histograms_from_arrays` and :func:`aggregate_arrays` over the
+per-replica arrays it returns, all computed on the host in numpy.
 
 AIReSim reports: (1) total time to train the job, (2) failure counts split
 random/systematic, (3) preemptions, (4) repair counts (auto/manual), and
@@ -21,7 +23,8 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
-from .histograms import HIST_CHANNELS, Histogram, percentiles_per_row
+from .histograms import (HIST_CHANNELS, Histogram, HistogramSpec,
+                         percentiles_per_row)
 
 
 @dataclass
@@ -123,6 +126,13 @@ class RunResult:
         return d
 
 
+#: histogram channel -> RunResult list holding its raw values
+_CHANNEL_SOURCES = {"run_duration": "run_durations",
+                    "recovery": "recovery_durations",
+                    "waiting": "waiting_durations",
+                    "goodput": "goodput_samples"}
+
+
 #: metric -> extractor used for aggregate statistics
 _SCALAR_METRICS = (
     "total_time", "n_failures", "n_random_failures", "n_systematic_failures",
@@ -206,6 +216,26 @@ class Stat:
         return 1.96 * self.std / math.sqrt(n)
 
 
+def histograms_from_results(results: Sequence[RunResult],
+                            spec: Optional[HistogramSpec],
+                            ) -> Dict[str, Histogram]:
+    """Pooled per-channel histograms from event-engine per-run lists.
+
+    This is the pure-numpy reference accumulator: the CTMC scan fills
+    the identical bin layout in compiled code, so the two engines'
+    distributions are directly comparable bin by bin.
+    """
+    if spec is None:
+        return {}
+    out: Dict[str, Histogram] = {}
+    for ch in spec.channels:
+        h = Histogram(spec)
+        for r in results:
+            h.add(getattr(r, _CHANNEL_SOURCES[ch]))
+        out[ch] = h
+    return out
+
+
 def histograms_from_arrays(arrays: Dict[str, np.ndarray],
                            ) -> Dict[str, Histogram]:
     """Pooled per-channel histograms from CTMC per-replica bin counts."""
@@ -218,6 +248,51 @@ def histograms_from_arrays(arrays: Dict[str, np.ndarray],
         if key in arrays:
             counts = np.asarray(arrays[key], np.float64).sum(axis=0)
             out[ch] = Histogram(edges, counts)
+    return out
+
+
+def aggregate(results: Sequence[RunResult],
+              histogram: Optional[HistogramSpec] = None,
+              histograms: Optional[Dict[str, Histogram]] = None,
+              ) -> Dict[str, Stat]:
+    """Cross-replication statistics for every scalar output metric.
+
+    With a :class:`HistogramSpec`, also reports ``{channel}_dist`` Stats
+    (percentiles incl. p99.9, exact to one bin width) from the pooled
+    per-run lists — the event-engine counterpart of the CTMC engine's
+    streaming histograms — plus ``{channel}_p99_replica`` dispersion
+    Stats: each replication's own p99 (binned through the same layout
+    the CTMC engine uses, so the stat is engine-comparable), aggregated
+    across replications; read the cross-replica IQR off ``.iqr``.
+    Callers that already pooled (the backend) pass the prebuilt
+    ``histograms`` dict to skip re-binning.
+    """
+    out: Dict[str, Stat] = {}
+    for name in _SCALAR_METRICS:
+        out[name] = Stat.of([float(getattr(r, name)) for r in results])
+    out["completed"] = Stat.of([0.0 if r.timed_out else 1.0
+                                for r in results])
+    # run durations pooled across replications; the event engine keeps
+    # full per-run lists, so nothing is ever truncated on this path
+    pooled: List[float] = []
+    for r in results:
+        pooled.extend(r.run_durations)
+    out["run_duration_pooled"] = Stat.of(pooled)
+    out["run_duration_truncated"] = Stat.of([0.0] * len(results))
+    if histograms is None:
+        histograms = histograms_from_results(results, histogram)
+    for ch, h in histograms.items():
+        out[f"{ch}_dist"] = Stat.from_histogram(h)
+        # cross-replica dispersion: each replication's own p99,
+        # estimated through the same bin layout the CTMC engine uses so
+        # the stat means the same thing on both engines
+        per = []
+        for r in results:
+            vals = getattr(r, _CHANNEL_SOURCES[ch])
+            if vals:
+                per.append(Histogram.from_values(h.edges, vals)
+                           .percentile(REPLICA_TAIL_PERCENTILE))
+        out[f"{ch}_p{REPLICA_TAIL_PERCENTILE}_replica"] = Stat.of(per)
     return out
 
 
@@ -337,3 +412,9 @@ def aggregate_arrays(arrays: Dict[str, np.ndarray],
                 out[f"{ch}_p{REPLICA_TAIL_PERCENTILE}_replica"] = Stat.of(
                     per[np.isfinite(per)])
     return out
+
+
+def summarize(results: Sequence[RunResult]) -> Dict[str, float]:
+    """Flat {metric: mean} view — convenient for sweep tables."""
+    agg = aggregate(results)
+    return {name: stat.mean for name, stat in agg.items()}

@@ -7,11 +7,13 @@ paper's user-facing API:
                 "systematic_failure_fraction", [0.1, 0.2, 0.3])
 
 Each sweep point runs ``n_replications`` replications and aggregates the
-paper's output metrics; TwoWaySweep crosses two parameter ranges.  Every
-point of a sweep runs as one batch on the port's CTMC engine
-(:mod:`repro_torch.core.backend`), on ``device=`` (default the card;
-``device="cpu"`` must be asked for).  Results can be dumped as CSV or
-JSON with the reference's columns.
+paper's output metrics; TwoWaySweep crosses two parameter ranges.  Sweeps
+route through :mod:`repro_torch.core.backend` (``engine=``, default
+``"auto"``): every point inside the port's CTMC engine runs in one batch
+on ``device=`` (default the card; ``device="cpu"`` must be asked for),
+and the rest on the event engine.  Results can be dumped as CSV or JSON
+with the reference's columns; a yaml or json experiment file is read by
+:func:`load_experiment`.
 
 Special virtual parameter ``systematic_failure_rate_multiplier`` sets the
 systematic rate as a multiple of the (possibly swept) random rate, the way
@@ -141,9 +143,9 @@ class SweepResult:
 class OneWaySweep:
     """Vary one parameter over a list of values (paper's OneWaySweep).
 
-    Every grid point runs ``n_replications`` replications; the whole
-    grid is one batch on the port's CTMC engine, with common random
-    numbers across points.  Results come back as a :class:`SweepResult`
+    Every grid point runs ``n_replications`` replications; the points
+    inside the port's CTMC engine run as one batch, with common random
+    numbers across points, and the rest on the event engine.  Results come back as a :class:`SweepResult`
     whose points carry full :class:`repro_torch.core.metrics.Stat` dicts,
     pooled histograms, and CSV writers.
 
@@ -248,3 +250,50 @@ class TwoWaySweep:
                   for (va, vb), rep in zip(combos, reps)]
         return SweepResult(self.title,
                            [self.parameter_a, self.parameter_b], points)
+
+
+def load_experiment(path: str, engine: Optional[str] = None,
+                    device=None) -> List[Any]:
+    """Build sweeps from a yaml/json experiment file.
+
+    Schema::
+
+        base_params: {recovery_time: 20, ...}
+        n_replications: 5
+        engine: auto          # optional: auto | event | ctmc
+        sweeps:
+          - {title: ..., parameter: ..., values: [...]}                    # one-way
+          - {title: ..., parameter_a: ..., values_a: [...],
+             parameter_b: ..., values_b: [...]}                            # two-way
+
+    ``engine`` (argument or file key; the argument wins) selects the
+    execution engine for every sweep, routed as
+    :func:`repro_torch.core.backend.resolve_engine` routes it.  CTMC
+    points run on ``device`` (default the card).  A ``.yaml`` / ``.yml``
+    file needs PyYAML, imported only for such a file; any other file is
+    read as json.
+    """
+    with open(path) as f:
+        if path.endswith((".yaml", ".yml")):
+            import yaml
+            spec = yaml.safe_load(f)
+        else:
+            spec = json.load(f)
+    base = Params.from_dict(spec.get("base_params", {})) \
+        if spec.get("base_params") else Params()
+    n_rep = int(spec.get("n_replications", 5))
+    eng = engine or spec.get("engine", "auto")
+    sweeps: List[Any] = []
+    for s in spec.get("sweeps", []):
+        if "parameter" in s:
+            sweeps.append(OneWaySweep(s.get("title", s["parameter"]),
+                                      s["parameter"], s["values"],
+                                      n_replications=n_rep, base_params=base,
+                                      engine=eng, device=device))
+        else:
+            sweeps.append(TwoWaySweep(s.get("title", "two-way"),
+                                      s["parameter_a"], s["values_a"],
+                                      s["parameter_b"], s["values_b"],
+                                      n_replications=n_rep, base_params=base,
+                                      engine=eng, device=device))
+    return sweeps

@@ -35,10 +35,13 @@ point shares one compartment layout, so structural parameters enter as
 initial occupancies, and the point and replica counts round up to powers
 of two with inert rows (phase DONE from step 0) that extraction drops.
 
-Not ported yet, and refused by :func:`unsupported_reasons` with the
-ROADMAP item that will bring it: non-exponential failure and repair
-families (queue 1 items 7-8), fault domains and campaigns (item 9),
-replica sharding (item 11) and ``age_dtype="float64"`` (item 8).
+Not ported yet, and refused by :func:`port_reasons` with the ROADMAP
+item that will bring it: non-exponential failure and repair families
+(queue 1 items 7-8), fault domains and campaigns (item 9), replica
+sharding (item 11) and ``age_dtype="float64"`` (item 8).  What the
+reference's CTMC engine refuses too (:func:`reference_reasons`) runs on
+the port's event engine (:mod:`repro_torch.core.simulation`) under
+``engine="auto"``, as in the reference.
 """
 
 from __future__ import annotations
@@ -72,52 +75,38 @@ N_UNIFORMS = 8
 _NOT_PORTED = "not yet ported to the PyTorch engine"
 
 
-def unsupported_reasons(params: Params) -> list:
-    """Why these params are outside the port's CTMC path (empty = inside).
+def reference_reasons(params: Params) -> list:
+    """Why the reference's CTMC engine refuses these params (empty = runs).
 
-    Keeps every reason the reference gives and adds one for each part of
-    the reference's fast path this slice has not ported, naming the
-    ROADMAP item that will.
+    The reference's own reasons, word for word, decided as the reference
+    decides them: by the built distribution (:func:`hazards.hazard_kind`
+    / :func:`hazards.repair_kind`), not by its name.  Params with a reason
+    here run on the event engine under ``engine="auto"`` in both packages.
 
-    >>> unsupported_reasons(Params())
+    >>> reference_reasons(Params(failure_distribution="weibull"))
     []
-    >>> unsupported_reasons(Params(retirement_threshold=3))
-    ['retirement policies are event-engine-only']
+    >>> reference_reasons(Params(standbys_can_fail=True))
+    ['failing warm standbys are event-engine-only']
     """
     reasons = []
-    fdist = params.failure_distribution.lower()
-    rdist = params.repair_distribution.lower()
     if hazards.hazard_kind(params) is None:
-        if fdist in hazards.HAZARD_KINDS:
-            reasons.append(
-                f"failure distribution {fdist!r} is {_NOT_PORTED} "
-                "(ROADMAP queue 1 item 7: non-exponential failure hazards)")
-        else:
-            reasons.append(
-                "failure distribution has no fast-path hazard family "
-                "(closed-form exponential/weibull/bathtub/lognormal, an "
-                "empirical fit, or a registered distribution with valid "
-                "hazard_segments())")
-    if hazards.repair_kind(params) is None:
-        if rdist in hazards.REPAIR_KINDS:
-            reasons.append(
-                f"repair distribution {rdist!r} is {_NOT_PORTED} "
-                "(ROADMAP queue 1 item 8: non-exponential repairs)")
-        else:
-            reasons.append(
-                "repair distribution has no fast-path repair family "
-                "(exponential/weibull/lognormal/deterministic, an empirical "
-                "fit, or a registered distribution with valid "
-                "hazard_segments())")
-    if faultdomains.scenario_key(params) is not None:
-        if rdist != "exponential":
-            reasons.append(
-                "fault domains / campaigns require exponential repairs on "
-                "the fast path (a struck in-shop server would need a "
-                "per-slot redraw)")
         reasons.append(
-            f"fault domains and campaigns are {_NOT_PORTED} "
-            "(ROADMAP queue 1 item 9)")
+            "failure distribution has no fast-path hazard family "
+            "(closed-form exponential/weibull/bathtub/lognormal, an "
+            "empirical fit, or a registered distribution with valid "
+            "hazard_segments())")
+    if hazards.repair_kind(params) is None:
+        reasons.append(
+            "repair distribution has no fast-path repair family "
+            "(exponential/weibull/lognormal/deterministic, an empirical "
+            "fit, or a registered distribution with valid "
+            "hazard_segments())")
+    if ((params.fault_domains is not None or params.campaign is not None)
+            and hazards.repair_kind(params) != "exponential"):
+        reasons.append(
+            "fault domains / campaigns require exponential repairs on "
+            "the fast path (a struck in-shop server would need a "
+            "per-slot redraw)")
     if params.repair_servers != 0:
         reasons.append(
             "finite repair-shop capacity (repair_servers > 0) — the "
@@ -129,6 +118,43 @@ def unsupported_reasons(params: Params) -> list:
         reasons.append("bad-set regeneration is event-engine-only")
     if params.standbys_can_fail:
         reasons.append("failing warm standbys are event-engine-only")
+    return reasons
+
+
+def port_reasons(params: Params) -> list:
+    """What of the reference's CTMC envelope these params need and the
+    port's CTMC engine does not run yet, each with its ROADMAP item.
+
+    A failure or repair family other than the plain ``"exponential"``
+    name is refused even where the reference's classifier collapses it to
+    the exponential program (a one-segment ``Empirical``): that collapse
+    comes with the piecewise family (items 7-8).
+
+    >>> port_reasons(Params())
+    []
+    >>> port_reasons(Params(engine_shards=2))
+    ['replica sharding (engine_shards > 0) is not yet ported to the \
+PyTorch engine (ROADMAP queue 1 item 11)']
+    """
+    reasons = []
+    fdist = params.failure_distribution.lower()
+    rdist = params.repair_distribution.lower()
+    kind = hazards.hazard_kind(params)
+    if kind is not None and fdist != "exponential":
+        reasons.append(
+            f"failure distribution {fdist!r} ({kind} hazard) is "
+            f"{_NOT_PORTED} (ROADMAP queue 1 item 7: non-exponential "
+            "failure hazards)")
+    rkind = hazards.repair_kind(params)
+    if rkind is not None and rdist != "exponential":
+        reasons.append(
+            f"repair distribution {rdist!r} ({rkind} repairs) is "
+            f"{_NOT_PORTED} (ROADMAP queue 1 item 8: non-exponential "
+            "repairs)")
+    if faultdomains.scenario_key(params) is not None:
+        reasons.append(
+            f"fault domains and campaigns are {_NOT_PORTED} "
+            "(ROADMAP queue 1 item 9)")
     if params.engine_shards > 0:
         reasons.append(
             f"replica sharding (engine_shards > 0) is {_NOT_PORTED} "
@@ -137,6 +163,20 @@ def unsupported_reasons(params: Params) -> list:
         reasons.append(
             f"age_dtype='float64' is {_NOT_PORTED} (ROADMAP queue 1 item 8)")
     return reasons
+
+
+def unsupported_reasons(params: Params) -> list:
+    """Why these params are outside the port's CTMC path (empty = inside).
+
+    The reference's reasons (:func:`reference_reasons`) followed by the
+    port's own (:func:`port_reasons`).
+
+    >>> unsupported_reasons(Params())
+    []
+    >>> unsupported_reasons(Params(retirement_threshold=3))
+    ['retirement policies are event-engine-only']
+    """
+    return reference_reasons(params) + port_reasons(params)
 
 
 def supports(params: Params) -> bool:

@@ -174,13 +174,17 @@ def test_fault_domains_refused():
 def test_engine_dispatch_refuses_loudly():
     assert tb.resolve_engine(TParams(), "auto") == "ctmc"
     assert tb.resolve_engine(TParams(), "ctmc") == "ctmc"
-    with pytest.raises(ValueError, match="event engine is not yet ported"):
-        tb.resolve_engine(TParams(), "event")
+    assert tb.resolve_engine(TParams(), "event") == "event"
     with pytest.raises(ValueError, match="unknown engine"):
         tb.resolve_engine(TParams(), "gpu")
     with pytest.raises(ValueError, match="event-engine-only"):
-        tb.run_replications(TParams(retirement_threshold=2), 4,
-                            device="cpu")
+        tb.run_replications(SMALL.replace(retirement_threshold=2), 4,
+                            engine="ctmc", device="cpu")
+    # the reference's CTMC engine refuses retirement too: auto runs the
+    # event engine, as the reference's auto does
+    rep = tb.run_replications(SMALL.replace(retirement_threshold=2), 4,
+                              device="cpu")
+    assert rep.engine == "event" and len(rep.results) == 4
 
 
 def test_device_none_without_cuda_raises():
