@@ -73,7 +73,8 @@ Phases, each of which fails the run loudly:
    greedy tokens, held for models without attention);
 10. the event engine and the reference's routing: a retirement study
     under ``engine="auto"`` runs on the event engine on the host with no
-    chunk launch, a Weibull study is refused naming ROADMAP item 7, and
+    chunk launch, a Weibull-failure study routes to the CTMC engine, a
+    Weibull-repair study is refused naming ROADMAP item 8, and
     ``simulate`` twice with one seed gives identical ``RunResult``s;
 11. run parity on tests/test_vectorized.py's three configs: the CTMC
     engine on the card (768 replicas, through the chunk kernel) against
@@ -83,7 +84,20 @@ Phases, each of which fails the run loudly:
     launches), within one grid notch of Young/Daly; then a third call
     under torch.profiler (device busy share, chunk kernel time);
 13. a json experiment file (tests/test_sweeps.py's spec) through
-    ``load_experiment`` and ``.run()`` on the card.
+    ``load_experiment`` and ``.run()`` on the card;
+14. phase 5's sweep under each non-exponential failure family (Weibull k
+    1.5, bathtub infant factor 2 over 7 days, lognormal sigma 1,
+    tests/test_empirical.py's piecewise shape), each through its own
+    instance of the chunk kernel (16 rates x 4 residuals, 9 uniforms a
+    step), its launches counted from 0: steps, launches, sweep wall, every
+    replica completed, the first chunk held exactly against the plain
+    step loop with its times and bound, the chunk kernel's device time a
+    launch over a traced sweep; then the whole Weibull sweep through the
+    plain step loop, held as in phase 6;
+15. run parity on tests/test_nonexp.py's and tests/test_empirical.py's
+    configs and a lognormal: the CTMC engine on the card (768 replicas)
+    against the event engine on the host (40), every compared metric
+    within |z| < 3.5.
 
 Prints a ``{"serving": ..., "host_paths": ...}`` line, a ``{"kernels":
 [...]}`` line and, as its last line, ``{"ok": true, "device": {...}}``.  Exits non-zero, with
@@ -201,6 +215,61 @@ STEP_OPS = 280
 #: compartments, 8 lanes, 2 int32 lanes, 17 metrics) and of its parameters
 ROW_STATE_BYTES = (6 * 4 + 8 + 2 + 17) * 4
 ROW_PARAM_BYTES = 16 * 4
+
+#: phase 14: each non-exponential failure family through phase 5's sweep
+#: (Table-I width, exponential repairs, job_length cut to 16 days).  The
+#: bathtub's infant factor is low because every restart resets the phase
+#: age, so each phase sits in the infant part of the curve.
+FAMILY_SWEEPS = {
+    "weibull": dict(failure_distribution="weibull",
+                    distribution_kwargs={"k": 1.5}),
+    "bathtub": dict(failure_distribution="bathtub",
+                    distribution_kwargs={"infant_factor": 2.0,
+                                         "infant_tau": 7 * DAY}),
+    "lognormal": dict(failure_distribution="lognormal",
+                      distribution_kwargs={"sigma": 1.0}),
+    # tests/test_empirical.py's shape
+    "empirical": dict(failure_distribution="empirical",
+                      distribution_kwargs={"edges": [0.4, 2.0],
+                                           "rates": [0.3, 1.5, 0.7]}),
+}
+#: float32 operations of one live row-step by family: STEP_OPS plus the
+#: family's hazard math read off _step_u, a log, exp or pow counted as
+#: one: Weibull 8 shares (16) and their sum (7), the inversion (log,
+#: divide, 2 pow, reciprocal, 3 adds, max: 9), the 8-way pick (16); bathtub
+#: 3 shapes of 9 operations, the max, 8 rate scalings, the accept (2);
+#: lognormal 3 hazards of about 40 (2 clips, 3 logs, log_ndtr's ~20, exp,
+#: 8 adds and products), 8 rate products, the accept; empirical 3 hazards
+#: and 2 windows over 2 edges (about 4 each), the accept
+FAMILY_STEP_OPS = {"exponential": STEP_OPS, "weibull": STEP_OPS + 48,
+                   "bathtub": STEP_OPS + 38, "lognormal": STEP_OPS + 130,
+                   "empirical": STEP_OPS + 22}
+#: phase 15: run parity on tests/test_nonexp.py's and tests/test_empirical
+#: .py's base and families, plus a lognormal: (family keywords, metrics)
+NONEXP_BASE = dict(job_size=24, working_pool_size=32, spare_pool_size=4,
+                   warm_standbys=2, job_length=2 * DAY,
+                   random_failure_rate=2.0 / DAY,
+                   systematic_failure_rate=4.0 / DAY, recovery_time=5.0,
+                   auto_repair_time=30.0, manual_repair_time=120.0, seed=5)
+_NONEXP_METRICS = ("total_time", "n_failures", "n_random_failures",
+                   "n_systematic_failures", "n_auto_repairs",
+                   "recovery_overhead")
+NONEXP_PARITY = {
+    "weibull": (dict(failure_distribution="weibull",
+                     distribution_kwargs={"k": 1.5}),
+                _NONEXP_METRICS + ("n_manual_repairs", "useful_work")),
+    "weibull_infant": (dict(failure_distribution="weibull",
+                            distribution_kwargs={"k": 0.8}),
+                       ("total_time", "n_failures", "stall_time",
+                        "n_standby_swaps")),
+    "bathtub": (dict(failure_distribution="bathtub",
+                     distribution_kwargs={"infant_factor": 8.0,
+                                          "infant_tau": 0.25 * DAY}),
+                _NONEXP_METRICS),
+    "empirical": (FAMILY_SWEEPS["empirical"], _NONEXP_METRICS),
+    "lognormal": (FAMILY_SWEEPS["lognormal"], _NONEXP_METRICS),
+}
+NONEXP_CTMC, NONEXP_EVENT = 768, 40
 
 
 def fail(msg: str) -> None:
@@ -676,35 +745,79 @@ def scan_phase(ms, ref):
     return dict(t, max_abs_err=main_err, library_ms=None)
 
 
-def chunk_bound_ms(live_rows, n_steps, R, n_edges, hist_adds, ring_writes):
+INT_METRICS = ("n_failures", "n_random_failures", "n_systematic_failures",
+               "n_preemptions", "n_auto_repairs", "n_manual_repairs",
+               "n_failed_repairs", "n_host_selections", "n_standby_swaps",
+               "n_undiagnosed", "n_misdiagnosed")
+
+
+def sweep_identity(final, final_ref):
+    """A sweep's final state through the chunk kernel against the plain
+    step loop's: (share of replicas with identical integer metrics, phase
+    and run count; histogram counts identical; largest relative
+    difference of a float lane; bit-different float elements)."""
+    import torch
+    same = torch.ones_like(final["n_failures"], dtype=torch.bool)
+    for m in INT_METRICS + ("phase", "n_runs"):
+        same &= final[m] == final_ref[m]
+    frac = float(same.float().mean())
+    hist_same = torch.equal(final["hist"], final_ref["hist"])
+    bits, worst_rel = 0, 0.0
+    for k, w in final_ref.items():
+        g = final[k]
+        if k in INT_METRICS or k in ("hist", "hist_edges") \
+                or not w.dtype.is_floating_point:
+            continue
+        if not torch.equal(torch.isfinite(g), torch.isfinite(w)):
+            fail(f"{k}: the kernel's and the plain loop's infinities differ")
+        fin = torch.isfinite(w)
+        rel = (g[fin] - w[fin]).abs() / w[fin].abs().clamp_min(1e-30)
+        worst_rel = max(worst_rel, float(rel.max()) if rel.numel() else 0.0)
+        bits += int((g.view(torch.int32) != w.view(torch.int32)).sum())
+    return frac, hist_same, worst_rel, bits
+
+
+def chunk_bound_ms(live_rows, n_steps, R, n_edges, hist_adds, ring_writes,
+                   kind="exponential", n_hazard_cols=0):
     """Least time for one chunk launch on these inputs: the uniforms the
-    rows read (n_steps x R x 32 B), each live row's state read and written
-    and its parameters read once, the bin edges, each histogram bin added
-    to read and written, each ring slot written; STEP_OPS float32
-    operations a live row-step at the float32 peak."""
-    nbytes = (n_steps * R * 8 * 4
-              + live_rows * (2 * ROW_STATE_BYTES + ROW_PARAM_BYTES)
+    rows read (n_steps x R x 32 B, 36 B with u_haz), each live row's state
+    read and written and its parameters (16 columns and the family's
+    hazard columns) read once, the bin edges, each histogram bin added to
+    read and written, each ring slot written; the family's
+    FAMILY_STEP_OPS float32 operations a live row-step at the float32
+    peak."""
+    n_u = 8 if kind == "exponential" else 9
+    nbytes = (n_steps * R * n_u * 4
+              + live_rows * (2 * ROW_STATE_BYTES + ROW_PARAM_BYTES
+                             + 4 * n_hazard_cols)
               + 4 * n_edges + 8 * hist_adds + 4 * ring_writes)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = live_rows * n_steps * STEP_OPS / FP32_OPS_PER_S * 1e3
+    ops_ms = (live_rows * n_steps * FAMILY_STEP_OPS[kind] / FP32_OPS_PER_S
+              * 1e3)
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms \
         else "operations"
 
 
 def chunk_phase(cc, vectorized, call):
-    """Phase 5's kernel check: the chunk kernel against the plain step loop
-    on the main path's first chunk (its initial state, parameters and
-    draw), every lane; then both one's times and the kernel's bound."""
+    """Phases 5 and 14's kernel check: the chunk kernel against the plain
+    step loop on a main path's first chunk (its initial state, parameters,
+    failure family and draw), every lane; then both one's times and the
+    kernel's bound."""
     import torch
     pv, seed, P, R, chunk = call[:5]
     channels, init = call[9], call[10]
+    kind, n_seg = (call[11], call[12]) if len(call) > 11 \
+        else ("exponential", 0)
+    fam = dict(kind=kind, n_seg=n_seg)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(vectorized._chunk_seed(seed, 0))
-    us = torch.rand((chunk, vectorized._next_pow2(R), vectorized.N_UNIFORMS),
+    us = torch.rand((chunk, vectorized._next_pow2(R),
+                     vectorized._n_uniforms(kind)),
                     generator=gen, device="cuda").clamp_min_(1e-12)
-    counts = (cc.LAUNCHES, cc.STEPS)
-    got = cc.ctmc_chunk_cuda(init, us, pv, R, P, channels)
-    want = vectorized._steps_ref(init, us, pv, R, P, "ref", channels)
+    counts = (cc.LAUNCHES, cc.STEPS, dict(cc.LAUNCHES_BY_KIND))
+    got = cc.ctmc_chunk_cuda(init, us, pv, R, P, channels, **fam)
+    want = vectorized._steps_ref(init, us, pv, R, P, "ref", channels, kind,
+                                 n_seg)
     torch.cuda.synchronize()
     mism, bits, err = 0, 0, 0.0
     for k, w in want.items():
@@ -734,23 +847,27 @@ def chunk_phase(cc, vectorized, call):
              "histogram elements)")
     t = {"max_abs_err": err, "bit_different": bits}
     split = device_kernels_ms(lambda: cc.ctmc_chunk_cuda(
-        init, us, pv, R, P, channels), 20)
+        init, us, pv, R, P, channels, **fam), 20)
     t["ms"] = sum(ms for name, ms in split if "ctmc_chunk_kernel" in name) \
         or None
     t["call_ms"] = event_ms(lambda: cc.ctmc_chunk_cuda(
-        init, us, pv, R, P, channels), 50, warmup=5)
+        init, us, pv, R, P, channels, **fam), 50, warmup=5)
     t["plain_ms"] = device_ms(lambda: vectorized._steps_ref(
-        init, us, pv, R, P, "ref", channels), 1)
+        init, us, pv, R, P, "ref", channels, kind, n_seg), 1)
     t["plain_call_ms"] = event_ms(lambda: vectorized._steps_ref(
-        init, us, pv, R, P, "ref", channels), 1, warmup=1)
-    cc.LAUNCHES, cc.STEPS = counts
+        init, us, pv, R, P, "ref", channels, kind, n_seg), 1, warmup=1)
+    cc.LAUNCHES, cc.STEPS = counts[:2]
+    cc.LAUNCHES_BY_KIND.update(counts[2])
     hist_adds = int((want["hist"] - init["hist"]).sum()) \
         if "hist" in want else 0
     ring = int((want["n_runs"] - init["n_runs"]).sum()) \
         if want["run_durations"].shape[1] else 0
     n_edges = init["hist_edges"].numel() if "hist_edges" in init else 0
-    t["bound_ms"], t["bound_by"] = chunk_bound_ms(live, chunk, R, n_edges,
-                                                  hist_adds, ring)
+    n_hc = pv.shape[-1] - 16 - 3
+    t["bound_ms"], t["bound_by"] = chunk_bound_ms(
+        live, chunk, R, n_edges, hist_adds, ring, kind,
+        0 if kind == "exponential" else n_hc)
+    t["live_rows"] = live
     t["ms_per_step"] = None if t["ms"] is None else t["ms"] / chunk
     print("  device time per launch by kernel (clones included): " + "; ".join(
         f"{name[:50]} {ms:.6f} ms" for name, ms in split))
@@ -999,8 +1116,9 @@ def ab_phase(arch, fa, ms):
 def event_engine_phase(core, cc):
     """Phase 10: the event engine on the host and the reference's routing:
     ``auto`` sends a retirement study to the event engine without a
-    launch, refuses a Weibull study naming its ROADMAP item, and the
-    engine repeats itself for a seed."""
+    launch, sends a Weibull-failure study to the CTMC engine, refuses a
+    Weibull-repair study naming its ROADMAP item, and the engine repeats
+    itself for a seed."""
     small = core.Params(job_size=8, working_pool_size=12, spare_pool_size=4,
                         warm_standbys=1, job_length=0.5 * DAY,
                         random_failure_rate=1.0 / DAY, seed=2)
@@ -1033,15 +1151,21 @@ def event_engine_phase(core, cc):
         fail("the event engine's retirement study did not complete")
     weibull = small.replace(failure_distribution="weibull",
                             distribution_kwargs={"k": 1.5})
+    engine = core.resolve_engine(weibull, "auto")
+    print(f"  weibull failures under engine='auto': {engine}")
+    if engine != "ctmc":
+        fail(f"engine='auto' sends a Weibull-failure study to {engine}; the "
+             "reference runs it on its CTMC engine")
     try:
-        core.run_replications(weibull, 4, engine="auto")
+        core.run_replications(weibull.replace(repair_distribution="weibull"),
+                              4, engine="auto")
     except ValueError as exc:
-        if "ROADMAP queue 1 item 7" not in str(exc):
-            fail(f"the Weibull refusal does not name item 7: {exc}")
-        print(f"  weibull failures under engine='auto': refused ({exc})")
+        if "ROADMAP queue 1 item 8" not in str(exc):
+            fail(f"the Weibull-repair refusal does not name item 8: {exc}")
+        print(f"  weibull repairs under engine='auto': refused ({exc})")
     else:
-        fail("engine='auto' ran a Weibull study the reference runs on its "
-             "CTMC engine")
+        fail("engine='auto' ran a Weibull-repair study, which the port's "
+             "CTMC engine does not run yet")
     a = [r.to_dict() for r in core.simulate(small, 4, base_seed=11)]
     b = [r.to_dict() for r in core.simulate(small, 4, base_seed=11)]
     if a != b:
@@ -1194,6 +1318,160 @@ def experiment_phase(core, cc):
     print(f"  {len(points)} points, {launches} chunk launches, "
           f"{secs:.3f} s")
     return {"launches": launches, "seconds": secs}
+
+
+def family_phase(core, cc, vectorized, name):
+    """Phase 14 for one failure family: phase 5's sweep under it, through
+    ``OneWaySweep`` on the card, with the launch counts set to 0 just
+    before and read just after; every replica must complete with servers
+    conserved.  Then the kernel against the plain step loop on the sweep's
+    first chunk (chunk_phase) and the sweep again under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    base = core.Params(job_length=JOB_DAYS * DAY, **FAMILY_SWEEPS[name])
+    kind = core.hazard_kind(base)
+    sweep = core.OneWaySweep(f"{name} warm standbys", "warm_standbys",
+                             SWEEP_VALUES, n_replications=N_REPLICAS,
+                             base_params=base, device="cuda")
+    run, restore = capture_final_states(vectorized)
+    try:
+        cc.LAUNCHES = cc.STEPS = 0
+        cc.LAUNCHES_BY_KIND.update(dict.fromkeys(cc.LAUNCHES_BY_KIND, 0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sweep.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, steps = cc.LAUNCHES_BY_KIND[kind], cc.STEPS
+        others = cc.LAUNCHES - launches
+    finally:
+        restore()
+    if kind != name or launches <= 0 or others \
+            or launches != run["chunks"] or steps != run["steps"]:
+        fail(f"{name}: family {kind}, {launches} launches of its instance "
+             f"({others} of others), {steps} steps, for {run['chunks']} "
+             f"chunks of {run['steps']} steps")
+    if len(run["states"]) != 1:
+        fail(f"{name}: expected one batch, got {len(run['states'])}")
+    final = run["states"][0]
+    for j, (v, pt) in enumerate(zip(SWEEP_VALUES, res.points)):
+        st = pt.stats
+        if st["completed"].mean != 1.0 or pt.engine != "ctmc":
+            fail(f"{name} warm_standbys={v}: {st['completed'].mean:.4f} "
+                 f"completed on {pt.engine}")
+        for m, stat in st.items():
+            if not math.isfinite(stat.mean):
+                fail(f"{name} warm_standbys={v}: {m} is not finite")
+        rows = slice(j * N_REPLICAS, (j + 1) * N_REPLICAS)
+        total = sum(final[k][rows].sum(-1) for k in
+                    ("run", "sb", "fw", "fs", "auto", "man"))
+        if not bool((total == base.working_pool_size
+                     + base.spare_pool_size).all()):
+            fail(f"{name} warm_standbys={v}: servers not conserved")
+        print(f"  {name} warm_standbys={v}: total_time "
+              f"{st['total_time'].mean:.1f} min, n_failures "
+              f"{st['n_failures'].mean:.2f}, goodput {st['goodput'].mean:.5f}")
+    print(f"  {name}: {launches} launches, {steps} steps, sweep wall "
+          f"{wall:.6f} s ({steps / wall:.1f} steps/s), every replica "
+          "completed")
+    t = chunk_phase(cc, vectorized, run["calls"][0])
+    if t["bit_different"]:
+        fail(f"{name}: the first chunk differs from the plain loop in "
+             f"{t['bit_different']} float elements")
+    counts = (cc.LAUNCHES, cc.STEPS, dict(cc.LAUNCHES_BY_KIND))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sweep.run()
+        torch.cuda.synchronize()
+    traced = cc.LAUNCHES_BY_KIND[kind] - counts[2][kind]
+    cc.LAUNCHES, cc.STEPS = counts[:2]
+    cc.LAUNCHES_BY_KIND.update(counts[2])
+    chunk_ms = sum(getattr(e, "self_device_time_total", 0.0)
+                   for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")
+                   and "ctmc_chunk_kernel" in e.key) / 1e3
+    t["sweep_ms_per_launch"] = chunk_ms / max(traced, 1)
+    print(f"  {name}: chunk kernel over the traced sweep {chunk_ms:.6f} ms "
+          f"in {traced} launches = {t['sweep_ms_per_launch']:.6f} ms a "
+          f"launch; bound {t['bound_ms']:.6f} ms on the first chunk "
+          f"({t['live_rows']} live rows)")
+    return dict(t, kind=kind, launches=launches, steps=steps, wall_s=wall,
+                final=final, base=base)
+
+
+def family_identity(core, cc, vectorized, rec):
+    """Phase 14's A/B: a family's whole sweep through the plain step loop
+    (``event_race_impl="ref"``) on the same uniforms, held exactly."""
+    import torch
+    sweep = core.OneWaySweep("plain", "warm_standbys", SWEEP_VALUES,
+                             n_replications=N_REPLICAS,
+                             base_params=rec["base"].replace(
+                                 event_race_impl="ref"), device="cuda")
+    run, restore = capture_final_states(vectorized)
+    try:
+        counts = (cc.LAUNCHES, cc.STEPS)
+        t0 = time.perf_counter()
+        sweep.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+    if (cc.LAUNCHES, cc.STEPS) != counts:
+        fail("impl='ref' launched the chunk kernel")
+    frac, hist_same, worst_rel, bits = sweep_identity(rec["final"],
+                                                      run["states"][0])
+    print(f"  {rec['kind']} sweep through the plain step loop: wall "
+          f"{wall:.3f} s ({run['steps']} steps); replicas with identical "
+          f"integer metrics {frac * 100:.3f}%; histograms identical "
+          f"{hist_same}; float lanes: largest relative difference "
+          f"{worst_rel:.3e}, bit-different elements {bits}")
+    if frac < 1.0 or not hist_same or worst_rel > 1e-6:
+        fail(f"the {rec['kind']} sweep through the chunk kernel differs from "
+             "the plain loop's")
+    return {"identical_share": frac, "histograms_identical": hist_same,
+            "float_max_rel": worst_rel, "bit_different": bits,
+            "plain_wall_s": wall}
+
+
+def nonexp_parity_phase(core, cc):
+    """Phase 15: each family's CTMC run on the card against the port's
+    event engine on the host, every compared mean within |z| < 3.5."""
+    out = {}
+    t0 = time.perf_counter()
+    for name, (kw, metrics) in NONEXP_PARITY.items():
+        p = core.Params(**NONEXP_BASE, **kw)
+        kind = core.hazard_kind(p)
+        before = cc.LAUNCHES_BY_KIND[kind]
+        t1 = time.perf_counter()
+        ct = core.simulate_ctmc(p, n_replicas=NONEXP_CTMC, seed=0,
+                                device="cuda")
+        ctmc_s = time.perf_counter() - t1
+        launches = cc.LAUNCHES_BY_KIND[kind] - before
+        t1 = time.perf_counter()
+        ev = core.simulate(p, NONEXP_EVENT)
+        event_s = time.perf_counter() - t1
+        if launches <= 0 or ct["completed"].mean() <= 0.99:
+            fail(f"parity {name}: {launches} {kind} launches, completed "
+                 f"{ct['completed'].mean():.4f}")
+        zs = {}
+        for m in metrics:
+            e = [float(getattr(r, m)) for r in ev]
+            e_mean = sum(e) / len(e)
+            e_var = sum((x - e_mean) ** 2 for x in e) / (len(e) - 1)
+            c = ct[m]
+            se = math.sqrt(float(c.std()) ** 2 / len(c) + e_var / len(e))
+            zs[m] = (e_mean - float(c.mean())) / max(se, 1e-9)
+        print(f"  {name}: CTMC {NONEXP_CTMC} replicas on the card "
+              f"{ctmc_s:.3f} s ({launches} {kind} launches), event "
+              f"{NONEXP_EVENT} on the host {event_s:.3f} s; z: "
+              + ", ".join(f"{m} {z:+.3f}" for m, z in zs.items()))
+        worst = max(abs(z) for z in zs.values())
+        if worst >= PARITY_Z:
+            fail(f"parity {name}: |z| = {worst:.3f} >= {PARITY_Z}")
+        out[name] = {"launches": launches, "max_abs_z": worst,
+                     "ctmc_s": ctmc_s, "event_s": event_s}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase {out['seconds']:.3f} s")
+    return out
 
 
 def main() -> int:
@@ -1375,28 +1653,7 @@ def main() -> int:
     if (cc.LAUNCHES, des_step.LAUNCHES) != counts:
         fail("impl='ref' launched a CUDA kernel")
     final_ref = ref_run["states"][0]
-    int_metrics = ("n_failures", "n_random_failures",
-                   "n_systematic_failures", "n_preemptions",
-                   "n_auto_repairs", "n_manual_repairs", "n_failed_repairs",
-                   "n_host_selections", "n_standby_swaps", "n_undiagnosed",
-                   "n_misdiagnosed")
-    same = torch.ones_like(final["n_failures"], dtype=torch.bool)
-    for m in int_metrics + ("phase", "n_runs"):
-        same &= final[m] == final_ref[m]
-    frac = float(same.float().mean())
-    hist_same = torch.equal(final["hist"], final_ref["hist"])
-    bits, worst_rel = 0, 0.0
-    for k, w in final_ref.items():
-        g = final[k]
-        if k in int_metrics or k in ("hist", "hist_edges") \
-                or not w.dtype.is_floating_point:
-            continue
-        if not torch.equal(torch.isfinite(g), torch.isfinite(w)):
-            fail(f"{k}: the kernel's and the plain loop's infinities differ")
-        fin = torch.isfinite(w)
-        rel = (g[fin] - w[fin]).abs() / w[fin].abs().clamp_min(1e-30)
-        worst_rel = max(worst_rel, float(rel.max()) if rel.numel() else 0.0)
-        bits += int((g.view(torch.int32) != w.view(torch.int32)).sum())
+    frac, hist_same, worst_rel, bits = sweep_identity(final, final_ref)
     print(f"  wall {wall_ref:.3f} s ({steps} steps, {ref_run['steps']} in "
           f"this run); replicas with identical integer metrics: "
           f"{frac * 100:.3f}%; histogram counts identical: {hist_same}; "
@@ -1490,6 +1747,29 @@ def main() -> int:
     print(f"  phases 10-13: "
           f"{sum(v['seconds'] for v in host_paths.values()):.3f} s")
 
+    # ---- phases 14-15: the non-exponential failure families --------------
+    t14 = time.perf_counter()
+    families = {}
+    for name in FAMILY_SWEEPS:
+        phase(f"phase 14: {name} failures, phase 5's sweep "
+              f"({FAMILY_SWEEPS[name]['distribution_kwargs']})")
+        families[name] = family_phase(core, cc, vectorized, name)
+    phase("phase 14: the whole weibull sweep through the plain step loop")
+    identity = family_identity(core, cc, vectorized, families["weibull"])
+    secs14 = time.perf_counter() - t14
+    print(f"  phase 14: {secs14:.3f} s")
+    phase(f"phase 15: run parity of the families, CTMC on the card "
+          f"({NONEXP_CTMC} replicas) against the event engine "
+          f"({NONEXP_EVENT})")
+    nonexp_parity = nonexp_parity_phase(core, cc)
+    print(f"  phases 14-15: {secs14 + nonexp_parity['seconds']:.3f} s")
+    host_paths["families"] = {
+        "seconds": secs14, "weibull_plain_identity": identity,
+        **{name: {k: rec[k] for k in ("launches", "steps", "wall_s",
+                                       "sweep_ms_per_launch", "live_rows")}
+           for name, rec in families.items()}}
+    host_paths["nonexp_parity"] = nonexp_parity
+
     mism, rel, abs_err = main_err
     record = {"name": "event_race", "route": "cuda", "source": KERNEL_SOURCE,
               "replaces": TPU_KERNEL,
@@ -1502,7 +1782,8 @@ def main() -> int:
               "call_ms": k_ms, "plain_call_ms": r_ms, "bound_ms": bound_ms,
               "bound_by": bound_by, "library_ms": None}
     chunk_record = dict(
-        chunk, name="ctmc_chunk", route="cuda", source=CHUNK_SOURCE,
+        chunk, name="ctmc_chunk", instance="exponential", route="cuda",
+        source=CHUNK_SOURCE,
         replaces=TPU_KERNEL,
         replaces_function="src/repro/kernels/des_step.py:_event_race_kernel"
                           f" and the lax.scan of {CHUNK_SCAN}",
@@ -1515,6 +1796,20 @@ def main() -> int:
         ms=chunk["call_ms"] if chunk["ms"] is None else chunk["ms"],
         library_ms=None)
     kernels = [record, chunk_record]
+    for name, rec in families.items():
+        kernels.append(dict(
+            {k: rec[k] for k in ("max_abs_err", "bit_different", "call_ms",
+                                 "plain_ms", "plain_call_ms", "bound_ms",
+                                 "bound_by", "ms_per_step",
+                                 "sweep_ms_per_launch", "steps")},
+            name=f"ctmc_chunk[{rec['kind']}]", route="cuda",
+            source=CHUNK_SOURCE, replaces=TPU_KERNEL,
+            replaces_function="src/repro/kernels/des_step.py:"
+                              "_event_race_kernel (16 rates x 4 residuals) "
+                              f"and the lax.scan of {CHUNK_SCAN}",
+            instance=rec["kind"], launches=rec["launches"],
+            ms=rec["call_ms"] if rec["ms"] is None else rec["ms"],
+            library_ms=None))
     for name, source, replaces, launches_, t in (
             ("flash_attention", ATTN_SOURCE, ATTN_TPU_KERNEL,
              serve_launches["qwen2.5-3b"][0], attn),

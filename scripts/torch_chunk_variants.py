@@ -38,7 +38,7 @@ OUT = ROOT / "build" / "repro_torch" / "variants"
 #: section boundaries of the step, in source order, for the profile copy
 MARKS = ("    const bool computing = phase == kCompute;",
          "    float dt;\n    int32_t ev;",
-         "    const int32_t cls = ev % 4;",
+         "    int32_t cls = ev % 4;",
          "    // ---- failure handling",
          "    int p_run = 0, p_take = 0;",
          "    // ---- repair completions",
@@ -128,6 +128,8 @@ def main() -> int:
         d = OUT / tag
         d.mkdir(parents=True, exist_ok=True)
         s, h = make(src, hdr)
+        for header in CSRC.glob("*.cuh"):
+            (d / header.name).write_text(header.read_text())
         (d / "ctmc_chunk.cu").write_text(s)
         (d / "event_race.cuh").write_text(h)
         lib = _build.CudaLibrary("ctmc_chunk", ctmc_chunk._bind,

@@ -1,13 +1,18 @@
 """Vectorized PyTorch CTMC engine: thousands of AIReSim replicas per device.
 
-Counterpart of ``src/repro/core/vectorized.py``, on the path the paper's
-default model takes: exponential failures and repairs, one job, no fault
-domains.  Under that model the cluster is a continuous-time Markov chain
+Counterpart of ``src/repro/core/vectorized.py`` for one job, no fault
+domains and exponential repairs, under every failure family of the
+reference's CTMC engine: exponential, Weibull, bathtub, lognormal and
+empirical (piecewise-constant, builtin or a registered distribution with
+``hazard_segments()``).  The cluster is a continuous-time Markov chain
 over server *compartments* -- servers are exchangeable within (origin x
 health) classes, so counts are sufficient state.  Each step races the 16
 exponential clock families against the deterministic timers (job
-completion, recovery/host-selection timer, checkpoint write) and then
-applies the winning transition with masked updates.  The step carries
+completion, recovery/host-selection timer, the failure family's hazard
+residual where it has one, checkpoint write) and then applies the
+winning transition with masked updates; a non-exponential family's
+failures come from :mod:`.hazards` (Weibull by exact inversion, the
+others by Ogata thinning on a ninth uniform).  The step carries
 checkpoint rollback, goodput, the per-replica run-duration ring buffer and
 the streaming histograms exactly as the reference does.
 
@@ -24,24 +29,26 @@ two agree bit for bit.
 
 Random numbers copy the *shape* of the reference's draws, not its bits
 (torch's Philox cannot reproduce JAX's threefry): each chunk makes one
-``(chunk, next_pow2(R), 8)`` draw from a ``torch.Generator`` on the run
-device seeded from ``(seed, chunk index)``, clamped into ``[1e-12, 1)``,
-sliced to R and tiled across the P points of a sweep.  That shape gives
+``(chunk, next_pow2(R), _n_uniforms(kind))`` draw from a
+``torch.Generator`` on the run device seeded from ``(seed, chunk
+index)``, clamped into ``[1e-12, 1)``, sliced to R and tiled across the
+P points of a sweep.  That shape gives
 common random numbers across sweep points and keeps pow2-bucketed sweeps
 bit-identical to unbucketed ones on their real rows.
 
-Sweeps flatten a (points x replicas) grid into one batch axis: every
-point shares one compartment layout, so structural parameters enter as
-initial occupancies, and the point and replica counts round up to powers
-of two with inert rows (phase DONE from step 0) that extraction drops.
+Sweeps flatten a (points x replicas) grid into one batch axis per
+failure family: every point shares one compartment layout, so structural
+parameters enter as initial occupancies, and the point and replica counts
+round up to powers of two with inert rows (phase DONE from step 0) that
+extraction drops.
 
 Not ported yet, and refused by :func:`port_reasons` with the ROADMAP
-item that will bring it: non-exponential failure and repair families
-(queue 1 items 7-8), fault domains and campaigns (item 9), replica
-sharding (item 11) and ``age_dtype="float64"`` (item 8).  What the
-reference's CTMC engine refuses too (:func:`reference_reasons`) runs on
-the port's event engine (:mod:`repro_torch.core.simulation`) under
-``engine="auto"``, as in the reference.
+item that will bring it: non-exponential repair families and
+``age_dtype="float64"`` (queue 1 item 8), fault domains and campaigns
+(item 9) and replica sharding (item 11).  What the reference's CTMC
+engine refuses too (:func:`reference_reasons`) runs on the port's event
+engine (:mod:`repro_torch.core.simulation`) under ``engine="auto"``, as
+in the reference.
 """
 
 from __future__ import annotations
@@ -71,6 +78,19 @@ _METRICS = ("total_time", "n_failures", "n_random_failures",
 
 #: uniform draws per step on the exponential path
 N_UNIFORMS = 8
+
+
+def _n_uniforms(kind: str) -> int:
+    """Uniform draws per step: the exponential program keeps its 8-wide
+    stream bit for bit; a non-exponential failure family adds one lane
+    (the Exp(1) inversion draw for Weibull, the accept/reject draw of
+    the thinning families).
+
+    >>> _n_uniforms("exponential"), _n_uniforms("weibull")
+    (8, 9)
+    """
+    return N_UNIFORMS + (kind != "exponential")
+
 
 _NOT_PORTED = "not yet ported to the PyTorch engine"
 
@@ -125,26 +145,22 @@ def port_reasons(params: Params) -> list:
     """What of the reference's CTMC envelope these params need and the
     port's CTMC engine does not run yet, each with its ROADMAP item.
 
-    A failure or repair family other than the plain ``"exponential"``
-    name is refused even where the reference's classifier collapses it to
-    the exponential program (a one-segment ``Empirical``): that collapse
-    comes with the piecewise family (items 7-8).
+    Every failure family of the reference's CTMC engine runs here; a
+    repair family other than the plain ``"exponential"`` name is refused
+    even where the reference's classifier collapses it to the exponential
+    program (a one-segment ``Empirical``): that collapse comes with the
+    repair families (item 8).
 
     >>> port_reasons(Params())
+    []
+    >>> port_reasons(Params(failure_distribution="weibull"))
     []
     >>> port_reasons(Params(engine_shards=2))
     ['replica sharding (engine_shards > 0) is not yet ported to the \
 PyTorch engine (ROADMAP queue 1 item 11)']
     """
     reasons = []
-    fdist = params.failure_distribution.lower()
     rdist = params.repair_distribution.lower()
-    kind = hazards.hazard_kind(params)
-    if kind is not None and fdist != "exponential":
-        reasons.append(
-            f"failure distribution {fdist!r} ({kind} hazard) is "
-            f"{_NOT_PORTED} (ROADMAP queue 1 item 7: non-exponential "
-            "failure hazards)")
     rkind = hazards.repair_kind(params)
     if rkind is not None and rdist != "exponential":
         reasons.append(
@@ -184,7 +200,9 @@ def supports(params: Params) -> bool:
 
     >>> supports(Params())                                    # Table-I default
     True
-    >>> supports(Params(failure_distribution="weibull"))      # not yet ported
+    >>> supports(Params(failure_distribution="weibull"))
+    True
+    >>> supports(Params(repair_distribution="weibull"))       # not yet ported
     False
     """
     return not unsupported_reasons(params)
@@ -375,17 +393,31 @@ def _onehot(c: torch.Tensor) -> torch.Tensor:
 # one transition
 # ---------------------------------------------------------------------------
 
+def _seq_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Cumulative sum over the last axis, left to right (the chunk
+    kernel's order; ``torch.cumsum`` and ``sum`` fix none)."""
+    parts = [x[..., 0]]
+    for j in range(1, x.shape[-1]):
+        parts.append(parts[-1] + x[..., j])
+    return torch.stack(parts, dim=-1)
+
+
 def _step_u(s: Dict[str, torch.Tensor], u: torch.Tensor, pv: torch.Tensor,
             impl: Optional[str] = None,
-            hist_channels: tuple = HIST_CHANNELS) -> Dict[str, torch.Tensor]:
+            hist_channels: tuple = HIST_CHANNELS,
+            kind: str = "exponential",
+            n_seg: int = 0) -> Dict[str, torch.Tensor]:
     """One CTMC transition for a batch of replicas, with given uniforms.
 
-    ``u`` is ``(B, 8)``.  ``pv`` is either one parameter vector shared by
-    the batch or a ``(B, n_cols)`` matrix with one row per replica (the
-    sweep layout); columns 0..15 are the base model parameters.
+    ``u`` is ``(B, _n_uniforms(kind))``.  ``pv`` is either one parameter
+    vector shared by the batch or a ``(B, n_cols)`` matrix with one row
+    per replica (the sweep layout); columns 0..15 are the base model
+    parameters and the next ``hazards.hazard_col_count(kind, n_seg)``
+    the failure family's (``n_seg`` is the empirical segment count).
     ``hist_channels`` is the tuple of channels ``s["hist"]`` carries.
     Returns a new state dict; ``s`` is left as it was.
     """
+    n_hc = hazards.hazard_col_count(kind, n_seg)
     if pv.ndim == 1:
         cols = [pv[i] for i in range(16)]
         _c = lambda x: x            # noqa: E731  param vs (B, 4) arrays
@@ -395,8 +427,24 @@ def _step_u(s: Dict[str, torch.Tensor], u: torch.Tensor, pv: torch.Tensor,
     (r_rand, r_sys, recovery, host_sel, waiting, auto_t, man_t,
      auto_fail, man_fail, p_auto, dp, du, ckpt, preempt_cost,
      warm_standbys, ckpt_cost) = cols
+
+    def _vcol(lo, n):
+        # a contiguous column block (shared row or per-replica matrix)
+        return pv[lo:lo + n] if pv.ndim == 1 else pv[:, lo:lo + n]
+
+    if kind == "empirical":
+        # [rand edges (m-1), rand rates (m), sys edges (m-1), sys rates
+        # (m)] -- per-clock piecewise-constant hazards (hazard_columns)
+        e_re = _vcol(16, n_seg - 1)
+        e_rr = _vcol(16 + n_seg - 1, n_seg)
+        e_se = _vcol(16 + 2 * n_seg - 1, n_seg - 1)
+        e_sr = _vcol(16 + 3 * n_seg - 2, n_seg)
+    hz = [pv[i] if pv.ndim == 1 else pv[:, i]
+          for i in range(16, 16 + n_hc)]
+    lanes = u.unbind(1)
     u_time, u_pick, u_diag, u_wrong, u_cls, u_esc, u_succ, u_pool = \
-        u.unbind(1)
+        lanes[:N_UNIFORMS]
+    u_haz = lanes[N_UNIFORMS] if kind != "exponential" else None
 
     phase = s["phase"]
     computing = phase == COMPUTE
@@ -411,25 +459,84 @@ def _step_u(s: Dict[str, torch.Tensor], u: torch.Tensor, pv: torch.Tensor,
 
     # ---- rates (B, 16) ------------------------------------------------
     run = s["run"]
+    age = s["age"]
     bad_mask, _ = _lane_consts(device)
-    fail_rand = run * _c(r_rand) * computing[:, None]
-    fail_sys = run * bad_mask[None, :] * _c(r_sys) * computing[:, None]
+    haz_resid = None
+    if kind == "weibull":
+        # exact conditional inversion: the fleet's cumulative hazard is
+        # C * age**k, so the time to the next failure enters the race as
+        # a residual and the failure channels carry no rate; haz_cum
+        # accumulates the per-channel hazard shares for the failing-class
+        # pick
+        c_rand, c_sys, w_k = hz[0], hz[1], hz[2]
+        w_rand = run * _c(c_rand) * computing[:, None]
+        w_sys = run * bad_mask[None, :] * _c(c_sys) * computing[:, None]
+        haz_cum = _seq_cumsum(torch.cat([w_rand, w_sys], -1))   # (B, 8)
+        haz_total = haz_cum[:, -1]
+        haz_resid = hazards.FAILURE_SAMPLERS["weibull"].conditional_residual(
+            age, haz_total, w_k, -torch.log(u_haz))
+        fail_rand = torch.zeros_like(run)
+        fail_sys = torch.zeros_like(run)
+    elif kind == "bathtub":
+        # Ogata thinning: scale the propensities by the window majorant
+        # g_bar = max(g(age), g(age + W)) and race a window-expiry
+        # phantom W; a winning candidate is accepted below with
+        # probability g(age + dt) / g_bar
+        b_win = hz[4]
+        g_bar = hazards.FAILURE_SAMPLERS["bathtub"].majorant(
+            age, b_win, tuple(hz[:4]))
+        fail_rand = run * _c(r_rand) * g_bar[:, None] * computing[:, None]
+        fail_sys = run * bad_mask[None, :] * _c(r_sys) * g_bar[:, None] \
+            * computing[:, None]
+        haz_resid = torch.where(computing, b_win * torch.ones_like(age),
+                                torch.inf)
+    elif kind == "lognormal":
+        # thinning against the hazard at the mode clipped into the
+        # window, one majorant and accept ratio per clock
+        ln = hazards.FAILURE_SAMPLERS["lognormal"]
+        l_sr, l_ss, l_sig, l_mode, l_win = hz
+        hbar_r = ln.majorant(age, l_win, (l_sr, l_sig, l_mode))
+        hbar_s = ln.majorant(age, l_win, (l_ss, l_sig, l_mode))
+        fail_rand = run * hbar_r[:, None] * computing[:, None]
+        fail_sys = run * bad_mask[None, :] * hbar_s[:, None] \
+            * computing[:, None]
+        # both clocks disabled => zero window; disarm the expiry timer
+        win_eff = torch.where(l_win > 0, l_win, torch.inf)
+        haz_resid = torch.where(computing, win_eff * torch.ones_like(age),
+                                torch.inf)
+    elif kind == "empirical":
+        # thinning with the exact majorant (the current segment rate)
+        # over a window that runs to the next edge of either clock
+        pe = hazards.FAILURE_SAMPLERS["empirical"]
+        hbar_r = pe.hazard(age, (e_re, e_rr))
+        hbar_s = pe.hazard(age, (e_se, e_sr))
+        fail_rand = run * hbar_r[:, None] * computing[:, None]
+        fail_sys = run * bad_mask[None, :] * hbar_s[:, None] \
+            * computing[:, None]
+        win = torch.minimum(hazards.piecewise_next_edge(age, e_re),
+                            hazards.piecewise_next_edge(age, e_se))
+        haz_resid = torch.where(computing, win, torch.inf)
+    else:
+        fail_rand = run * _c(r_rand) * computing[:, None]
+        fail_sys = run * bad_mask[None, :] * _c(r_sys) * computing[:, None]
     auto_rate = s["auto"] / _c(auto_t).clamp_min(1e-9)
     man_rate = s["man"] / _c(man_t).clamp_min(1e-9)
     rates = torch.cat([fail_rand, fail_sys, auto_rate, man_rate], -1) \
         * active[:, None]
 
     # residual column order decides exact ties (the race takes the first
-    # minimum): job completion, then the recovery timer, then the
-    # checkpoint write, appended last so a completion beats a
-    # same-instant write.  At checkpoint_interval == 0 that column is
-    # +inf throughout.
-    residuals = torch.stack([
-        torch.where(computing, s["work_left"], torch.inf),
-        torch.where(in_overhead, s["timer"], torch.inf),
-        torch.where(computing & (ckpt > 0),
-                    (ckpt - s["ckpt_work"]).clamp_min(0.0), torch.inf),
-    ], dim=-1)
+    # minimum): job completion, then the recovery timer, then the failure
+    # family's hazard residual, then the checkpoint write, appended last
+    # so a completion beats a same-instant write.  At
+    # checkpoint_interval == 0 that column is +inf throughout.
+    resid_cols = [torch.where(computing, s["work_left"], torch.inf),
+                  torch.where(in_overhead, s["timer"], torch.inf)]
+    if haz_resid is not None:
+        resid_cols.append(haz_resid)
+    resid_cols.append(torch.where(computing & (ckpt > 0),
+                                  (ckpt - s["ckpt_work"]).clamp_min(0.0),
+                                  torch.inf))
+    residuals = torch.stack(resid_cols, dim=-1)
 
     dt, ev = ops.event_race(rates, residuals, u_time, u_pick, impl=impl)
     dt = torch.where(active & torch.isfinite(dt), dt, 0.0)
@@ -437,11 +544,51 @@ def _step_u(s: Dict[str, torch.Tensor], u: torch.Tensor, pv: torch.Tensor,
     cls = ev % 4
     is_fail = active & (ev < 8)
     is_sys = active & (ev >= 4) & (ev < 8)
+    if kind == "weibull":
+        # the failure arrives on the hazard residual; pick the failing
+        # channel from the hazard shares.  u_pick is consumed by the race
+        # only when an exponential channel wins, so it is fresh here.
+        total_w = haz_total.clamp_min(1e-30)
+        cdf8 = haz_cum / total_w[:, None]
+        pick8 = (u_pick[:, None] >= cdf8).sum(-1).clamp_max(7) \
+            .to(torch.int32)
+        haz_fail = active & (ev == K_EXP + 2)
+        is_fail = haz_fail
+        is_sys = haz_fail & (pick8 >= 4)
+        cls = torch.where(haz_fail, pick8 % 4, cls)
+    elif kind == "bathtub":
+        # accept/reject: a rejected candidate (and the window expiry) is
+        # a phantom -- time and work advance, no transition fires
+        g_at = hazards.FAILURE_SAMPLERS["bathtub"].hazard(age + dt,
+                                                         tuple(hz[:4]))
+        accept = u_haz * g_bar < g_at
+        is_fail = is_fail & accept
+        is_sys = is_sys & accept
+    elif kind == "lognormal":
+        h_r = ln.hazard(age + dt, (l_sr, l_sig))
+        h_s = ln.hazard(age + dt, (l_ss, l_sig))
+        cand_sys = (ev >= 4) & (ev < 8)
+        accept = u_haz * torch.where(cand_sys, hbar_s, hbar_r) \
+            < torch.where(cand_sys, h_s, h_r)
+        is_fail = is_fail & accept
+        is_sys = is_sys & accept
+    elif kind == "empirical":
+        # inside the window the hazard equals the majorant, so this
+        # accepts; it bites only where rounding lands age + dt across an
+        # edge, where the new segment's rate keeps the process exact
+        h_r = pe.hazard(age + dt, (e_re, e_rr))
+        h_s = pe.hazard(age + dt, (e_se, e_sr))
+        cand_sys = (ev >= 4) & (ev < 8)
+        accept = u_haz * torch.where(cand_sys, hbar_s, hbar_r) \
+            <= torch.where(cand_sys, h_s, h_r)
+        is_fail = is_fail & accept
+        is_sys = is_sys & accept
     is_auto = active & (ev >= 8) & (ev < 12)
     is_man = active & (ev >= 12) & (ev < 16)
     is_complete = active & (ev == K_EXP)
     is_timer = active & (ev == K_EXP + 1)
-    is_ckpt = active & (ev == K_EXP + 2)
+    # the checkpoint write is the last residual column
+    is_ckpt = active & (ev == K_EXP + len(resid_cols) - 1)
 
     ns = dict(s)
     ns["t"] = s["t"] + dt
@@ -499,8 +646,9 @@ def _step_u(s: Dict[str, torch.Tensor], u: torch.Tensor, pv: torch.Tensor,
     ns["cur_run"] = torch.where(record, 0.0, run_val)
 
     # ---- phase age --------------------------------------------------------
-    ns["age"] = torch.where(is_timer & ~in_ckpt_flag, 0.0,
-                            s["age"] + progress)
+    # a recovery/restart timer resets the failure clocks; a checkpoint
+    # write's does not
+    ns["age"] = torch.where(is_timer & ~in_ckpt_flag, 0.0, age + progress)
 
     # ---- failure handling ---------------------------------------------------
     ns["n_failures"] = s["n_failures"] + is_fail.to(torch.float32)
@@ -684,20 +832,22 @@ def _any_active(state: Dict[str, torch.Tensor]) -> bool:
 
 def _steps_ref(state: Dict[str, torch.Tensor], us: torch.Tensor,
                pv: torch.Tensor, R: int, P: int, impl: Optional[str],
-               hist_channels: tuple) -> Dict[str, torch.Tensor]:
+               hist_channels: tuple, kind: str = "exponential",
+               n_seg: int = 0) -> Dict[str, torch.Tensor]:
     """``us.shape[0]`` steps of the plain step loop on one chunk's draw.
 
     The plain version of the chunk kernel.  ``us`` is the chunk's
-    ``(n_steps, R_draw, 8)`` draw; it is sliced to R replicas and tiled
-    across the P points of a ``(P * R,)`` batch, so row b reads replica
-    ``b % R``'s uniforms.  ``impl`` goes to the event race of each step.
+    ``(n_steps, R_draw, _n_uniforms(kind))`` draw; it is sliced to R
+    replicas and tiled across the P points of a ``(P * R,)`` batch, so
+    row b reads replica ``b % R``'s uniforms.  ``impl`` goes to the event
+    race of each step; ``kind`` and ``n_seg`` name the failure family.
     """
     if us.shape[1] != R:
         us = us[:, :R]
     if P > 1:
         us = us.repeat(1, P, 1)
     for k in range(us.shape[0]):
-        state = _step_u(state, us[k], pv, impl, hist_channels)
+        state = _step_u(state, us[k], pv, impl, hist_channels, kind, n_seg)
     return state
 
 
@@ -705,17 +855,18 @@ def _chunk_loop(pv: torch.Tensor, seed: int, P: int, R: int, chunk: int,
                 n_chunks: int, rem: int, impl: Optional[str],
                 early_exit: bool, hist_channels: tuple,
                 init_state: Dict[str, torch.Tensor],
+                kind: str = "exponential", n_seg: int = 0,
                 ) -> Dict[str, torch.Tensor]:
     """Chunked scan with early exit; batch axis is B = P * R (point-major).
 
-    Runs ``n_chunks * chunk + rem`` steps, less the chunks early exit
-    skips once every replica is DONE (finished replicas are inert, so
-    skipping them changes nothing).  Each chunk draws its uniforms in one
-    call at the power-of-two width ``next_pow2(R)``; row b of the batch
-    reads replica ``b % R``'s.  A chunk is one launch of the chunk kernel
-    for ``impl=None`` or ``"cuda"`` on the card, and :func:`_steps_ref`
-    with the plain race for ``impl="ref"`` and on the CPU (where
-    ``impl="cuda"`` raises).  ``init_state`` is left as it was.
+    Runs ``n_chunks * chunk + rem`` steps, less the chunks early exit skips
+    once every replica is DONE (finished replicas are inert, so skipping them
+    changes nothing).  Each chunk draws its ``_n_uniforms(kind)`` uniforms a
+    step in one call at the power-of-two width ``next_pow2(R)``; row b of the
+    batch reads replica ``b % R``'s.  A chunk is one launch of the chunk kernel
+    for ``impl=None`` or ``"cuda"`` on the card, and :func:`_steps_ref` with
+    the plain race for ``impl="ref"`` and on the CPU (where ``impl="cuda"``
+    raises).  ``init_state`` is left as it was.
     """
     device = init_state["phase"].device
     R_draw = _next_pow2(R)
@@ -726,15 +877,17 @@ def _chunk_loop(pv: torch.Tensor, seed: int, P: int, R: int, chunk: int,
         nonlocal owned
         gen = torch.Generator(device=device)
         gen.manual_seed(_chunk_seed(seed, i))
-        us = torch.rand((n_steps, R_draw, N_UNIFORMS), generator=gen,
+        us = torch.rand((n_steps, R_draw, _n_uniforms(kind)), generator=gen,
                         dtype=torch.float32, device=device)
         us = us.clamp_min_(1e-12)
         if not fused:
-            return _steps_ref(state, us, pv, R, P, impl, hist_channels)
+            return _steps_ref(state, us, pv, R, P, impl, hist_channels,
+                              kind, n_seg)
         # the first launch clones the lanes it writes; later ones update
         # those clones in place
         state = ctmc_chunk.ctmc_chunk_cuda(state, us, pv, R, P,
-                                           hist_channels, inplace=owned)
+                                           hist_channels, kind=kind,
+                                           n_seg=n_seg, inplace=owned)
         owned = True
         return state
 
@@ -812,7 +965,8 @@ def simulate_ctmc(params: Params, n_replicas: int = 1024, seed: int = 0,
     pv = torch.as_tensor(_params_vector(params), device=dev)
     out = _chunk_loop(pv, seed, 1, n_replicas, chunk, max_steps // chunk,
                       max_steps % chunk, impl, early_exit, channels,
-                      init_state)
+                      init_state, hazards.hazard_kind(params),
+                      hazards.hazard_segment_count(params))
     return _extract(_host_outputs(out), channels=channels)
 
 
@@ -836,8 +990,11 @@ def simulate_ctmc_sweep(params_list, n_replicas: int = 1024, seed: int = 0,
     derived step budget up to whole chunks; an explicit ``max_steps`` is
     honored exactly, and real rows are then bit-identical to
     ``bucketed=False``.  Uniforms are shared across points (common random
-    numbers).  ``impl`` overrides every point's ``event_race_impl``;
-    otherwise points split by it.
+    numbers).  The failure family and the empirical segment count change
+    the step and the draw's width, so a grid mixing families runs one
+    batch per ``(family, segment count)``; their parameters are columns
+    and never split a batch.  ``impl`` overrides every point's
+    ``event_race_impl``; otherwise points split by it.
 
     Returns a list of ``{metric: np.ndarray (R,)}`` dicts in input order.
     """
@@ -857,7 +1014,8 @@ def simulate_ctmc_sweep(params_list, n_replicas: int = 1024, seed: int = 0,
 
     groups: Dict[tuple, list] = {}
     for i, p in enumerate(params_list):
-        gkey = (None if padded else _struct_key(p),
+        gkey = (hazards.hazard_kind(p), hazards.hazard_segment_count(p),
+                None if padded else _struct_key(p),
                 impl if impl is not None else p.event_race_impl)
         groups.setdefault(gkey, []).append(i)
     mr = (max(p.max_run_records for p in params_list) if max_runs is None
@@ -866,7 +1024,7 @@ def simulate_ctmc_sweep(params_list, n_replicas: int = 1024, seed: int = 0,
     bucket = padded and bucketed
     channels = _hist_channels(params_list)
     results: list = [None] * len(params_list)
-    for (_skey, impl_eff), idxs in groups.items():
+    for (kind, n_seg, _skey, impl_eff), idxs in groups.items():
         pts = [params_list[i] for i in idxs]
         P, R = len(pts), n_replicas
         steps = max_steps or max(default_max_steps(p) for p in pts)
@@ -885,7 +1043,7 @@ def simulate_ctmc_sweep(params_list, n_replicas: int = 1024, seed: int = 0,
             init_state = _bucket_pad_state(init_state, P, R, P_run, R_run)
         out = _chunk_loop(pv_flat, seed, P_run, R_run, chunk, steps // chunk,
                           steps % chunk, impl_eff, early_exit, channels,
-                          init_state)
+                          init_state, kind, n_seg)
         host = _host_outputs(out)
         for j, i in enumerate(idxs):
             results[i] = _extract(host, slice(j * R_run, j * R_run + R),

@@ -1,17 +1,37 @@
 // A chunk of steps of the vectorized CTMC engine, fused into one kernel,
 // hand-written for Hopper (sm_90a).
 //
-// Replaces, on the exponential single-job path, the Pallas TPU kernel
-// src/repro/kernels/des_step.py::_event_race_kernel together with the
-// lax.scan of src/repro/core/vectorized.py::_chunk_loop that runs one
+// Replaces, on the single-job path with exponential repairs, the Pallas TPU
+// kernel src/repro/kernels/des_step.py::_event_race_kernel together with
+// the lax.scan of src/repro/core/vectorized.py::_chunk_loop that runs one
 // _step_u per step around it.  One launch runs n_steps steps of the port's
-// plain step (repro_torch/core/vectorized.py::_step_u, exponential branch)
-// for every replica row: the rates and residuals, the race of
-// event_race.cuh, progress and rollback, the timer, phase and checkpoint
-// writes, the run-duration ring buffer, the counters and diagnosis, the
-// categorical picks over the four pools, the replacement waterfall, the
-// repair completions and the returning server, and the streaming
-// histograms.
+// plain step (repro_torch/core/vectorized.py::_step_u) for every replica
+// row: the rates and residuals, the race of event_race.cuh, progress and
+// rollback, the timer, phase and checkpoint writes, the run-duration ring
+// buffer, the counters and diagnosis, the categorical picks over the four
+// pools, the replacement waterfall, the repair completions and the
+// returning server, and the streaming histograms.
+//
+// Failure families.  The kernel is a template on the failure family, one
+// instance each, chosen by the launch's `kind`; the exponential instance
+// is the plain rate race of 16 rates against 3 residuals, and every other
+// family's code is compiled out of it.  The other four race 16 rates
+// against 4 residuals, the failure family's residual third, and read a
+// 9-float uniform row whose ninth lane is u_haz (core/hazards.py):
+//   Weibull   -- the failure rates are 0; the residual is the exact
+//                inversion (age^k + E/C)^(1/k) - age, E = -log u_haz, C
+//                the sum of the 8 hazard shares; when it wins, the failing
+//                channel is picked from the shares with u_pick.
+//   bathtub   -- the rates are scaled by g_bar = max(g(age), g(age + W));
+//                the residual is the window W; a candidate failure is
+//                kept when u_haz * g_bar < g(age + dt).
+//   lognormal -- each clock (random, systematic) has its own majorant, the
+//                hazard at its mode clipped into [age, age + W], and its
+//                own accept ratio; log_ndtr is PyTorch's (log_ndtr.cuh).
+//   empirical -- the majorant is the current segment rate of each clock,
+//                the window runs to the next edge of either clock, and
+//                the accept is u_haz * h_bar <= h(age + dt).  Its 4m - 2
+//                columns are read from the parameter row, m = n_seg.
 //
 // Exactness.  Each operation is the plain step's, in its order, in
 // float32: the same products and sums (fail_sys = ((run*bad)*r_sys)*
@@ -21,10 +41,15 @@
 // an FMA that PyTorch's separate elementwise kernels never form.  Pool
 // counts are integer-valued floats, so their sums and cumsums are exact in
 // any order.
-// Row b reads step k's 8 uniforms at row b % R of the chunk's
-// (n_steps, R_draw, 8) draw, which is what slicing the draw to R and
-// tiling it over the P points gives the plain loop.  So on the same state
-// and draw the kernel and the plain loop agree bit for bit.
+// Row b reads step k's uniforms at row b % R of the chunk's
+// (n_steps, R_draw, 8 or 9) draw, which is what slicing the draw to R and
+// tiling it over the P points gives the plain loop.  The hazard math calls
+// expf, logf and powf where PyTorch's CUDA kernels call them, in the
+// order of core/hazards.py, with every divisor a tensor there (PyTorch's
+// CUDA division by a host scalar would multiply by its reciprocal).  So
+// on the same state and draw the kernel and the plain loop agree bit for
+// bit, up to the libdevice functions' own code under -fmad=false, which
+// the card's runs measure (PERF.md).
 //
 // What bounds it on an H100.  The bytes that must move are the uniforms
 // (n_steps x R x 32 B) and each row's state and parameters once in and
@@ -65,13 +90,19 @@
 #include <stdint.h>
 
 #include "event_race.cuh"
+#include "log_ndtr.cuh"
 
 namespace {
 
 constexpr int kThreads = 32;
 constexpr int kExp = 16;
-constexpr int kDet = 3;
 constexpr int32_t kCompute = 0, kOverhead = 1, kStall = 2, kDone = 3;
+
+// Failure families, in the order of core/hazards.py's HAZARD_KINDS.
+enum Kind { kExponential, kWeibull, kBathtub, kLognormal, kEmpirical };
+// Empirical segments a clock the kernel takes (kernels/ctmc_chunk.py's
+// MAX_SEGMENTS).
+constexpr int kMaxSegments = 64;
 // PyTorch casts a Python float scalar to the tensor's float32; these
 // literals round to the same float32 values (1e-9 and 1e-30 both).
 constexpr float kMinDiv = 1e-9f;
@@ -120,6 +151,8 @@ struct CtmcChunkArgs {
   int32_t n_sel;            // histogram channels carried, 0..4
   int32_t n_edges;
   int32_t chan[4];          // their codes, in HIST_CHANNELS order
+  int32_t kind;             // failure family (Kind)
+  int32_t n_seg;            // empirical segment count m, else 0
 };
 
 namespace {
@@ -186,8 +219,61 @@ __device__ __forceinline__ void store4(float* dst, const float (&src)[4]) {
                                                 src[3]);
 }
 
+// ---- failure-hazard math, as core/hazards.py computes it ------------------
+
+// bathtub_shape: 1 + (IF - 1) exp(-t / tau_i) + max(t - t_w, 0) / tau_w.
+__device__ __forceinline__ float bathtub_g(float t, float infant_factor,
+                                           float infant_tau, float wear_start,
+                                           float wear_tau) {
+  const float g = 1.0f + (infant_factor - 1.0f) * expf(-t / infant_tau);
+  return g + fmaxf(t - wear_start, 0.0f) / wear_tau;
+}
+
+// lognormal_hazard: f(t) / S(t) of a lognormal clock; 0 for scale <= 0.
+__device__ __forceinline__ float lognormal_h(float t, float scale,
+                                             float sigma, float log_sigma) {
+  constexpr float kLogSqrt2Pi = 0.91893853320467274178f;
+  const float log_t = logf(fmaxf(t, 1e-30f));
+  const float z = (log_t - logf(fmaxf(scale, 1e-30f))) / sigma;
+  const float log_h = (((-0.5f * z) * z - kLogSqrt2Pi) - log_ndtr(-z))
+                      - log_sigma - log_t;
+  return scale > 0.0f ? expf(log_h) : 0.0f;
+}
+
+// lognormal_window_majorant: the hazard at the mode clipped into the window.
+__device__ __forceinline__ float lognormal_bar(float age, float window,
+                                               float scale, float sigma,
+                                               float log_sigma,
+                                               float mode_rel) {
+  const float t_star = fminf(fmaxf(scale * mode_rel, age), age + window);
+  return lognormal_h(t_star, scale, sigma, log_sigma);
+}
+
+// piecewise_hazard: rates[#{i : t >= edges[i]}] (m - 1 edges, m rates).
+__device__ __forceinline__ float piecewise_h(float t, const float* edges,
+                                             const float* rates, int m) {
+  int idx = 0;
+  for (int i = 0; i < m - 1; ++i) idx += t >= __ldg(edges + i) ? 1 : 0;
+  return __ldg(rates + idx);
+}
+
+// piecewise_next_edge: distance to the nearest edge above t (+inf if none).
+__device__ __forceinline__ float piecewise_gap(float t, const float* edges,
+                                               int m) {
+  float gap = INFINITY;
+  for (int i = 0; i < m - 1; ++i) {
+    const float e = __ldg(edges + i);
+    if (e > t) gap = fminf(gap, e - t);
+  }
+  return gap;
+}
+
+template <int kKind>
 __global__ void __launch_bounds__(kThreads)
     ctmc_chunk_kernel(const CtmcChunkArgs a) {
+  constexpr bool kExpOnly = kKind == kExponential;
+  // residuals raced: completion, timer, [the family's], checkpoint write
+  constexpr int kDet = kExpOnly ? 3 : 4;
   extern __shared__ float s_edges[];
   for (int i = threadIdx.x; i < a.n_edges; i += blockDim.x) {
     s_edges[i] = a.hist_edges[i];
@@ -214,6 +300,21 @@ __global__ void __launch_bounds__(kThreads)
   const float warm_standbys = p[14], ckpt_cost = p[15];
   const float auto_div = fmaxf(auto_t, kMinDiv);
   const float man_div = fmaxf(man_t, kMinDiv);
+  // the failure family's columns (hazard_columns); the empirical block is
+  // [rand edges (m-1), rand rates (m), sys edges (m-1), sys rates (m)]
+  const float hz0 = kExpOnly || kKind == kEmpirical ? 0.0f : p[16];
+  const float hz1 = kExpOnly || kKind == kEmpirical ? 0.0f : p[17];
+  const float hz2 = kExpOnly || kKind == kEmpirical ? 0.0f : p[18];
+  const float hz3 = kExpOnly || kKind == kEmpirical ? 0.0f : p[19];
+  const float hz4 = kExpOnly || kKind == kEmpirical ? 0.0f : p[20];
+  const int n_seg = a.n_seg;
+  const float* e_re = p + 16;
+  const float* e_rr = e_re + (n_seg - 1);
+  const float* e_se = e_rr + n_seg;
+  const float* e_sr = e_se + (n_seg - 1);
+  // Weibull: 1 / k as PyTorch's reciprocal gives it; lognormal: log(sigma)
+  const float inv_k = kKind == kWeibull ? 1.0f / hz2 : 0.0f;
+  const float log_sigma = kKind == kLognormal ? logf(hz2) : 0.0f;
 
   // ---- the row's state ---------------------------------------------------
   float run[4], sb[4], fw[4], fs[4], aut[4], man[4];
@@ -242,16 +343,42 @@ __global__ void __launch_bounds__(kThreads)
     q_man[j] = man[j] / man_div;
   }
 
+  // the next step's uniforms, loaded before this step's arithmetic: two
+  // float4s of an 8-float row, nine floats of a 9-float (36-byte) row
   const float4* ub = reinterpret_cast<const float4*>(a.us) + 2 * (b % a.R);
   const int64_t u_step = 2 * a.R_draw;             // float4s a step
-  float4 n0 = __ldg(ub), n1 = __ldg(ub + 1);
+  const float* ub9 = a.us + 9 * (b % a.R);
+  const int64_t u_step9 = 9 * a.R_draw;            // floats a step
+  float4 n0, n1;
+  float n8 = 0.0f;
+  if constexpr (kExpOnly) {
+    n0 = __ldg(ub);
+    n1 = __ldg(ub + 1);
+  } else {
+    n0 = make_float4(__ldg(ub9), __ldg(ub9 + 1), __ldg(ub9 + 2),
+                     __ldg(ub9 + 3));
+    n1 = make_float4(__ldg(ub9 + 4), __ldg(ub9 + 5), __ldg(ub9 + 6),
+                     __ldg(ub9 + 7));
+    n8 = __ldg(ub9 + 8);
+  }
 
   for (int k = 0; k < a.n_steps; ++k) {
     // u_time, u_pick, u_diag, u_wrong | u_cls, u_esc, u_succ, u_pool
+    // [| u_haz]
     const float4 u0 = n0, u1 = n1;
+    const float u_haz = n8;
     if (k + 1 < a.n_steps) {
-      n0 = __ldg(ub + (k + 1) * u_step);
-      n1 = __ldg(ub + (k + 1) * u_step + 1);
+      if constexpr (kExpOnly) {
+        n0 = __ldg(ub + (k + 1) * u_step);
+        n1 = __ldg(ub + (k + 1) * u_step + 1);
+      } else {
+        const float* un = ub9 + (k + 1) * u_step9;
+        n0 = make_float4(__ldg(un), __ldg(un + 1), __ldg(un + 2),
+                         __ldg(un + 3));
+        n1 = make_float4(__ldg(un + 4), __ldg(un + 5), __ldg(un + 6),
+                         __ldg(un + 7));
+        n8 = __ldg(un + 8);
+      }
     }
 
     const bool computing = phase == kCompute;
@@ -262,32 +389,128 @@ __global__ void __launch_bounds__(kThreads)
 
     // ---- rates and residuals -------------------------------------------
     float rates[kExp];
+    float resid[kDet];
+    // the family's state of this step: the Weibull hazard shares and
+    // their sum, the bathtub majorant, the lognormal / empirical
+    // majorants of the random and systematic clocks
+    float w8[8], w_total = 0.0f, g_bar = 0.0f, hbar_r = 0.0f, hbar_s = 0.0f;
+    if constexpr (kKind == kWeibull) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float bad = f(j % 2 == 1);
+        w8[j] = (run[j] * hz0) * f(computing);
+        w8[4 + j] = ((run[j] * bad) * hz1) * f(computing);
+      }
+      w_total = w8[0];
+#pragma unroll
+      for (int j = 1; j < 8; ++j) w_total += w8[j];
+      float s = INFINITY;
+      if (w_total > 0.0f) {
+        const float target = powf(age, hz2)
+                             + (-logf(u_haz)) / fmaxf(w_total, kMinTotal);
+        s = fmaxf(powf(target, inv_k) - age, 0.0f);
+      }
+      resid[2] = s;
+    } else if constexpr (kKind == kBathtub) {
+      g_bar = fmaxf(bathtub_g(age, hz0, hz1, hz2, hz3),
+                    bathtub_g(age + hz4, hz0, hz1, hz2, hz3));
+      resid[2] = computing ? hz4 : INFINITY;
+    } else if constexpr (kKind == kLognormal) {
+      hbar_r = lognormal_bar(age, hz4, hz0, hz2, log_sigma, hz3);
+      hbar_s = lognormal_bar(age, hz4, hz1, hz2, log_sigma, hz3);
+      resid[2] = computing ? (hz4 > 0.0f ? hz4 : INFINITY) : INFINITY;
+    } else if constexpr (kKind == kEmpirical) {
+      hbar_r = piecewise_h(age, e_re, e_rr, n_seg);
+      hbar_s = piecewise_h(age, e_se, e_sr, n_seg);
+      resid[2] = computing ? fminf(piecewise_gap(age, e_re, n_seg),
+                                   piecewise_gap(age, e_se, n_seg))
+                           : INFINITY;
+    }
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const float bad = f(j % 2 == 1);
-      rates[j] = ((run[j] * r_rand) * f(computing)) * f(active);
-      rates[4 + j] = (((run[j] * bad) * r_sys) * f(computing)) * f(active);
+      if constexpr (kExpOnly) {
+        rates[j] = ((run[j] * r_rand) * f(computing)) * f(active);
+        rates[4 + j] = (((run[j] * bad) * r_sys) * f(computing)) * f(active);
+      } else if constexpr (kKind == kWeibull) {
+        rates[j] = 0.0f;
+        rates[4 + j] = 0.0f;
+      } else if constexpr (kKind == kBathtub) {
+        rates[j] = (((run[j] * r_rand) * g_bar) * f(computing)) * f(active);
+        rates[4 + j] = ((((run[j] * bad) * r_sys) * g_bar) * f(computing))
+                       * f(active);
+      } else {
+        rates[j] = ((run[j] * hbar_r) * f(computing)) * f(active);
+        rates[4 + j] = (((run[j] * bad) * hbar_s) * f(computing))
+                       * f(active);
+      }
       rates[8 + j] = q_aut[j] * f(active);
       rates[12 + j] = q_man[j] * f(active);
     }
-    float resid[kDet];
     resid[0] = computing ? work_left : INFINITY;
     resid[1] = in_overhead ? timer : INFINITY;
-    resid[2] = (computing && ckpt > 0.0f) ? fmaxf(ckpt - ckpt_work, 0.0f)
-                                          : INFINITY;
+    resid[kDet - 1] = (computing && ckpt > 0.0f)
+                          ? fmaxf(ckpt - ckpt_work, 0.0f)
+                          : INFINITY;
     float dt;
     int32_t ev;
     event_race_row(rates, kExp, resid, kDet, u0.x, u0.y, &dt, &ev);
     dt = (active && isfinite(dt)) ? dt : 0.0f;
 
-    const int32_t cls = ev % 4;
-    const bool is_fail = active && ev < 8;
-    const bool is_sys = active && ev >= 4 && ev < 8;
+    int32_t cls = ev % 4;
+    bool is_fail = active && ev < 8;
+    bool is_sys = active && ev >= 4 && ev < 8;
+    if constexpr (kKind == kWeibull) {
+      // the failure arrives on the hazard residual; the failing channel
+      // is picked from the hazard shares with u_pick
+      const bool haz_fail = active && ev == kExp + 2;
+      if (haz_fail) {
+        const float total = fmaxf(w_total, kMinTotal);
+        float cum = 0.0f;
+        int pick8 = 0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          cum = j == 0 ? w8[0] : cum + w8[j];
+          pick8 += u0.y >= cum / total ? 1 : 0;
+        }
+        pick8 = min(pick8, 7);
+        cls = pick8 % 4;
+        is_sys = pick8 >= 4;
+      } else {
+        is_sys = false;
+      }
+      is_fail = haz_fail;
+    } else if constexpr (kKind == kBathtub) {
+      if (is_fail) {
+        const bool accept =
+            u_haz * g_bar < bathtub_g(age + dt, hz0, hz1, hz2, hz3);
+        is_fail = accept;
+        is_sys = is_sys && accept;
+      }
+    } else if constexpr (kKind == kLognormal) {
+      if (is_fail) {
+        const bool cand_sys = ev >= 4;
+        const float h_at = lognormal_h(age + dt, cand_sys ? hz1 : hz0, hz2,
+                                       log_sigma);
+        const bool accept = u_haz * (cand_sys ? hbar_s : hbar_r) < h_at;
+        is_fail = accept;
+        is_sys = is_sys && accept;
+      }
+    } else if constexpr (kKind == kEmpirical) {
+      if (is_fail) {
+        const bool cand_sys = ev >= 4;
+        const float h_at = cand_sys ? piecewise_h(age + dt, e_se, e_sr, n_seg)
+                                    : piecewise_h(age + dt, e_re, e_rr, n_seg);
+        const bool accept = u_haz * (cand_sys ? hbar_s : hbar_r) <= h_at;
+        is_fail = accept;
+        is_sys = is_sys && accept;
+      }
+    }
     const bool is_auto = active && ev >= 8 && ev < 12;
     const bool is_man = active && ev >= 12 && ev < 16;
     const bool is_complete = active && ev == kExp;
     const bool is_timer = active && ev == kExp + 1;
-    const bool is_ckpt = active && ev == kExp + 2;
+    const bool is_ckpt = active && ev == kExp + kDet - 1;
 
     const float t_new = t + dt;
 
@@ -504,20 +727,38 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// Plain-C entry point for ctypes.  `args` points to the launch's struct in
-// host memory; `stream` is a cudaStream_t passed as an integer.  Returns
-// the first CUDA error of the shared-memory attribute or the launch (0 on
-// success); the caller raises on anything else.
-extern "C" int ctmc_chunk_launch(const CtmcChunkArgs* args, void* stream) {
+template <int kKind>
+static int launch(const CtmcChunkArgs* args, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(args->n_edges) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        ctmc_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        ctmc_chunk_kernel<kKind>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int64_t blocks = (args->n_rows + kThreads - 1) / kThreads;
-  ctmc_chunk_kernel<<<static_cast<unsigned int>(blocks), kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(*args);
+  ctmc_chunk_kernel<kKind>
+      <<<static_cast<unsigned int>(blocks), kThreads, smem, stream>>>(*args);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Plain-C entry point for ctypes.  `args` points to the launch's struct in
+// host memory; `stream` is a cudaStream_t passed as an integer.  Returns
+// the first CUDA error of the shared-memory attribute or the launch (0 on
+// success), or cudaErrorInvalidValue for a family or segment count the
+// kernel does not take; the caller raises on anything else.
+extern "C" int ctmc_chunk_launch(const CtmcChunkArgs* args, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool seg_ok = args->kind == kEmpirical
+                          ? args->n_seg >= 2 && args->n_seg <= kMaxSegments
+                          : args->n_seg == 0;
+  if (!seg_ok) return static_cast<int>(cudaErrorInvalidValue);
+  switch (args->kind) {
+    case kExponential: return launch<kExponential>(args, s);
+    case kWeibull: return launch<kWeibull>(args, s);
+    case kBathtub: return launch<kBathtub>(args, s);
+    case kLognormal: return launch<kLognormal>(args, s);
+    case kEmpirical: return launch<kEmpirical>(args, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -1,20 +1,23 @@
 """Hopper CUDA kernel that runs a chunk of CTMC steps in one launch.
 
-Counterpart, on the exponential single-job path, of the Pallas TPU kernel
-``src/repro/kernels/des_step.py::_event_race_kernel`` together with the
-``lax.scan`` of ``src/repro/core/vectorized.py::_chunk_loop`` around it.
+Counterpart, on the single-job path with exponential repairs, of the
+Pallas TPU kernel ``src/repro/kernels/des_step.py::_event_race_kernel``
+together with the ``lax.scan`` of ``src/repro/core/vectorized.py::
+_chunk_loop`` around it, for every failure family of :data:`KINDS` (one
+kernel instance each).
 The kernel lives in ``repro_torch/csrc/ctmc_chunk.cu`` (what it computes,
 its bound and its design are noted there); :mod:`._build` builds it with
 ``nvcc -fmad=false`` on first use and binds it with ``ctypes``, and
 :func:`ctmc_chunk_cuda` launches it on PyTorch's current stream.
 
 The state is the engine's dict of tensors.  The kernel knows exactly the
-lanes of the exponential step: :func:`chunk_layout` refuses any other key
-and any lane dtype but the exponential path's, so a lane that a later
-engine adds cannot be dropped without notice.
+lanes of the single-job step with exponential repairs: :func:`chunk_layout`
+refuses any other key and any lane dtype but that path's, so a lane that a
+later engine adds cannot be dropped without notice.
 
-``LAUNCHES`` counts kernel launches and ``STEPS`` the steps they ran, so a
-run can show that its main path went through the kernel.
+``LAUNCHES`` counts kernel launches, ``LAUNCHES_BY_KIND`` the same by
+failure family and ``STEPS`` the steps they ran, so a run can show that
+its main path went through the kernel.
 """
 
 from __future__ import annotations
@@ -26,8 +29,16 @@ import torch
 
 from ._build import CudaLibrary, check_launch
 
+#: failure families the kernel runs, in its instance order (the ``Kind``
+#: codes of ``csrc/ctmc_chunk.cu``; ``core.hazards.HAZARD_KINDS``)
+KINDS = ("exponential", "weibull", "bathtub", "lognormal", "empirical")
+#: empirical segments a clock the kernel takes (``kMaxSegments``)
+MAX_SEGMENTS = 64
+
 #: launches of the chunk kernel since import (or the last reset)
 LAUNCHES = 0
+#: the same launches by failure family
+LAUNCHES_BY_KIND = dict.fromkeys(KINDS, 0)
 #: steps those launches ran
 STEPS = 0
 
@@ -56,8 +67,29 @@ CHANNELS = ("run_duration", "recovery", "waiting", "goodput")
 WRITTEN = COMPARTMENTS + LANES + METRICS + INT_LANES + ("run_durations",
                                                        "hist")
 _KNOWN = frozenset(WRITTEN + CARRIED + ("hist_edges",))
+#: the repair-slot lane of non-exponential repairs (not ported)
+_REPAIR_SLOTS = ("repair_rem", "repair_cls", "repair_stage")
 _N_PARAMS = 16
+#: columns of the hazard block of the closed-form families, and of the
+#: repair block of exponential repairs (``core.hazards``)
+_N_HAZARD_COLS, _N_REPAIR_COLS = 5, 3
 _MAX_SHARED = 227 * 1024
+
+
+def pv_width(kind: str, n_seg: int = 0) -> int:
+    """Parameter columns of one row for this failure family: the 16 base
+    columns, the family's hazard block and the exponential repair block.
+
+    >>> pv_width("exponential"), pv_width("empirical", 3)
+    (24, 29)
+    """
+    hazard = 4 * n_seg - 2 if kind == "empirical" else _N_HAZARD_COLS
+    return _N_PARAMS + hazard + _N_REPAIR_COLS
+
+
+def n_uniforms(kind: str) -> int:
+    """Uniforms a step for this failure family (8, or 9 with u_haz)."""
+    return 8 if kind == "exponential" else 9
 
 
 class ChunkArgs(ctypes.Structure):
@@ -73,7 +105,8 @@ class ChunkArgs(ctypes.Structure):
                 ("R", ctypes.c_int64), ("R_draw", ctypes.c_int64),
                 ("n_steps", ctypes.c_int32), ("max_runs", ctypes.c_int32),
                 ("n_sel", ctypes.c_int32), ("n_edges", ctypes.c_int32),
-                ("chan", ctypes.c_int32 * 4)]
+                ("chan", ctypes.c_int32 * 4), ("kind", ctypes.c_int32),
+                ("n_seg", ctypes.c_int32)]
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -104,25 +137,42 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtype: torch.dtype,
 
 def chunk_layout(state: Dict[str, torch.Tensor], us: torch.Tensor,
                  pv: torch.Tensor, R: int, P: int,
-                 hist_channels: Sequence[str]) -> dict:
+                 hist_channels: Sequence[str], *, kind: str = "exponential",
+                 n_seg: int = 0) -> dict:
     """The launch's layout, after every check the kernel needs.
 
     ``state`` is the engine's state dict over ``B = P * R`` rows, ``us``
-    one chunk's ``(n_steps, R_draw, 8)`` float32 draw with ``R_draw >=
-    R``, ``pv`` one shared parameter row or a ``(B, n_cols)`` matrix, and
-    ``hist_channels`` the channels ``state["hist"]`` carries.  Returns a
+    one chunk's ``(n_steps, R_draw, n_uniforms(kind))`` float32 draw with
+    ``R_draw >= R``, ``pv`` one shared parameter row or a ``(B,
+    pv_width(kind, n_seg))`` matrix, ``hist_channels`` the channels
+    ``state["hist"]`` carries, ``kind`` the failure family and ``n_seg``
+    its empirical segment count (0 for the other families).  Returns a
     dict: ``pointers`` (lane name -> data pointer), ``pv_stride`` (0 for
     a shared row), ``n_rows``, ``R``, ``P``, ``R_draw``, ``n_steps``,
-    ``max_runs``, ``n_sel``, ``n_edges`` and ``chan`` (the kernel's code
-    of each carried channel, its index in :data:`CHANNELS`).
-    Raises ``ValueError`` on a key the kernel does not know or lacks, a
-    dtype, shape, device, stride or alignment it does not take.  Works on
-    tensors of any device.
+    ``max_runs``, ``n_sel``, ``n_edges``, ``chan`` (the kernel's code of
+    each carried channel, its index in :data:`CHANNELS`), ``kind`` (the
+    family's code, its index in :data:`KINDS`) and ``n_seg``.
+    Raises ``ValueError`` on a family or segment count the kernel does
+    not run, a key it does not know or lacks, a dtype, shape, device,
+    stride or alignment it does not take.  Works on tensors of any device.
     """
+    if kind not in KINDS:
+        _fail(f"failure family {kind!r} is not one of {KINDS}")
+    if kind == "empirical" and not 2 <= n_seg <= MAX_SEGMENTS:
+        _fail(f"{n_seg} empirical segments; the kernel takes 2.."
+              f"{MAX_SEGMENTS} a clock")
+    if kind != "empirical" and n_seg != 0:
+        _fail(f"n_seg={n_seg} for the {kind} family (segments are the "
+              "empirical family's)")
+    slots = sorted(set(state) & set(_REPAIR_SLOTS))
+    if slots:
+        _fail(f"state keys {slots} are the repair-slot lane of "
+              "non-exponential repairs, which the kernel does not carry "
+              "(ROADMAP queue 1 item 8)")
     unknown = sorted(set(state) - _KNOWN)
     if unknown:
         _fail(f"state keys {unknown} are lanes the kernel does not carry "
-              "(it runs the exponential single-job step only)")
+              "(it runs the single-job step with exponential repairs only)")
     has_hist = "hist" in state
     needed = set(_KNOWN) - ({"hist", "hist_edges"} if not has_hist else set())
     missing = sorted(needed - set(state))
@@ -161,9 +211,10 @@ def chunk_layout(state: Dict[str, torch.Tensor], us: torch.Tensor,
         _check("hist", state["hist"], (B, n_sel, n_edges + 1), f32, device)
         for i, c in enumerate(hist_channels):
             chan[i] = CHANNELS.index(c)
-    if us.ndim != 3 or us.shape[2] != 8 or us.shape[1] < R:
+    n_u = n_uniforms(kind)
+    if us.ndim != 3 or us.shape[2] != n_u or us.shape[1] < R:
         _fail(f"uniforms {tuple(us.shape)} are not (n_steps, R_draw >= "
-              f"{R}, 8)")
+              f"{R}, {n_u}) for the {kind} family")
     _check("uniforms", us, tuple(us.shape), f32, device)
     if us.shape[0] >= 2 ** 31:
         _fail(f"{us.shape[0]} steps in one launch")
@@ -178,18 +229,21 @@ def chunk_layout(state: Dict[str, torch.Tensor], us: torch.Tensor,
         pv_stride = pv.stride(0)
     else:
         _fail(f"pv {tuple(pv.shape)} is neither one row nor (B={B}, n_cols)")
-    if pv.shape[-1] < _N_PARAMS:
-        _fail(f"pv has {pv.shape[-1]} columns; the step reads {_N_PARAMS}")
+    width = pv_width(kind, n_seg)
+    if pv.shape[-1] != width:
+        _fail(f"pv has {pv.shape[-1]} columns; the {kind} step reads "
+              f"{width}")
     pointers = {k: v.data_ptr() for k, v in state.items()}
     pointers.update(pv=pv.data_ptr(), us=us.data_ptr())
-    for k in COMPARTMENTS + ("us",):
+    # the exponential instance loads its 8-float uniform rows as float4
+    for k in COMPARTMENTS + (("us",) if n_u == 8 else ()):
         if pointers[k] % 16:
             _fail(f"{k} is not 16-byte aligned (the kernel loads it as "
                   "float4)")
     return {"pointers": pointers, "pv_stride": pv_stride, "n_rows": B,
             "R": R, "P": P, "R_draw": us.shape[1], "n_steps": us.shape[0],
             "max_runs": max_runs, "n_sel": n_sel, "n_edges": n_edges,
-            "chan": tuple(chan)}
+            "chan": tuple(chan), "kind": KINDS.index(kind), "n_seg": n_seg}
 
 
 def _args(layout: dict) -> ChunkArgs:
@@ -204,7 +258,7 @@ def _args(layout: dict) -> ChunkArgs:
     args.hist_edges = ptr.get("hist_edges")
     args.pv, args.us = ptr["pv"], ptr["us"]
     for k in ("pv_stride", "n_rows", "R", "R_draw", "n_steps", "max_runs",
-              "n_sel", "n_edges"):
+              "n_sel", "n_edges", "kind", "n_seg"):
         setattr(args, k, layout[k])
     args.chan[:] = list(layout["chan"])
     return args
@@ -213,19 +267,23 @@ def _args(layout: dict) -> ChunkArgs:
 def ctmc_chunk_cuda(state: Dict[str, torch.Tensor], us: torch.Tensor,
                     pv: torch.Tensor, R: int, P: int,
                     hist_channels: Sequence[str], *,
+                    kind: str = "exponential", n_seg: int = 0,
                     inplace: bool = False) -> Dict[str, torch.Tensor]:
     """Launch the kernel: ``us.shape[0]`` steps for every row at once.
 
-    Returns the new state dict.  By default the lanes the kernel writes
-    are cloned first, so ``state`` is left as it was (as ``_step_u``
-    leaves it); ``inplace=True`` writes into ``state``'s own tensors, for
-    a caller that owns them.  Takes CUDA tensors only and raises on
-    anything :func:`chunk_layout` refuses; nothing synchronises.
+    ``kind`` and ``n_seg`` choose the failure family's instance (see
+    :func:`chunk_layout`).  Returns the new state dict.  By default the
+    lanes the kernel writes are cloned first, so ``state`` is left as it
+    was (as ``_step_u`` leaves it); ``inplace=True`` writes into
+    ``state``'s own tensors, for a caller that owns them.  Takes CUDA
+    tensors only and raises on anything :func:`chunk_layout` refuses;
+    nothing synchronises.
     """
     global LAUNCHES, STEPS
     new = dict(state) if inplace else {
         k: v.clone() if k in WRITTEN else v for k, v in state.items()}
-    layout = chunk_layout(new, us, pv, R, P, hist_channels)
+    layout = chunk_layout(new, us, pv, R, P, hist_channels, kind=kind,
+                          n_seg=n_seg)
     device = new["phase"].device
     if device.type != "cuda":
         _fail(f"the state is on {device}, not a CUDA device")
@@ -239,5 +297,6 @@ def ctmc_chunk_cuda(state: Dict[str, torch.Tensor], us: torch.Tensor,
     check_launch(err, f"ctmc_chunk (B={layout['n_rows']}, "
                       f"steps={layout['n_steps']})")
     LAUNCHES += 1
+    LAUNCHES_BY_KIND[kind] += 1
     STEPS += layout["n_steps"]
     return new

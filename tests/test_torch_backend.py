@@ -56,12 +56,19 @@ ROUTES = {
         "fault_domains": jc.FaultTopology(n_racks=4, rack_shock_rate=1e-4),
         "repair_distribution": "weibull"}, None),
     "weibull": ({"failure_distribution": "weibull",
-                 "distribution_kwargs": {"k": 1.5}}, "item 7"),
-    "bathtub": ({"failure_distribution": "bathtub"}, "item 7"),
+                 "distribution_kwargs": {"k": 1.5}}, None),
+    "bathtub": ({"failure_distribution": "bathtub"}, None),
     "one_segment_empirical": ({"failure_distribution": "empirical",
                                "distribution_kwargs": {"rates": [2.0]}},
-                              "item 7"),
+                              None),
+    "lognormal": ({"failure_distribution": "lognormal",
+                   "distribution_kwargs": {"sigma": 1.0}}, None),
+    "empirical": ({"failure_distribution": "empirical",
+                   "distribution_kwargs": {"edges": [0.4, 2.0],
+                                           "rates": [0.3, 1.5, 0.7]}}, None),
     "lognormal_repairs": ({"repair_distribution": "lognormal"}, "item 8"),
+    "weibull_repairs": ({"failure_distribution": "weibull",
+                         "repair_distribution": "weibull"}, "item 8"),
     "age_float64": ({"age_dtype": "float64"}, "item 8"),
     "fault_domains": ({"fault_domains": jc.FaultTopology(
         n_racks=4, rack_shock_rate=1e-4)}, "item 9"),
@@ -125,8 +132,7 @@ def test_registered_family_routes_by_its_instance():
         assert tb.run_replications(port, 2).engine == "event"
     finally:
         t_dist._REGISTRY["weibull"], j_dist._REGISTRY["weibull"] = saved
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 7"):
-        tb.resolve_engine(port)          # the builtin Weibull is back
+    assert tb.resolve_engine(port) == "ctmc"   # the builtin Weibull is back
 
 
 def test_mixed_batch_keeps_input_order_and_progress_order():

@@ -152,7 +152,7 @@ def test_padding_rows_stay_inert():
 
 
 @pytest.mark.parametrize("kw", [
-    {"failure_distribution": "weibull"}, {"repair_distribution": "lognormal"},
+    {"repair_distribution": "weibull"}, {"repair_distribution": "lognormal"},
     {"engine_shards": 2}, {"age_dtype": "float64"}])
 def test_unported_params_refused(kw):
     p = TParams(**kw)

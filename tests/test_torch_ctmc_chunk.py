@@ -6,16 +6,17 @@ factored out of (bit for bit) and against the JAX reference's ``_step_u``
 over 64 steps on the same numpy uniforms (integer lanes under the
 pick-flip budget of ``test_torch_step.py``).  On the card (marked
 ``gpu``): the kernel against ``_steps_ref`` on the same state and draw,
-every lane, over configurations that reach each branch of the step.
-Integer lanes and histogram counts must match exactly and float lanes
-within 1e-6 relative; both run the same float32 operations in the same
-order, so they are expected to agree bit for bit.
+every lane, over configurations that reach each branch of the step, for
+each failure family.  Integer lanes and histogram counts must match
+exactly and float lanes within 1e-6 relative; both run the same float32
+operations in the same order, so they are expected to agree bit for bit.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import hazards
 from repro_torch.core import vectorized as tv
 from repro_torch.core.histograms import HIST_CHANNELS, HistogramSpec
 from repro_torch.core.params import MINUTES_PER_DAY as DAY
@@ -30,6 +31,30 @@ BASE = Params(job_size=64, working_pool_size=72, spare_pool_size=16,
 SMALL = Params(job_size=16, working_pool_size=20, spare_pool_size=4,
                warm_standbys=2, job_length=0.5 * DAY,
                random_failure_rate=2.0 / DAY)
+#: tests/test_nonexp.py's base: systematic failures frequent enough to
+#: reach the systematic clock of every family
+NONEXP = Params(job_size=24, working_pool_size=32, spare_pool_size=4,
+                warm_standbys=2, job_length=2 * DAY,
+                random_failure_rate=2.0 / DAY,
+                systematic_failure_rate=4.0 / DAY, recovery_time=5.0,
+                auto_repair_time=30.0, manual_repair_time=120.0)
+#: the non-exponential failure families, as tests/test_nonexp.py,
+#: tests/test_empirical.py and tests/test_repair_dist.py configure them
+FAMILIES = {
+    "weibull": NONEXP.replace(failure_distribution="weibull",
+                              distribution_kwargs={"k": 1.5}),
+    "weibull_infant": NONEXP.replace(failure_distribution="weibull",
+                                     distribution_kwargs={"k": 0.8}),
+    "bathtub": NONEXP.replace(failure_distribution="bathtub",
+                              distribution_kwargs={"infant_factor": 8.0,
+                                                   "infant_tau": 0.25 * DAY}),
+    "lognormal": NONEXP.replace(failure_distribution="lognormal",
+                                distribution_kwargs={"sigma": 1.0}),
+    "empirical": NONEXP.replace(failure_distribution="empirical",
+                                distribution_kwargs={
+                                    "edges": [0.4, 2.0],
+                                    "rates": [0.3, 1.5, 0.7]}),
+}
 #: name -> (points, replicas a point, ring size or None for the default,
 #: per-row pv, pow2-bucketed, chunks of 64 steps)
 CASES = {
@@ -76,11 +101,36 @@ CASES = {
     # rows that finish mid-chunk and chunks that start with finished rows
     "finish_mid_chunk": ([SMALL.replace(job_length=0.1 * DAY)], 96, None,
                          False, False, 3),
+    # each non-exponential failure family, alone (one shared parameter
+    # row) and with checkpoints (the hazard residual before the write's)
+    **{f"family_{name}": ([p], 64, None, False, False, 3)
+       for name, p in FAMILIES.items()},
+    **{f"family_{name}_ckpt": ([p.replace(checkpoint_interval=60.0,
+                                          checkpoint_cost=2.0)], 48, None,
+                               True, False, 3)
+       for name, p in FAMILIES.items()},
+    # a Weibull k grid as one bucketed sweep, k = 1 included
+    "weibull_k_grid": ([FAMILIES["weibull"].replace(
+        distribution_kwargs={"k": k}) for k in (0.6, 1.0, 1.5, 3.0, 5.0)],
+        20, None, True, True, 3),
+    # an empirical grid of two fits with one segment count
+    "empirical_grid": ([FAMILIES["empirical"], FAMILIES["empirical"].replace(
+        distribution_kwargs={"edges": [1.0, 3.0], "rates": [2.0, 0.5, 1.0]})],
+        24, 4, True, True, 3),
 }
 
 
+def _family(pts):
+    """(kind, n_seg) of a case's points, which share one family."""
+    keys = {(hazards.hazard_kind(p), hazards.hazard_segment_count(p))
+            for p in pts}
+    assert len(keys) == 1, keys
+    return keys.pop()
+
+
 def _setup(name, device):
-    """(state, pv, R, P, channels) of a case, on ``device``."""
+    """(state, pv, R, P, channels) of a case, on ``device``; its family
+    from :func:`_family`."""
     pts, R, mr, per_row, bucket, _ = CASES[name]
     P = len(pts)
     mr = max(p.max_run_records for p in pts) if mr is None else mr
@@ -99,12 +149,12 @@ def _setup(name, device):
     return state, pv, R, P, tv._hist_channels(pts)
 
 
-def _draw(R, i, n_steps=64, device="cpu", seed=17):
+def _draw(R, i, n_steps=64, device="cpu", seed=17, kind="exponential"):
     """Chunk i's uniforms as ``_chunk_loop`` draws them for ``seed``."""
     gen = torch.Generator(device=device)
     gen.manual_seed(tv._chunk_seed(seed, i))
-    return torch.rand((n_steps, tv._next_pow2(R), 8), generator=gen,
-                      device=device).clamp_min_(1e-12)
+    return torch.rand((n_steps, tv._next_pow2(R), tv._n_uniforms(kind)),
+                      generator=gen, device=device).clamp_min_(1e-12)
 
 
 # ---------------------------------------------------------------------------
@@ -122,11 +172,22 @@ def test_kernel_lanes_are_the_exponential_state():
 @pytest.mark.parametrize("name", ["default", "hist_none", "ring_none",
                                   "hist_goodput", "hist_all", "sweep_p3_r20",
                                   "sweep_p3_r20_bucketed",
-                                  "sweep_structural"])
+                                  "sweep_structural", "family_weibull",
+                                  "family_bathtub_ckpt", "family_lognormal",
+                                  "family_empirical", "weibull_k_grid",
+                                  "empirical_grid"])
 def test_layout(name):
     state, pv, R, P, channels = _setup(name, "cpu")
-    us = _draw(R, 0, n_steps=5)
-    lay = ctmc_chunk.chunk_layout(state, us, pv, R, P, channels)
+    kind, n_seg = _family(CASES[name][0])
+    us = _draw(R, 0, n_steps=5, kind=kind)
+    lay = ctmc_chunk.chunk_layout(state, us, pv, R, P, channels, kind=kind,
+                                  n_seg=n_seg)
+    assert (lay["kind"], lay["n_seg"]) == (ctmc_chunk.KINDS.index(kind),
+                                           n_seg)
+    assert pv.shape[-1] == ctmc_chunk.pv_width(kind, n_seg) \
+        == 16 + hazards.hazard_col_count(kind, n_seg) + 3
+    assert us.shape[-1] == ctmc_chunk.n_uniforms(kind) \
+        == tv._n_uniforms(kind)
     B = state["phase"].shape[0]
     assert lay["n_rows"] == B == P * R
     assert (lay["R"], lay["P"], lay["n_steps"]) == (R, P, 5)
@@ -146,6 +207,7 @@ def test_layout(name):
     args = ctmc_chunk._args(lay)
     assert args.n_rows == B and args.R == R and args.pv_stride \
         == lay["pv_stride"]
+    assert (args.kind, args.n_seg) == (lay["kind"], n_seg)
     assert list(args.comp) == [lay["pointers"][k]
                                for k in ctmc_chunk.COMPARTMENTS]
     assert (args.run_durations or 0) == (lay["pointers"]["run_durations"]
@@ -207,6 +269,67 @@ def test_layout_refuses_bad_shapes(what):
         P = 2
     with pytest.raises(ValueError, match="ctmc_chunk"):
         ctmc_chunk.chunk_layout(state, us, pv, R, P, channels)
+
+
+def test_kernel_families_are_the_engines():
+    assert ctmc_chunk.KINDS == hazards.HAZARD_KINDS
+    assert set(ctmc_chunk.LAUNCHES_BY_KIND) == set(hazards.HAZARD_KINDS)
+    assert set(hazards.FAILURE_SAMPLERS) == set(ctmc_chunk.KINDS[1:])
+
+
+def _family_valid(name):
+    state, pv, R, P, channels = _setup(f"family_{name}", "cpu")
+    kind, n_seg = _family(CASES[f"family_{name}"][0])
+    return state, _draw(R, 0, n_steps=2, kind=kind), pv, R, P, channels, \
+        kind, n_seg
+
+
+@pytest.mark.parametrize("name", ["weibull", "bathtub", "lognormal",
+                                  "empirical"])
+def test_layout_checks_each_family(name):
+    """A family's instance takes its own pv width and a 9-lane draw, and
+    refuses the exponential path's (and the reverse)."""
+    state, us, pv, R, P, channels, kind, n_seg = _family_valid(name)
+    ctmc_chunk.chunk_layout(state, us, pv, R, P, channels, kind=kind,
+                            n_seg=n_seg)
+    with pytest.raises(ValueError, match="uniforms"):
+        ctmc_chunk.chunk_layout(state, us[..., :8].contiguous(), pv, R, P,
+                                channels, kind=kind, n_seg=n_seg)
+    with pytest.raises(ValueError, match="uniforms"):
+        ctmc_chunk.chunk_layout(state, us, pv, R, P, channels)
+    with pytest.raises(ValueError, match="columns"):
+        ctmc_chunk.chunk_layout(state, us, pv[:-1], R, P, channels,
+                                kind=kind, n_seg=n_seg)
+    # another segment count reads another width
+    with pytest.raises(ValueError, match="columns"):
+        ctmc_chunk.chunk_layout(state, us, pv, R, P, channels,
+                                kind="empirical", n_seg=n_seg + 2)
+
+
+@pytest.mark.parametrize("kind,n_seg,match", [
+    ("gamma", 0, "not one of"), ("Weibull", 0, "not one of"),
+    ("empirical", 1, "segments"), ("empirical", 65, "segments"),
+    ("weibull", 2, "n_seg")])
+def test_layout_refuses_unknown_family(kind, n_seg, match):
+    state, us, pv, R, P, channels, _, _ = _family_valid("weibull")
+    with pytest.raises(ValueError, match=match):
+        ctmc_chunk.chunk_layout(state, us, pv, R, P, channels, kind=kind,
+                                n_seg=n_seg)
+    before = dict(ctmc_chunk.LAUNCHES_BY_KIND)
+    with pytest.raises(ValueError, match=match):
+        ctmc_chunk.ctmc_chunk_cuda(state, us, pv, R, P, channels, kind=kind,
+                                   n_seg=n_seg)
+    assert ctmc_chunk.LAUNCHES_BY_KIND == before
+
+
+@pytest.mark.parametrize("key", ["repair_rem", "repair_cls",
+                                 "repair_stage"])
+def test_layout_refuses_repair_slots_naming_item_8(key):
+    state, us, pv, R, P, channels, kind, n_seg = _family_valid("lognormal")
+    state[key] = torch.zeros((state["t"].shape[0], 4))
+    with pytest.raises(ValueError, match="ROADMAP queue 1 item 8"):
+        ctmc_chunk.chunk_layout(state, us, pv, R, P, channels, kind=kind,
+                                n_seg=n_seg)
 
 
 def test_library_hash_covers_headers_and_flags(tmp_path, monkeypatch):
@@ -346,17 +469,22 @@ def _compare_states(got, want, label):
 def test_chunk_kernel_matches_steps_ref(name):
     _needs_card()
     state, pv, R, P, channels = _setup(name, "cuda")
+    kind, n_seg = _family(CASES[name][0])
     snapshot = {k: v.clone() for k, v in state.items()}
     n_chunks = CASES[name][5]
     got = want = state
     for i in range(n_chunks):
-        us = _draw(R, i, device="cuda")
+        us = _draw(R, i, device="cuda", kind=kind)
         launches, steps = ctmc_chunk.LAUNCHES, ctmc_chunk.STEPS
+        by_kind = ctmc_chunk.LAUNCHES_BY_KIND[kind]
         race = des_step.LAUNCHES
-        got = ctmc_chunk.ctmc_chunk_cuda(got, us, pv, R, P, channels)
-        want = tv._steps_ref(want, us, pv, R, P, "ref", channels)
+        got = ctmc_chunk.ctmc_chunk_cuda(got, us, pv, R, P, channels,
+                                         kind=kind, n_seg=n_seg)
+        want = tv._steps_ref(want, us, pv, R, P, "ref", channels, kind,
+                             n_seg)
         torch.cuda.synchronize()
         assert ctmc_chunk.LAUNCHES == launches + 1
+        assert ctmc_chunk.LAUNCHES_BY_KIND[kind] == by_kind + 1
         assert ctmc_chunk.STEPS == steps + 64
         assert des_step.LAUNCHES == race
         assert _compare_states(got, want, f"{name} chunk {i}") == 0
