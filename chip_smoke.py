@@ -74,8 +74,10 @@ Phases, each of which fails the run loudly:
 10. the event engine and the reference's routing: a retirement study
     under ``engine="auto"`` runs on the event engine on the host with no
     chunk launch, a Weibull-failure study routes to the CTMC engine, a
-    Weibull-repair study is refused naming ROADMAP item 8, and
-    ``simulate`` twice with one seed gives identical ``RunResult``s;
+    Weibull-repair study runs on the CTMC engine through a slot instance
+    of the chunk kernel, ``age_dtype="float64"`` is refused naming
+    ROADMAP item 8b, and ``simulate`` twice with one seed gives identical
+    ``RunResult``s;
 11. run parity on tests/test_vectorized.py's three configs: the CTMC
     engine on the card (768 replicas, through the chunk kernel) against
     the event engine (48), every compared metric within |z| < 3.5;
@@ -97,7 +99,18 @@ Phases, each of which fails the run loudly:
 15. run parity on tests/test_nonexp.py's and tests/test_empirical.py's
     configs and a lognormal: the CTMC engine on the card (768 replicas)
     against the event engine on the host (40), every compared metric
-    within |z| < 3.5.
+    within |z| < 3.5;
+16. phase 5's sweep under each non-exponential repair family (Weibull k
+    0.7, lognormal sigma 1.2, deterministic, tests/test_empirical.py's
+    repair shape), each through the slot instance of the chunk kernel (a
+    warp a row, the row's repair-slot lane in shared memory, 16 rates x 4
+    residuals, 9 uniforms a step), held as in phase 14 with the slot
+    lane's width and overflows (none allowed); then the whole Weibull-
+    repair sweep through the plain step loop, held as in phase 6;
+17. run parity on tests/test_repair_dist.py's configs and
+    tests/test_empirical.py's empirical repairs: the CTMC engine on the
+    card (768 replicas) against the event engine on the host (40), every
+    compared metric within |z| < 3.5, no overflow.
 
 Prints a ``{"serving": ..., "host_paths": ...}`` line, a ``{"kernels":
 [...]}`` line and, as its last line, ``{"ok": true, "device": {...}}``.  Exits non-zero, with
@@ -270,6 +283,38 @@ NONEXP_PARITY = {
     "lognormal": (FAMILY_SWEEPS["lognormal"], _NONEXP_METRICS),
 }
 NONEXP_CTMC, NONEXP_EVENT = 768, 40
+#: phase 16: each non-exponential repair family through phase 5's sweep
+#: (Table-I width, exponential failures, job_length cut to 16 days);
+#: tests/test_repair_dist.py's shapes and tests/test_empirical.py's
+#: empirical repair shape
+REPAIR_SWEEPS = {
+    "weibull": dict(repair_distribution="weibull",
+                    distribution_kwargs={"k": 0.7}),
+    "lognormal": dict(repair_distribution="lognormal",
+                      distribution_kwargs={"sigma": 1.2}),
+    "deterministic": dict(repair_distribution="deterministic"),
+    "empirical": dict(repair_distribution="empirical",
+                      distribution_kwargs={"edges": [0.5],
+                                           "rates": [0.1, 2.0]}),
+}
+#: phase 17: run parity on tests/test_repair_dist.py's configs (and
+#: tests/test_empirical.py's empirical repairs) over NONEXP_BASE:
+#: (family keywords, metrics)
+_REPAIR_METRICS = ("total_time", "n_failures", "n_auto_repairs",
+                   "n_manual_repairs", "recovery_overhead")
+REPAIR_PARITY = {
+    "weibull": (REPAIR_SWEEPS["weibull"],
+                _REPAIR_METRICS + ("n_failed_repairs", "n_standby_swaps",
+                                   "useful_work")),
+    "lognormal": (REPAIR_SWEEPS["lognormal"], _REPAIR_METRICS),
+    "deterministic": (REPAIR_SWEEPS["deterministic"],
+                      _REPAIR_METRICS + ("n_failed_repairs",)),
+    "combined": (dict(failure_distribution="lognormal",
+                      repair_distribution="weibull",
+                      distribution_kwargs={"k": 0.7, "sigma": 1.0}),
+                 _REPAIR_METRICS),
+    "empirical": (REPAIR_SWEEPS["empirical"], _REPAIR_METRICS),
+}
 
 
 def fail(msg: str) -> None:
@@ -755,7 +800,9 @@ def sweep_identity(final, final_ref):
     """A sweep's final state through the chunk kernel against the plain
     step loop's: (share of replicas with identical integer metrics, phase
     and run count; histogram counts identical; largest relative
-    difference of a float lane; bit-different float elements)."""
+    difference of a float lane; bit-different float elements).  Fails if
+    an integer lane (the repair-slot lane's classes and stages included)
+    differs anywhere."""
     import torch
     same = torch.ones_like(final["n_failures"], dtype=torch.bool)
     for m in INT_METRICS + ("phase", "n_runs"):
@@ -765,6 +812,9 @@ def sweep_identity(final, final_ref):
     bits, worst_rel = 0, 0.0
     for k, w in final_ref.items():
         g = final[k]
+        if not w.dtype.is_floating_point and not torch.equal(g, w):
+            fail(f"{k}: the kernel's and the plain loop's integer lanes "
+                 "differ")
         if k in INT_METRICS or k in ("hist", "hist_edges") \
                 or not w.dtype.is_floating_point:
             continue
@@ -778,22 +828,25 @@ def sweep_identity(final, final_ref):
 
 
 def chunk_bound_ms(live_rows, n_steps, R, n_edges, hist_adds, ring_writes,
-                   kind="exponential", n_hazard_cols=0):
+                   kind="exponential", n_hazard_cols=0, n_uniforms=8,
+                   n_slots=0, n_repair_cols=0):
     """Least time for one chunk launch on these inputs: the uniforms the
-    rows read (n_steps x R x 32 B, 36 B with u_haz), each live row's state
-    read and written and its parameters (16 columns and the family's
-    hazard columns) read once, the bin edges, each histogram bin added to
-    read and written, each ring slot written; the family's
-    FAMILY_STEP_OPS float32 operations a live row-step at the float32
-    peak."""
-    n_u = 8 if kind == "exponential" else 9
-    nbytes = (n_steps * R * n_u * 4
+    rows read (n_steps x R x n_uniforms x 4 B), each live row's state
+    read and written and its parameters (16 columns, the failure family's
+    hazard columns and, for a slot instance, the repair family's columns)
+    read once, each live row's repair-slot lane (12 B a slot) read and
+    written once, the bin edges, each histogram bin added to read and
+    written, each ring slot written; the family's FAMILY_STEP_OPS float32
+    operations a live row-step, plus a slot instance's two a slot (the
+    minimum's compare, the decrement), at the float32 peak."""
+    nbytes = (n_steps * R * n_uniforms * 4
               + live_rows * (2 * ROW_STATE_BYTES + ROW_PARAM_BYTES
-                             + 4 * n_hazard_cols)
+                             + 4 * (n_hazard_cols + n_repair_cols)
+                             + 2 * 12 * n_slots)
               + 4 * n_edges + 8 * hist_adds + 4 * ring_writes)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = (live_rows * n_steps * FAMILY_STEP_OPS[kind] / FP32_OPS_PER_S
-              * 1e3)
+    ops_ms = (live_rows * n_steps * (FAMILY_STEP_OPS[kind] + 2 * n_slots)
+              / FP32_OPS_PER_S * 1e3)
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms \
         else "operations"
 
@@ -804,20 +857,21 @@ def chunk_phase(cc, vectorized, call):
     failure family and draw), every lane; then both one's times and the
     kernel's bound."""
     import torch
+    from repro_torch.core import hazards
     pv, seed, P, R, chunk = call[:5]
     channels, init = call[9], call[10]
-    kind, n_seg = (call[11], call[12]) if len(call) > 11 \
-        else ("exponential", 0)
-    fam = dict(kind=kind, n_seg=n_seg)
+    kind, n_seg, rkind, n_rseg = call[11:15]
+    fam = dict(kind=kind, n_seg=n_seg, rkind=rkind, n_rseg=n_rseg)
+    n_u = vectorized._n_uniforms(kind, rkind)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(vectorized._chunk_seed(seed, 0))
-    us = torch.rand((chunk, vectorized._next_pow2(R),
-                     vectorized._n_uniforms(kind)),
+    us = torch.rand((chunk, vectorized._next_pow2(R), n_u),
                     generator=gen, device="cuda").clamp_min_(1e-12)
-    counts = (cc.LAUNCHES, cc.STEPS, dict(cc.LAUNCHES_BY_KIND))
+    counts = (cc.LAUNCHES, cc.STEPS, dict(cc.LAUNCHES_BY_KIND),
+              dict(cc.LAUNCHES_BY_REPAIR))
     got = cc.ctmc_chunk_cuda(init, us, pv, R, P, channels, **fam)
     want = vectorized._steps_ref(init, us, pv, R, P, "ref", channels, kind,
-                                 n_seg)
+                                 n_seg, rkind, n_rseg)
     torch.cuda.synchronize()
     mism, bits, err = 0, 0, 0.0
     for k, w in want.items():
@@ -853,20 +907,25 @@ def chunk_phase(cc, vectorized, call):
     t["call_ms"] = event_ms(lambda: cc.ctmc_chunk_cuda(
         init, us, pv, R, P, channels, **fam), 50, warmup=5)
     t["plain_ms"] = device_ms(lambda: vectorized._steps_ref(
-        init, us, pv, R, P, "ref", channels, kind, n_seg), 1)
+        init, us, pv, R, P, "ref", channels, kind, n_seg, rkind, n_rseg), 1)
     t["plain_call_ms"] = event_ms(lambda: vectorized._steps_ref(
-        init, us, pv, R, P, "ref", channels, kind, n_seg), 1, warmup=1)
+        init, us, pv, R, P, "ref", channels, kind, n_seg, rkind, n_rseg), 1,
+        warmup=1)
     cc.LAUNCHES, cc.STEPS = counts[:2]
     cc.LAUNCHES_BY_KIND.update(counts[2])
+    cc.LAUNCHES_BY_REPAIR.update(counts[3])
     hist_adds = int((want["hist"] - init["hist"]).sum()) \
         if "hist" in want else 0
     ring = int((want["n_runs"] - init["n_runs"]).sum()) \
         if want["run_durations"].shape[1] else 0
     n_edges = init["hist_edges"].numel() if "hist_edges" in init else 0
-    n_hc = pv.shape[-1] - 16 - 3
+    n_slots = init["repair_rem"].shape[1] if "repair_rem" in init else 0
     t["bound_ms"], t["bound_by"] = chunk_bound_ms(
         live, chunk, R, n_edges, hist_adds, ring, kind,
-        0 if kind == "exponential" else n_hc)
+        0 if kind == "exponential" else hazards.hazard_col_count(kind, n_seg),
+        n_u, n_slots,
+        hazards.repair_col_count(rkind, n_rseg) if n_slots else 0)
+    t["n_slots"] = n_slots
     t["live_rows"] = live
     t["ms_per_step"] = None if t["ms"] is None else t["ms"] / chunk
     print("  device time per launch by kernel (clones included): " + "; ".join(
@@ -1116,9 +1175,10 @@ def ab_phase(arch, fa, ms):
 def event_engine_phase(core, cc):
     """Phase 10: the event engine on the host and the reference's routing:
     ``auto`` sends a retirement study to the event engine without a
-    launch, sends a Weibull-failure study to the CTMC engine, refuses a
-    Weibull-repair study naming its ROADMAP item, and the engine repeats
-    itself for a seed."""
+    launch, sends a Weibull-failure study to the CTMC engine, runs a
+    Weibull-repair study on the CTMC engine through a slot instance,
+    refuses a float64-age study naming its ROADMAP item, and the engine
+    repeats itself for a seed."""
     small = core.Params(job_size=8, working_pool_size=12, spare_pool_size=4,
                         warm_standbys=1, job_length=0.5 * DAY,
                         random_failure_rate=1.0 / DAY, seed=2)
@@ -1156,16 +1216,29 @@ def event_engine_phase(core, cc):
     if engine != "ctmc":
         fail(f"engine='auto' sends a Weibull-failure study to {engine}; the "
              "reference runs it on its CTMC engine")
+    before = cc.LAUNCHES_BY_REPAIR["weibull"]
+    rep = core.run_replications(
+        weibull.replace(repair_distribution="weibull"), 64, engine="auto")
+    slot_launches = cc.LAUNCHES_BY_REPAIR["weibull"] - before
+    print(f"  weibull repairs under engine='auto': engine {rep.engine}, "
+          f"{slot_launches} slot-instance launches, completed "
+          f"{rep.stats['completed'].mean:.4f}, n_auto_repairs "
+          f"{rep.stats['n_auto_repairs'].mean:.3f}")
+    if rep.engine != "ctmc" or slot_launches <= 0 \
+            or rep.stats["completed"].mean != 1.0:
+        fail(f"engine='auto' ran a Weibull-repair study on {rep.engine} with "
+             f"{slot_launches} slot-instance launches; the reference runs "
+             "it on its CTMC engine")
     try:
-        core.run_replications(weibull.replace(repair_distribution="weibull"),
-                              4, engine="auto")
+        core.run_replications(small.replace(age_dtype="float64"), 4,
+                              engine="auto")
     except ValueError as exc:
-        if "ROADMAP queue 1 item 8" not in str(exc):
-            fail(f"the Weibull-repair refusal does not name item 8: {exc}")
-        print(f"  weibull repairs under engine='auto': refused ({exc})")
+        if "ROADMAP queue 1 item 8b" not in str(exc):
+            fail(f"the float64-age refusal does not name item 8b: {exc}")
+        print(f"  age_dtype='float64' under engine='auto': refused ({exc})")
     else:
-        fail("engine='auto' ran a Weibull-repair study, which the port's "
-             "CTMC engine does not run yet")
+        fail("engine='auto' ran a float64-age study, which the port's CTMC "
+             "engine does not run yet")
     a = [r.to_dict() for r in core.simulate(small, 4, base_seed=11)]
     b = [r.to_dict() for r in core.simulate(small, 4, base_seed=11)]
     if a != b:
@@ -1320,16 +1393,28 @@ def experiment_phase(core, cc):
     return {"launches": launches, "seconds": secs}
 
 
-def family_phase(core, cc, vectorized, name):
-    """Phase 14 for one failure family: phase 5's sweep under it, through
-    ``OneWaySweep`` on the card, with the launch counts set to 0 just
-    before and read just after; every replica must complete with servers
-    conserved.  Then the kernel against the plain step loop on the sweep's
+def family_launches(cc, hazards, p):
+    """(counter, key) of the launches of ``p``'s instance: by repair
+    family for a slot instance, else by failure family."""
+    rkind = hazards.repair_kind(p)
+    return ((cc.LAUNCHES_BY_REPAIR, rkind) if rkind != "exponential"
+            else (cc.LAUNCHES_BY_KIND, hazards.hazard_kind(p)))
+
+
+def family_phase(core, cc, vectorized, name, overrides):
+    """Phase 14 for one failure family (phase 16 for one repair family):
+    phase 5's sweep under ``overrides``, through ``OneWaySweep`` on the
+    card, with the launch counts set to 0 just before and read just after;
+    every replica must complete with servers conserved and no slot-lane
+    overflow.  Then the kernel against the plain step loop on the sweep's
     first chunk (chunk_phase) and the sweep again under torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    base = core.Params(job_length=JOB_DAYS * DAY, **FAMILY_SWEEPS[name])
-    kind = core.hazard_kind(base)
+
+    from repro_torch.core import hazards
+    base = core.Params(job_length=JOB_DAYS * DAY, **overrides)
+    kind, rkind = core.hazard_kind(base), hazards.repair_kind(base)
+    counter, key = family_launches(cc, hazards, base)
     sweep = core.OneWaySweep(f"{name} warm standbys", "warm_standbys",
                              SWEEP_VALUES, n_replications=N_REPLICAS,
                              base_params=base, device="cuda")
@@ -1337,18 +1422,19 @@ def family_phase(core, cc, vectorized, name):
     try:
         cc.LAUNCHES = cc.STEPS = 0
         cc.LAUNCHES_BY_KIND.update(dict.fromkeys(cc.LAUNCHES_BY_KIND, 0))
+        cc.LAUNCHES_BY_REPAIR.update(dict.fromkeys(cc.LAUNCHES_BY_REPAIR, 0))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = sweep.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches, steps = cc.LAUNCHES_BY_KIND[kind], cc.STEPS
+        launches, steps = counter[key], cc.STEPS
         others = cc.LAUNCHES - launches
     finally:
         restore()
-    if kind != name or launches <= 0 or others \
+    if key != name or launches <= 0 or others \
             or launches != run["chunks"] or steps != run["steps"]:
-        fail(f"{name}: family {kind}, {launches} launches of its instance "
+        fail(f"{name}: family {key}, {launches} launches of its instance "
              f"({others} of others), {steps} steps, for {run['chunks']} "
              f"chunks of {run['steps']} steps")
     if len(run["states"]) != 1:
@@ -1371,20 +1457,29 @@ def family_phase(core, cc, vectorized, name):
         print(f"  {name} warm_standbys={v}: total_time "
               f"{st['total_time'].mean:.1f} min, n_failures "
               f"{st['n_failures'].mean:.2f}, goodput {st['goodput'].mean:.5f}")
+    overflow = float(final["n_repair_overflow"].sum())
+    n_slots = final["repair_rem"].shape[1] if "repair_rem" in final else 0
     print(f"  {name}: {launches} launches, {steps} steps, sweep wall "
           f"{wall:.6f} s ({steps / wall:.1f} steps/s), every replica "
-          "completed")
+          f"completed; repair-slot lane {n_slots} slots, overflows "
+          f"{overflow:.0f}")
+    if overflow:
+        fail(f"{name}: {overflow:.0f} diagnosed failures found the "
+             f"{n_slots}-slot repair lane full")
     t = chunk_phase(cc, vectorized, run["calls"][0])
     if t["bit_different"]:
         fail(f"{name}: the first chunk differs from the plain loop in "
              f"{t['bit_different']} float elements")
-    counts = (cc.LAUNCHES, cc.STEPS, dict(cc.LAUNCHES_BY_KIND))
+    counts = (cc.LAUNCHES, cc.STEPS, dict(cc.LAUNCHES_BY_KIND),
+              dict(cc.LAUNCHES_BY_REPAIR))
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         sweep.run()
         torch.cuda.synchronize()
-    traced = cc.LAUNCHES_BY_KIND[kind] - counts[2][kind]
+    traced = counter[key] - (counts[3] if counter is cc.LAUNCHES_BY_REPAIR
+                             else counts[2])[key]
     cc.LAUNCHES, cc.STEPS = counts[:2]
     cc.LAUNCHES_BY_KIND.update(counts[2])
+    cc.LAUNCHES_BY_REPAIR.update(counts[3])
     chunk_ms = sum(getattr(e, "self_device_time_total", 0.0)
                    for e in prof.key_averages()
                    if str(e.device_type).endswith("CUDA")
@@ -1394,8 +1489,8 @@ def family_phase(core, cc, vectorized, name):
           f"in {traced} launches = {t['sweep_ms_per_launch']:.6f} ms a "
           f"launch; bound {t['bound_ms']:.6f} ms on the first chunk "
           f"({t['live_rows']} live rows)")
-    return dict(t, kind=kind, launches=launches, steps=steps, wall_s=wall,
-                final=final, base=base)
+    return dict(t, kind=kind, rkind=rkind, launches=launches, steps=steps,
+                wall_s=wall, final=final, base=base, overflow=overflow)
 
 
 def family_identity(core, cc, vectorized, rec):
@@ -1419,39 +1514,44 @@ def family_identity(core, cc, vectorized, rec):
         fail("impl='ref' launched the chunk kernel")
     frac, hist_same, worst_rel, bits = sweep_identity(rec["final"],
                                                       run["states"][0])
-    print(f"  {rec['kind']} sweep through the plain step loop: wall "
+    label = f"{rec['kind']} failures, {rec['rkind']} repairs"
+    print(f"  {label} sweep through the plain step loop: wall "
           f"{wall:.3f} s ({run['steps']} steps); replicas with identical "
           f"integer metrics {frac * 100:.3f}%; histograms identical "
           f"{hist_same}; float lanes: largest relative difference "
           f"{worst_rel:.3e}, bit-different elements {bits}")
     if frac < 1.0 or not hist_same or worst_rel > 1e-6:
-        fail(f"the {rec['kind']} sweep through the chunk kernel differs from "
+        fail(f"the sweep of {label} through the chunk kernel differs from "
              "the plain loop's")
     return {"identical_share": frac, "histograms_identical": hist_same,
             "float_max_rel": worst_rel, "bit_different": bits,
             "plain_wall_s": wall}
 
 
-def nonexp_parity_phase(core, cc):
-    """Phase 15: each family's CTMC run on the card against the port's
-    event engine on the host, every compared mean within |z| < 3.5."""
+def nonexp_parity_phase(core, cc, table):
+    """Phase 15 (phase 17 with ``REPAIR_PARITY``): each family's CTMC run
+    on the card against the port's event engine on the host, every
+    compared mean within |z| < 3.5, and no slot-lane overflow."""
+    from repro_torch.core import hazards
     out = {}
     t0 = time.perf_counter()
-    for name, (kw, metrics) in NONEXP_PARITY.items():
+    for name, (kw, metrics) in table.items():
         p = core.Params(**NONEXP_BASE, **kw)
-        kind = core.hazard_kind(p)
-        before = cc.LAUNCHES_BY_KIND[kind]
+        counter, kind = family_launches(cc, hazards, p)
+        before = counter[kind]
         t1 = time.perf_counter()
         ct = core.simulate_ctmc(p, n_replicas=NONEXP_CTMC, seed=0,
                                 device="cuda")
         ctmc_s = time.perf_counter() - t1
-        launches = cc.LAUNCHES_BY_KIND[kind] - before
+        launches = counter[kind] - before
         t1 = time.perf_counter()
         ev = core.simulate(p, NONEXP_EVENT)
         event_s = time.perf_counter() - t1
-        if launches <= 0 or ct["completed"].mean() <= 0.99:
+        if launches <= 0 or ct["completed"].mean() <= 0.99 \
+                or ct["n_repair_overflow"].sum() != 0:
             fail(f"parity {name}: {launches} {kind} launches, completed "
-                 f"{ct['completed'].mean():.4f}")
+                 f"{ct['completed'].mean():.4f}, overflows "
+                 f"{ct['n_repair_overflow'].sum():.0f}")
         zs = {}
         for m in metrics:
             e = [float(getattr(r, m)) for r in ev]
@@ -1753,7 +1853,8 @@ def main() -> int:
     for name in FAMILY_SWEEPS:
         phase(f"phase 14: {name} failures, phase 5's sweep "
               f"({FAMILY_SWEEPS[name]['distribution_kwargs']})")
-        families[name] = family_phase(core, cc, vectorized, name)
+        families[name] = family_phase(core, cc, vectorized, name,
+                                      FAMILY_SWEEPS[name])
     phase("phase 14: the whole weibull sweep through the plain step loop")
     identity = family_identity(core, cc, vectorized, families["weibull"])
     secs14 = time.perf_counter() - t14
@@ -1761,7 +1862,7 @@ def main() -> int:
     phase(f"phase 15: run parity of the families, CTMC on the card "
           f"({NONEXP_CTMC} replicas) against the event engine "
           f"({NONEXP_EVENT})")
-    nonexp_parity = nonexp_parity_phase(core, cc)
+    nonexp_parity = nonexp_parity_phase(core, cc, NONEXP_PARITY)
     print(f"  phases 14-15: {secs14 + nonexp_parity['seconds']:.3f} s")
     host_paths["families"] = {
         "seconds": secs14, "weibull_plain_identity": identity,
@@ -1769,6 +1870,32 @@ def main() -> int:
                                        "sweep_ms_per_launch", "live_rows")}
            for name, rec in families.items()}}
     host_paths["nonexp_parity"] = nonexp_parity
+
+    # ---- phases 16-17: the non-exponential repair families ----------------
+    t16 = time.perf_counter()
+    repairs = {}
+    for name, kw in REPAIR_SWEEPS.items():
+        phase(f"phase 16: {name} repairs, phase 5's sweep "
+              f"({kw.get('distribution_kwargs', {})})")
+        repairs[name] = family_phase(core, cc, vectorized, name, kw)
+    phase("phase 16: the whole weibull-repair sweep through the plain step "
+          "loop")
+    repair_identity = family_identity(core, cc, vectorized,
+                                      repairs["weibull"])
+    secs16 = time.perf_counter() - t16
+    print(f"  phase 16: {secs16:.3f} s")
+    phase(f"phase 17: run parity of the repair families, CTMC on the card "
+          f"({NONEXP_CTMC} replicas) against the event engine "
+          f"({NONEXP_EVENT})")
+    repair_parity = nonexp_parity_phase(core, cc, REPAIR_PARITY)
+    print(f"  phases 16-17: {secs16 + repair_parity['seconds']:.3f} s")
+    host_paths["repairs"] = {
+        "seconds": secs16, "weibull_plain_identity": repair_identity,
+        **{name: {k: rec[k] for k in ("launches", "steps", "wall_s",
+                                       "sweep_ms_per_launch", "live_rows",
+                                       "n_slots", "overflow")}
+           for name, rec in repairs.items()}}
+    host_paths["repair_parity"] = repair_parity
 
     mism, rel, abs_err = main_err
     record = {"name": "event_race", "route": "cuda", "source": KERNEL_SOURCE,
@@ -1808,6 +1935,22 @@ def main() -> int:
                               "_event_race_kernel (16 rates x 4 residuals) "
                               f"and the lax.scan of {CHUNK_SCAN}",
             instance=rec["kind"], launches=rec["launches"],
+            ms=rec["call_ms"] if rec["ms"] is None else rec["ms"],
+            library_ms=None))
+    for name, rec in repairs.items():
+        kernels.append(dict(
+            {k: rec[k] for k in ("max_abs_err", "bit_different", "call_ms",
+                                 "plain_ms", "plain_call_ms", "bound_ms",
+                                 "bound_by", "ms_per_step",
+                                 "sweep_ms_per_launch", "steps", "n_slots")},
+            name=f"ctmc_chunk[{rec['kind']}+slots:{rec['rkind']}]",
+            route="cuda", source=CHUNK_SOURCE, replaces=TPU_KERNEL,
+            replaces_function="src/repro/kernels/des_step.py:"
+                              "_event_race_kernel (16 rates x 4 residuals, "
+                              "the repair-slot residual first) and the "
+                              f"lax.scan of {CHUNK_SCAN}",
+            instance=f"{rec['kind']} + repair slots", repairs=rec["rkind"],
+            launches=rec["launches"],
             ms=rec["call_ms"] if rec["ms"] is None else rec["ms"],
             library_ms=None))
     for name, source, replaces, launches_, t in (

@@ -27,15 +27,20 @@ the reference does:
   majorant (the current segment rate) over a window that runs to the
   next segment edge of either clock.
 
+Non-exponential repairs (Weibull, lognormal, deterministic, empirical)
+run on a per-replica repair-slot lane: a diagnosed failure's server takes
+a free slot with its automated-stage duration, drawn by exact inverse CDF
+(the samplers' ``quantile``) at shop entry, when the event engine's
+``RepairShop`` draws it; an escalation re-arms the slot with a manual-stage
+draw.  The slot lane is auto-sized from :func:`expected_repair_occupancy`.
+
 The classifier (:func:`hazard_kind`, :func:`repair_kind`) is the
 reference's, so the port knows exactly which Params the reference's CTMC
 engine runs.  Host helpers build the per-point parameter columns, equal
 to the reference's float32 for float32; the torch helpers evaluate the
-hazards inside the plain step (:func:`repro_torch.core.vectorized._step_u`),
-whose chunk kernel ``csrc/ctmc_chunk.cu`` repeats the same operations.
-The repair side (samplers' ``quantile``, the deterministic family, the
-repair columns) is ROADMAP queue 1 item 8: its columns stay zeros here
-and :func:`repro_torch.core.vectorized.port_reasons` refuses it.
+hazards and quantiles inside the plain step
+(:func:`repro_torch.core.vectorized._step_u`), whose chunk kernel
+``csrc/ctmc_chunk.cu`` repeats the same operations.
 """
 
 from __future__ import annotations
@@ -59,6 +64,13 @@ from .params import Params
 HAZARD_KINDS = ("exponential", "weibull", "bathtub", "lognormal",
                 "empirical")
 
+#: repair families the CTMC engine runs, in the chunk kernel's code order
+#: (``csrc/ctmc_chunk.cu``'s ``RepairKind``).  Exponential keeps the
+#: count-based repair compartments (memoryless, no per-server state); the
+#: others run the repair-slot lane with durations drawn at entry.
+REPAIR_KINDS = ("exponential", "weibull", "lognormal", "deterministic",
+                "empirical")
+
 #: hazard parameter columns after the 16 base columns.  By family:
 #:   weibull   : [C_rand, C_sys, k, 0, 0]        C = lam**-k per clock
 #:   bathtub   : [infant_factor, infant_tau, wear_start, wear_tau, window]
@@ -69,8 +81,13 @@ HAZARD_KINDS = ("exponential", "weibull", "bathtub", "lognormal",
 #:                sys_edges (m-1), sys_rates (m)]      (4m - 2 columns)
 N_HAZARD_COLS = 5
 
-#: repair parameter columns after the hazard columns (all zero and
-#: unused for exponential repairs, the only repairs ported)
+#: repair parameter columns after the hazard columns.  By family:
+#:   weibull       : [lam_auto, lam_manual, k]     (the stage scales)
+#:   lognormal     : [scale_auto, scale_manual, sigma]
+#:   deterministic : [value_auto, value_manual, 0]
+#:   exponential   : all zeros (unused)
+#: The empirical block is [auto_edges (m-1), auto_rates (m), manual_edges
+#: (m-1), manual_rates (m)] instead.  A zero scale marks a disabled stage.
 N_REPAIR_COLS = 3
 
 
@@ -290,9 +307,11 @@ def hazard_segment_count(params: Params) -> int:
 
 
 def repair_segment_count(params: Params) -> int:
-    """Segment count of an empirical repair family: 0 until ROADMAP
-    queue 1 item 8 ports the repair side."""
-    return 0
+    """The empirical repair program's segment count (else 0)."""
+    if repair_kind(params) != "empirical":
+        return 0
+    auto, man = _build_repair_distributions(params)
+    return _padded_pair_count(auto, man)
 
 
 def _pair_segment_columns(d_a, d_b, m: int) -> np.ndarray:
@@ -404,9 +423,24 @@ def hazard_columns(params: Params) -> np.ndarray:
 
 
 def repair_columns(params: Params) -> np.ndarray:
-    """Repair parameter columns: ``N_REPAIR_COLS`` zeros (exponential
-    repairs; the other families are ROADMAP queue 1 item 8)."""
-    return np.zeros(N_REPAIR_COLS, np.float32)
+    """Per-point repair parameter columns, float32 (see
+    :data:`N_REPAIR_COLS`), read off the distributions the event engine's
+    ``RepairShop`` samples from
+    (:func:`repro_torch.core.repair.repair_distributions`)."""
+    kind = repair_kind(params)
+    cols = np.zeros(N_REPAIR_COLS, np.float32)
+    if kind in (None, "exponential"):
+        return cols
+    auto, man = _build_repair_distributions(params)
+    if kind == "empirical":
+        return _pair_segment_columns(auto, man, repair_segment_count(params))
+    if kind == "weibull":
+        cols[0], cols[1], cols[2] = auto.lam, man.lam, auto.k
+    elif kind == "lognormal":
+        cols[0], cols[1], cols[2] = auto.scale, man.scale, auto.sigma
+    elif kind == "deterministic":
+        cols[0], cols[1] = auto.value, man.value
+    return cols
 
 
 def effective_event_rate(params: Params) -> float:
@@ -478,6 +512,28 @@ def phantom_steps(params: Params) -> int:
     return int(params.job_length / window) + 1
 
 
+def expected_repair_occupancy(params: Params) -> float:
+    """Mean number of servers in the repair shop (Little's law), which
+    sizes the repair-slot lane (``vectorized._repair_slots_for``).
+
+    Entry rate = diagnosed failures; time in shop = the automated stage
+    plus the escalated manual stage.  The entry rate is an accepted-failure
+    estimate: lognormal and empirical failures take the nominal mean rate
+    (their :func:`effective_event_rate` is a thinning-candidate bound),
+    the other families their :func:`effective_event_rate`.  An estimate,
+    not a bound: the caller's margin absorbs the gap, and a full lane is
+    counted in ``n_repair_overflow``.
+    """
+    if hazard_kind(params) in ("lognormal", "empirical"):
+        rate = params.expected_failures_per_minute()
+    else:
+        rate = effective_event_rate(params)
+    mean_shop = (params.auto_repair_time
+                 + (1.0 - params.automated_repair_probability)
+                 * params.manual_repair_time)
+    return rate * params.diagnosis_probability * mean_shop
+
+
 # ---------------------------------------------------------------------------
 # torch hazard math (evaluated inside the plain step)
 # ---------------------------------------------------------------------------
@@ -494,6 +550,15 @@ def bathtub_shape(t, infant_factor, infant_tau, wear_start, wear_tau):
     and ``g >= 1`` (``IF >= 1`` is enforced by :func:`hazard_kind`)."""
     g = 1.0 + (infant_factor - 1.0) * torch.exp(-t / infant_tau)
     return g + (t - wear_start).clamp_min(0.0) / wear_tau
+
+
+def _seq_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Cumulative sum over the last axis, left to right (the chunk
+    kernel's order; ``torch.cumsum`` and ``sum`` fix none)."""
+    parts = [x[..., 0]]
+    for j in range(1, x.shape[-1]):
+        parts.append(parts[-1] + x[..., j])
+    return torch.stack(parts, dim=-1)
 
 
 def _pow(x, y):
@@ -587,12 +652,13 @@ def piecewise_conditional_residual(age, edges, rates, exp_draw):
     hi = torch.cat([e, torch.full_like(e[..., :1], torch.inf)], dim=-1)
     width = hi - lo
     seg_h = torch.where(r > 0.0, r * width, 0.0)     # keeps 0 * inf at 0
-    cs = seg_h.cumsum(-1)
+    # the sums run left to right, as the chunk kernel's do
+    cs = _seq_cumsum(seg_h)
     c_prev = torch.cat([torch.zeros_like(cs[..., :1]), cs[..., :-1]],
                        dim=-1)
     rb = r.expand(c_prev.shape)
-    h_age = (rb * torch.minimum((age[..., None] - lo).clamp_min(0.0),
-                                width)).sum(-1)
+    h_age = _seq_cumsum(rb * torch.minimum(
+        (age[..., None] - lo).clamp_min(0.0), width))[..., -1]
     target = h_age + exp_draw
     idx = (cs <= target[..., None]).sum(-1)
     m = r.shape[-1]
@@ -606,17 +672,17 @@ def piecewise_conditional_residual(age, edges, rates, exp_draw):
 
 
 # ---------------------------------------------------------------------------
-# samplers (the failure race's half)
+# samplers
 # ---------------------------------------------------------------------------
 
 class HazardSampler:
-    """Family-specific sampling primitives for the failure race.
+    """Family-specific sampling primitives for the failure and repair races.
 
-    One stateless instance per family.  The race consumes
+    One stateless instance per family.  The failure race consumes
     ``conditional_residual`` (inversion families) or ``majorant`` +
     ``hazard`` (thinning families); ``cols`` is a family-specific tuple
-    of parameter columns, documented on each sampler.  The repair race's
-    ``quantile`` comes with ROADMAP queue 1 item 8.
+    of parameter columns, documented on each sampler.  The repair-slot
+    lane consumes ``quantile``.
     """
 
     kind: str = "base"
@@ -633,12 +699,25 @@ class HazardSampler:
         """Valid upper bound of the hazard over ``[age, age + window]``."""
         raise NotImplementedError(self.kind)
 
+    def quantile(self, u, scale, shape):
+        """Exact inverse CDF: a repair duration drawn at slot entry.
+
+        ``scale`` is the stage's scale column (0 marks a disabled stage:
+        +inf, the event engine's infinite-mean convention), ``shape`` the
+        family's shape column.
+        """
+        raise NotImplementedError(self.kind)
+
 
 class WeibullSampler(HazardSampler):
     kind = "weibull"
 
     def conditional_residual(self, age, coeff, shape, exp_draw):
         return weibull_conditional_ttf(age, coeff, shape, exp_draw)
+
+    def quantile(self, u, scale, shape):
+        q = scale * _pow(-torch.log1p(-u), 1.0 / shape)
+        return torch.where(scale > 0.0, q, torch.inf)
 
 
 class BathtubSampler(HazardSampler):
@@ -672,6 +751,19 @@ class LognormalSampler(HazardSampler):
         return lognormal_window_majorant(age, window, scale, sigma,
                                          mode_rel)
 
+    def quantile(self, u, scale, shape):
+        q = scale * torch.exp(shape * torch.special.ndtri(u))
+        return torch.where(scale > 0.0, q, torch.inf)
+
+
+class DeterministicSampler(HazardSampler):
+    kind = "deterministic"
+
+    def quantile(self, u, scale, shape):
+        # a fixed duration; 0 is a valid instant repair, as the event
+        # engine's Deterministic(0) is
+        return scale * torch.ones_like(u)
+
 
 class PiecewiseConstantSampler(HazardSampler):
     kind = "empirical"
@@ -689,6 +781,12 @@ class PiecewiseConstantSampler(HazardSampler):
     def conditional_residual(self, age, edges, rates, exp_draw):
         return piecewise_conditional_residual(age, edges, rates, exp_draw)
 
+    def quantile(self, u, edges, rates):
+        # the repair race passes the stage's (edges, rates) through the
+        # (scale, shape) slots; invert H(t) = -log1p(-u) from age 0
+        return piecewise_conditional_residual(
+            torch.zeros_like(u), edges, rates, -torch.log1p(-u))
+
 
 #: failure families with sampling machinery (exponential is the plain
 #: rate race and needs none)
@@ -696,5 +794,13 @@ FAILURE_SAMPLERS = {
     "weibull": WeibullSampler(),
     "bathtub": BathtubSampler(),
     "lognormal": LognormalSampler(),
+    "empirical": PiecewiseConstantSampler(),
+}
+
+#: repair families the slot lane samples at entry
+REPAIR_SAMPLERS = {
+    "weibull": WeibullSampler(),
+    "lognormal": LognormalSampler(),
+    "deterministic": DeterministicSampler(),
     "empirical": PiecewiseConstantSampler(),
 }

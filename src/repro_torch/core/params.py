@@ -136,8 +136,8 @@ class Params:
     histogram: Optional[HistogramSpec] = field(default_factory=HistogramSpec)
     #: dtype of the CTMC engine's hazard-age arithmetic ("float32" |
     #: "float64").  "float64" serves the non-exponential hazard and
-    #: repair lanes, which the port does not run yet; the port's engine
-    #: refuses it (ROADMAP queue 1 item 8).
+    #: repair lanes in the reference; the port's engine refuses it
+    #: (ROADMAP queue 1 item 8b).
     age_dtype: str = "float32"
     #: repair-slot lane width of the CTMC engine under *non-exponential*
     #: repair distributions (each in-repair server occupies one slot

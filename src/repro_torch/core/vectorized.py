@@ -1,10 +1,11 @@
 """Vectorized PyTorch CTMC engine: thousands of AIReSim replicas per device.
 
-Counterpart of ``src/repro/core/vectorized.py`` for one job, no fault
-domains and exponential repairs, under every failure family of the
-reference's CTMC engine: exponential, Weibull, bathtub, lognormal and
-empirical (piecewise-constant, builtin or a registered distribution with
-``hazard_segments()``).  The cluster is a continuous-time Markov chain
+Counterpart of ``src/repro/core/vectorized.py`` for one job and no fault
+domains, under every failure family of the reference's CTMC engine
+(exponential, Weibull, bathtub, lognormal and empirical: piecewise-constant,
+builtin or a registered distribution with ``hazard_segments()``) and every
+repair family (exponential, Weibull, lognormal, deterministic and
+empirical).  The cluster is a continuous-time Markov chain
 over server *compartments* -- servers are exchangeable within (origin x
 health) classes, so counts are sufficient state.  Each step races the 16
 exponential clock families against the deterministic timers (job
@@ -12,7 +13,12 @@ completion, recovery/host-selection timer, the failure family's hazard
 residual where it has one, checkpoint write) and then applies the
 winning transition with masked updates; a non-exponential family's
 failures come from :mod:`.hazards` (Weibull by exact inversion, the
-others by Ogata thinning on a ninth uniform).  The step carries
+others by Ogata thinning on a ninth uniform).  A non-exponential repair
+family completes its repairs through the repair-slot lane instead of the
+exponential repair clocks: each server in the shop holds a slot with its
+remaining repair time, counted down in wall-clock time, whose minimum is
+raced first among the residuals; a duration is drawn by inverse CDF on one
+more uniform when a server enters the shop or escalates.  The step carries
 checkpoint rollback, goodput, the per-replica run-duration ring buffer and
 the streaming histograms exactly as the reference does.
 
@@ -29,7 +35,7 @@ two agree bit for bit.
 
 Random numbers copy the *shape* of the reference's draws, not its bits
 (torch's Philox cannot reproduce JAX's threefry): each chunk makes one
-``(chunk, next_pow2(R), _n_uniforms(kind))`` draw from a
+``(chunk, next_pow2(R), _n_uniforms(kind, rkind))`` draw from a
 ``torch.Generator`` on the run device seeded from ``(seed, chunk
 index)``, clamped into ``[1e-12, 1)``, sliced to R and tiled across the
 P points of a sweep.  That shape gives
@@ -37,23 +43,23 @@ common random numbers across sweep points and keeps pow2-bucketed sweeps
 bit-identical to unbucketed ones on their real rows.
 
 Sweeps flatten a (points x replicas) grid into one batch axis per
-failure family: every point shares one compartment layout, so structural
-parameters enter as initial occupancies, and the point and replica counts
-round up to powers of two with inert rows (phase DONE from step 0) that
-extraction drops.
+failure and repair family: every point shares one compartment layout, so
+structural parameters enter as initial occupancies, and the point and
+replica counts round up to powers of two with inert rows (phase DONE from
+step 0) that extraction drops.
 
 Not ported yet, and refused by :func:`port_reasons` with the ROADMAP
-item that will bring it: non-exponential repair families and
-``age_dtype="float64"`` (queue 1 item 8), fault domains and campaigns
-(item 9) and replica sharding (item 11).  What the reference's CTMC
-engine refuses too (:func:`reference_reasons`) runs on the port's event
-engine (:mod:`repro_torch.core.simulation`) under ``engine="auto"``, as
-in the reference.
+item that will bring it: ``age_dtype="float64"`` (queue 1 item 8b),
+fault domains and campaigns (item 9) and replica sharding (item 11).
+What the reference's CTMC engine refuses too (:func:`reference_reasons`)
+runs on the port's event engine (:mod:`repro_torch.core.simulation`)
+under ``engine="auto"``, as in the reference.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -80,16 +86,20 @@ _METRICS = ("total_time", "n_failures", "n_random_failures",
 N_UNIFORMS = 8
 
 
-def _n_uniforms(kind: str) -> int:
+def _n_uniforms(kind: str, rkind: str = "exponential") -> int:
     """Uniform draws per step: the exponential program keeps its 8-wide
     stream bit for bit; a non-exponential failure family adds one lane
     (the Exp(1) inversion draw for Weibull, the accept/reject draw of
-    the thinning families).
+    the thinning families) and a non-exponential repair family one more
+    (u_dur, the entry or escalation duration draw).
 
     >>> _n_uniforms("exponential"), _n_uniforms("weibull")
     (8, 9)
+    >>> _n_uniforms("exponential", "weibull"), _n_uniforms("lognormal",
+    ...                                                     "weibull")
+    (9, 10)
     """
-    return N_UNIFORMS + (kind != "exponential")
+    return N_UNIFORMS + (kind != "exponential") + (rkind != "exponential")
 
 
 _NOT_PORTED = "not yet ported to the PyTorch engine"
@@ -145,28 +155,19 @@ def port_reasons(params: Params) -> list:
     """What of the reference's CTMC envelope these params need and the
     port's CTMC engine does not run yet, each with its ROADMAP item.
 
-    Every failure family of the reference's CTMC engine runs here; a
-    repair family other than the plain ``"exponential"`` name is refused
-    even where the reference's classifier collapses it to the exponential
-    program (a one-segment ``Empirical``): that collapse comes with the
-    repair families (item 8).
+    Every failure and repair family of the reference's CTMC engine runs
+    here (a one-segment ``Empirical`` collapses to the exponential
+    program, as in the reference).
 
     >>> port_reasons(Params())
     []
-    >>> port_reasons(Params(failure_distribution="weibull"))
+    >>> port_reasons(Params(repair_distribution="weibull"))
     []
     >>> port_reasons(Params(engine_shards=2))
     ['replica sharding (engine_shards > 0) is not yet ported to the \
 PyTorch engine (ROADMAP queue 1 item 11)']
     """
     reasons = []
-    rdist = params.repair_distribution.lower()
-    rkind = hazards.repair_kind(params)
-    if rkind is not None and rdist != "exponential":
-        reasons.append(
-            f"repair distribution {rdist!r} ({rkind} repairs) is "
-            f"{_NOT_PORTED} (ROADMAP queue 1 item 8: non-exponential "
-            "repairs)")
     if faultdomains.scenario_key(params) is not None:
         reasons.append(
             f"fault domains and campaigns are {_NOT_PORTED} "
@@ -177,7 +178,8 @@ PyTorch engine (ROADMAP queue 1 item 11)']
             "(ROADMAP queue 1 item 11)")
     if params.age_dtype == "float64":
         reasons.append(
-            f"age_dtype='float64' is {_NOT_PORTED} (ROADMAP queue 1 item 8)")
+            f"age_dtype='float64' is {_NOT_PORTED} (ROADMAP queue 1 "
+            "item 8b)")
     return reasons
 
 
@@ -202,7 +204,9 @@ def supports(params: Params) -> bool:
     True
     >>> supports(Params(failure_distribution="weibull"))
     True
-    >>> supports(Params(repair_distribution="weibull"))       # not yet ported
+    >>> supports(Params(repair_distribution="weibull"))
+    True
+    >>> supports(Params(engine_shards=2))                     # not yet ported
     False
     """
     return not unsupported_reasons(params)
@@ -248,15 +252,17 @@ def _initial_counts(p: Params):
 
 
 def _initial_state_batch(pts: Sequence[Params], R: int, max_runs: int,
-                         device) -> Dict[str, torch.Tensor]:
+                         device, rkind: str = "exponential",
+                         n_slots: int = 0) -> Dict[str, torch.Tensor]:
     """Padded initial state for a structural grid, point-major (P*R, ...).
 
     All points share one compartment layout, so structural parameters
     (job_size, pool sizes, warm_standbys, systematic fraction, job_length,
     host-selection offset) enter purely as per-point initial values:
     compartments a small point does not populate sit at zero occupancy and
-    carry zero rates.  The keys are the reference's on its exponential,
-    scenario-free path.
+    carry zero rates.  ``rkind`` / ``n_slots`` size the repair-slot lane
+    of a non-exponential repair family.  The keys are the reference's on
+    its scenario-free path.
     """
     P = len(pts)
     B = P * R
@@ -283,6 +289,14 @@ def _initial_state_batch(pts: Sequence[Params], R: int, max_runs: int,
     #: phase age: compute minutes since the job last (re)started (the
     #: hazard clock of the non-exponential families; inert here)
     state["age"] = torch.zeros((B,), **f32)
+    if rkind != "exponential":
+        # repair-slot lane: one (remaining, class, stage) triple per
+        # server in the shop; remaining counts down in wall-clock time
+        # and never resets with the job.  +inf marks a free slot.
+        i32 = dict(dtype=torch.int32, device=device)
+        state["repair_rem"] = torch.full((B, n_slots), torch.inf, **f32)
+        state["repair_cls"] = torch.zeros((B, n_slots), **i32)
+        state["repair_stage"] = torch.zeros((B, n_slots), **i32)
     state["cur_run"] = torch.zeros((B,), **f32)
     #: compute minutes since the last durable checkpoint
     state["ckpt_work"] = torch.zeros((B,), **f32)
@@ -343,8 +357,42 @@ def _bucket_pad_state(state: Dict[str, torch.Tensor], P: int, R: int,
 
 def _initial_state(p: Params, R: int, max_runs: Optional[int] = None,
                    device="cpu") -> Dict[str, torch.Tensor]:
+    rkind = hazards.repair_kind(p) or "exponential"
     return _initial_state_batch(
-        [p], R, p.max_run_records if max_runs is None else max_runs, device)
+        [p], R, p.max_run_records if max_runs is None else max_runs, device,
+        rkind, _repair_slots_for([p], rkind))
+
+
+def _repair_slots_for(pts, rkind: str) -> int:
+    """Repair-slot lane width for a batch of points (host-side).
+
+    Twice the expected shop occupancy (Little's law,
+    :func:`hazards.expected_repair_occupancy`) plus eight standard
+    deviations of the Poisson in-shop count, rounded up to a power of two
+    but never past the physical bound (every server in the shop at once),
+    where overflow is impossible.  An infinite-mean stage takes that
+    bound.  ``Params.repair_slots > 0`` overrides a point's estimate.
+
+    >>> _repair_slots_for([Params()], "exponential")
+    0
+    >>> _repair_slots_for([Params(repair_distribution="weibull")], "weibull")
+    128
+    """
+    if rkind == "exponential":
+        return 0
+    n = 1
+    for p in pts:
+        total = p.working_pool_size + p.spare_pool_size
+        if p.repair_slots > 0:
+            want = min(p.repair_slots, total)
+        else:
+            occ = hazards.expected_repair_occupancy(p)
+            if not math.isfinite(occ):
+                occ = float(total)
+            want = min(int(2.0 * occ + 8.0 * math.sqrt(max(occ, 1.0)) + 8.0),
+                       total)
+        n = max(n, min(_next_pow2(want), total))
+    return n
 
 
 def state_from_numpy(arrays: Dict[str, np.ndarray],
@@ -393,31 +441,26 @@ def _onehot(c: torch.Tensor) -> torch.Tensor:
 # one transition
 # ---------------------------------------------------------------------------
 
-def _seq_cumsum(x: torch.Tensor) -> torch.Tensor:
-    """Cumulative sum over the last axis, left to right (the chunk
-    kernel's order; ``torch.cumsum`` and ``sum`` fix none)."""
-    parts = [x[..., 0]]
-    for j in range(1, x.shape[-1]):
-        parts.append(parts[-1] + x[..., j])
-    return torch.stack(parts, dim=-1)
-
-
 def _step_u(s: Dict[str, torch.Tensor], u: torch.Tensor, pv: torch.Tensor,
             impl: Optional[str] = None,
             hist_channels: tuple = HIST_CHANNELS,
             kind: str = "exponential",
-            n_seg: int = 0) -> Dict[str, torch.Tensor]:
+            n_seg: int = 0, rkind: str = "exponential",
+            n_rseg: int = 0) -> Dict[str, torch.Tensor]:
     """One CTMC transition for a batch of replicas, with given uniforms.
 
-    ``u`` is ``(B, _n_uniforms(kind))``.  ``pv`` is either one parameter
-    vector shared by the batch or a ``(B, n_cols)`` matrix with one row
-    per replica (the sweep layout); columns 0..15 are the base model
-    parameters and the next ``hazards.hazard_col_count(kind, n_seg)``
-    the failure family's (``n_seg`` is the empirical segment count).
-    ``hist_channels`` is the tuple of channels ``s["hist"]`` carries.
-    Returns a new state dict; ``s`` is left as it was.
+    ``u`` is ``(B, _n_uniforms(kind, rkind))``.  ``pv`` is either one
+    parameter vector shared by the batch or a ``(B, n_cols)`` matrix with
+    one row per replica (the sweep layout); columns 0..15 are the base
+    model parameters, the next ``hazards.hazard_col_count(kind, n_seg)``
+    the failure family's and the ``hazards.repair_col_count(rkind,
+    n_rseg)`` after those the repair family's (``n_seg`` / ``n_rseg`` are
+    the empirical segment counts).  ``hist_channels`` is the tuple of
+    channels ``s["hist"]`` carries.  Returns a new state dict; ``s`` is
+    left as it was.
     """
     n_hc = hazards.hazard_col_count(kind, n_seg)
+    n_rc = hazards.repair_col_count(rkind, n_rseg)
     if pv.ndim == 1:
         cols = [pv[i] for i in range(16)]
         _c = lambda x: x            # noqa: E731  param vs (B, 4) arrays
@@ -441,10 +484,23 @@ def _step_u(s: Dict[str, torch.Tensor], u: torch.Tensor, pv: torch.Tensor,
         e_sr = _vcol(16 + 3 * n_seg - 2, n_seg)
     hz = [pv[i] if pv.ndim == 1 else pv[:, i]
           for i in range(16, 16 + n_hc)]
+    if rkind == "empirical":
+        # [auto edges, auto rates, manual edges, manual rates]; the stage
+        # is selected at slot entry below
+        r0 = 16 + n_hc
+        r_ae = _vcol(r0, n_rseg - 1)
+        r_ar = _vcol(r0 + n_rseg - 1, n_rseg)
+        r_me = _vcol(r0 + 2 * n_rseg - 1, n_rseg - 1)
+        r_mr = _vcol(r0 + 3 * n_rseg - 2, n_rseg)
+    elif rkind != "exponential":
+        # [auto scale, manual scale, shape]
+        rz = [pv[i] if pv.ndim == 1 else pv[:, i]
+              for i in range(16 + n_hc, 16 + n_hc + n_rc)]
     lanes = u.unbind(1)
     u_time, u_pick, u_diag, u_wrong, u_cls, u_esc, u_succ, u_pool = \
         lanes[:N_UNIFORMS]
     u_haz = lanes[N_UNIFORMS] if kind != "exponential" else None
+    u_dur = lanes[-1] if rkind != "exponential" else None
 
     phase = s["phase"]
     computing = phase == COMPUTE
@@ -471,7 +527,7 @@ def _step_u(s: Dict[str, torch.Tensor], u: torch.Tensor, pv: torch.Tensor,
         c_rand, c_sys, w_k = hz[0], hz[1], hz[2]
         w_rand = run * _c(c_rand) * computing[:, None]
         w_sys = run * bad_mask[None, :] * _c(c_sys) * computing[:, None]
-        haz_cum = _seq_cumsum(torch.cat([w_rand, w_sys], -1))   # (B, 8)
+        haz_cum = hazards._seq_cumsum(torch.cat([w_rand, w_sys], -1))
         haz_total = haz_cum[:, -1]
         haz_resid = hazards.FAILURE_SAMPLERS["weibull"].conditional_residual(
             age, haz_total, w_k, -torch.log(u_haz))
@@ -519,18 +575,33 @@ def _step_u(s: Dict[str, torch.Tensor], u: torch.Tensor, pv: torch.Tensor,
     else:
         fail_rand = run * _c(r_rand) * computing[:, None]
         fail_sys = run * bad_mask[None, :] * _c(r_sys) * computing[:, None]
-    auto_rate = s["auto"] / _c(auto_t).clamp_min(1e-9)
-    man_rate = s["man"] / _c(man_t).clamp_min(1e-9)
+    if rkind == "exponential":
+        auto_rate = s["auto"] / _c(auto_t).clamp_min(1e-9)
+        man_rate = s["man"] / _c(man_t).clamp_min(1e-9)
+    else:
+        # repairs complete through the slot lane's residual; the auto /
+        # man compartments stay as bookkeeping and carry no rate
+        auto_rate = torch.zeros_like(run)
+        man_rate = torch.zeros_like(run)
     rates = torch.cat([fail_rand, fail_sys, auto_rate, man_rate], -1) \
         * active[:, None]
 
     # residual column order decides exact ties (the race takes the first
-    # minimum): job completion, then the recovery timer, then the failure
-    # family's hazard residual, then the checkpoint write, appended last
-    # so a completion beats a same-instant write.  At
-    # checkpoint_interval == 0 that column is +inf throughout.
-    resid_cols = [torch.where(computing, s["work_left"], torch.inf),
-                  torch.where(in_overhead, s["timer"], torch.inf)]
+    # minimum): the repair-slot residual first (a repair completing at
+    # the instant the job completes resolves first, as the event engine's
+    # heap does; the job completes on the next step at dt = 0), job
+    # completion, the recovery timer, the failure family's hazard
+    # residual, then the checkpoint write, appended last so a completion
+    # beats a same-instant write.  At checkpoint_interval == 0 that
+    # column is +inf throughout.
+    resid_cols = []
+    roff = 0
+    if rkind != "exponential":
+        rep_rem = s["repair_rem"]
+        resid_cols.append(torch.where(active, rep_rem.amin(-1), torch.inf))
+        roff = 1
+    resid_cols += [torch.where(computing, s["work_left"], torch.inf),
+                   torch.where(in_overhead, s["timer"], torch.inf)]
     if haz_resid is not None:
         resid_cols.append(haz_resid)
     resid_cols.append(torch.where(computing & (ckpt > 0),
@@ -552,7 +623,7 @@ def _step_u(s: Dict[str, torch.Tensor], u: torch.Tensor, pv: torch.Tensor,
         cdf8 = haz_cum / total_w[:, None]
         pick8 = (u_pick[:, None] >= cdf8).sum(-1).clamp_max(7) \
             .to(torch.int32)
-        haz_fail = active & (ev == K_EXP + 2)
+        haz_fail = active & (ev == K_EXP + roff + 2)
         is_fail = haz_fail
         is_sys = haz_fail & (pick8 >= 4)
         cls = torch.where(haz_fail, pick8 % 4, cls)
@@ -583,10 +654,21 @@ def _step_u(s: Dict[str, torch.Tensor], u: torch.Tensor, pv: torch.Tensor,
             <= torch.where(cand_sys, h_s, h_r)
         is_fail = is_fail & accept
         is_sys = is_sys & accept
-    is_auto = active & (ev >= 8) & (ev < 12)
-    is_man = active & (ev >= 12) & (ev < 16)
-    is_complete = active & (ev == K_EXP)
-    is_timer = active & (ev == K_EXP + 1)
+    if rkind == "exponential":
+        is_auto = active & (ev >= 8) & (ev < 12)
+        is_man = active & (ev >= 12) & (ev < 16)
+    else:
+        # a slot's repair completed: the winning slot's class and stage
+        # drive the completion logic the exponential channels feed
+        srows = torch.arange(B, device=device)
+        won_slot = torch.argmin(rep_rem, dim=-1)
+        is_rep = active & (ev == K_EXP)
+        done_stage = s["repair_stage"][srows, won_slot]
+        cls = torch.where(is_rep, s["repair_cls"][srows, won_slot], cls)
+        is_auto = is_rep & (done_stage == 0)
+        is_man = is_rep & (done_stage == 1)
+    is_complete = active & (ev == K_EXP + roff)
+    is_timer = active & (ev == K_EXP + roff + 1)
     # the checkpoint write is the last residual column
     is_ckpt = active & (ev == K_EXP + len(resid_cols) - 1)
 
@@ -740,6 +822,43 @@ def _step_u(s: Dict[str, torch.Tensor], u: torch.Tensor, pv: torch.Tensor,
     ns.update(run=run_n, sb=sb_n, fw=fw_n, fs=fs_n, auto=auto_n, man=man_n,
               phase=phase_n, timer=timer_n)
 
+    # ---- repair-slot lane ------------------------------------------------
+    # every occupied slot counts down by dt in every phase; a completion
+    # frees the winning slot (an escalation re-arms it with a manual-stage
+    # draw) and a diagnosed failure claims the first free slot with an
+    # automated-stage draw.  Completion and entry never share a step, so
+    # one duration draw and one write per slot array cover both.
+    if rkind != "exponential":
+        rem = torch.where(active[:, None], rep_rem - dt[:, None], rep_rem)
+        free = torch.isinf(rem)
+        any_free = free.any(-1)
+        fslot = free.to(torch.int32).argmax(-1)      # first free slot
+        entered = diagnosed & any_free
+        rm_cls = torch.where(wrong, picks[:, 0], cls)
+        rsampler = hazards.REPAIR_SAMPLERS[rkind]
+        if rkind == "empirical":
+            esc2 = escalate[:, None]
+            q_dur = rsampler.quantile(u_dur, torch.where(esc2, r_me, r_ae),
+                                      torch.where(esc2, r_mr, r_ar))
+        else:
+            q_dur = rsampler.quantile(
+                u_dur, torch.where(escalate, rz[1], rz[0]), rz[2])
+        idx = torch.where(is_rep, won_slot, fslot)
+        cur_rem = rem[srows, idx]
+        rem[srows, idx] = torch.where(
+            finishes, torch.inf,
+            torch.where(escalate | entered, q_dur, cur_rem))
+        stage = s["repair_stage"].clone()
+        stage[srows, idx] = torch.where(
+            escalate, 1, torch.where(entered, 0, stage[srows, idx]))
+        rcls = s["repair_cls"].clone()
+        rcls[srows, idx] = torch.where(entered, rm_cls, rcls[srows, idx])
+        ns.update(repair_rem=rem, repair_stage=stage, repair_cls=rcls)
+        # a full lane: the server stays in the shop for good; counted and
+        # warned about downstream (raise Params.repair_slots)
+        ns["n_repair_overflow"] = s["n_repair_overflow"] \
+            + (diagnosed & ~any_free).to(torch.float32)
+
     # ---- streaming histograms -------------------------------------------
     # bin layout mirrors histograms.Histogram: searchsorted(right=True)
     # over the float32 edges with under/overflow slots.  A failure
@@ -833,21 +952,24 @@ def _any_active(state: Dict[str, torch.Tensor]) -> bool:
 def _steps_ref(state: Dict[str, torch.Tensor], us: torch.Tensor,
                pv: torch.Tensor, R: int, P: int, impl: Optional[str],
                hist_channels: tuple, kind: str = "exponential",
-               n_seg: int = 0) -> Dict[str, torch.Tensor]:
+               n_seg: int = 0, rkind: str = "exponential",
+               n_rseg: int = 0) -> Dict[str, torch.Tensor]:
     """``us.shape[0]`` steps of the plain step loop on one chunk's draw.
 
     The plain version of the chunk kernel.  ``us`` is the chunk's
-    ``(n_steps, R_draw, _n_uniforms(kind))`` draw; it is sliced to R
-    replicas and tiled across the P points of a ``(P * R,)`` batch, so
+    ``(n_steps, R_draw, _n_uniforms(kind, rkind))`` draw; it is sliced to
+    R replicas and tiled across the P points of a ``(P * R,)`` batch, so
     row b reads replica ``b % R``'s uniforms.  ``impl`` goes to the event
-    race of each step; ``kind`` and ``n_seg`` name the failure family.
+    race of each step; ``kind`` / ``n_seg`` name the failure family and
+    ``rkind`` / ``n_rseg`` the repair family.
     """
     if us.shape[1] != R:
         us = us[:, :R]
     if P > 1:
         us = us.repeat(1, P, 1)
     for k in range(us.shape[0]):
-        state = _step_u(state, us[k], pv, impl, hist_channels, kind, n_seg)
+        state = _step_u(state, us[k], pv, impl, hist_channels, kind, n_seg,
+                        rkind, n_rseg)
     return state
 
 
@@ -856,17 +978,18 @@ def _chunk_loop(pv: torch.Tensor, seed: int, P: int, R: int, chunk: int,
                 early_exit: bool, hist_channels: tuple,
                 init_state: Dict[str, torch.Tensor],
                 kind: str = "exponential", n_seg: int = 0,
+                rkind: str = "exponential", n_rseg: int = 0,
                 ) -> Dict[str, torch.Tensor]:
     """Chunked scan with early exit; batch axis is B = P * R (point-major).
 
     Runs ``n_chunks * chunk + rem`` steps, less the chunks early exit skips
     once every replica is DONE (finished replicas are inert, so skipping them
-    changes nothing).  Each chunk draws its ``_n_uniforms(kind)`` uniforms a
-    step in one call at the power-of-two width ``next_pow2(R)``; row b of the
-    batch reads replica ``b % R``'s.  A chunk is one launch of the chunk kernel
-    for ``impl=None`` or ``"cuda"`` on the card, and :func:`_steps_ref` with
-    the plain race for ``impl="ref"`` and on the CPU (where ``impl="cuda"``
-    raises).  ``init_state`` is left as it was.
+    changes nothing).  Each chunk draws its ``_n_uniforms(kind, rkind)``
+    uniforms a step in one call at the power-of-two width ``next_pow2(R)``;
+    row b of the batch reads replica ``b % R``'s.  A chunk is one launch of
+    the chunk kernel for ``impl=None`` or ``"cuda"`` on the card, and
+    :func:`_steps_ref` with the plain race for ``impl="ref"`` and on the
+    CPU (where ``impl="cuda"`` raises).  ``init_state`` is left as it was.
     """
     device = init_state["phase"].device
     R_draw = _next_pow2(R)
@@ -877,17 +1000,18 @@ def _chunk_loop(pv: torch.Tensor, seed: int, P: int, R: int, chunk: int,
         nonlocal owned
         gen = torch.Generator(device=device)
         gen.manual_seed(_chunk_seed(seed, i))
-        us = torch.rand((n_steps, R_draw, _n_uniforms(kind)), generator=gen,
-                        dtype=torch.float32, device=device)
+        us = torch.rand((n_steps, R_draw, _n_uniforms(kind, rkind)),
+                        generator=gen, dtype=torch.float32, device=device)
         us = us.clamp_min_(1e-12)
         if not fused:
             return _steps_ref(state, us, pv, R, P, impl, hist_channels,
-                              kind, n_seg)
+                              kind, n_seg, rkind, n_rseg)
         # the first launch clones the lanes it writes; later ones update
         # those clones in place
         state = ctmc_chunk.ctmc_chunk_cuda(state, us, pv, R, P,
                                            hist_channels, kind=kind,
-                                           n_seg=n_seg, inplace=owned)
+                                           n_seg=n_seg, rkind=rkind,
+                                           n_rseg=n_rseg, inplace=owned)
         owned = True
         return state
 
@@ -966,7 +1090,9 @@ def simulate_ctmc(params: Params, n_replicas: int = 1024, seed: int = 0,
     out = _chunk_loop(pv, seed, 1, n_replicas, chunk, max_steps // chunk,
                       max_steps % chunk, impl, early_exit, channels,
                       init_state, hazards.hazard_kind(params),
-                      hazards.hazard_segment_count(params))
+                      hazards.hazard_segment_count(params),
+                      hazards.repair_kind(params),
+                      hazards.repair_segment_count(params))
     return _extract(_host_outputs(out), channels=channels)
 
 
@@ -990,11 +1116,12 @@ def simulate_ctmc_sweep(params_list, n_replicas: int = 1024, seed: int = 0,
     derived step budget up to whole chunks; an explicit ``max_steps`` is
     honored exactly, and real rows are then bit-identical to
     ``bucketed=False``.  Uniforms are shared across points (common random
-    numbers).  The failure family and the empirical segment count change
-    the step and the draw's width, so a grid mixing families runs one
-    batch per ``(family, segment count)``; their parameters are columns
-    and never split a batch.  ``impl`` overrides every point's
-    ``event_race_impl``; otherwise points split by it.
+    numbers).  The failure and repair families and their empirical segment
+    counts change the step and the draw's width, so a grid mixing families
+    runs one batch per ``(failure family, repair family, segment counts)``;
+    their parameters are columns and never split a batch.  ``impl``
+    overrides every point's ``event_race_impl``; otherwise points split by
+    it.
 
     Returns a list of ``{metric: np.ndarray (R,)}`` dicts in input order.
     """
@@ -1014,7 +1141,9 @@ def simulate_ctmc_sweep(params_list, n_replicas: int = 1024, seed: int = 0,
 
     groups: Dict[tuple, list] = {}
     for i, p in enumerate(params_list):
-        gkey = (hazards.hazard_kind(p), hazards.hazard_segment_count(p),
+        gkey = (hazards.hazard_kind(p), hazards.repair_kind(p),
+                hazards.hazard_segment_count(p),
+                hazards.repair_segment_count(p),
                 None if padded else _struct_key(p),
                 impl if impl is not None else p.event_race_impl)
         groups.setdefault(gkey, []).append(i)
@@ -1024,7 +1153,8 @@ def simulate_ctmc_sweep(params_list, n_replicas: int = 1024, seed: int = 0,
     bucket = padded and bucketed
     channels = _hist_channels(params_list)
     results: list = [None] * len(params_list)
-    for (kind, n_seg, _skey, impl_eff), idxs in groups.items():
+    for (kind, rkind, n_seg, n_rseg, _skey, impl_eff), idxs in \
+            groups.items():
         pts = [params_list[i] for i in idxs]
         P, R = len(pts), n_replicas
         steps = max_steps or max(default_max_steps(p) for p in pts)
@@ -1038,12 +1168,13 @@ def simulate_ctmc_sweep(params_list, n_replicas: int = 1024, seed: int = 0,
             # row keeps every column benign
             pv = np.concatenate([pv, np.repeat(pv[-1:], P_run - P, 0)])
         pv_flat = torch.as_tensor(np.repeat(pv, R_run, axis=0), device=dev)
-        init_state = _initial_state_batch(pts, R, mr, dev)
+        init_state = _initial_state_batch(pts, R, mr, dev, rkind,
+                                          _repair_slots_for(pts, rkind))
         if (P_run, R_run) != (P, R):
             init_state = _bucket_pad_state(init_state, P, R, P_run, R_run)
         out = _chunk_loop(pv_flat, seed, P_run, R_run, chunk, steps // chunk,
                           steps % chunk, impl_eff, early_exit, channels,
-                          init_state, kind, n_seg)
+                          init_state, kind, n_seg, rkind, n_rseg)
         host = _host_outputs(out)
         for j, i in enumerate(idxs):
             results[i] = _extract(host, slice(j * R_run, j * R_run + R),

@@ -1,9 +1,9 @@
 // A chunk of steps of the vectorized CTMC engine, fused into one kernel,
 // hand-written for Hopper (sm_90a).
 //
-// Replaces, on the single-job path with exponential repairs, the Pallas TPU
-// kernel src/repro/kernels/des_step.py::_event_race_kernel together with
-// the lax.scan of src/repro/core/vectorized.py::_chunk_loop that runs one
+// Replaces, on the single-job path, the Pallas TPU kernel
+// src/repro/kernels/des_step.py::_event_race_kernel together with the
+// lax.scan of src/repro/core/vectorized.py::_chunk_loop that runs one
 // _step_u per step around it.  One launch runs n_steps steps of the port's
 // plain step (repro_torch/core/vectorized.py::_step_u) for every replica
 // row: the rates and residuals, the race of event_race.cuh, progress and
@@ -32,6 +32,21 @@
 //                the window runs to the next edge of either clock, and
 //                the accept is u_haz * h_bar <= h(age + dt).  Its 4m - 2
 //                columns are read from the parameter row, m = n_seg.
+//
+// Repair families.  Exponential repairs race the 8 repair clocks of the
+// auto and manual compartments.  A non-exponential repair family (Weibull,
+// lognormal, deterministic, empirical: core/hazards.py's REPAIR_KINDS)
+// runs a slot instance of each failure family instead: the repair clocks
+// carry no rate, the row's repair-slot lane (the remaining repair time,
+// class and stage of each server in the shop) is raced first among the
+// residuals through its minimum, a winning slot's class and stage decide
+// the completion, every slot counts down by dt each step, and a diagnosed
+// failure takes the first free slot.  A duration is drawn on the row's last
+// uniform, u_dur, by the family's inverse CDF (quantile below, ndtri.cuh),
+// only on a step where a server enters the shop or escalates, as the plain
+// step uses it; the repair family is a switch uniform over the launch
+// inside that rarely taken block, so there are five slot instances, one a
+// failure family, not twenty.
 //
 // Exactness.  Each operation is the plain step's, in its order, in
 // float32: the same products and sums (fail_sys = ((run*bad)*r_sys)*
@@ -64,8 +79,13 @@
 // these the correctly rounded divisions cost most: on the H100 each took
 // about 200 cycles of the chain (timed against __fdividef variants).
 //
-// What the design does about that.  One thread a row, with the row's whole
-// state and parameter row in registers for the launch: the race's inputs
+// A slot instance also moves each row's repair-slot lane in and out, 12
+// bytes a slot: at 128 slots a row that is 12.6 MB of the sweep's ~17 MB
+// a launch, about 6 us.
+//
+// What the design does about that.  One thread a row (a warp a row in the
+// slot instances, see below), with the row's whole state and parameter
+// row in registers for the launch: the race's inputs
 // and outputs and every intermediate never touch memory.  Parallelism
 // across SMs is the lever, not occupancy, so blocks are one warp: the
 // sweep's 4,096 rows make 128 blocks over the 132 SMs, not 16 blocks of
@@ -84,6 +104,29 @@
 // leaves its loop: the plain step leaves such a row exactly as it is.  The
 // final state is written back in place (the wrapper passes clones unless
 // the caller owns them).
+//
+// The slot instances.  The slot lane does not fit a thread's registers: it
+// is up to a few hundred slots a row (128 for the Table-I cluster's repair
+// families, every server at the physical cap), and each step needs its
+// minimum, the first index of that minimum, a decrement of every slot, the
+// first free slot and one write.  So a slot instance runs a warp a row:
+// every lane runs the row's scalar step on the same inputs, so every lane
+// holds the same values and takes the same branches with no broadcast,
+// and the slots are spread over the lanes (slot j on lane j % 32) in
+// shared memory, the remaining time as a float and the class and stage
+// packed in an int (cls | stage << 16), staged from the state tensors at
+// the launch's start and written back at its end.  The minimum and its
+// first index come from a 5-step xor-shuffle reduction over each lane's
+// own minimum (ties to the lower index, as torch.argmin); the decrement is
+// each lane's own slots minus dt in float32, every slot every step, as the
+// plain step does it (a deadline kept instead would round differently);
+// the first free slot is a ballot over the +inf slots of each group of 32
+// and __ffs; the lane that owns the written slot writes it.  A block is one
+// row (kernels/ctmc_chunk.py's slot_plan): at 160-168 registers the
+// register file, not shared memory, bounds the rows an SM holds (12), and
+// one-warp blocks fill it to that bound.  So the sweep's 4,096 rows run in
+// about 2.6 rounds of 64 dependent steps; on an H100 a launch took
+// 0.37-0.55 ms (PERF.md), some 80x its bound.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -91,6 +134,21 @@
 
 #include "event_race.cuh"
 #include "log_ndtr.cuh"
+#include "ndtri.cuh"
+
+#if !defined(__CUDACC__) && !defined(__noinline__)
+#define __noinline__
+#endif
+#if !defined(__CUDACC__) && !defined(CTMC_HOST_WARP)
+// A host build of this file with one thread a row and no warp
+// (scripts/torch_chunk_host_check.py) never launches a slot instance;
+// these stand-ins keep it compiling.
+inline float __shfl_xor_sync(unsigned, float v, int) { return v; }
+inline int __shfl_xor_sync(unsigned, int v, int) { return v; }
+inline unsigned __ballot_sync(unsigned, int p) { return p ? 1u : 0u; }
+inline int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
+inline void __syncwarp() {}
+#endif
 
 namespace {
 
@@ -100,6 +158,13 @@ constexpr int32_t kCompute = 0, kOverhead = 1, kStall = 2, kDone = 3;
 
 // Failure families, in the order of core/hazards.py's HAZARD_KINDS.
 enum Kind { kExponential, kWeibull, kBathtub, kLognormal, kEmpirical };
+// Repair families, in the order of core/hazards.py's REPAIR_KINDS.
+enum RepairKind { kRepExponential, kRepWeibull, kRepLognormal,
+                  kRepDeterministic, kRepEmpirical };
+// An instance's template code: the failure family, plus kSlotBit for the
+// slot instance of a non-exponential repair family.
+constexpr int kSlotBit = 8;
+constexpr unsigned kFullMask = 0xffffffffu;
 // Empirical segments a clock the kernel takes (kernels/ctmc_chunk.py's
 // MAX_SEGMENTS).
 constexpr int kMaxSegments = 64;
@@ -153,6 +218,15 @@ struct CtmcChunkArgs {
   int32_t chan[4];          // their codes, in HIST_CHANNELS order
   int32_t kind;             // failure family (Kind)
   int32_t n_seg;            // empirical segment count m, else 0
+  // the repair-slot lane of a non-exponential repair family; null and 0
+  // for exponential repairs
+  float* repair_rem;        // (B, n_slots) remaining time, +inf if free
+  int32_t* repair_cls;      // (B, n_slots)
+  int32_t* repair_stage;    // (B, n_slots) 0 automated, 1 manual
+  float* n_repair_overflow; // (B,)
+  int32_t rkind;            // repair family (RepairKind)
+  int32_t n_rseg;           // empirical repair segment count, else 0
+  int32_t n_slots;          // slot lane width
 };
 
 namespace {
@@ -268,12 +342,79 @@ __device__ __forceinline__ float piecewise_gap(float t, const float* edges,
   return gap;
 }
 
+// ---- repair quantiles, as core/hazards.py's REPAIR_SAMPLERS draw them ------
+
+// piecewise_conditional_residual from age 0 with exp_draw = -log1p(-u):
+// the cumulative hazard's segment sums left to right, as in the plain step
+// (m - 1 edges e, m rates r).
+__device__ __forceinline__ float piecewise_quantile(float u, const float* e,
+                                                    const float* r, int m) {
+  const float exp_draw = -log1pf(-u);
+  float h_age = 0.0f;
+  for (int j = 0; j < m; ++j) {
+    const float lo = j == 0 ? 0.0f : __ldg(e + j - 1);
+    const float hi = j == m - 1 ? INFINITY : __ldg(e + j);
+    const float term = __ldg(r + j) * fminf(fmaxf(0.0f - lo, 0.0f), hi - lo);
+    h_age = j == 0 ? term : h_age + term;
+  }
+  const float target = h_age + exp_draw;
+  // idx = #{j : cs_j <= target} over the nondecreasing segment sums cs,
+  // and c_prev = cs_{idx - 1}
+  float cs = 0.0f, c_prev = 0.0f;
+  int idx = 0;
+  for (int j = 0; j < m; ++j) {
+    const float lo = j == 0 ? 0.0f : __ldg(e + j - 1);
+    const float hi = j == m - 1 ? INFINITY : __ldg(e + j);
+    const float rj = __ldg(r + j);
+    const float seg = rj > 0.0f ? rj * (hi - lo) : 0.0f;
+    cs = j == 0 ? seg : cs + seg;
+    if (cs <= target) {
+      idx += 1;
+      c_prev = cs;
+    }
+  }
+  if (idx >= m) return INFINITY;   // a zero-rate tail exhausts the hazard
+  const float lo_j = idx == 0 ? 0.0f : __ldg(e + idx - 1);
+  const float t_star = lo_j + (target - c_prev)
+                              / fmaxf(__ldg(r + idx), kMinTotal);
+  return fmaxf(t_star - 0.0f, 0.0f);
+}
+
+// The repair family's inverse CDF at u for a stage: scale and shape are
+// the stage's closed-form columns, e and r its empirical (edges, rates).
+__device__ __noinline__ float repair_quantile(int rkind, float u, float scale,
+                                              float shape, const float* e,
+                                              const float* r, int m) {
+  switch (rkind) {
+    case kRepWeibull: {
+      const float q = scale * powf(-log1pf(-u), 1.0f / shape);
+      return scale > 0.0f ? q : INFINITY;
+    }
+    case kRepLognormal: {
+      const float q = scale * expf(shape * ndtri(u));
+      return scale > 0.0f ? q : INFINITY;
+    }
+    case kRepDeterministic:
+      return scale * 1.0f;
+    default:
+      return piecewise_quantile(u, e, r, m);
+  }
+}
+
 template <int kKind>
 __global__ void __launch_bounds__(kThreads)
     ctmc_chunk_kernel(const CtmcChunkArgs a) {
-  constexpr bool kExpOnly = kKind == kExponential;
-  // residuals raced: completion, timer, [the family's], checkpoint write
-  constexpr int kDet = kExpOnly ? 3 : 4;
+  // the failure family, and whether this is a slot instance
+  constexpr int kFamily = kKind & ~kSlotBit;
+  constexpr bool kSlots = (kKind & kSlotBit) != 0;
+  constexpr bool kExpOnly = kFamily == kExponential;
+  // residuals raced: [the slot lane's,] completion, timer, [the family's],
+  // checkpoint write
+  constexpr int kRoff = kSlots ? 1 : 0;
+  constexpr int kDet = (kExpOnly ? 3 : 4) + kRoff;
+  // uniforms a step: 8, u_haz for a non-exponential failure family, u_dur
+  // for a slot instance
+  constexpr int kNU = 8 + (kExpOnly ? 0 : 1) + (kSlots ? 1 : 0);
   extern __shared__ float s_edges[];
   for (int i = threadIdx.x; i < a.n_edges; i += blockDim.x) {
     s_edges[i] = a.hist_edges[i];
@@ -285,11 +426,36 @@ __global__ void __launch_bounds__(kThreads)
       a.n_edges > 1 ? __log2f(s_edges[a.n_edges - 1]) - lg0 : 0.0f;
   const float inv_step = a.n_edges > 1 ? (a.n_edges - 1) / lg_span : 0.0f;
 
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * blockDim.x
-                    + threadIdx.x;
+  // a slot instance's block is one row, a warp; the others' a row a thread
+  int64_t b;
+  int lane = 0;
+  if constexpr (kSlots) {
+    b = blockIdx.x;
+    lane = static_cast<int>(threadIdx.x);
+  } else {
+    b = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  }
   if (b >= a.n_rows) return;
   int32_t phase = a.phase[b];
   if (phase == kDone || a.n_steps == 0) return;   // inert: nothing changes
+
+  // the row's slots in shared memory, after the bin edges: remaining time,
+  // then cls | stage << 16
+  const int n_slots = a.n_slots;
+  float* s_rem = nullptr;
+  int32_t* s_meta = nullptr;
+  float overflow = 0.0f;
+  if constexpr (kSlots) {
+    s_rem = s_edges + ((a.n_edges + 3) & ~3);
+    s_meta = reinterpret_cast<int32_t*>(s_rem + n_slots);
+    for (int j = lane; j < n_slots; j += 32) {
+      s_rem[j] = a.repair_rem[b * n_slots + j];
+      s_meta[j] = a.repair_cls[b * n_slots + j]
+                  | (a.repair_stage[b * n_slots + j] << 16);
+    }
+    overflow = a.n_repair_overflow[b];
+    __syncwarp();
+  }
 
   // ---- parameters ------------------------------------------------------
   const float* p = a.pv + b * a.pv_stride;
@@ -302,19 +468,24 @@ __global__ void __launch_bounds__(kThreads)
   const float man_div = fmaxf(man_t, kMinDiv);
   // the failure family's columns (hazard_columns); the empirical block is
   // [rand edges (m-1), rand rates (m), sys edges (m-1), sys rates (m)]
-  const float hz0 = kExpOnly || kKind == kEmpirical ? 0.0f : p[16];
-  const float hz1 = kExpOnly || kKind == kEmpirical ? 0.0f : p[17];
-  const float hz2 = kExpOnly || kKind == kEmpirical ? 0.0f : p[18];
-  const float hz3 = kExpOnly || kKind == kEmpirical ? 0.0f : p[19];
-  const float hz4 = kExpOnly || kKind == kEmpirical ? 0.0f : p[20];
+  const float hz0 = kExpOnly || kFamily == kEmpirical ? 0.0f : p[16];
+  const float hz1 = kExpOnly || kFamily == kEmpirical ? 0.0f : p[17];
+  const float hz2 = kExpOnly || kFamily == kEmpirical ? 0.0f : p[18];
+  const float hz3 = kExpOnly || kFamily == kEmpirical ? 0.0f : p[19];
+  const float hz4 = kExpOnly || kFamily == kEmpirical ? 0.0f : p[20];
   const int n_seg = a.n_seg;
   const float* e_re = p + 16;
   const float* e_rr = e_re + (n_seg - 1);
   const float* e_se = e_rr + n_seg;
   const float* e_sr = e_se + (n_seg - 1);
   // Weibull: 1 / k as PyTorch's reciprocal gives it; lognormal: log(sigma)
-  const float inv_k = kKind == kWeibull ? 1.0f / hz2 : 0.0f;
-  const float log_sigma = kKind == kLognormal ? logf(hz2) : 0.0f;
+  const float inv_k = kFamily == kWeibull ? 1.0f / hz2 : 0.0f;
+  const float log_sigma = kFamily == kLognormal ? logf(hz2) : 0.0f;
+  // the repair family's columns (repair_columns) after the hazard block:
+  // [auto scale, manual scale, shape], or the empirical [auto edges (m-1),
+  // auto rates (m), manual edges (m-1), manual rates (m)], m = n_rseg
+  const float* rp = p + 16 + (kFamily == kEmpirical ? 4 * n_seg - 2 : 5);
+  const int n_rseg = a.n_rseg;
 
   // ---- the row's state ---------------------------------------------------
   float run[4], sb[4], fw[4], fs[4], aut[4], man[4];
@@ -335,23 +506,24 @@ __global__ void __launch_bounds__(kThreads)
 
   // the repair rates aut[j] / auto_div and man[j] / man_div, kept
   // divided: a step changes at most one class of each pool, and only that
-  // class is divided again
+  // class is divided again (a slot instance's repair clocks carry none)
   float q_aut[4], q_man[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    q_aut[j] = aut[j] / auto_div;
-    q_man[j] = man[j] / man_div;
+    q_aut[j] = kSlots ? 0.0f : aut[j] / auto_div;
+    q_man[j] = kSlots ? 0.0f : man[j] / man_div;
   }
 
   // the next step's uniforms, loaded before this step's arithmetic: two
-  // float4s of an 8-float row, nine floats of a 9-float (36-byte) row
+  // float4s of an 8-float row, nine or ten floats of a longer row
   const float4* ub = reinterpret_cast<const float4*>(a.us) + 2 * (b % a.R);
   const int64_t u_step = 2 * a.R_draw;             // float4s a step
-  const float* ub9 = a.us + 9 * (b % a.R);
-  const int64_t u_step9 = 9 * a.R_draw;            // floats a step
+  const float* ub9 = a.us + kNU * (b % a.R);
+  const int64_t u_step9 = kNU * a.R_draw;          // floats a step
+  constexpr bool kVecU = kExpOnly && !kSlots;
   float4 n0, n1;
-  float n8 = 0.0f;
-  if constexpr (kExpOnly) {
+  float n8 = 0.0f, n9 = 0.0f;
+  if constexpr (kVecU) {
     n0 = __ldg(ub);
     n1 = __ldg(ub + 1);
   } else {
@@ -360,15 +532,17 @@ __global__ void __launch_bounds__(kThreads)
     n1 = make_float4(__ldg(ub9 + 4), __ldg(ub9 + 5), __ldg(ub9 + 6),
                      __ldg(ub9 + 7));
     n8 = __ldg(ub9 + 8);
+    if constexpr (kNU > 9) n9 = __ldg(ub9 + 9);
   }
 
   for (int k = 0; k < a.n_steps; ++k) {
     // u_time, u_pick, u_diag, u_wrong | u_cls, u_esc, u_succ, u_pool
-    // [| u_haz]
+    // [| u_haz] [| u_dur]
     const float4 u0 = n0, u1 = n1;
     const float u_haz = n8;
+    const float u_dur = kNU > 9 ? n9 : n8;
     if (k + 1 < a.n_steps) {
-      if constexpr (kExpOnly) {
+      if constexpr (kVecU) {
         n0 = __ldg(ub + (k + 1) * u_step);
         n1 = __ldg(ub + (k + 1) * u_step + 1);
       } else {
@@ -378,6 +552,7 @@ __global__ void __launch_bounds__(kThreads)
         n1 = make_float4(__ldg(un + 4), __ldg(un + 5), __ldg(un + 6),
                          __ldg(un + 7));
         n8 = __ldg(un + 8);
+        if constexpr (kNU > 9) n9 = __ldg(un + 9);
       }
     }
 
@@ -387,6 +562,32 @@ __global__ void __launch_bounds__(kThreads)
     const bool active = phase != kDone;
     const bool in_ckpt_flag = in_ckpt > 0.0f;
 
+    // ---- the slot lane's minimum and its first index --------------------
+    float slot_min = INFINITY;
+    int slot_arg = 0;
+    if constexpr (kSlots) {
+      float v = INFINITY;
+      int vi = 0x7fffffff;
+      for (int j = lane; j < n_slots; j += 32) {
+        const float r = s_rem[j];
+        if (r < v) {
+          v = r;
+          vi = j;
+        }
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const float ov = __shfl_xor_sync(kFullMask, v, off);
+        const int oi = __shfl_xor_sync(kFullMask, vi, off);
+        if (ov < v || (ov == v && oi < vi)) {
+          v = ov;
+          vi = oi;
+        }
+      }
+      slot_min = v;
+      slot_arg = vi == 0x7fffffff ? 0 : vi;   // every slot free: argmin 0
+    }
+
     // ---- rates and residuals -------------------------------------------
     float rates[kExp];
     float resid[kDet];
@@ -394,7 +595,7 @@ __global__ void __launch_bounds__(kThreads)
     // their sum, the bathtub majorant, the lognormal / empirical
     // majorants of the random and systematic clocks
     float w8[8], w_total = 0.0f, g_bar = 0.0f, hbar_r = 0.0f, hbar_s = 0.0f;
-    if constexpr (kKind == kWeibull) {
+    if constexpr (kFamily == kWeibull) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float bad = f(j % 2 == 1);
@@ -410,21 +611,22 @@ __global__ void __launch_bounds__(kThreads)
                              + (-logf(u_haz)) / fmaxf(w_total, kMinTotal);
         s = fmaxf(powf(target, inv_k) - age, 0.0f);
       }
-      resid[2] = s;
-    } else if constexpr (kKind == kBathtub) {
+      resid[kRoff + 2] = s;
+    } else if constexpr (kFamily == kBathtub) {
       g_bar = fmaxf(bathtub_g(age, hz0, hz1, hz2, hz3),
                     bathtub_g(age + hz4, hz0, hz1, hz2, hz3));
-      resid[2] = computing ? hz4 : INFINITY;
-    } else if constexpr (kKind == kLognormal) {
+      resid[kRoff + 2] = computing ? hz4 : INFINITY;
+    } else if constexpr (kFamily == kLognormal) {
       hbar_r = lognormal_bar(age, hz4, hz0, hz2, log_sigma, hz3);
       hbar_s = lognormal_bar(age, hz4, hz1, hz2, log_sigma, hz3);
-      resid[2] = computing ? (hz4 > 0.0f ? hz4 : INFINITY) : INFINITY;
-    } else if constexpr (kKind == kEmpirical) {
+      resid[kRoff + 2] = computing ? (hz4 > 0.0f ? hz4 : INFINITY)
+                                   : INFINITY;
+    } else if constexpr (kFamily == kEmpirical) {
       hbar_r = piecewise_h(age, e_re, e_rr, n_seg);
       hbar_s = piecewise_h(age, e_se, e_sr, n_seg);
-      resid[2] = computing ? fminf(piecewise_gap(age, e_re, n_seg),
-                                   piecewise_gap(age, e_se, n_seg))
-                           : INFINITY;
+      resid[kRoff + 2] = computing ? fminf(piecewise_gap(age, e_re, n_seg),
+                                           piecewise_gap(age, e_se, n_seg))
+                                   : INFINITY;
     }
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -432,10 +634,10 @@ __global__ void __launch_bounds__(kThreads)
       if constexpr (kExpOnly) {
         rates[j] = ((run[j] * r_rand) * f(computing)) * f(active);
         rates[4 + j] = (((run[j] * bad) * r_sys) * f(computing)) * f(active);
-      } else if constexpr (kKind == kWeibull) {
+      } else if constexpr (kFamily == kWeibull) {
         rates[j] = 0.0f;
         rates[4 + j] = 0.0f;
-      } else if constexpr (kKind == kBathtub) {
+      } else if constexpr (kFamily == kBathtub) {
         rates[j] = (((run[j] * r_rand) * g_bar) * f(computing)) * f(active);
         rates[4 + j] = ((((run[j] * bad) * r_sys) * g_bar) * f(computing))
                        * f(active);
@@ -447,8 +649,9 @@ __global__ void __launch_bounds__(kThreads)
       rates[8 + j] = q_aut[j] * f(active);
       rates[12 + j] = q_man[j] * f(active);
     }
-    resid[0] = computing ? work_left : INFINITY;
-    resid[1] = in_overhead ? timer : INFINITY;
+    if constexpr (kSlots) resid[0] = active ? slot_min : INFINITY;
+    resid[kRoff] = computing ? work_left : INFINITY;
+    resid[kRoff + 1] = in_overhead ? timer : INFINITY;
     resid[kDet - 1] = (computing && ckpt > 0.0f)
                           ? fmaxf(ckpt - ckpt_work, 0.0f)
                           : INFINITY;
@@ -460,10 +663,10 @@ __global__ void __launch_bounds__(kThreads)
     int32_t cls = ev % 4;
     bool is_fail = active && ev < 8;
     bool is_sys = active && ev >= 4 && ev < 8;
-    if constexpr (kKind == kWeibull) {
+    if constexpr (kFamily == kWeibull) {
       // the failure arrives on the hazard residual; the failing channel
       // is picked from the hazard shares with u_pick
-      const bool haz_fail = active && ev == kExp + 2;
+      const bool haz_fail = active && ev == kExp + kRoff + 2;
       if (haz_fail) {
         const float total = fmaxf(w_total, kMinTotal);
         float cum = 0.0f;
@@ -480,14 +683,14 @@ __global__ void __launch_bounds__(kThreads)
         is_sys = false;
       }
       is_fail = haz_fail;
-    } else if constexpr (kKind == kBathtub) {
+    } else if constexpr (kFamily == kBathtub) {
       if (is_fail) {
         const bool accept =
             u_haz * g_bar < bathtub_g(age + dt, hz0, hz1, hz2, hz3);
         is_fail = accept;
         is_sys = is_sys && accept;
       }
-    } else if constexpr (kKind == kLognormal) {
+    } else if constexpr (kFamily == kLognormal) {
       if (is_fail) {
         const bool cand_sys = ev >= 4;
         const float h_at = lognormal_h(age + dt, cand_sys ? hz1 : hz0, hz2,
@@ -496,7 +699,7 @@ __global__ void __launch_bounds__(kThreads)
         is_fail = accept;
         is_sys = is_sys && accept;
       }
-    } else if constexpr (kKind == kEmpirical) {
+    } else if constexpr (kFamily == kEmpirical) {
       if (is_fail) {
         const bool cand_sys = ev >= 4;
         const float h_at = cand_sys ? piecewise_h(age + dt, e_se, e_sr, n_seg)
@@ -506,10 +709,17 @@ __global__ void __launch_bounds__(kThreads)
         is_sys = is_sys && accept;
       }
     }
-    const bool is_auto = active && ev >= 8 && ev < 12;
-    const bool is_man = active && ev >= 12 && ev < 16;
-    const bool is_complete = active && ev == kExp;
-    const bool is_timer = active && ev == kExp + 1;
+    // a slot's repair completed: its class and stage decide the completion
+    const bool is_rep = kSlots && active && ev == kExp;
+    int32_t won_meta = 0;
+    if constexpr (kSlots) won_meta = s_meta[slot_arg];
+    if (is_rep) cls = won_meta & 0xffff;
+    const bool is_auto = kSlots ? is_rep && (won_meta >> 16) == 0
+                                : active && ev >= 8 && ev < 12;
+    const bool is_man = kSlots ? is_rep && (won_meta >> 16) == 1
+                               : active && ev >= 12 && ev < 16;
+    const bool is_complete = active && ev == kExp + kRoff;
+    const bool is_timer = active && ev == kExp + kRoff + 1;
     const bool is_ckpt = active && ev == kExp + kDet - 1;
 
     const float t_new = t + dt;
@@ -542,7 +752,7 @@ __global__ void __launch_bounds__(kThreads)
     // ---- exact run durations --------------------------------------------
     const bool record = is_fail || is_complete;
     const float run_val = cur_run + progress;
-    if (record && a.max_runs > 0) {
+    if (record && a.max_runs > 0 && (!kSlots || lane == 0)) {
       a.run_durations[b * a.max_runs + n_runs % a.max_runs] = run_val;
     }
     n_runs += record ? 1 : 0;
@@ -668,7 +878,7 @@ __global__ void __launch_bounds__(kThreads)
           v = m[kUsefulWork] / fmaxf(t_new, kMinDiv);
           mask = is_complete;
         }
-        if (mask) {
+        if (mask && (!kSlots || lane == 0)) {
           const int idx = bin_index(s_edges, a.n_edges, v, lg0, inv_step);
           atomicAdd(a.hist + (b * a.n_sel + c) * (a.n_edges + 1) + idx,
                     1.0f);
@@ -690,21 +900,70 @@ __global__ void __launch_bounds__(kThreads)
       aut[j] = aut_n[j];
       man[j] = man_n[j];
     }
-    if (diagnosed || is_auto) {
+    if (!kSlots && (diagnosed || is_auto)) {
       const int ja = is_auto ? cls : (wrong ? p_run : cls);
       const float q = lane_of(aut, ja) / auto_div;
 #pragma unroll
       for (int j = 0; j < 4; ++j) q_aut[j] = j == ja ? q : q_aut[j];
     }
-    if (escalate || is_man) {
+    if (!kSlots && (escalate || is_man)) {
       const float q = lane_of(man, cls) / man_div;
 #pragma unroll
       for (int j = 0; j < 4; ++j) q_man[j] = j == cls ? q : q_man[j];
     }
+
+    // ---- the repair-slot lane ---------------------------------------------
+    if constexpr (kSlots) {
+      // every slot counts down by dt; the first free slot after that
+      int fslot = -1;
+      for (int base = 0; base < n_slots; base += 32) {
+        const int j = base + lane;
+        bool is_free = false;
+        if (j < n_slots) {
+          const float r = active ? s_rem[j] - dt : s_rem[j];
+          s_rem[j] = r;
+          is_free = isinf(r);
+        }
+        const unsigned ballot = __ballot_sync(kFullMask, is_free);
+        if (fslot < 0 && ballot != 0u) fslot = base + __ffs(ballot) - 1;
+      }
+      const bool any_free = fslot >= 0;
+      const bool entered = diagnosed && any_free;
+      const int idx = is_rep ? slot_arg : (any_free ? fslot : 0);
+      // entry and escalation never share a step: one draw serves both
+      float q_dur = 0.0f;
+      if (escalate || entered) {
+        const int m_r = n_rseg;
+        const float* e_r = escalate ? rp + (2 * m_r - 1) : rp;
+        q_dur = repair_quantile(a.rkind, u_dur, escalate ? rp[1] : rp[0],
+                                rp[2], e_r, e_r + (m_r - 1), m_r);
+      }
+      if ((idx & 31) == lane) {
+        const int32_t meta = s_meta[idx];
+        const int32_t rm_cls = wrong ? p_run : cls;
+        const int32_t cls_n = entered ? rm_cls : (meta & 0xffff);
+        const int32_t stage_n = escalate ? 1 : (entered ? 0 : meta >> 16);
+        s_rem[idx] = finishes ? INFINITY
+                              : ((escalate || entered) ? q_dur : s_rem[idx]);
+        s_meta[idx] = cls_n | (stage_n << 16);
+      }
+      overflow = overflow + f(diagnosed && !any_free);
+      __syncwarp();
+    }
+
     // a finished row stays as it is for the rest of the chunk
     if (phase == kDone) break;
   }
 
+  if constexpr (kSlots) {
+    for (int j = lane; j < n_slots; j += 32) {
+      a.repair_rem[b * n_slots + j] = s_rem[j];
+      a.repair_cls[b * n_slots + j] = s_meta[j] & 0xffff;
+      a.repair_stage[b * n_slots + j] = s_meta[j] >> 16;
+    }
+    if (lane != 0) return;
+    a.n_repair_overflow[b] = overflow;
+  }
   store4(a.comp[kRun] + 4 * b, run);
   store4(a.comp[kSb] + 4 * b, sb);
   store4(a.comp[kFw] + 4 * b, fw);
@@ -729,14 +988,21 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int kKind>
 static int launch(const CtmcChunkArgs* args, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(args->n_edges) * sizeof(float);
+  constexpr bool kSlots = (kKind & kSlotBit) != 0;
+  // a slot instance: a row a block, its slots (8 bytes each) after the
+  // bin edges
+  const int rows = kSlots ? 1 : kThreads;
+  const size_t smem =
+      kSlots ? (static_cast<size_t>((args->n_edges + 3) & ~3)
+                + 2 * static_cast<size_t>(args->n_slots)) * sizeof(float)
+             : static_cast<size_t>(args->n_edges) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         ctmc_chunk_kernel<kKind>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int64_t blocks = (args->n_rows + kThreads - 1) / kThreads;
+  const int64_t blocks = (args->n_rows + rows - 1) / rows;
   ctmc_chunk_kernel<kKind>
       <<<static_cast<unsigned int>(blocks), kThreads, smem, stream>>>(*args);
   return static_cast<int>(cudaGetLastError());
@@ -745,20 +1011,34 @@ static int launch(const CtmcChunkArgs* args, cudaStream_t stream) {
 // Plain-C entry point for ctypes.  `args` points to the launch's struct in
 // host memory; `stream` is a cudaStream_t passed as an integer.  Returns
 // the first CUDA error of the shared-memory attribute or the launch (0 on
-// success), or cudaErrorInvalidValue for a family or segment count the
-// kernel does not take; the caller raises on anything else.
+// success), or cudaErrorInvalidValue for a family, segment count or slot
+// lane the kernel does not take; the caller raises on anything else.
 extern "C" int ctmc_chunk_launch(const CtmcChunkArgs* args, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool seg_ok = args->kind == kEmpirical
                           ? args->n_seg >= 2 && args->n_seg <= kMaxSegments
                           : args->n_seg == 0;
-  if (!seg_ok) return static_cast<int>(cudaErrorInvalidValue);
-  switch (args->kind) {
+  const bool slots = args->rkind != kRepExponential;
+  const bool rseg_ok = args->rkind == kRepEmpirical
+                           ? args->n_rseg >= 2 && args->n_rseg <= kMaxSegments
+                           : args->n_rseg == 0;
+  const bool slots_ok =
+      slots ? args->rkind <= kRepEmpirical && args->n_slots >= 1
+            : args->rkind == kRepExponential && args->n_slots == 0;
+  if (!seg_ok || !rseg_ok || !slots_ok) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (args->kind | (slots ? kSlotBit : 0)) {
     case kExponential: return launch<kExponential>(args, s);
     case kWeibull: return launch<kWeibull>(args, s);
     case kBathtub: return launch<kBathtub>(args, s);
     case kLognormal: return launch<kLognormal>(args, s);
     case kEmpirical: return launch<kEmpirical>(args, s);
+    case kExponential | kSlotBit: return launch<kExponential | kSlotBit>(args, s);
+    case kWeibull | kSlotBit: return launch<kWeibull | kSlotBit>(args, s);
+    case kBathtub | kSlotBit: return launch<kBathtub | kSlotBit>(args, s);
+    case kLognormal | kSlotBit: return launch<kLognormal | kSlotBit>(args, s);
+    case kEmpirical | kSlotBit: return launch<kEmpirical | kSlotBit>(args, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

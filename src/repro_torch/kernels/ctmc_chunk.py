@@ -1,23 +1,27 @@
 """Hopper CUDA kernel that runs a chunk of CTMC steps in one launch.
 
-Counterpart, on the single-job path with exponential repairs, of the
-Pallas TPU kernel ``src/repro/kernels/des_step.py::_event_race_kernel``
-together with the ``lax.scan`` of ``src/repro/core/vectorized.py::
-_chunk_loop`` around it, for every failure family of :data:`KINDS` (one
-kernel instance each).
+Counterpart, on the single-job path, of the Pallas TPU kernel
+``src/repro/kernels/des_step.py::_event_race_kernel`` together with the
+``lax.scan`` of ``src/repro/core/vectorized.py::_chunk_loop`` around it,
+for every failure family of :data:`KINDS` and repair family of
+:data:`REPAIR_KINDS`: one instance a failure family for exponential
+repairs (a thread a row), and one slot instance a failure family for the
+other repair families (a warp a row, the row's repair-slot lane in shared
+memory; :func:`slot_plan`).
 The kernel lives in ``repro_torch/csrc/ctmc_chunk.cu`` (what it computes,
 its bound and its design are noted there); :mod:`._build` builds it with
 ``nvcc -fmad=false`` on first use and binds it with ``ctypes``, and
 :func:`ctmc_chunk_cuda` launches it on PyTorch's current stream.
 
 The state is the engine's dict of tensors.  The kernel knows exactly the
-lanes of the single-job step with exponential repairs: :func:`chunk_layout`
-refuses any other key and any lane dtype but that path's, so a lane that a
-later engine adds cannot be dropped without notice.
+lanes of the single-job step: :func:`chunk_layout` refuses any other key
+and any lane dtype or shape but that path's, so a lane that a later
+engine adds cannot be dropped without notice.
 
 ``LAUNCHES`` counts kernel launches, ``LAUNCHES_BY_KIND`` the same by
-failure family and ``STEPS`` the steps they ran, so a run can show that
-its main path went through the kernel.
+failure family, ``LAUNCHES_BY_REPAIR`` by repair family and ``STEPS`` the
+steps they ran, so a run can show that its main path went through the
+kernel.
 """
 
 from __future__ import annotations
@@ -32,6 +36,10 @@ from ._build import CudaLibrary, check_launch
 #: failure families the kernel runs, in its instance order (the ``Kind``
 #: codes of ``csrc/ctmc_chunk.cu``; ``core.hazards.HAZARD_KINDS``)
 KINDS = ("exponential", "weibull", "bathtub", "lognormal", "empirical")
+#: repair families the kernel runs, in its ``RepairKind`` order
+#: (``core.hazards.REPAIR_KINDS``); all but the first run a slot instance
+REPAIR_KINDS = ("exponential", "weibull", "lognormal", "deterministic",
+                "empirical")
 #: empirical segments a clock the kernel takes (``kMaxSegments``)
 MAX_SEGMENTS = 64
 
@@ -39,6 +47,8 @@ MAX_SEGMENTS = 64
 LAUNCHES = 0
 #: the same launches by failure family
 LAUNCHES_BY_KIND = dict.fromkeys(KINDS, 0)
+#: the same launches by repair family
+LAUNCHES_BY_REPAIR = dict.fromkeys(REPAIR_KINDS, 0)
 #: steps those launches ran
 STEPS = 0
 
@@ -56,8 +66,8 @@ METRICS = ("total_time", "n_failures", "n_random_failures",
            "checkpoint_overhead")
 #: (B,) int32 lanes
 INT_LANES = ("phase", "n_runs")
-#: (B,) float32 metrics of engines not ported yet: the exponential step
-#: leaves them as they are, so they pass through untouched
+#: (B,) float32 metrics the step leaves as they are (the slot instances
+#: write the first), so they pass through untouched
 CARRIED = ("n_repair_overflow", "n_domain_shocks", "n_shock_killed",
            "n_campaign_events")
 #: histogram channels by kernel code (``core.histograms.HIST_CHANNELS``)
@@ -67,8 +77,11 @@ CHANNELS = ("run_duration", "recovery", "waiting", "goodput")
 WRITTEN = COMPARTMENTS + LANES + METRICS + INT_LANES + ("run_durations",
                                                        "hist")
 _KNOWN = frozenset(WRITTEN + CARRIED + ("hist_edges",))
-#: the repair-slot lane of non-exponential repairs (not ported)
-_REPAIR_SLOTS = ("repair_rem", "repair_cls", "repair_stage")
+#: the repair-slot lane of a non-exponential repair family, (B, n_slots):
+#: remaining time float32, class and stage int32
+SLOT_LANES = ("repair_rem", "repair_cls", "repair_stage")
+#: what a slot instance writes besides WRITTEN
+SLOT_WRITTEN = SLOT_LANES + ("n_repair_overflow",)
 _N_PARAMS = 16
 #: columns of the hazard block of the closed-form families, and of the
 #: repair block of exponential repairs (``core.hazards``)
@@ -76,20 +89,53 @@ _N_HAZARD_COLS, _N_REPAIR_COLS = 5, 3
 _MAX_SHARED = 227 * 1024
 
 
-def pv_width(kind: str, n_seg: int = 0) -> int:
-    """Parameter columns of one row for this failure family: the 16 base
-    columns, the family's hazard block and the exponential repair block.
+def pv_width(kind: str, n_seg: int = 0, rkind: str = "exponential",
+             n_rseg: int = 0) -> int:
+    """Parameter columns of one row for these families: the 16 base
+    columns, the failure family's hazard block and the repair family's
+    block.
 
     >>> pv_width("exponential"), pv_width("empirical", 3)
     (24, 29)
+    >>> pv_width("exponential", 0, "empirical", 2)
+    27
     """
     hazard = 4 * n_seg - 2 if kind == "empirical" else _N_HAZARD_COLS
-    return _N_PARAMS + hazard + _N_REPAIR_COLS
+    repair = 4 * n_rseg - 2 if rkind == "empirical" else _N_REPAIR_COLS
+    return _N_PARAMS + hazard + repair
 
 
-def n_uniforms(kind: str) -> int:
-    """Uniforms a step for this failure family (8, or 9 with u_haz)."""
-    return 8 if kind == "exponential" else 9
+def n_uniforms(kind: str, rkind: str = "exponential") -> int:
+    """Uniforms a step: 8, one more (u_haz) for a non-exponential failure
+    family, one more (u_dur) for a non-exponential repair family."""
+    return 8 + (kind != "exponential") + (rkind != "exponential")
+
+
+def slot_plan(n_slots: int, n_edges: int = 0) -> dict:
+    """A slot instance's launch for a lane of ``n_slots`` slots a row and
+    ``n_edges`` histogram edges: a block is one row, a warp (the register
+    file, not shared memory, bounds how many rows an SM holds, and
+    one-warp blocks fill it to that bound), with ``smem_bytes`` of
+    dynamic shared memory (the edges, padded to 16 bytes, then 8 bytes a
+    slot).  Raises ``ValueError`` for a lane whose block would not fit an
+    H100 block's shared memory, naming ``Params.repair_slots``.
+
+    >>> slot_plan(128, 130)
+    {'threads': 32, 'smem_bytes': 1552}
+    >>> slot_plan(4360, 130)["smem_bytes"]
+    35408
+    """
+    if n_slots < 1:
+        _fail(f"a slot lane of {n_slots} slots")
+    edge_floats = -(-n_edges // 4) * 4
+    smem = 4 * (edge_floats + 2 * n_slots)
+    if smem > _MAX_SHARED:
+        _fail(f"a repair-slot lane of {n_slots} slots a row needs {smem} "
+              f"bytes of shared memory a block, over the {_MAX_SHARED} an "
+              "H100 block takes; lower Params.repair_slots (or its "
+              "auto-sized width) to at most "
+              f"{(_MAX_SHARED // 4 - edge_floats) // 2}")
+    return {"threads": 32, "smem_bytes": smem}
 
 
 class ChunkArgs(ctypes.Structure):
@@ -106,7 +152,13 @@ class ChunkArgs(ctypes.Structure):
                 ("n_steps", ctypes.c_int32), ("max_runs", ctypes.c_int32),
                 ("n_sel", ctypes.c_int32), ("n_edges", ctypes.c_int32),
                 ("chan", ctypes.c_int32 * 4), ("kind", ctypes.c_int32),
-                ("n_seg", ctypes.c_int32)]
+                ("n_seg", ctypes.c_int32),
+                ("repair_rem", ctypes.c_void_p),
+                ("repair_cls", ctypes.c_void_p),
+                ("repair_stage", ctypes.c_void_p),
+                ("n_repair_overflow", ctypes.c_void_p),
+                ("rkind", ctypes.c_int32), ("n_rseg", ctypes.c_int32),
+                ("n_slots", ctypes.c_int32)]
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -125,8 +177,7 @@ def _fail(msg: str) -> None:
 def _check(name: str, t: torch.Tensor, shape: tuple, dtype: torch.dtype,
            device: torch.device) -> None:
     if t.dtype != dtype:
-        _fail(f"{name} has dtype {t.dtype}; the exponential path's is "
-              f"{dtype}")
+        _fail(f"{name} has dtype {t.dtype}; the kernel's is {dtype}")
     if tuple(t.shape) != shape:
         _fail(f"{name} has shape {tuple(t.shape)}, not {shape}")
     if t.device != device:
@@ -138,23 +189,30 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtype: torch.dtype,
 def chunk_layout(state: Dict[str, torch.Tensor], us: torch.Tensor,
                  pv: torch.Tensor, R: int, P: int,
                  hist_channels: Sequence[str], *, kind: str = "exponential",
-                 n_seg: int = 0) -> dict:
+                 n_seg: int = 0, rkind: str = "exponential",
+                 n_rseg: int = 0) -> dict:
     """The launch's layout, after every check the kernel needs.
 
     ``state`` is the engine's state dict over ``B = P * R`` rows, ``us``
-    one chunk's ``(n_steps, R_draw, n_uniforms(kind))`` float32 draw with
-    ``R_draw >= R``, ``pv`` one shared parameter row or a ``(B,
-    pv_width(kind, n_seg))`` matrix, ``hist_channels`` the channels
-    ``state["hist"]`` carries, ``kind`` the failure family and ``n_seg``
-    its empirical segment count (0 for the other families).  Returns a
-    dict: ``pointers`` (lane name -> data pointer), ``pv_stride`` (0 for
-    a shared row), ``n_rows``, ``R``, ``P``, ``R_draw``, ``n_steps``,
-    ``max_runs``, ``n_sel``, ``n_edges``, ``chan`` (the kernel's code of
-    each carried channel, its index in :data:`CHANNELS`), ``kind`` (the
-    family's code, its index in :data:`KINDS`) and ``n_seg``.
-    Raises ``ValueError`` on a family or segment count the kernel does
-    not run, a key it does not know or lacks, a dtype, shape, device,
-    stride or alignment it does not take.  Works on tensors of any device.
+    one chunk's ``(n_steps, R_draw, n_uniforms(kind, rkind))`` float32
+    draw with ``R_draw >= R``, ``pv`` one shared parameter row or a ``(B,
+    pv_width(kind, n_seg, rkind, n_rseg))`` matrix, ``hist_channels`` the
+    channels ``state["hist"]`` carries, ``kind`` / ``rkind`` the failure
+    and repair families and ``n_seg`` / ``n_rseg`` their empirical segment
+    counts (0 for the other families).  A non-exponential repair family
+    needs the state's repair-slot lane (:data:`SLOT_LANES`), which an
+    exponential one must not have.  Returns a dict: ``pointers`` (lane
+    name -> data pointer), ``pv_stride`` (0 for a shared row), ``n_rows``,
+    ``R``, ``P``, ``R_draw``, ``n_steps``, ``max_runs``, ``n_sel``,
+    ``n_edges``, ``chan`` (the kernel's code of each carried channel, its
+    index in :data:`CHANNELS`), ``kind`` and ``rkind`` (the families'
+    codes, their indices in :data:`KINDS` and :data:`REPAIR_KINDS`),
+    ``n_seg``, ``n_rseg``, ``n_slots`` (0 for exponential repairs) and
+    ``plan`` (:func:`slot_plan`'s, or None).  Raises ``ValueError`` on a
+    family or segment count the kernel does not run, a key it does not
+    know or lacks, a dtype, shape, device, stride or alignment it does not
+    take, or a slot lane too wide for shared memory.  Works on tensors of
+    any device.
     """
     if kind not in KINDS:
         _fail(f"failure family {kind!r} is not one of {KINDS}")
@@ -164,17 +222,27 @@ def chunk_layout(state: Dict[str, torch.Tensor], us: torch.Tensor,
     if kind != "empirical" and n_seg != 0:
         _fail(f"n_seg={n_seg} for the {kind} family (segments are the "
               "empirical family's)")
-    slots = sorted(set(state) & set(_REPAIR_SLOTS))
-    if slots:
-        _fail(f"state keys {slots} are the repair-slot lane of "
-              "non-exponential repairs, which the kernel does not carry "
-              "(ROADMAP queue 1 item 8)")
-    unknown = sorted(set(state) - _KNOWN)
+    if rkind not in REPAIR_KINDS:
+        _fail(f"repair family {rkind!r} is not one of {REPAIR_KINDS}")
+    if rkind == "empirical" and not 2 <= n_rseg <= MAX_SEGMENTS:
+        _fail(f"{n_rseg} empirical repair segments; the kernel takes 2.."
+              f"{MAX_SEGMENTS} a stage")
+    if rkind != "empirical" and n_rseg != 0:
+        _fail(f"n_rseg={n_rseg} for {rkind} repairs (segments are the "
+              "empirical family's)")
+    slotted = rkind != "exponential"
+    slots = sorted(set(state) & set(SLOT_LANES))
+    if slots and not slotted:
+        _fail(f"state keys {slots} are the repair-slot lane of a "
+              "non-exponential repair family, and the launch's repairs "
+              "are exponential")
+    known = _KNOWN | (set(SLOT_LANES) if slotted else set())
+    unknown = sorted(set(state) - known)
     if unknown:
         _fail(f"state keys {unknown} are lanes the kernel does not carry "
-              "(it runs the single-job step with exponential repairs only)")
+              "(it runs the single-job step without fault domains)")
     has_hist = "hist" in state
-    needed = set(_KNOWN) - ({"hist", "hist_edges"} if not has_hist else set())
+    needed = set(known) - ({"hist", "hist_edges"} if not has_hist else set())
     missing = sorted(needed - set(state))
     if missing:
         _fail(f"state lacks {missing}")
@@ -190,6 +258,13 @@ def chunk_layout(state: Dict[str, torch.Tensor], us: torch.Tensor,
         _check(k, state[k], (B,), f32, device)
     for k in INT_LANES:
         _check(k, state[k], (B,), torch.int32, device)
+    n_slots = 0
+    if slotted:
+        rem = state["repair_rem"]
+        n_slots = rem.shape[1] if rem.ndim == 2 else -1
+        _check("repair_rem", rem, (B, n_slots), f32, device)
+        for k in ("repair_cls", "repair_stage"):
+            _check(k, state[k], (B, n_slots), torch.int32, device)
     ring = state["run_durations"]
     max_runs = ring.shape[1] if ring.ndim == 2 else -1
     _check("run_durations", ring, (B, max_runs), f32, device)
@@ -211,10 +286,11 @@ def chunk_layout(state: Dict[str, torch.Tensor], us: torch.Tensor,
         _check("hist", state["hist"], (B, n_sel, n_edges + 1), f32, device)
         for i, c in enumerate(hist_channels):
             chan[i] = CHANNELS.index(c)
-    n_u = n_uniforms(kind)
+    plan = slot_plan(n_slots, n_edges) if slotted else None
+    n_u = n_uniforms(kind, rkind)
     if us.ndim != 3 or us.shape[2] != n_u or us.shape[1] < R:
         _fail(f"uniforms {tuple(us.shape)} are not (n_steps, R_draw >= "
-              f"{R}, {n_u}) for the {kind} family")
+              f"{R}, {n_u}) for {kind} failures and {rkind} repairs")
     _check("uniforms", us, tuple(us.shape), f32, device)
     if us.shape[0] >= 2 ** 31:
         _fail(f"{us.shape[0]} steps in one launch")
@@ -229,10 +305,10 @@ def chunk_layout(state: Dict[str, torch.Tensor], us: torch.Tensor,
         pv_stride = pv.stride(0)
     else:
         _fail(f"pv {tuple(pv.shape)} is neither one row nor (B={B}, n_cols)")
-    width = pv_width(kind, n_seg)
+    width = pv_width(kind, n_seg, rkind, n_rseg)
     if pv.shape[-1] != width:
-        _fail(f"pv has {pv.shape[-1]} columns; the {kind} step reads "
-              f"{width}")
+        _fail(f"pv has {pv.shape[-1]} columns; the step of {kind} failures "
+              f"and {rkind} repairs reads {width}")
     pointers = {k: v.data_ptr() for k, v in state.items()}
     pointers.update(pv=pv.data_ptr(), us=us.data_ptr())
     # the exponential instance loads its 8-float uniform rows as float4
@@ -243,7 +319,9 @@ def chunk_layout(state: Dict[str, torch.Tensor], us: torch.Tensor,
     return {"pointers": pointers, "pv_stride": pv_stride, "n_rows": B,
             "R": R, "P": P, "R_draw": us.shape[1], "n_steps": us.shape[0],
             "max_runs": max_runs, "n_sel": n_sel, "n_edges": n_edges,
-            "chan": tuple(chan), "kind": KINDS.index(kind), "n_seg": n_seg}
+            "chan": tuple(chan), "kind": KINDS.index(kind), "n_seg": n_seg,
+            "rkind": REPAIR_KINDS.index(rkind), "n_rseg": n_rseg,
+            "n_slots": n_slots, "plan": plan}
 
 
 def _args(layout: dict) -> ChunkArgs:
@@ -258,9 +336,13 @@ def _args(layout: dict) -> ChunkArgs:
     args.hist_edges = ptr.get("hist_edges")
     args.pv, args.us = ptr["pv"], ptr["us"]
     for k in ("pv_stride", "n_rows", "R", "R_draw", "n_steps", "max_runs",
-              "n_sel", "n_edges", "kind", "n_seg"):
+              "n_sel", "n_edges", "kind", "n_seg", "rkind", "n_rseg",
+              "n_slots"):
         setattr(args, k, layout[k])
     args.chan[:] = list(layout["chan"])
+    if layout["plan"] is not None:
+        for k in SLOT_WRITTEN:
+            setattr(args, k, ptr[k])
     return args
 
 
@@ -268,22 +350,25 @@ def ctmc_chunk_cuda(state: Dict[str, torch.Tensor], us: torch.Tensor,
                     pv: torch.Tensor, R: int, P: int,
                     hist_channels: Sequence[str], *,
                     kind: str = "exponential", n_seg: int = 0,
+                    rkind: str = "exponential", n_rseg: int = 0,
                     inplace: bool = False) -> Dict[str, torch.Tensor]:
     """Launch the kernel: ``us.shape[0]`` steps for every row at once.
 
-    ``kind`` and ``n_seg`` choose the failure family's instance (see
-    :func:`chunk_layout`).  Returns the new state dict.  By default the
-    lanes the kernel writes are cloned first, so ``state`` is left as it
-    was (as ``_step_u`` leaves it); ``inplace=True`` writes into
-    ``state``'s own tensors, for a caller that owns them.  Takes CUDA
+    ``kind`` / ``n_seg`` and ``rkind`` / ``n_rseg`` choose the instance
+    (see :func:`chunk_layout`): the failure family's, or its slot instance
+    for a non-exponential repair family.  Returns the new state dict.  By
+    default the lanes the kernel writes are cloned first, so ``state`` is
+    left as it was (as ``_step_u`` leaves it); ``inplace=True`` writes
+    into ``state``'s own tensors, for a caller that owns them.  Takes CUDA
     tensors only and raises on anything :func:`chunk_layout` refuses;
     nothing synchronises.
     """
     global LAUNCHES, STEPS
+    written = WRITTEN + (SLOT_WRITTEN if rkind != "exponential" else ())
     new = dict(state) if inplace else {
-        k: v.clone() if k in WRITTEN else v for k, v in state.items()}
+        k: v.clone() if k in written else v for k, v in state.items()}
     layout = chunk_layout(new, us, pv, R, P, hist_channels, kind=kind,
-                          n_seg=n_seg)
+                          n_seg=n_seg, rkind=rkind, n_rseg=n_rseg)
     device = new["phase"].device
     if device.type != "cuda":
         _fail(f"the state is on {device}, not a CUDA device")
@@ -298,5 +383,6 @@ def ctmc_chunk_cuda(state: Dict[str, torch.Tensor], us: torch.Tensor,
                       f"steps={layout['n_steps']})")
     LAUNCHES += 1
     LAUNCHES_BY_KIND[kind] += 1
+    LAUNCHES_BY_REPAIR[rkind] += 1
     STEPS += layout["n_steps"]
     return new

@@ -66,10 +66,19 @@ ROUTES = {
     "empirical": ({"failure_distribution": "empirical",
                    "distribution_kwargs": {"edges": [0.4, 2.0],
                                            "rates": [0.3, 1.5, 0.7]}}, None),
-    "lognormal_repairs": ({"repair_distribution": "lognormal"}, "item 8"),
+    "lognormal_repairs": ({"repair_distribution": "lognormal"}, None),
     "weibull_repairs": ({"failure_distribution": "weibull",
-                         "repair_distribution": "weibull"}, "item 8"),
-    "age_float64": ({"age_dtype": "float64"}, "item 8"),
+                         "repair_distribution": "weibull"}, None),
+    "deterministic_repairs": ({"repair_distribution": "deterministic"},
+                              None),
+    "empirical_repairs": ({"repair_distribution": "empirical",
+                           "distribution_kwargs": {"edges": [0.5],
+                                                   "rates": [0.1, 2.0]}},
+                          None),
+    "one_segment_empirical_repairs": ({"repair_distribution": "empirical",
+                                       "distribution_kwargs": {
+                                           "rates": [2.0]}}, None),
+    "age_float64": ({"age_dtype": "float64"}, "item 8b"),
     "fault_domains": ({"fault_domains": jc.FaultTopology(
         n_racks=4, rack_shock_rate=1e-4)}, "item 9"),
     "engine_shards": ({"engine_shards": 2}, "item 11"),

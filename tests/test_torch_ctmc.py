@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.core import backend as tb
 from repro_torch.core import vectorized as tv
+from repro_torch.core.faultdomains import Campaign, FaultTopology
 from repro_torch.core.params import Params as TParams
 
 torch.set_num_threads(1)
@@ -152,7 +153,9 @@ def test_padding_rows_stay_inert():
 
 
 @pytest.mark.parametrize("kw", [
-    {"repair_distribution": "weibull"}, {"repair_distribution": "lognormal"},
+    {"fault_domains": FaultTopology(n_racks=8, rack_shock_rate=1e-5)},
+    {"campaign": Campaign(events=({"time": 10.0, "kind": "maintenance",
+                                   "duration": 5.0},))},
     {"engine_shards": 2}, {"age_dtype": "float64"}])
 def test_unported_params_refused(kw):
     p = TParams(**kw)

@@ -7,9 +7,10 @@ over 64 steps on the same numpy uniforms (integer lanes under the
 pick-flip budget of ``test_torch_step.py``).  On the card (marked
 ``gpu``): the kernel against ``_steps_ref`` on the same state and draw,
 every lane, over configurations that reach each branch of the step, for
-each failure family.  Integer lanes and histogram counts must match
-exactly and float lanes within 1e-6 relative; both run the same float32
-operations in the same order, so they are expected to agree bit for bit.
+each failure family and, through the slot instances, each repair family.
+Integer lanes and histogram counts must match exactly and float lanes
+within 1e-6 relative; both run the same float32 operations in the same
+order, so they are expected to agree bit for bit.
 """
 
 import numpy as np
@@ -54,6 +55,42 @@ FAMILIES = {
                                 distribution_kwargs={
                                     "edges": [0.4, 2.0],
                                     "rates": [0.3, 1.5, 0.7]}),
+}
+#: the non-exponential repair families, as tests/test_repair_dist.py and
+#: tests/test_empirical.py configure them
+REPAIRS = {
+    "weibull": NONEXP.replace(repair_distribution="weibull",
+                              distribution_kwargs={"k": 0.7}),
+    "lognormal": NONEXP.replace(repair_distribution="lognormal",
+                                distribution_kwargs={"sigma": 1.2}),
+    "deterministic": NONEXP.replace(repair_distribution="deterministic"),
+    "empirical": NONEXP.replace(repair_distribution="empirical",
+                                distribution_kwargs={"edges": [0.5],
+                                                     "rates": [0.1, 2.0]}),
+    "combined": NONEXP.replace(failure_distribution="lognormal",
+                               repair_distribution="weibull",
+                               distribution_kwargs={"k": 0.7,
+                                                    "sigma": 1.0}),
+    "weibull_failures": NONEXP.replace(failure_distribution="weibull",
+                                       repair_distribution="weibull",
+                                       distribution_kwargs={"k": 1.5}),
+    "bathtub_failures": NONEXP.replace(
+        failure_distribution="bathtub", repair_distribution="deterministic",
+        distribution_kwargs={"infant_factor": 8.0, "infant_tau": 0.25 * DAY}),
+    "empirical_failures": NONEXP.replace(
+        failure_distribution="empirical", repair_distribution="empirical",
+        distribution_kwargs={"edges": [0.4, 2.0], "rates": [0.3, 1.5, 0.7]}),
+    # a one-slot lane that overflows
+    "overflow": NONEXP.replace(repair_distribution="weibull",
+                               distribution_kwargs={"k": 0.7},
+                               auto_repair_time=2 * DAY, repair_slots=1),
+    # 44 slots (not a power of two) that long manual repairs fill past 32
+    "width_44": NONEXP.replace(
+        repair_distribution="weibull", distribution_kwargs={"k": 0.7},
+        job_size=4, working_pool_size=44, spare_pool_size=0,
+        warm_standbys=0, random_failure_rate=8.0 / DAY,
+        auto_repair_time=0.5 * DAY, manual_repair_time=30 * DAY,
+        automated_repair_probability=0.3, repair_slots=44),
 }
 #: name -> (points, replicas a point, ring size or None for the default,
 #: per-row pv, pow2-bucketed, chunks of 64 steps)
@@ -117,24 +154,48 @@ CASES = {
     "empirical_grid": ([FAMILIES["empirical"], FAMILIES["empirical"].replace(
         distribution_kwargs={"edges": [1.0, 3.0], "rates": [2.0, 0.5, 1.0]})],
         24, 4, True, True, 3),
+    # each non-exponential repair family through a slot instance, alone
+    # and as a bucketed repair-parameter sweep with checkpoints
+    **{f"repair_{name}": ([p], 48, None, False, False, 3)
+       for name, p in REPAIRS.items()},
+    "repair_weibull_grid": ([REPAIRS["weibull"].replace(
+        auto_repair_time=v, checkpoint_interval=60.0, checkpoint_cost=2.0)
+        for v in (20.0, 45.0, 90.0)], 20, None, True, True, 3),
+    "repair_short": ([REPAIRS["lognormal"].replace(job_length=0.1 * DAY)],
+                     40, None, False, False, 3),
 }
 
 
 def _family(pts):
-    """(kind, n_seg) of a case's points, which share one family."""
-    keys = {(hazards.hazard_kind(p), hazards.hazard_segment_count(p))
+    """(kind, n_seg) of a case's points, which share one failure family."""
+    return _families(pts)[:2]
+
+
+def _families(pts):
+    """(kind, n_seg, rkind, n_rseg) of a case's points, which share one
+    failure and one repair family."""
+    keys = {(hazards.hazard_kind(p), hazards.hazard_segment_count(p),
+             hazards.repair_kind(p), hazards.repair_segment_count(p))
             for p in pts}
     assert len(keys) == 1, keys
     return keys.pop()
 
 
+def _fam_kw(pts):
+    """The launch's family keywords for a case's points."""
+    kind, n_seg, rkind, n_rseg = _families(pts)
+    return dict(kind=kind, n_seg=n_seg, rkind=rkind, n_rseg=n_rseg)
+
+
 def _setup(name, device):
-    """(state, pv, R, P, channels) of a case, on ``device``; its family
-    from :func:`_family`."""
+    """(state, pv, R, P, channels) of a case, on ``device``; its families
+    from :func:`_families`."""
     pts, R, mr, per_row, bucket, _ = CASES[name]
     P = len(pts)
     mr = max(p.max_run_records for p in pts) if mr is None else mr
-    state = tv._initial_state_batch(pts, R, mr, device)
+    rkind = _families(pts)[2]
+    state = tv._initial_state_batch(pts, R, mr, device, rkind,
+                                    tv._repair_slots_for(pts, rkind))
     rows = np.stack([tv._params_vector(p) for p in pts])
     if bucket:
         P_run, R_run = tv._next_pow2(P), tv._next_pow2(R)
@@ -149,11 +210,13 @@ def _setup(name, device):
     return state, pv, R, P, tv._hist_channels(pts)
 
 
-def _draw(R, i, n_steps=64, device="cpu", seed=17, kind="exponential"):
+def _draw(R, i, n_steps=64, device="cpu", seed=17, kind="exponential",
+          rkind="exponential"):
     """Chunk i's uniforms as ``_chunk_loop`` draws them for ``seed``."""
     gen = torch.Generator(device=device)
     gen.manual_seed(tv._chunk_seed(seed, i))
-    return torch.rand((n_steps, tv._next_pow2(R), tv._n_uniforms(kind)),
+    return torch.rand((n_steps, tv._next_pow2(R),
+                       tv._n_uniforms(kind, rkind)),
                       generator=gen, device=device).clamp_min_(1e-12)
 
 
@@ -322,14 +385,119 @@ def test_layout_refuses_unknown_family(kind, n_seg, match):
     assert ctmc_chunk.LAUNCHES_BY_KIND == before
 
 
+def _repair_valid(name="weibull"):
+    state, pv, R, P, channels = _setup(f"repair_{name}", "cpu")
+    fam = _fam_kw(CASES[f"repair_{name}"][0])
+    us = _draw(R, 0, n_steps=2, kind=fam["kind"], rkind=fam["rkind"])
+    return state, us, pv, R, P, channels, fam
+
+
 @pytest.mark.parametrize("key", ["repair_rem", "repair_cls",
                                  "repair_stage"])
-def test_layout_refuses_repair_slots_naming_item_8(key):
-    state, us, pv, R, P, channels, kind, n_seg = _family_valid("lognormal")
-    state[key] = torch.zeros((state["t"].shape[0], 4))
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 8"):
-        ctmc_chunk.chunk_layout(state, us, pv, R, P, channels, kind=kind,
-                                n_seg=n_seg)
+def test_layout_refuses_a_bad_slot_lane(key):
+    """Each slot lane is refused in the wrong dtype and the wrong shape,
+    and an exponential launch refuses it outright."""
+    state, us, pv, R, P, channels, fam = _repair_valid()
+    ctmc_chunk.chunk_layout(state, us, pv, R, P, channels, **fam)
+    good = state[key]
+    wrong = torch.int32 if good.dtype == torch.float32 else torch.float32
+    state[key] = good.to(wrong)
+    with pytest.raises(ValueError, match=f"{key} has dtype"):
+        ctmc_chunk.chunk_layout(state, us, pv, R, P, channels, **fam)
+    state[key] = good[:-1]
+    with pytest.raises(ValueError, match=f"{key} has shape"):
+        ctmc_chunk.chunk_layout(state, us, pv, R, P, channels, **fam)
+    state[key] = good
+    exp_state, exp_us, exp_pv, *_ = _valid()
+    exp_state[key] = good[:exp_state["t"].shape[0]]
+    with pytest.raises(ValueError, match="repair-slot lane"):
+        ctmc_chunk.chunk_layout(exp_state, exp_us, exp_pv, R, P, channels)
+
+
+def test_kernel_repair_families_are_the_engines():
+    assert ctmc_chunk.REPAIR_KINDS == hazards.REPAIR_KINDS
+    assert set(ctmc_chunk.LAUNCHES_BY_REPAIR) == set(hazards.REPAIR_KINDS)
+    assert set(hazards.REPAIR_SAMPLERS) == set(ctmc_chunk.REPAIR_KINDS[1:])
+    state = tv._initial_state_batch([REPAIRS["weibull"]], 4, 3, "cpu",
+                                    "weibull", 8)
+    assert set(state) == set(ctmc_chunk.WRITTEN + ctmc_chunk.CARRIED
+                             + ctmc_chunk.SLOT_LANES + ("hist_edges",))
+
+
+@pytest.mark.parametrize("name", ["weibull", "lognormal", "deterministic",
+                                  "empirical", "combined",
+                                  "weibull_failures", "bathtub_failures",
+                                  "empirical_failures", "overflow",
+                                  "width_44"])
+def test_layout_of_each_slot_instance(name):
+    state, us, pv, R, P, channels, fam = _repair_valid(name)
+    lay = ctmc_chunk.chunk_layout(state, us, pv, R, P, channels, **fam)
+    n_slots = state["repair_rem"].shape[1]
+    assert lay["n_slots"] == n_slots == tv._repair_slots_for(
+        CASES[f"repair_{name}"][0], fam["rkind"])
+    assert (lay["rkind"], lay["n_rseg"]) == (
+        ctmc_chunk.REPAIR_KINDS.index(fam["rkind"]), fam["n_rseg"])
+    assert lay["plan"] == ctmc_chunk.slot_plan(n_slots, lay["n_edges"])
+    assert pv.shape[-1] == ctmc_chunk.pv_width(
+        fam["kind"], fam["n_seg"], fam["rkind"], fam["n_rseg"])
+    assert us.shape[-1] == ctmc_chunk.n_uniforms(fam["kind"], fam["rkind"]) \
+        == 9 + (fam["kind"] != "exponential")
+    args = ctmc_chunk._args(lay)
+    assert (args.rkind, args.n_rseg, args.n_slots) == (
+        lay["rkind"], fam["n_rseg"], n_slots)
+    assert args.repair_rem == state["repair_rem"].data_ptr()
+    assert args.n_repair_overflow == state["n_repair_overflow"].data_ptr()
+    # the exponential-repair draw and parameter row are refused
+    with pytest.raises(ValueError, match="uniforms"):
+        ctmc_chunk.chunk_layout(state, us[..., :-1].contiguous(), pv, R, P,
+                                channels, **fam)
+    with pytest.raises(ValueError, match="repair-slot lane|uniforms"):
+        ctmc_chunk.chunk_layout(state, us, pv, R, P, channels,
+                                kind=fam["kind"], n_seg=fam["n_seg"])
+
+
+@pytest.mark.parametrize("rkind,n_rseg,match", [
+    ("gamma", 0, "not one of"), ("empirical", 1, "segments"),
+    ("empirical", 65, "segments"), ("weibull", 2, "n_rseg")])
+def test_layout_refuses_unknown_repair_family(rkind, n_rseg, match):
+    state, us, pv, R, P, channels, fam = _repair_valid()
+    fam.update(rkind=rkind, n_rseg=n_rseg)
+    with pytest.raises(ValueError, match=match):
+        ctmc_chunk.chunk_layout(state, us, pv, R, P, channels, **fam)
+    before = dict(ctmc_chunk.LAUNCHES_BY_REPAIR)
+    with pytest.raises(ValueError, match=match):
+        ctmc_chunk.ctmc_chunk_cuda(state, us, pv, R, P, channels, **fam)
+    assert ctmc_chunk.LAUNCHES_BY_REPAIR == before
+
+
+def test_layout_refuses_a_missing_slot_lane():
+    state, us, pv, R, P, channels, fam = _repair_valid()
+    del state["repair_stage"]
+    with pytest.raises(ValueError, match="lacks"):
+        ctmc_chunk.chunk_layout(state, us, pv, R, P, channels, **fam)
+
+
+@pytest.mark.parametrize("n_slots,n_edges", [(1, 0), (36, 130), (128, 130),
+                                             (4360, 130), (28990, 130),
+                                             (29056, 0)])
+def test_slot_plan_takes_every_width_to_the_physical_cap(n_slots, n_edges):
+    """Any lane up to 4,360 slots (Table I's every server in the shop)
+    fits a block: one warp a row, the edges padded to 16 bytes, 8 bytes
+    a slot, within an H100 block's 227 KB."""
+    plan = ctmc_chunk.slot_plan(n_slots, n_edges)
+    assert plan["threads"] == 32
+    assert plan["smem_bytes"] == 4 * (-(-n_edges // 4) * 4 + 2 * n_slots)
+    assert plan["smem_bytes"] <= 227 * 1024
+
+
+@pytest.mark.parametrize("n_slots,n_edges", [(0, 130), (-3, 0),
+                                             (28991, 130), (29057, 0)])
+def test_slot_plan_refuses(n_slots, n_edges):
+    with pytest.raises(ValueError, match="ctmc_chunk"):
+        ctmc_chunk.slot_plan(n_slots, n_edges)
+    if n_slots > 1000:
+        with pytest.raises(ValueError, match="Params.repair_slots"):
+            ctmc_chunk.slot_plan(n_slots, n_edges)
 
 
 def test_library_hash_covers_headers_and_flags(tmp_path, monkeypatch):
@@ -469,31 +637,37 @@ def _compare_states(got, want, label):
 def test_chunk_kernel_matches_steps_ref(name):
     _needs_card()
     state, pv, R, P, channels = _setup(name, "cuda")
-    kind, n_seg = _family(CASES[name][0])
+    fam = _fam_kw(CASES[name][0])
+    kind, rkind = fam["kind"], fam["rkind"]
     snapshot = {k: v.clone() for k, v in state.items()}
     n_chunks = CASES[name][5]
     got = want = state
     for i in range(n_chunks):
-        us = _draw(R, i, device="cuda", kind=kind)
+        us = _draw(R, i, device="cuda", kind=kind, rkind=rkind)
         launches, steps = ctmc_chunk.LAUNCHES, ctmc_chunk.STEPS
         by_kind = ctmc_chunk.LAUNCHES_BY_KIND[kind]
+        by_repair = ctmc_chunk.LAUNCHES_BY_REPAIR[rkind]
         race = des_step.LAUNCHES
-        got = ctmc_chunk.ctmc_chunk_cuda(got, us, pv, R, P, channels,
-                                         kind=kind, n_seg=n_seg)
+        got = ctmc_chunk.ctmc_chunk_cuda(got, us, pv, R, P, channels, **fam)
         want = tv._steps_ref(want, us, pv, R, P, "ref", channels, kind,
-                             n_seg)
+                             fam["n_seg"], rkind, fam["n_rseg"])
         torch.cuda.synchronize()
         assert ctmc_chunk.LAUNCHES == launches + 1
         assert ctmc_chunk.LAUNCHES_BY_KIND[kind] == by_kind + 1
+        assert ctmc_chunk.LAUNCHES_BY_REPAIR[rkind] == by_repair + 1
         assert ctmc_chunk.STEPS == steps + 64
         assert des_step.LAUNCHES == race
         assert _compare_states(got, want, f"{name} chunk {i}") == 0
     for k, v in snapshot.items():                 # the caller's dict
         assert torch.equal(state[k], v), k
     assert float(want["n_failures"].sum()) > 0
-    if name == "finish_mid_chunk":
+    if name in ("finish_mid_chunk", "repair_short"):
         done = want["phase"] == tv.DONE
         assert 0.2 < float(done.float().mean()) <= 1.0
+    if name == "repair_overflow":
+        assert float(want["n_repair_overflow"].sum()) > 0
+    if name == "repair_width_44":
+        assert int(torch.isfinite(want["repair_rem"]).sum(-1).max()) > 32
 
 
 @pytest.mark.gpu
@@ -514,9 +688,12 @@ def test_chunk_kernel_short_chunks_and_inplace(n_steps):
 
 
 @pytest.mark.gpu
-def test_sweep_through_the_kernel_matches_the_plain_loop():
+@pytest.mark.parametrize("repairs", ["exponential", "weibull"])
+def test_sweep_through_the_kernel_matches_the_plain_loop(repairs):
     _needs_card()
-    grid = [SMALL.replace(warm_standbys=w) for w in (0, 1, 2)]
+    base = SMALL if repairs == "exponential" else SMALL.replace(
+        repair_distribution=repairs, distribution_kwargs={"k": 0.7})
+    grid = [base.replace(warm_standbys=w) for w in (0, 1, 2)]
     kw = dict(n_replicas=40, seed=6, device="cuda")
     launches, steps = ctmc_chunk.LAUNCHES, ctmc_chunk.STEPS
     race = des_step.LAUNCHES
