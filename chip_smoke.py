@@ -110,7 +110,28 @@ Phases, each of which fails the run loudly:
 17. run parity on tests/test_repair_dist.py's configs and
     tests/test_empirical.py's empirical repairs: the CTMC engine on the
     card (768 replicas) against the event engine on the host (40), every
-    compared metric within |z| < 3.5, no overflow.
+    compared metric within |z| < 3.5, no overflow;
+18. examples/capacity_planning.py's rack-outage what-if at Table-I width:
+    ``OneWaySweep`` over ``rack_shock_rate`` in {0, 2e-6, 5e-6, 1e-5},
+    1,024 replicas a point, 40 racks in pods of 8 (45 fault domains, 109
+    servers a rack), ``job_length`` 8 days, its launches counted from 0,
+    each the exponential scenario instance's (16 + 45 exponential lanes,
+    the campaign residual first); every replica complete, servers
+    conserved, shocks growing with the rate; the first chunk against the
+    plain step loop with its times and bound, the sweep traced, the whole
+    sweep through the plain step loop (0 bit-different elements), and the
+    rate-0 point against a scenario-free Table-I run with the same seed,
+    lane for lane;
+19. benchmarks/engine_perf.py's correlated scenario at Table-I width
+    (rack and pod shocks, a kill of rack 3 at a quarter of the job, a
+    maintenance window), under lognormal sigma 1 failures and then each
+    other failure family, each through ``run_replications`` and its own
+    scenario instance: every replica completes with its 3 schedule
+    entries, the first chunk held exactly against the plain step loop, the
+    run traced; the whole lognormal run through the plain step loop (0
+    bit-different elements); then run parity of tests/test_faultdomains
+    .py's SCENARIO, the CTMC engine on the card (768 replicas) against the
+    event engine on the host (48), every compared metric within |z| < 3.5.
 
 Prints a ``{"serving": ..., "host_paths": ...}`` line, a ``{"kernels":
 [...]}`` line and, as its last line, ``{"ok": true, "device": {...}}``.  Exits non-zero, with
@@ -315,6 +336,47 @@ REPAIR_PARITY = {
                  _REPAIR_METRICS),
     "empirical": (REPAIR_SWEEPS["empirical"], _REPAIR_METRICS),
 }
+#: phase 18: examples/capacity_planning.py's rack-outage what-if at Table-I
+#: width: 40 racks in pods of 8 (45 fault domains, 109 servers a rack),
+#: job_length cut to 8 days as the example cuts it, a rack_shock_rate grid
+SHOCK_RACKS, SHOCK_RACKS_PER_POD, SHOCK_DAYS = 40, 8, 8
+SHOCK_RATES = [0.0, 2e-6, 5e-6, 1e-5]
+#: phase 19: benchmarks/engine_perf.py's correlated scenario at Table-I
+#: width (lognormal sigma 1 failures, rack and pod shocks, a kill of rack 3
+#: at a quarter of the job and a maintenance window of 5% of it at half),
+#: job_length the benchmark's 2 days, under each failure family
+CAMPAIGN_RATES = dict(rack_shock_rate=1e-5, pod_shock_rate=2e-6)
+CAMPAIGN_DAYS = 2
+CAMPAIGN_FAMILIES = {"lognormal": FAMILY_SWEEPS["lognormal"],
+                     "exponential": {}, "weibull": FAMILY_SWEEPS["weibull"],
+                     "bathtub": FAMILY_SWEEPS["bathtub"],
+                     "empirical": FAMILY_SWEEPS["empirical"]}
+#: phase 19's run parity: tests/test_faultdomains.py's SCENARIO and the
+#: metrics its cross-engine test compares
+SCEN_PARITY_BASE = dict(job_size=24, working_pool_size=32, spare_pool_size=8,
+                        warm_standbys=4, job_length=3000.0,
+                        random_failure_rate=2e-4,
+                        systematic_failure_rate=1e-3, recovery_time=10.0,
+                        seed=5)
+SCEN_PARITY_METRICS = ("total_time", "n_failures", "n_standby_swaps",
+                       "n_host_selections", "n_preemptions",
+                       "recovery_overhead", "n_domain_shocks",
+                       "n_shock_killed", "n_campaign_events")
+SCEN_PARITY_CTMC, SCEN_PARITY_EVENT = 768, 48
+#: a scenario instance's extra float32 operations a live row-step, read
+#: off _step_u's scen branches: the maintenance gate (8 selects), the
+#: campaign residual (index, subtract, max, select), the struck test and
+#: the deficit (about 8); plus two a shock lane (STEP counts them apart)
+SCEN_STEP_OPS = 24
+#: operations of one struck row-step (the out-of-line bulk kill): four
+#: systematic roundings of 4 classes (products, cumsum, 8 subtractions,
+#: 8 ceils, 8 maxima, 4 differences: ~36 each), the sums, the in-shop
+#: rounding, the waterfall (~20), three takes (a division, 4 products, a
+#: rounding: ~41 each) and the pools' updates (20)
+BULK_OPS = 4 * 36 + 20 + 20 + 3 * 41 + 20
+#: bytes of a row's scenario lanes in the state (deficit, schedule pointer,
+#: window flag, the three counters)
+SCEN_LANE_BYTES = 6 * 4
 
 
 def fail(msg: str) -> None:
@@ -829,26 +891,98 @@ def sweep_identity(final, final_ref):
 
 def chunk_bound_ms(live_rows, n_steps, R, n_edges, hist_adds, ring_writes,
                    kind="exponential", n_hazard_cols=0, n_uniforms=8,
-                   n_slots=0, n_repair_cols=0):
+                   n_slots=0, n_repair_cols=0, scen=None, struck_steps=0,
+                   param_rows=None):
     """Least time for one chunk launch on these inputs: the uniforms the
     rows read (n_steps x R x n_uniforms x 4 B), each live row's state
-    read and written and its parameters (16 columns, the failure family's
-    hazard columns and, for a slot instance, the repair family's columns)
-    read once, each live row's repair-slot lane (12 B a slot) read and
-    written once, the bin edges, each histogram bin added to read and
-    written, each ring slot written; the family's FAMILY_STEP_OPS float32
-    operations a live row-step, plus a slot instance's two a slot (the
-    minimum's compare, the decrement), at the float32 peak."""
+    read and written, each parameter row the launch reads (``param_rows``:
+    1 for a row shared by the batch, else the live rows, the default) read
+    once (16 columns, the failure family's hazard columns, for a slot
+    instance the repair family's columns, and for a scenario instance the
+    exponential repairs' 3 and the scenario's 2D + 3L), each live row's
+    repair-slot lane (12 B a slot) or
+    scenario lanes (SCEN_LANE_BYTES) read and written once, the bin edges,
+    each histogram bin added to and each domain's shock count bumped (read
+    and written), each ring slot written; the family's FAMILY_STEP_OPS
+    float32 operations a live row-step, plus a slot instance's two a slot
+    (the minimum's compare, the decrement), a scenario instance's
+    SCEN_STEP_OPS and two a shock lane (the race's sum and cumsum), and
+    BULK_OPS a struck row-step, at the float32 peak.  ``scen`` is the
+    scenario key (D, codes); ``struck_steps`` the shock and kill
+    row-steps of the launch."""
+    n_dom, n_camp = (scen[0], len(scen[1])) if scen else (0, 0)
+    scen_cols = 3 + 2 * n_dom + 3 * n_camp if scen else 0
+    param_rows = live_rows if param_rows is None else param_rows
     nbytes = (n_steps * R * n_uniforms * 4
-              + live_rows * (2 * ROW_STATE_BYTES + ROW_PARAM_BYTES
-                             + 4 * (n_hazard_cols + n_repair_cols)
-                             + 2 * 12 * n_slots)
-              + 4 * n_edges + 8 * hist_adds + 4 * ring_writes)
+              + live_rows * (2 * ROW_STATE_BYTES + 2 * 12 * n_slots
+                             + (2 * SCEN_LANE_BYTES if scen else 0))
+              + param_rows * (ROW_PARAM_BYTES
+                              + 4 * (n_hazard_cols + n_repair_cols
+                                     + scen_cols))
+              + 4 * n_edges + 8 * hist_adds + 4 * ring_writes
+              + 8 * struck_steps)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = (live_rows * n_steps * (FAMILY_STEP_OPS[kind] + 2 * n_slots)
-              / FP32_OPS_PER_S * 1e3)
+    scen_ops = SCEN_STEP_OPS + 2 * n_dom if scen else 0
+    ops_ms = ((live_rows * n_steps * (FAMILY_STEP_OPS[kind] + 2 * n_slots
+                                      + scen_ops)
+               + struck_steps * BULK_OPS) / FP32_OPS_PER_S * 1e3)
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms \
         else "operations"
+
+
+def parity_z(ct, ev, metrics):
+    """z of each metric's mean: the CTMC run's arrays ``ct`` against the
+    event engine's RunResults ``ev``, in pooled standard errors."""
+    zs = {}
+    for m in metrics:
+        e = [float(getattr(r, m)) for r in ev]
+        e_mean = sum(e) / len(e)
+        e_var = sum((x - e_mean) ** 2 for x in e) / (len(e) - 1)
+        c = ct[m]
+        se = math.sqrt(float(c.std()) ** 2 / len(c) + e_var / len(e))
+        zs[m] = (e_mean - float(c.mean())) / max(se, 1e-9)
+    return zs
+
+
+def traced_chunk_ms(cc, fn, counter, key):
+    """(chunk kernel device ms over a traced run of ``fn``, launches it
+    counted in ``counter[key]``); the counters are put back."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    counts = save_counts(cc)
+    before = counter[key]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    traced = counter[key] - before
+    restore_counts(cc, counts)
+    ms = sum(getattr(e, "self_device_time_total", 0.0)
+             for e in prof.key_averages()
+             if str(e.device_type).endswith("CUDA")
+             and "ctmc_chunk_kernel" in e.key) / 1e3
+    return ms, traced
+
+
+def save_counts(cc):
+    """The chunk kernel's launch counters, to put back after launches made
+    only to compare or time."""
+    return (cc.LAUNCHES, cc.STEPS, dict(cc.LAUNCHES_BY_KIND),
+            dict(cc.LAUNCHES_BY_REPAIR), dict(cc.LAUNCHES_BY_SCEN))
+
+
+def restore_counts(cc, counts):
+    cc.LAUNCHES, cc.STEPS = counts[:2]
+    cc.LAUNCHES_BY_KIND.update(counts[2])
+    cc.LAUNCHES_BY_REPAIR.update(counts[3])
+    cc.LAUNCHES_BY_SCEN.update(counts[4])
+
+
+def zero_counts(cc):
+    """Every launch counter of the chunk kernel to 0."""
+    cc.LAUNCHES = cc.STEPS = 0
+    for counter in (cc.LAUNCHES_BY_KIND, cc.LAUNCHES_BY_REPAIR,
+                    cc.LAUNCHES_BY_SCEN):
+        counter.update(dict.fromkeys(counter, 0))
 
 
 def chunk_phase(cc, vectorized, call):
@@ -861,17 +995,17 @@ def chunk_phase(cc, vectorized, call):
     pv, seed, P, R, chunk = call[:5]
     channels, init = call[9], call[10]
     kind, n_seg, rkind, n_rseg = call[11:15]
-    fam = dict(kind=kind, n_seg=n_seg, rkind=rkind, n_rseg=n_rseg)
+    scen = call[15] if len(call) > 15 else None
+    fam = dict(kind=kind, n_seg=n_seg, rkind=rkind, n_rseg=n_rseg, scen=scen)
     n_u = vectorized._n_uniforms(kind, rkind)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(vectorized._chunk_seed(seed, 0))
     us = torch.rand((chunk, vectorized._next_pow2(R), n_u),
                     generator=gen, device="cuda").clamp_min_(1e-12)
-    counts = (cc.LAUNCHES, cc.STEPS, dict(cc.LAUNCHES_BY_KIND),
-              dict(cc.LAUNCHES_BY_REPAIR))
+    counts = save_counts(cc)
     got = cc.ctmc_chunk_cuda(init, us, pv, R, P, channels, **fam)
     want = vectorized._steps_ref(init, us, pv, R, P, "ref", channels, kind,
-                                 n_seg, rkind, n_rseg)
+                                 n_seg, rkind, n_rseg, scen)
     torch.cuda.synchronize()
     mism, bits, err = 0, 0, 0.0
     for k, w in want.items():
@@ -907,24 +1041,32 @@ def chunk_phase(cc, vectorized, call):
     t["call_ms"] = event_ms(lambda: cc.ctmc_chunk_cuda(
         init, us, pv, R, P, channels, **fam), 50, warmup=5)
     t["plain_ms"] = device_ms(lambda: vectorized._steps_ref(
-        init, us, pv, R, P, "ref", channels, kind, n_seg, rkind, n_rseg), 1)
+        init, us, pv, R, P, "ref", channels, kind, n_seg, rkind, n_rseg,
+        scen), 1)
     t["plain_call_ms"] = event_ms(lambda: vectorized._steps_ref(
-        init, us, pv, R, P, "ref", channels, kind, n_seg, rkind, n_rseg), 1,
-        warmup=1)
-    cc.LAUNCHES, cc.STEPS = counts[:2]
-    cc.LAUNCHES_BY_KIND.update(counts[2])
-    cc.LAUNCHES_BY_REPAIR.update(counts[3])
+        init, us, pv, R, P, "ref", channels, kind, n_seg, rkind, n_rseg,
+        scen), 1, warmup=1)
+    restore_counts(cc, counts)
     hist_adds = int((want["hist"] - init["hist"]).sum()) \
         if "hist" in want else 0
     ring = int((want["n_runs"] - init["n_runs"]).sum()) \
         if want["run_durations"].shape[1] else 0
     n_edges = init["hist_edges"].numel() if "hist_edges" in init else 0
     n_slots = init["repair_rem"].shape[1] if "repair_rem" in init else 0
+    # the shock and kill row-steps of the chunk: its shocks, and its
+    # campaign entries (an upper bound on its kills)
+    struck = 0
+    if scen is not None:
+        struck = int((want["n_domain_shocks"] - init["n_domain_shocks"]
+                      + want["n_campaign_events"]
+                      - init["n_campaign_events"]).sum())
     t["bound_ms"], t["bound_by"] = chunk_bound_ms(
         live, chunk, R, n_edges, hist_adds, ring, kind,
         0 if kind == "exponential" else hazards.hazard_col_count(kind, n_seg),
         n_u, n_slots,
-        hazards.repair_col_count(rkind, n_rseg) if n_slots else 0)
+        hazards.repair_col_count(rkind, n_rseg) if n_slots else 0, scen,
+        struck, 1 if pv.ndim == 1 else live)
+    t["struck_row_steps"] = struck
     t["n_slots"] = n_slots
     t["live_rows"] = live
     t["ms_per_step"] = None if t["ms"] is None else t["ms"] / chunk
@@ -1269,14 +1411,7 @@ def parity_phase(core, cc):
         if launches <= 0 or ct["completed"].mean() <= 0.99:
             fail(f"parity {name}: {launches} chunk launches, completed "
                  f"{ct['completed'].mean():.4f}")
-        zs = {}
-        for m in metrics:
-            e = [float(getattr(r, m)) for r in ev]
-            e_mean = sum(e) / len(e)
-            e_var = sum((x - e_mean) ** 2 for x in e) / (len(e) - 1)
-            c = ct[m]
-            se = math.sqrt(float(c.std()) ** 2 / len(c) + e_var / len(e))
-            zs[m] = (e_mean - float(c.mean())) / max(se, 1e-9)
+        zs = parity_z(ct, ev, metrics)
         print(f"  {name}: CTMC {PARITY_CTMC} replicas on the card "
               f"{ctmc_s:.3f} s ({launches} chunk launches), event "
               f"{PARITY_EVENT} on the host {event_s:.3f} s; z: "
@@ -1409,7 +1544,6 @@ def family_phase(core, cc, vectorized, name, overrides):
     overflow.  Then the kernel against the plain step loop on the sweep's
     first chunk (chunk_phase) and the sweep again under torch.profiler."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import hazards
     base = core.Params(job_length=JOB_DAYS * DAY, **overrides)
@@ -1420,9 +1554,7 @@ def family_phase(core, cc, vectorized, name, overrides):
                              base_params=base, device="cuda")
     run, restore = capture_final_states(vectorized)
     try:
-        cc.LAUNCHES = cc.STEPS = 0
-        cc.LAUNCHES_BY_KIND.update(dict.fromkeys(cc.LAUNCHES_BY_KIND, 0))
-        cc.LAUNCHES_BY_REPAIR.update(dict.fromkeys(cc.LAUNCHES_BY_REPAIR, 0))
+        zero_counts(cc)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = sweep.run()
@@ -1470,20 +1602,7 @@ def family_phase(core, cc, vectorized, name, overrides):
     if t["bit_different"]:
         fail(f"{name}: the first chunk differs from the plain loop in "
              f"{t['bit_different']} float elements")
-    counts = (cc.LAUNCHES, cc.STEPS, dict(cc.LAUNCHES_BY_KIND),
-              dict(cc.LAUNCHES_BY_REPAIR))
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        sweep.run()
-        torch.cuda.synchronize()
-    traced = counter[key] - (counts[3] if counter is cc.LAUNCHES_BY_REPAIR
-                             else counts[2])[key]
-    cc.LAUNCHES, cc.STEPS = counts[:2]
-    cc.LAUNCHES_BY_KIND.update(counts[2])
-    cc.LAUNCHES_BY_REPAIR.update(counts[3])
-    chunk_ms = sum(getattr(e, "self_device_time_total", 0.0)
-                   for e in prof.key_averages()
-                   if str(e.device_type).endswith("CUDA")
-                   and "ctmc_chunk_kernel" in e.key) / 1e3
+    chunk_ms, traced = traced_chunk_ms(cc, sweep.run, counter, key)
     t["sweep_ms_per_launch"] = chunk_ms / max(traced, 1)
     print(f"  {name}: chunk kernel over the traced sweep {chunk_ms:.6f} ms "
           f"in {traced} launches = {t['sweep_ms_per_launch']:.6f} ms a "
@@ -1552,14 +1671,7 @@ def nonexp_parity_phase(core, cc, table):
             fail(f"parity {name}: {launches} {kind} launches, completed "
                  f"{ct['completed'].mean():.4f}, overflows "
                  f"{ct['n_repair_overflow'].sum():.0f}")
-        zs = {}
-        for m in metrics:
-            e = [float(getattr(r, m)) for r in ev]
-            e_mean = sum(e) / len(e)
-            e_var = sum((x - e_mean) ** 2 for x in e) / (len(e) - 1)
-            c = ct[m]
-            se = math.sqrt(float(c.std()) ** 2 / len(c) + e_var / len(e))
-            zs[m] = (e_mean - float(c.mean())) / max(se, 1e-9)
+        zs = parity_z(ct, ev, metrics)
         print(f"  {name}: CTMC {NONEXP_CTMC} replicas on the card "
               f"{ctmc_s:.3f} s ({launches} {kind} launches), event "
               f"{NONEXP_EVENT} on the host {event_s:.3f} s; z: "
@@ -1572,6 +1684,284 @@ def nonexp_parity_phase(core, cc, table):
     out["seconds"] = time.perf_counter() - t0
     print(f"  phase {out['seconds']:.3f} s")
     return out
+
+
+def scenario_launches(cc, kind):
+    """Launches of ``kind``'s scenario instance, and of every other."""
+    mine = cc.LAUNCHES_BY_SCEN[kind]
+    return mine, cc.LAUNCHES - mine
+
+
+def check_scenario_state(final, rows, label, total):
+    """Servers conserved over every pool, and each row's per-domain shock
+    counts summing to its shock counter."""
+    import torch
+    pools = sum(final[k][rows].sum(-1) for k in
+                ("run", "sb", "fw", "fs", "auto", "man"))
+    if not bool((pools == total).all()):
+        fail(f"{label}: servers not conserved ({float(pools.min())}.."
+             f"{float(pools.max())} != {total})")
+    if "domain_shocks" in final and not torch.equal(
+            final["domain_shocks"][rows].sum(-1),
+            final["n_domain_shocks"][rows]):
+        fail(f"{label}: per-domain shock counts do not sum to "
+             "n_domain_shocks")
+
+
+def plain_identity(label, final, final_ref):
+    """A run's final state through the chunk kernel against the plain step
+    loop's on the same uniforms: 0 bit-different elements, or fail."""
+    frac, hist_same, worst_rel, bits = sweep_identity(final, final_ref)
+    print(f"  {label} through the plain step loop: replicas with identical "
+          f"integer metrics {frac * 100:.3f}%; histograms identical "
+          f"{hist_same}; float lanes: largest relative difference "
+          f"{worst_rel:.3e}, bit-different elements {bits}")
+    if frac < 1.0 or not hist_same or bits:
+        fail(f"{label} through the chunk kernel differs from the plain "
+             f"loop ({bits} bit-different float elements)")
+    return {"identical_share": frac, "bit_different": bits}
+
+
+def shock_sweep_phase(core, cc, vectorized):
+    """Phase 18: examples/capacity_planning.py's rack-outage sweep at
+    Table-I width through ``OneWaySweep`` over ``rack_shock_rate`` on the
+    card, the counts set to 0 just before and read just after: every
+    launch the exponential scenario instance's, every replica complete,
+    servers conserved, shocks growing with the rate.  Then the first chunk
+    against the plain step loop, the sweep traced, the whole sweep through
+    the plain step loop (0 bit-different elements), and the rate-0 point
+    against a scenario-free Table-I run with the same seed, lane for
+    lane."""
+    import torch
+    topo = core.FaultTopology(n_racks=SHOCK_RACKS,
+                              racks_per_pod=SHOCK_RACKS_PER_POD)
+    base = core.Params(job_length=SHOCK_DAYS * DAY, fault_domains=topo)
+    total = base.working_pool_size + base.spare_pool_size
+    print(f"  {topo.n_domains} fault domains, {total // SHOCK_RACKS} "
+          f"servers a rack")
+
+    def sweep(params):
+        return core.OneWaySweep("rack outages", "rack_shock_rate",
+                                SHOCK_RATES, n_replications=N_REPLICAS,
+                                base_params=params, device="cuda")
+
+    run, restore = capture_final_states(vectorized)
+    try:
+        zero_counts(cc)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sweep(base).run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, others = scenario_launches(cc, "exponential")
+        steps = cc.STEPS
+    finally:
+        restore()
+    print(f"  {launches} launches of the exponential scenario instance "
+          f"({others} of others), {steps} steps; chunks run {run['chunks']}"
+          f", steps run {run['steps']}; sweep wall {wall:.6f} s "
+          f"({steps / wall:.1f} steps/s)")
+    if launches <= 0 or others or launches != run["chunks"] \
+            or steps != run["steps"] or len(run["states"]) != 1:
+        fail("the rack-outage sweep did not run one batch through the "
+             "exponential scenario instance alone")
+    final = run["states"][0]
+    shocks = []
+    for j, (v, pt) in enumerate(zip(SHOCK_RATES, res.points)):
+        st = pt.stats
+        if st["completed"].mean != 1.0 or pt.engine != "ctmc":
+            fail(f"rack_shock_rate={v}: {st['completed'].mean:.4f} "
+                 f"completed on {pt.engine}")
+        for m, stat in st.items():
+            if not math.isfinite(stat.mean):
+                fail(f"rack_shock_rate={v}: {m} is not finite")
+        rows = slice(j * N_REPLICAS, (j + 1) * N_REPLICAS)
+        check_scenario_state(final, rows, f"rack_shock_rate={v}", total)
+        shocks.append(st["n_domain_shocks"].mean)
+        print(f"  rack_shock_rate={v}: shocks {st['n_domain_shocks'].mean:.4f}"
+              f", servers killed {st['n_shock_killed'].mean:.3f}, "
+              f"total_time {st['total_time'].mean:.1f} min, stall_time "
+              f"{st['stall_time'].mean:.2f}, preemptions "
+              f"{st['n_preemptions'].mean:.3f}, goodput "
+              f"{st['goodput'].mean:.5f}")
+    if shocks[0] != 0.0 or not all(a < b for a, b in zip(shocks, shocks[1:])):
+        fail(f"mean shocks {shocks} do not start at 0 and grow with the rate")
+    t = chunk_phase(cc, vectorized, run["calls"][0])
+    if t["bit_different"]:
+        fail(f"the first chunk differs from the plain loop in "
+             f"{t['bit_different']} float elements")
+    chunk_ms, traced = traced_chunk_ms(cc, lambda: sweep(base).run(),
+                                       cc.LAUNCHES_BY_SCEN, "exponential")
+    t["sweep_ms_per_launch"] = chunk_ms / max(traced, 1)
+    print(f"  chunk kernel over the traced sweep {chunk_ms:.6f} ms in "
+          f"{traced} launches = {t['sweep_ms_per_launch']:.6f} ms a launch;"
+          f" bound {t['bound_ms']:.6f} ms on the first chunk")
+    ref_run, restore = capture_final_states(vectorized)
+    try:
+        counts = save_counts(cc)
+        t0 = time.perf_counter()
+        sweep(base.replace(event_race_impl="ref")).run()
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t0
+    finally:
+        restore()
+    if save_counts(cc) != counts:
+        fail("impl='ref' launched the chunk kernel")
+    print(f"  the plain step loop: wall {plain_wall:.3f} s "
+          f"({ref_run['steps']} steps)")
+    identity = plain_identity("the rack-outage sweep", final,
+                              ref_run["states"][0])
+    free_run, restore = capture_final_states(vectorized)
+    try:
+        counts = save_counts(cc)
+        rep = core.run_replications(base.replace(fault_domains=None),
+                                    N_REPLICAS, base_seed=0, device="cuda")
+        restore_counts(cc, counts)
+    finally:
+        restore()
+    if rep.engine != "ctmc" or rep.stats["completed"].mean != 1.0:
+        fail("the scenario-free run did not complete on the CTMC engine")
+    free = free_run["states"][0]
+    rows = slice(0, N_REPLICAS)
+    differ = {k: int((final[k][rows] != v).reshape(N_REPLICAS, -1)
+                     .any(-1).sum())
+              for k, v in free.items() if k not in ("hist_edges",)}
+    differ = {k: n for k, n in differ.items() if n}
+    print(f"  rate-0 point against the scenario-free Table-I run (seed 0): "
+          f"{len(free) - 1} lanes compared, lanes that differ: "
+          f"{differ or 'none'}; scenario lanes: shocks "
+          f"{float(final['n_domain_shocks'][rows].sum()):.0f}, deficit "
+          f"{float(final['deficit'][rows].sum()):.0f}")
+    if differ:
+        fail(f"the rate-0 point differs from the scenario-free run in "
+             f"{differ}")
+    return dict(t, launches=launches, steps=steps, wall_s=wall,
+                plain_wall_s=plain_wall, plain_identity=identity,
+                rate0_lanes_differing=0, mean_shocks=shocks)
+
+
+def campaign_base(core, overrides):
+    """Phase 19's scenario at Table-I width under ``overrides``'s failure
+    family."""
+    length = CAMPAIGN_DAYS * DAY
+    return core.Params(
+        job_length=length, **overrides,
+        fault_domains=core.FaultTopology(
+            n_racks=SHOCK_RACKS, racks_per_pod=SHOCK_RACKS_PER_POD,
+            **CAMPAIGN_RATES),
+        campaign=core.Campaign(events=(
+            core.CampaignEvent(time=0.25 * length, kind="kill", domain=3),
+            core.CampaignEvent(time=0.5 * length, kind="maintenance",
+                               duration=0.05 * length))))
+
+
+def campaign_phase(core, cc, vectorized, name, overrides):
+    """Phase 19 for one failure family: the scripted campaign at Table-I
+    width through ``run_replications`` on the card, the counts set to 0
+    just before and read just after: every launch the family's scenario
+    instance's, every replica complete with its three schedule entries,
+    servers conserved; then the first chunk against the plain step loop
+    and the run traced.  For lognormal failures the whole run through the
+    plain step loop too (0 bit-different elements)."""
+    import torch
+    p = campaign_base(core, overrides)
+    kind = core.hazard_kind(p)
+    total = p.working_pool_size + p.spare_pool_size
+    run, restore = capture_final_states(vectorized)
+    try:
+        zero_counts(cc)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = core.run_replications(p, N_REPLICAS, base_seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, others = scenario_launches(cc, kind)
+        steps = cc.STEPS
+    finally:
+        restore()
+    st = rep.stats
+    print(f"  {name}: engine {rep.engine}, {launches} launches of its "
+          f"scenario instance ({others} of others), {steps} steps, wall "
+          f"{wall:.6f} s; campaign entries {st['n_campaign_events'].mean:.3f}"
+          f", shocks {st['n_domain_shocks'].mean:.4f}, servers killed "
+          f"{st['n_shock_killed'].mean:.3f}, total_time "
+          f"{st['total_time'].mean:.1f} min, goodput {st['goodput'].mean:.5f}")
+    if rep.engine != "ctmc" or launches <= 0 or others \
+            or launches != run["chunks"] or steps != run["steps"]:
+        fail(f"{name}: the campaign did not run through its scenario "
+             "instance alone")
+    if st["completed"].mean != 1.0 \
+            or not (rep.arrays["n_campaign_events"] == 3).all():
+        fail(f"{name}: not every replica completed with its 3 campaign "
+             "entries")
+    final = run["states"][0]
+    check_scenario_state(final, slice(None), name, total)
+    t = chunk_phase(cc, vectorized, run["calls"][0])
+    if t["bit_different"]:
+        fail(f"{name}: the first chunk differs from the plain loop in "
+             f"{t['bit_different']} float elements")
+    chunk_ms, traced = traced_chunk_ms(
+        cc, lambda: core.run_replications(p, N_REPLICAS, base_seed=0),
+        cc.LAUNCHES_BY_SCEN, kind)
+    t["sweep_ms_per_launch"] = chunk_ms / max(traced, 1)
+    print(f"  {name}: chunk kernel over the traced run {chunk_ms:.6f} ms in "
+          f"{traced} launches = {t['sweep_ms_per_launch']:.6f} ms a launch; "
+          f"bound {t['bound_ms']:.6f} ms on the first chunk")
+    out = dict(t, kind=kind, launches=launches, steps=steps, wall_s=wall)
+    if name == "lognormal":
+        ref_run, restore = capture_final_states(vectorized)
+        try:
+            counts = save_counts(cc)
+            t0 = time.perf_counter()
+            core.run_replications(p.replace(event_race_impl="ref"),
+                                  N_REPLICAS, base_seed=0)
+            torch.cuda.synchronize()
+            out["plain_wall_s"] = time.perf_counter() - t0
+        finally:
+            restore()
+        if save_counts(cc) != counts:
+            fail("impl='ref' launched the chunk kernel")
+        out["plain_identity"] = plain_identity(
+            f"the {name} campaign run ({ref_run['steps']} steps, "
+            f"{out['plain_wall_s']:.3f} s)", final, ref_run["states"][0])
+    return out
+
+
+def scenario_parity_phase(core, cc):
+    """Phase 19's run parity: tests/test_faultdomains.py's SCENARIO (rack
+    and pod shocks, a kill, a maintenance window) on the CTMC engine on
+    the card against the port's event engine on the host, every compared
+    mean within |z| < 3.5."""
+    p = core.Params(**SCEN_PARITY_BASE).replace(
+        fault_domains=core.FaultTopology(n_racks=4, racks_per_pod=2,
+                                         rack_shock_rate=1.2e-4,
+                                         pod_shock_rate=3e-5),
+        campaign=core.Campaign(events=(
+            core.CampaignEvent(time=400.0, kind="kill", domain=2),
+            core.CampaignEvent(time=900.0, kind="maintenance",
+                               duration=300.0))))
+    before = cc.LAUNCHES_BY_SCEN["exponential"]
+    t0 = time.perf_counter()
+    ct = core.simulate_ctmc(p, n_replicas=SCEN_PARITY_CTMC, seed=6,
+                            device="cuda")
+    ctmc_s = time.perf_counter() - t0
+    launches = cc.LAUNCHES_BY_SCEN["exponential"] - before
+    t0 = time.perf_counter()
+    ev = core.simulate(p, SCEN_PARITY_EVENT, base_seed=5)
+    event_s = time.perf_counter() - t0
+    if launches <= 0 or ct["completed"].mean() <= 0.99:
+        fail(f"scenario parity: {launches} launches, completed "
+             f"{ct['completed'].mean():.4f}")
+    zs = parity_z(ct, ev, SCEN_PARITY_METRICS)
+    print(f"  SCENARIO: CTMC {SCEN_PARITY_CTMC} replicas on the card "
+          f"{ctmc_s:.3f} s ({launches} launches), event {SCEN_PARITY_EVENT} "
+          f"on the host {event_s:.3f} s; z: "
+          + ", ".join(f"{m} {z:+.3f}" for m, z in zs.items()))
+    worst = max(abs(z) for z in zs.values())
+    if worst >= PARITY_Z:
+        fail(f"scenario parity: |z| = {worst:.3f} >= {PARITY_Z}")
+    return {"launches": launches, "max_abs_z": worst, "ctmc_s": ctmc_s,
+            "event_s": event_s}
 
 
 def main() -> int:
@@ -1897,6 +2287,40 @@ def main() -> int:
            for name, rec in repairs.items()}}
     host_paths["repair_parity"] = repair_parity
 
+    # ---- phases 18-19: fault domains and campaigns ------------------------
+    t18 = time.perf_counter()
+    phase(f"phase 18: OneWaySweep rack_shock_rate={SHOCK_RATES}, "
+          f"{N_REPLICAS} replicas, Table-I width, {SHOCK_RACKS} racks in "
+          f"pods of {SHOCK_RACKS_PER_POD}, job_length {SHOCK_DAYS} days")
+    shock = shock_sweep_phase(core, cc, vectorized)
+    secs18 = time.perf_counter() - t18
+    print(f"  phase 18: {secs18:.3f} s")
+    t19 = time.perf_counter()
+    campaigns = {}
+    for name, kw in CAMPAIGN_FAMILIES.items():
+        phase(f"phase 19: a scripted campaign (kill of rack 3 at 0.25, a "
+              f"window at 0.5 for 0.05 of the job) under {name} failures, "
+              f"{N_REPLICAS} replicas, Table-I width")
+        t_fam = time.perf_counter()
+        campaigns[name] = campaign_phase(core, cc, vectorized, name, kw)
+        print(f"  {name}: {time.perf_counter() - t_fam:.3f} s")
+    phase(f"phase 19: run parity of tests/test_faultdomains.py's SCENARIO, "
+          f"CTMC on the card ({SCEN_PARITY_CTMC} replicas) against the "
+          f"event engine ({SCEN_PARITY_EVENT})")
+    scen_parity = scenario_parity_phase(core, cc)
+    secs19 = time.perf_counter() - t19
+    print(f"  phase 19: {secs19:.3f} s; phases 18-19: "
+          f"{secs18 + secs19:.3f} s")
+    host_paths["scenarios"] = {
+        "seconds": secs18 + secs19, "parity": scen_parity,
+        "rack_outages": {k: shock[k] for k in (
+            "launches", "steps", "wall_s", "plain_wall_s", "plain_identity",
+            "rate0_lanes_differing", "mean_shocks", "sweep_ms_per_launch")},
+        **{f"campaign_{name}": {k: rec[k] for k in (
+            "launches", "steps", "wall_s", "sweep_ms_per_launch")
+            + (("plain_wall_s", "plain_identity") if "plain_identity" in rec
+               else ())} for name, rec in campaigns.items()}}
+
     mism, rel, abs_err = main_err
     record = {"name": "event_race", "route": "cuda", "source": KERNEL_SOURCE,
               "replaces": TPU_KERNEL,
@@ -1951,6 +2375,27 @@ def main() -> int:
                               f"lax.scan of {CHUNK_SCAN}",
             instance=f"{rec['kind']} + repair slots", repairs=rec["rkind"],
             launches=rec["launches"],
+            ms=rec["call_ms"] if rec["ms"] is None else rec["ms"],
+            library_ms=None))
+    scen_records = [("exponential", shock,
+                     campaigns["exponential"]["launches"])]
+    scen_records += [(name, rec, 0) for name, rec in campaigns.items()
+                     if name != "exponential"]
+    for name, rec, more in scen_records:
+        kernels.append(dict(
+            {k: rec[k] for k in ("max_abs_err", "bit_different", "call_ms",
+                                 "plain_ms", "plain_call_ms", "bound_ms",
+                                 "bound_by", "ms_per_step",
+                                 "sweep_ms_per_launch", "steps",
+                                 "struck_row_steps")},
+            name=f"ctmc_chunk[{name}+scenario]", route="cuda",
+            source=CHUNK_SOURCE, replaces=TPU_KERNEL,
+            replaces_function="src/repro/kernels/des_step.py:"
+                              "_event_race_kernel (16 + 45 rates, the "
+                              "campaign residual first) and the lax.scan "
+                              f"of {CHUNK_SCAN}",
+            instance=f"{name} + fault domains", launches=rec["launches"]
+            + more,
             ms=rec["call_ms"] if rec["ms"] is None else rec["ms"],
             library_ms=None))
     for name, source, replaces, launches_, t in (

@@ -8,7 +8,9 @@ Compiles ``src/repro_torch/csrc/ctmc_chunk.cu`` as host C++ (``g++
 -fmad=false`` builds it for the card) against a small header that stubs
 the CUDA keywords, runs its launch as a loop over rows through the same
 ``ChunkArgs`` as the card, and compares every lane with the plain chunk
-(``vectorized._steps_ref``) on CPU tensors, for each failure family.
+(``vectorized._steps_ref``) on CPU tensors, for each failure family, alone
+and through its scenario instance (fault domains, a campaign kill and a
+maintenance window).
 
 The plain chunk runs with ``torch.log``, ``torch.exp``, ``torch.pow`` and
 ``torch.special.log_ndtr`` swapped for the C library's ``logf``, ``expf``
@@ -63,6 +65,7 @@ inline float __log2f(float x) { return std::log2(x); }
 inline float atomicAdd(float* p, float v) { float o = *p; *p = o + v;
                                              return o; }
 using std::isfinite;
+using std::max;
 using std::min;
 typedef void* cudaStream_t;
 typedef int cudaError_t;
@@ -140,7 +143,13 @@ def _libm_patches(lib):
 def cases():
     """family -> case -> (Params grid, replicas a point): each family at
     the sizes of tests/test_nonexp.py, alone, as a sweep with one
-    parameter row a replica, and with a job short enough to finish."""
+    parameter row a replica, and with a job short enough to finish; then
+    under a fault-domain scenario (rack and pod shocks, a kill and a
+    maintenance window, checkpoints, thin pools, so bulk kills stall with a
+    deficit over 1 and land in checkpoint writes), alone, as a shock-rate
+    sweep, and with the pod level only and no campaign."""
+    from repro_torch.core.faultdomains import (Campaign, CampaignEvent,
+                                               FaultTopology)
     from repro_torch.core.params import MINUTES_PER_DAY as DAY
     from repro_torch.core.params import Params
     base = Params(job_size=24, working_pool_size=32, spare_pool_size=4,
@@ -173,13 +182,29 @@ def cases():
             # rows that finish mid-chunk
             "short": ([p.replace(job_length=0.1 * DAY)], 32),
         }
+        topo = FaultTopology(n_racks=4, racks_per_pod=2,
+                             rack_shock_rate=1e-3, pod_shock_rate=3e-4)
+        camp = Campaign(events=(
+            CampaignEvent(time=200.0, kind="kill", domain=3),
+            CampaignEvent(time=300.0, kind="maintenance", duration=150.0)))
+        sc = p.replace(fault_domains=topo, campaign=camp, warm_standbys=1,
+                       checkpoint_interval=40.0, checkpoint_cost=3.0)
+        out[kind].update({
+            "scen": ([sc], 48),
+            "scen_sweep": ([sc.replace(fault_domains=FaultTopology(
+                n_racks=4, racks_per_pod=2, rack_shock_rate=r,
+                pod_shock_rate=3e-4)) for r in (0.0, 1e-3, 3e-3)], 20),
+            "scen_pods": ([p.replace(fault_domains=FaultTopology(
+                n_racks=3, racks_per_pod=3, pod_shock_rate=2e-3),
+                job_length=0.1 * DAY)], 32),
+        })
     return out
 
 
 def run(kinds, n_chunks: int) -> int:
     import numpy as np
     import torch
-    from repro_torch.core import hazards
+    from repro_torch.core import faultdomains, hazards
     from repro_torch.core import vectorized as tv
     from repro_torch.kernels import ctmc_chunk
     torch.set_num_threads(1)
@@ -191,28 +216,48 @@ def run(kinds, n_chunks: int) -> int:
             assert {hazards.hazard_kind(p) for p in pts} == {kind}
             P = len(pts)
             n_seg = hazards.hazard_segment_count(pts[0])
+            scen = faultdomains.scenario_key(pts[0])
+            codes = (torch.tensor(scen[1], dtype=torch.int32)
+                     if scen and scen[1] else None)
             rows = np.stack([tv._params_vector(p) for p in pts])
             pv = (torch.as_tensor(rows[0]) if P == 1 else
                   torch.as_tensor(np.repeat(rows, R, axis=0)))
             channels = tv._hist_channels(pts)
-            want = tv._initial_state_batch(pts, R, 4, "cpu")
+            want = tv._initial_state_batch(pts, R, 4, "cpu", scen=scen)
             got = {k: v.clone() for k, v in want.items()}
             diff = 0
+            stalls = [0, 0]
             for i in range(n_chunks):
                 gen = torch.Generator().manual_seed(tv._chunk_seed(3, i))
                 us = torch.rand((64, tv._next_pow2(R), tv._n_uniforms(kind)),
                                 generator=gen).clamp_min_(1e-12)
                 layout = ctmc_chunk.chunk_layout(got, us, pv, R, P, channels,
-                                                 kind=kind, n_seg=n_seg)
+                                                 kind=kind, n_seg=n_seg,
+                                                 scen=scen)
                 err = lib.ctmc_chunk_launch(ctypes.byref(
-                    ctmc_chunk._args(layout)), None)
+                    ctmc_chunk._args(layout, codes)), None)
                 if err:
                     raise SystemExit(f"{kind}: host launch returned {err}")
                 with ExitStack() as stack:
                     for patch in _libm_patches(lib):
                         stack.enter_context(patch)
-                    want = tv._steps_ref(want, us, pv, R, P, "ref", channels,
-                                         kind, n_seg)
+                    # a scenario's plain chunk runs a step at a time (the
+                    # same steps) to count what its steps reached
+                    for k in (range(us.shape[0]) if scen is not None
+                              else [None]):
+                        before = want
+                        want = tv._steps_ref(
+                            want, us if k is None else us[k:k + 1], pv, R, P,
+                            "ref", channels, kind, n_seg, scen=scen)
+                        if k is not None:
+                            stalls[0] += int(((want["phase"] == tv.STALL)
+                                              & (want["deficit"] > 1.0)
+                                              & (before["phase"] != tv.STALL)
+                                              ).sum())
+                            stalls[1] += int(((before["in_ckpt"] > 0)
+                                              & (want["n_shock_killed"]
+                                                 > before["n_shock_killed"])
+                                              ).sum())
                 for k, w in want.items():
                     g = got[k]
                     if w.dtype.is_floating_point:
@@ -222,8 +267,15 @@ def run(kinds, n_chunks: int) -> int:
                         diff += int((g != w).sum())
             fails = float(want["n_failures"].sum())
             done = float((want["phase"] == tv.DONE).float().mean())
-            print(f"{kind:12s} {label:6s}: {P} x {R} rows, {n_chunks} x 64 "
-                  f"steps, {fails:.0f} failures, {done:.2f} done; "
+            extra = ""
+            if scen is not None:
+                shocks = float(want["n_domain_shocks"].sum())
+                entries = float(want["n_campaign_events"].sum())
+                extra = (f", {shocks:.0f} shocks, {entries:.0f} campaign "
+                         f"entries, {stalls[0]} stalls owing over 1, "
+                         f"{stalls[1]} kills in a write")
+            print(f"{kind:12s} {label:10s}: {P} x {R} rows, {n_chunks} x 64 "
+                  f"steps, {fails:.0f} failures, {done:.2f} done{extra}; "
                   f"bit-different elements {diff}")
             bad += diff
     return 1 if bad else 0

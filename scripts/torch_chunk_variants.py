@@ -18,8 +18,25 @@ chunk of 64 steps) with torch.profiler:
 
 Each is timed on the sweep's initial state ("first": every row computing),
 after 20 chunks ("mid"), and after 20 chunks with the histogram left out
-("mid, no histogram").  Prints the card's name and power limit first.
-Not part of the engine: the copies are never used for results.
+("mid, no histogram").  Then the exponential scenario instance at the
+shape of ``chip_smoke.py`` phase 18 (the rack-outage sweep: 4 points of
+``rack_shock_rate`` x 1,024 replicas, 45 fault domains), first and after
+20 chunks, through the kernel and through a fourth copy:
+
+* ``no-shock-lanes``: the scenario instance racing the 16 lanes alone
+  (the 45 shock lanes neither summed nor picked; no shock fires, so its
+  rows run as the rate-0 point's do); the gap to ``kernel`` is what the
+  shock lanes cost a step.
+
+Last, both at that shape with every point at the top rate, then at rate
+0, the parameter row shared by the batch against a copy a row (the
+sweep's layout): the same results, so the gap is what each thread's own
+copy of the shock rates costs.  At rate 0 no shock fires and the race
+still sums the 45 lanes, so there the gap between the kernel and the
+no-shock-lanes copy is the lanes' own loop, without the struck steps.
+
+Prints the card's name and power limit first.  Not part of the engine:
+the copies are never used for results.
 """
 
 from __future__ import annotations
@@ -105,6 +122,17 @@ def _profile(src: str, hdr: str):
     return src, hdr
 
 
+def _no_shock_lanes(src: str, hdr: str):
+    for old, new in (("  const int kx = kExp + n_dom;",
+                      "  const int kx = kExp;"),
+                     ("event_race_row(rates, kExp, shock_rate, n_dom,",
+                      "event_race_row(rates, kExp, shock_rate, 0,")):
+        if old not in src:
+            raise SystemExit(f"{old!r} not in the kernel")
+        src = src.replace(old, new)
+    return src, hdr
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -124,7 +152,8 @@ def main() -> int:
     src = (CSRC / "ctmc_chunk.cu").read_text()
     hdr = (CSRC / "event_race.cuh").read_text()
     libs = {"kernel": ctmc_chunk.LIBRARY}
-    for tag, make in (("approx-div", _approx_div), ("profile", _profile)):
+    for tag, make in (("approx-div", _approx_div), ("profile", _profile),
+                      ("no-shock-lanes", _no_shock_lanes)):
         d = OUT / tag
         d.mkdir(parents=True, exist_ok=True)
         s, h = make(src, hdr)
@@ -167,6 +196,8 @@ def main() -> int:
               ("mid, no histogram", no_hist, ()))
     us = draw(20)
     for tag, lib in libs.items():
+        if tag == "no-shock-lanes":
+            continue
         ctmc_chunk.LIBRARY = lib
         for label, state, ch in states:
             split = chip_smoke.device_kernels_ms(
@@ -189,7 +220,101 @@ def main() -> int:
         total = sum(buf[i] for i in range(len(SECTIONS))) / n
         print(f"profile, {label}: cycles a warp-step: {parts}; "
               f"total {total:.0f}")
+    _time_scenario(chip_smoke, tv, ctmc_chunk, libs)
     return 0
+
+
+def _time_scenario(chip_smoke, tv, ctmc_chunk, libs):
+    """The exponential scenario instance at phase 18's shape, through the
+    kernel and the no-shock-lanes copy."""
+    import numpy as np
+    import torch
+    from repro_torch.core import faultdomains
+    from repro_torch.core.params import MINUTES_PER_DAY, Params
+    pts = [Params(job_length=chip_smoke.SHOCK_DAYS * MINUTES_PER_DAY,
+                  fault_domains=faultdomains.FaultTopology(
+                      n_racks=chip_smoke.SHOCK_RACKS,
+                      racks_per_pod=chip_smoke.SHOCK_RACKS_PER_POD,
+                      rack_shock_rate=r))
+           for r in chip_smoke.SHOCK_RATES]
+    scen = faultdomains.scenario_key(pts[0])
+    R, P = 1024, len(pts)
+    pv = torch.as_tensor(np.repeat(np.stack(
+        [tv._params_vector(p) for p in pts]), R, 0), device="cuda")
+    channels = tv._hist_channels(pts)
+
+    def draw(i):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(tv._chunk_seed(0, i))
+        return torch.rand((64, R, 8), generator=gen,
+                          device="cuda").clamp_min_(1e-12)
+
+    ctmc_chunk.LIBRARY = libs["kernel"]
+    first = tv._initial_state_batch(pts, R, pts[0].max_run_records, "cuda",
+                                    scen=scen)
+    mid = first
+    for i in range(20):
+        mid = ctmc_chunk.ctmc_chunk_cuda(mid, draw(i), pv, R, P, channels,
+                                         scen=scen)
+    us = draw(20)
+    print(f"scenario instance, {scen[0]} domains, rates "
+          f"{chip_smoke.SHOCK_RATES}: shocks so far "
+          f"{float(mid['n_domain_shocks'].sum()):.0f}")
+    for tag in ("kernel", "no-shock-lanes"):
+        ctmc_chunk.LIBRARY = libs[tag]
+        for label, state in (("first", first), ("mid", mid)):
+            split = chip_smoke.device_kernels_ms(
+                lambda: ctmc_chunk.ctmc_chunk_cuda(state, us, pv, R, P,
+                                                   channels, scen=scen), 20)
+            ms = sum(t for name, t in split if "ctmc_chunk_kernel" in name)
+            print(f"scenario {tag}, {label}: {ms * 1e3:.3f} us a launch, "
+                  f"{ms * 1e3 / 64:.4f} us a step")
+    for p in (pts[-1], pts[0]):
+        _time_layouts(chip_smoke, tv, ctmc_chunk, libs, p, scen, R, P, draw)
+    ctmc_chunk.LIBRARY = libs["kernel"]
+
+
+def _time_layouts(chip_smoke, tv, ctmc_chunk, libs, p, scen, R, P, draw):
+    """Phase 18's shape with every point at ``p``, through the kernel and
+    the no-shock-lanes copy, the parameter row passed two ways: one row
+    shared by the batch (stride 0: a warp's load of a shock rate touches
+    one cache line) and a copy a row (each of a warp's loads touches 32).
+    The results are the same; the gap between the layouts is what the
+    copies' cache lines cost."""
+    import torch
+    pts = [p] * P
+    row = torch.as_tensor(tv._params_vector(p), device="cuda")
+    layouts = (("shared row", row),
+               ("row a replica", row.repeat(P * R, 1).contiguous()))
+    channels = tv._hist_channels(pts)
+    ctmc_chunk.LIBRARY = libs["kernel"]
+    first = tv._initial_state_batch(pts, R, p.max_run_records, "cuda",
+                                    scen=scen)
+    mid = first
+    for i in range(20):
+        mid = ctmc_chunk.ctmc_chunk_cuda(mid, draw(i), row, R, P, channels,
+                                         scen=scen)
+    us = draw(20)
+    outs = [ctmc_chunk.ctmc_chunk_cuda(mid, us, pv, R, P, channels,
+                                       scen=scen) for _, pv in layouts]
+    differ = [k for k in outs[0] if not torch.equal(outs[0][k], outs[1][k])]
+    rate = p.fault_domains.rack_shock_rate
+    print(f"layouts, every point at rack_shock_rate {rate}: lanes "
+          f"differing between them {differ}")
+    if differ:
+        raise SystemExit("the two parameter layouts give different results")
+    for tag in ("kernel", "no-shock-lanes"):
+        ctmc_chunk.LIBRARY = libs[tag]
+        for layout, pv in layouts:
+            for label, state in (("first", first), ("mid", mid)):
+                split = chip_smoke.device_kernels_ms(
+                    lambda: ctmc_chunk.ctmc_chunk_cuda(
+                        state, us, pv, R, P, channels, scen=scen), 20)
+                ms = sum(t for name, t in split
+                         if "ctmc_chunk_kernel" in name)
+                print(f"layout {layout}, rate {rate}, {tag}, {label}: "
+                      f"{ms * 1e3:.3f} us a launch, {ms * 1e3 / 64:.4f} us "
+                      "a step")
 
 
 if __name__ == "__main__":

@@ -2,8 +2,9 @@
 
 The JAX package stays the reference; this package mirrors its layout
 (``core``, ``kernels``, ``models``, ``configs``, ``csrc``) and imports
-neither JAX nor ``repro``.  It runs the exponential single-job CTMC
-replication path -- ``run_replications``, ``run_replications_batch``,
+neither JAX nor ``repro``.  It runs the single-job CTMC replication path
+(every failure and repair family of the reference's, and fault domains
+and campaigns) -- ``run_replications``, ``run_replications_batch``,
 ``OneWaySweep``, ``TwoWaySweep`` -- with each chunk of steps, event race
 included, in one hand-written CUDA kernel (``csrc/ctmc_chunk.cu``; the
 standalone race is ``csrc/event_race.cu``), and serves decoder-only

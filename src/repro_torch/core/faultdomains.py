@@ -1,13 +1,14 @@
 """Correlated failure domains and scripted fault-injection campaigns.
 
-Counterpart of ``src/repro/core/faultdomains.py``, without the CTMC
-builders.  It carries the parameter types :class:`FaultTopology`,
-:class:`CampaignEvent` and :class:`Campaign`; :func:`scenario_key`, which
-the CTMC engine's refusal reads; and the event engine's
-:class:`ShockInjector`, copied draw for draw, so shocks and campaigns run
-on the port's event engine exactly as on the reference's.  The CTMC
-engine's scenario lanes are not ported yet (ROADMAP queue 1 item 9):
-``vectorized.supports`` refuses them.
+Counterpart of ``src/repro/core/faultdomains.py``.  It carries the
+parameter types :class:`FaultTopology`, :class:`CampaignEvent` and
+:class:`Campaign`; the CTMC engine's helpers :func:`scenario_key` (the
+scenario's structure, which groups a sweep and sizes the step's race),
+:func:`scenario_columns` (its trailing float64 parameter columns) and
+:func:`scenario_budget` (its step-budget term), each equal to the
+reference's; and the event engine's :class:`ShockInjector`, copied draw
+for draw, so shocks and campaigns run on the port's event engine exactly
+as on the reference's.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 __all__ = ["FaultTopology", "CampaignEvent", "Campaign", "ShockInjector",
-           "Injection", "scenario_key", "KILL", "MAINT_START", "MAINT_END"]
+           "Injection", "scenario_key", "scenario_columns", "scenario_budget",
+           "KILL", "MAINT_START", "MAINT_END"]
 
 #: campaign schedule entry codes
 KILL, MAINT_START, MAINT_END = 0, 1, 2
@@ -188,17 +190,91 @@ class Campaign:
 
 
 # ---------------------------------------------------------------------------
-# CTMC engine key
+# CTMC helpers
 # ---------------------------------------------------------------------------
+# The CTMC step treats the scenario as (structure, numbers): the domain
+# count D and the tuple of schedule codes size the race and the state, so
+# they split a sweep into batches; every rate, fraction, time and target
+# domain rides in trailing parameter columns, so a shock-rate grid over
+# one topology is one batch.
 
 def scenario_key(p) -> Optional[Tuple[int, Tuple[int, ...]]]:
-    """Scenario structure ``(D, codes)`` — or None when no scenario."""
+    """Scenario structure ``(D, codes)`` -- or None when no scenario."""
     if p.fault_domains is None and p.campaign is None:
         return None
     d = p.fault_domains.n_domains if p.fault_domains is not None else 0
     codes = tuple(code for _, code, _ in p.campaign.schedule()) \
         if p.campaign is not None else ()
     return (d, codes)
+
+
+def scenario_columns(p) -> np.ndarray:
+    """Trailing parameter columns of the scenario, float64.
+
+    Layout: ``[rates (D), fractions (D), times (L), fracs (L),
+    domains (L)]`` where L is the flattened schedule length.  Kill
+    entries carry the struck domain's fleet fraction; maintenance
+    entries carry zeros.
+
+    >>> t = FaultTopology(n_racks=2, rack_shock_rate=1e-4)
+    >>> c = Campaign(events=(CampaignEvent(time=5.0, domain=1),))
+    >>> class P: fault_domains, campaign = t, c
+    >>> P.working_pool_size, P.spare_pool_size = 3, 1
+    >>> scenario_columns(P).tolist()
+    [0.0001, 0.0001, 0.5, 0.5, 5.0, 0.5, 1.0]
+    """
+    topo, camp = p.fault_domains, p.campaign
+    total = p.working_pool_size + p.spare_pool_size
+    if topo is not None:
+        rates = topo.domain_rates()
+        fracs = topo.domain_fractions(total)
+    else:
+        rates = fracs = np.zeros(0, np.float64)
+    times: List[float] = []
+    efracs: List[float] = []
+    edoms: List[float] = []
+    if camp is not None:
+        for t, code, dom in camp.schedule():
+            times.append(t)
+            efracs.append(float(fracs[dom]) if code == KILL else 0.0)
+            edoms.append(float(dom))
+    return np.concatenate([rates, fracs,
+                           np.asarray(times, np.float64),
+                           np.asarray(efracs, np.float64),
+                           np.asarray(edoms, np.float64)])
+
+
+def scenario_budget(p, horizon: float) -> Tuple[float, float]:
+    """``(extra_steps, extra_horizon)`` for the CTMC step budget.
+
+    Each shock takes one step plus the repair traffic of the block it
+    kills (about 4 steps a killed server: automated completion,
+    escalation, manual completion, return or unstall).  Maintenance
+    windows stretch the horizon by their duration (repairs pause) and
+    each campaign entry takes a step of its own.
+    """
+    topo, camp = p.fault_domains, p.campaign
+    total = p.working_pool_size + p.spare_pool_size
+    extra_steps = 0.0
+    extra_horizon = 0.0
+    if topo is not None:
+        rates = topo.domain_rates()
+        sizes = topo.domain_fractions(total) * total
+        lam = float(rates.sum())
+        if lam > 0:
+            n_shocks = lam * horizon
+            mean_kill = float((rates * sizes).sum()) / lam
+            extra_steps += n_shocks * (2.0 + 4.0 * mean_kill)
+            extra_horizon += n_shocks * (
+                p.recovery_time + p.host_selection_time + p.waiting_time)
+    if camp is not None:
+        for _, code, dom in camp.schedule():
+            extra_steps += 2.0
+            if code == KILL and topo is not None:
+                extra_steps += 4.0 * len(topo.domain_members(dom, total))
+        extra_horizon += sum(e.duration for e in camp.events
+                             if e.kind == "maintenance")
+    return extra_steps, extra_horizon
 
 
 # ---------------------------------------------------------------------------

@@ -1,26 +1,34 @@
 """Vectorized PyTorch CTMC engine: thousands of AIReSim replicas per device.
 
-Counterpart of ``src/repro/core/vectorized.py`` for one job and no fault
-domains, under every failure family of the reference's CTMC engine
-(exponential, Weibull, bathtub, lognormal and empirical: piecewise-constant,
-builtin or a registered distribution with ``hazard_segments()``) and every
-repair family (exponential, Weibull, lognormal, deterministic and
-empirical).  The cluster is a continuous-time Markov chain
-over server *compartments* -- servers are exchangeable within (origin x
-health) classes, so counts are sufficient state.  Each step races the 16
-exponential clock families against the deterministic timers (job
-completion, recovery/host-selection timer, the failure family's hazard
-residual where it has one, checkpoint write) and then applies the
-winning transition with masked updates; a non-exponential family's
-failures come from :mod:`.hazards` (Weibull by exact inversion, the
-others by Ogata thinning on a ninth uniform).  A non-exponential repair
-family completes its repairs through the repair-slot lane instead of the
-exponential repair clocks: each server in the shop holds a slot with its
-remaining repair time, counted down in wall-clock time, whose minimum is
-raced first among the residuals; a duration is drawn by inverse CDF on one
-more uniform when a server enters the shop or escalates.  The step carries
-checkpoint rollback, goodput, the per-replica run-duration ring buffer and
-the streaming histograms exactly as the reference does.
+Counterpart of ``src/repro/core/vectorized.py`` for one job, under every
+failure family of the reference's CTMC engine (exponential, Weibull,
+bathtub, lognormal and empirical: piecewise-constant, builtin or a
+registered distribution with ``hazard_segments()``), every repair family
+(exponential, Weibull, lognormal, deterministic and empirical), and
+correlated fault domains and campaigns with exponential repairs.  The
+cluster is a continuous-time Markov chain over server *compartments* --
+servers are exchangeable within (origin x health) classes, so counts are
+sufficient state. Each step races the 16 exponential clock families
+against the deterministic timers (job completion, recovery/host-selection
+timer, the failure family's hazard residual where it has one, checkpoint
+write) and then applies the winning transition with masked updates; a
+non-exponential family's failures come from :mod:`.hazards` (Weibull by
+exact inversion, the others by Ogata thinning on a ninth uniform). A
+non-exponential repair family completes its repairs through the
+repair-slot lane instead of the exponential repair clocks: each server in
+the shop holds a slot with its remaining repair time, counted down in
+wall-clock time, whose minimum is raced first among the residuals; a
+duration is drawn by inverse CDF on one more uniform when a server enters
+the shop or escalates. A fault-domain scenario (:mod:`.faultdomains`) adds
+one exponential shock lane a domain to the race and races the campaign
+schedule first among the residuals; a shock or scripted kill removes a
+rounded fraction of every pool at once, refills the running block through
+the standby -> working -> spare waterfall and carries any shortfall in a
+``deficit`` lane, and a maintenance window gates the exponential repair
+rates to zero. It draws no uniform of its own: the failure path's idle
+lanes round the counts. The step carries checkpoint rollback, goodput, the
+per-replica run-duration ring buffer and the streaming histograms exactly
+as the reference does.
 
 State is a dict of tensors with the reference's keys
 (``_initial_state_batch``), on an explicit device.  The scan runs in
@@ -49,8 +57,8 @@ replica counts round up to powers of two with inert rows (phase DONE from
 step 0) that extraction drops.
 
 Not ported yet, and refused by :func:`port_reasons` with the ROADMAP
-item that will bring it: ``age_dtype="float64"`` (queue 1 item 8b),
-fault domains and campaigns (item 9) and replica sharding (item 11).
+item that will bring it: ``age_dtype="float64"`` (queue 1 item 8b) and
+replica sharding (item 11).
 What the reference's CTMC engine refuses too (:func:`reference_reasons`)
 runs on the port's event engine (:mod:`repro_torch.core.simulation`)
 under ``engine="auto"``, as in the reference.
@@ -157,21 +165,20 @@ def port_reasons(params: Params) -> list:
 
     Every failure and repair family of the reference's CTMC engine runs
     here (a one-segment ``Empirical`` collapses to the exponential
-    program, as in the reference).
+    program, as in the reference), and so do fault domains and campaigns.
 
+    >>> from .faultdomains import FaultTopology
     >>> port_reasons(Params())
     []
     >>> port_reasons(Params(repair_distribution="weibull"))
+    []
+    >>> port_reasons(Params(fault_domains=FaultTopology(n_racks=8)))
     []
     >>> port_reasons(Params(engine_shards=2))
     ['replica sharding (engine_shards > 0) is not yet ported to the \
 PyTorch engine (ROADMAP queue 1 item 11)']
     """
     reasons = []
-    if faultdomains.scenario_key(params) is not None:
-        reasons.append(
-            f"fault domains and campaigns are {_NOT_PORTED} "
-            "(ROADMAP queue 1 item 9)")
     if params.engine_shards > 0:
         reasons.append(
             f"replica sharding (engine_shards > 0) is {_NOT_PORTED} "
@@ -253,7 +260,8 @@ def _initial_counts(p: Params):
 
 def _initial_state_batch(pts: Sequence[Params], R: int, max_runs: int,
                          device, rkind: str = "exponential",
-                         n_slots: int = 0) -> Dict[str, torch.Tensor]:
+                         n_slots: int = 0,
+                         scen=None) -> Dict[str, torch.Tensor]:
     """Padded initial state for a structural grid, point-major (P*R, ...).
 
     All points share one compartment layout, so structural parameters
@@ -261,8 +269,11 @@ def _initial_state_batch(pts: Sequence[Params], R: int, max_runs: int,
     host-selection offset) enter purely as per-point initial values:
     compartments a small point does not populate sit at zero occupancy and
     carry zero rates.  ``rkind`` / ``n_slots`` size the repair-slot lane
-    of a non-exponential repair family.  The keys are the reference's on
-    its scenario-free path.
+    of a non-exponential repair family.  ``scen`` is the scenario key
+    ``(D, codes)`` of :func:`faultdomains.scenario_key`: it adds the
+    replacement-deficit lane, the per-domain shock counts (D > 0), the
+    schedule pointer (a non-empty schedule) and the maintenance flag (a
+    schedule with a window).  The keys are the reference's.
     """
     P = len(pts)
     B = P * R
@@ -312,6 +323,18 @@ def _initial_state_batch(pts: Sequence[Params], R: int, max_runs: int,
         # reference's scan
         state["hist"] = torch.zeros((B, len(sel), spec.n_counts), **f32)
         state["hist_edges"] = torch.as_tensor(spec.edges(), **f32)
+    if scen is not None:
+        n_dom, codes = scen
+        # replacements still owed after bulk kills: the job unstalls only
+        # once the whole struck block is restored
+        state["deficit"] = torch.zeros((B,), **f32)
+        if n_dom:
+            state["domain_shocks"] = torch.zeros((B, n_dom), **f32)
+        if codes:
+            state["camp_idx"] = torch.zeros((B,), dtype=torch.int32,
+                                            device=device)
+        if faultdomains.MAINT_START in codes:
+            state["maint"] = torch.zeros((B,), **f32)
     for m in _METRICS:
         state[m] = torch.zeros((B,), **f32)
     return state
@@ -360,7 +383,7 @@ def _initial_state(p: Params, R: int, max_runs: Optional[int] = None,
     rkind = hazards.repair_kind(p) or "exponential"
     return _initial_state_batch(
         [p], R, p.max_run_records if max_runs is None else max_runs, device,
-        rkind, _repair_slots_for([p], rkind))
+        rkind, _repair_slots_for([p], rkind), faultdomains.scenario_key(p))
 
 
 def _repair_slots_for(pts, rkind: str) -> int:
@@ -437,6 +460,40 @@ def _onehot(c: torch.Tensor) -> torch.Tensor:
     return (c[..., None] == lanes).to(torch.float32)
 
 
+def _at(block: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``block[b, idx[b]]`` of a (B, n) column block, or ``block[idx]`` of
+    a shared row's (n,) block."""
+    idx = idx.long()
+    if block.ndim == 1:
+        return block[idx]
+    return block[torch.arange(idx.shape[0], device=idx.device), idx]
+
+
+def _pos(x: torch.Tensor) -> torch.Tensor:
+    """max(x, 0) with a +0 for every zero (a -0 from ``ceil(-u)`` included),
+    so the result has one bit pattern on every device."""
+    return torch.where(x > 0, x, 0.0)
+
+
+def _syscomp(tgt: torch.Tensor, uu: torch.Tensor) -> torch.Tensor:
+    """Systematic rounding of fractional per-class targets ``tgt`` (...,
+    4): per-class counts n_c in {floor(tgt_c), ceil(tgt_c)} that sum to the
+    stochastic rounding of ``tgt.sum(-1)``, one uniform of ``uu`` (...)
+    driving both.  With integer occupancies and tgt_c <= count_c, n_c <=
+    count_c.  The cumsum runs left to right, the chunk kernel's order;
+    every operation is elementwise, so several pools' targets stacked in
+    one call round as they would one by one."""
+    c = hazards._seq_cumsum(tgt)
+    c_prev = torch.cat([torch.zeros_like(c[..., :1]), c[..., :-1]], -1)
+    return _pos(torch.ceil(c - uu[..., None])) \
+        - _pos(torch.ceil(c_prev - uu[..., None]))
+
+
+#: golden-ratio shifts that decorrelate the three waterfall takes of a
+#: bulk kill, which share u_pool
+_PHI = 0.6180339887498949
+
+
 # ---------------------------------------------------------------------------
 # one transition
 # ---------------------------------------------------------------------------
@@ -446,7 +503,7 @@ def _step_u(s: Dict[str, torch.Tensor], u: torch.Tensor, pv: torch.Tensor,
             hist_channels: tuple = HIST_CHANNELS,
             kind: str = "exponential",
             n_seg: int = 0, rkind: str = "exponential",
-            n_rseg: int = 0) -> Dict[str, torch.Tensor]:
+            n_rseg: int = 0, scen=None) -> Dict[str, torch.Tensor]:
     """One CTMC transition for a batch of replicas, with given uniforms.
 
     ``u`` is ``(B, _n_uniforms(kind, rkind))``.  ``pv`` is either one
@@ -456,8 +513,13 @@ def _step_u(s: Dict[str, torch.Tensor], u: torch.Tensor, pv: torch.Tensor,
     the failure family's and the ``hazards.repair_col_count(rkind,
     n_rseg)`` after those the repair family's (``n_seg`` / ``n_rseg`` are
     the empirical segment counts).  ``hist_channels`` is the tuple of
-    channels ``s["hist"]`` carries.  Returns a new state dict; ``s`` is
-    left as it was.
+    channels ``s["hist"]`` carries.  ``scen`` is the scenario key ``(D,
+    codes)``: the ``2D + 3L`` scenario columns of
+    :func:`faultdomains.scenario_columns` follow the repair block, the
+    race gains D shock lanes after the 16 and, for a schedule of L > 0
+    entries, a campaign residual before every other.  Scenarios run with
+    exponential repairs only.  Returns a new state dict; ``s`` is left as
+    it was.
     """
     n_hc = hazards.hazard_col_count(kind, n_seg)
     n_rc = hazards.repair_col_count(rkind, n_rseg)
@@ -496,6 +558,19 @@ def _step_u(s: Dict[str, torch.Tensor], u: torch.Tensor, pv: torch.Tensor,
         # [auto scale, manual scale, shape]
         rz = [pv[i] if pv.ndim == 1 else pv[:, i]
               for i in range(16 + n_hc, 16 + n_hc + n_rc)]
+    if scen is not None:
+        # [shock rates (D), fleet fractions (D), entry times (L), kill
+        # fractions (L), target domains (L)]; D, L and the codes are the
+        # key's.  A kill needs only its fraction, so the target domains
+        # are not read.
+        n_dom, codes = scen
+        n_camp = len(codes)
+        has_maint = faultdomains.MAINT_START in codes
+        c0 = 16 + n_hc + n_rc
+        shock_rate = _vcol(c0, n_dom)
+        dom_frac = _vcol(c0 + n_dom, n_dom)
+        camp_t = _vcol(c0 + 2 * n_dom, n_camp)
+        camp_frac = _vcol(c0 + 2 * n_dom + n_camp, n_camp)
     lanes = u.unbind(1)
     u_time, u_pick, u_diag, u_wrong, u_cls, u_esc, u_succ, u_pool = \
         lanes[:N_UNIFORMS]
@@ -583,11 +658,25 @@ def _step_u(s: Dict[str, torch.Tensor], u: torch.Tensor, pv: torch.Tensor,
         # man compartments stay as bookkeeping and carry no rate
         auto_rate = torch.zeros_like(run)
         man_rate = torch.zeros_like(run)
-    rates = torch.cat([fail_rand, fail_sys, auto_rate, man_rate], -1) \
-        * active[:, None]
+    rate_parts = [fail_rand, fail_sys, auto_rate, man_rate]
+    kx = K_EXP
+    if scen is not None:
+        if has_maint:
+            # a maintenance window darkens the shop: gating the exponential
+            # repair rates to zero pauses and resumes it exactly
+            # (memorylessness)
+            repair_on = (s["maint"] == 0.0)[:, None]
+            rate_parts[2] = torch.where(repair_on, auto_rate, 0.0)
+            rate_parts[3] = torch.where(repair_on, man_rate, 0.0)
+        if n_dom:
+            # one shock clock a fault domain, live in every phase but DONE
+            rate_parts.append(shock_rate.expand(B, n_dom))
+            kx = K_EXP + n_dom
+    rates = torch.cat(rate_parts, -1) * active[:, None]
 
     # residual column order decides exact ties (the race takes the first
-    # minimum): the repair-slot residual first (a repair completing at
+    # minimum): a scenario's campaign entry, then the repair-slot residual
+    # (a repair completing at
     # the instant the job completes resolves first, as the event engine's
     # heap does; the job completes on the next step at dt = 0), job
     # completion, the recovery timer, the failure family's hazard
@@ -595,6 +684,18 @@ def _step_u(s: Dict[str, torch.Tensor], u: torch.Tensor, pv: torch.Tensor,
     # beats a same-instant write.  At checkpoint_interval == 0 that
     # column is +inf throughout.
     resid_cols = []
+    coff = 0
+    if scen is not None and n_camp:
+        # the schedule's next entry, raced before every other residual: an
+        # entry at the instant of a timer or completion fires first, the
+        # tie the event engine's injector breaks the same way; same-time
+        # entries take successive dt = 0 steps in schedule order
+        ci = s["camp_idx"].clamp(0, n_camp - 1)
+        camp_pending = active & (s["camp_idx"] < n_camp)
+        resid_cols.append(torch.where(
+            camp_pending, (_at(camp_t, ci) - s["t"]).clamp_min(0.0),
+            torch.inf))
+        coff = 1
     roff = 0
     if rkind != "exponential":
         rep_rem = s["repair_rem"]
@@ -623,7 +724,7 @@ def _step_u(s: Dict[str, torch.Tensor], u: torch.Tensor, pv: torch.Tensor,
         cdf8 = haz_cum / total_w[:, None]
         pick8 = (u_pick[:, None] >= cdf8).sum(-1).clamp_max(7) \
             .to(torch.int32)
-        haz_fail = active & (ev == K_EXP + roff + 2)
+        haz_fail = active & (ev == kx + coff + roff + 2)
         is_fail = haz_fail
         is_sys = haz_fail & (pick8 >= 4)
         cls = torch.where(haz_fail, pick8 % 4, cls)
@@ -662,26 +763,103 @@ def _step_u(s: Dict[str, torch.Tensor], u: torch.Tensor, pv: torch.Tensor,
         # drive the completion logic the exponential channels feed
         srows = torch.arange(B, device=device)
         won_slot = torch.argmin(rep_rem, dim=-1)
-        is_rep = active & (ev == K_EXP)
+        is_rep = active & (ev == kx + coff)
         done_stage = s["repair_stage"][srows, won_slot]
         cls = torch.where(is_rep, s["repair_cls"][srows, won_slot], cls)
         is_auto = is_rep & (done_stage == 0)
         is_man = is_rep & (done_stage == 1)
-    is_complete = active & (ev == K_EXP + roff)
-    is_timer = active & (ev == K_EXP + roff + 1)
+    is_complete = active & (ev == kx + coff + roff)
+    is_timer = active & (ev == kx + coff + roff + 1)
     # the checkpoint write is the last residual column
-    is_ckpt = active & (ev == K_EXP + len(resid_cols) - 1)
+    is_ckpt = active & (ev == kx + len(resid_cols) - 1)
+
+    if scen is not None:
+        # ---- shock and campaign sizing ----------------------------------
+        # a shock arrives on lanes [K_EXP, kx), a campaign entry on the
+        # first residual.  Either excludes every other event of its step,
+        # so the failure path's idle uniforms (u_diag .. u_succ, u_pool)
+        # round the per-pool kill counts and no lane is drawn for them: a
+        # zero-rate, empty scenario keeps the scenario-free stream
+        no = torch.zeros_like(active)
+        if n_dom:
+            is_shock = active & (ev >= K_EXP) & (ev < kx)
+            shock_dom = (ev - K_EXP).clamp(0, n_dom - 1)
+        else:
+            is_shock, shock_dom = no, torch.zeros_like(ev)
+        if n_camp:
+            is_camp = camp_pending & (ev == kx)
+            code = ctmc_chunk.schedule_codes(codes, device)[ci.long()]
+            is_kill = is_camp & (code == faultdomains.KILL)
+            is_m_on = is_camp & (code == faultdomains.MAINT_START)
+            is_m_off = is_camp & (code == faultdomains.MAINT_END)
+            kfrac = _at(camp_frac, ci)
+        else:
+            is_camp = is_kill = is_m_on = is_m_off = no
+            kfrac = torch.zeros_like(u_time)
+        struck = is_shock | is_kill
+        frac = torch.where(is_kill, kfrac, _at(dom_frac, shock_dom) if n_dom
+                           else torch.zeros_like(u_time))
+        # the four pools' kills in one stacked rounding (B, 4 pools, 4
+        # classes): run on u_diag, standby on u_wrong, free working on
+        # u_cls, free spare on u_esc
+        pools = torch.stack([run, s["sb"], s["fw"], s["fs"]], 1)
+        rm = _syscomp(pools * frac[:, None, None],
+                      torch.stack([u_diag, u_wrong, u_cls, u_esc], 1)) \
+            * struck.to(torch.float32)[:, None, None]
+        rm_run, rm_sb, rm_fw, rm_fs = rm.unbind(1)
+        k_run, k_sb, k_fw, k_fs = rm.sum(-1).unbind(1)
+        # struck servers already in the shop re-break: under exponential
+        # stages that is a no-op in law, so they are counted, not moved
+        shop = (s["auto"].sum(-1) + s["man"].sum(-1)).clamp_min(0.0)
+        x = shop * frac
+        x_fl = torch.floor(x)
+        k_shop = torch.where(
+            struck, x_fl + (u_succ < x - x_fl).to(torch.float32), 0.0)
+        # bulk replacement through the single failure's waterfall, sized
+        # on the pools left after the kill (integers: the min-chain is
+        # exact)
+        left = pools[:, 1:] - rm[:, 1:]                     # (B, 3, 4)
+        rem = (pools[:, 1:].sum(-1) - rm[:, 1:].sum(-1)).clamp_min(0.0)
+        sb_rem, fw_rem, fs_rem = rem.unbind(1)
+        t_sb = torch.minimum(k_run, sb_rem)
+        t_fw = torch.minimum(k_run - t_sb, fw_rem)
+        t_fs = torch.minimum(k_run - t_sb - t_fw, fs_rem)
+        shortfall = (k_run - t_sb - t_fw - t_fs).clamp_min(0.0)
+        # the three takes in one stacked rounding, t of a pool's rem
+        # servers each; they share u_pool (idle on a struck step), shifted
+        # by the golden ratio: totals stay exact, only a bulk event's
+        # class split is approximated
+        take = torch.stack([t_sb, t_fw, t_fs], 1)
+        mv_sb, mv_fw, mv_fs = _syscomp(
+            left * (take / rem.clamp_min(1.0))[..., None],
+            torch.stack([u_pool, torch.remainder(u_pool + _PHI, 1.0),
+                         torch.remainder(u_pool + 2.0 * _PHI, 1.0)], 1)
+        ).unbind(1)
+        sh_affects = struck & (k_run > 0)
+        # a full refill while already stalled leaves the STALL: the first
+        # deficit is still owed
+        sh_resolves = sh_affects & (shortfall <= 1e-6) & ~stalled
+        sh_stalls = sh_affects & ~sh_resolves
+        # one group restart: host selection and preemption waits overlap
+        # across the block, so they are charged once an event
+        shock_timer = (recovery
+                       + torch.where(t_fw + t_fs > 1e-6, host_sel, 0.0)) \
+            + torch.where(t_fs > 1e-6, waiting + preempt_cost, 0.0)
 
     ns = dict(s)
     ns["t"] = s["t"] + dt
 
     # ---- progress accounting -------------------------------------------
     # work accrues during every COMPUTE interval whichever event ends it;
-    # a failure rolls back to the last durable checkpoint (``ckpt_work``
-    # is the work since the last write), so ``banked`` goes negative on
-    # a failing step.  checkpoint_interval == 0 never loses work.
+    # a failure (or a shock that guts the running block, a checkpoint
+    # write included) rolls back to the last durable checkpoint
+    # (``ckpt_work`` is the work since the last write), so ``banked`` goes
+    # negative on a failing step.  checkpoint_interval == 0 never loses
+    # work.
     progress = torch.where(computing, dt, 0.0)
     rollback = is_fail
+    if scen is not None:
+        rollback = rollback | (sh_affects & (computing | in_ckpt_flag))
     new_ckpt_work = s["ckpt_work"] + progress
     lost = torch.where(rollback & (ckpt > 0), new_ckpt_work, 0.0)
     banked = progress - lost
@@ -714,7 +892,7 @@ def _step_u(s: Dict[str, torch.Tensor], u: torch.Tensor, pv: torch.Tensor,
     # a run is one useful-compute interval between restarts; records land
     # in a ring buffer at slot n_runs % max_runs (max_runs == 0 leaves
     # the buffer out)
-    record = is_fail | is_complete
+    record = rollback | is_complete
     run_val = s["cur_run"] + progress
     max_runs = s["run_durations"].shape[1]
     if max_runs:
@@ -813,12 +991,68 @@ def _step_u(s: Dict[str, torch.Tensor], u: torch.Tensor, pv: torch.Tensor,
     fw_n = fw_n + out1h * (to_pool & ~spare_origin)[:, None]
     fs_n = fs_n + out1h * (to_pool & spare_origin)[:, None]
     unstall = to_stalled
+    if scen is not None:
+        # the deficit: a bulk kill can leave the stalled job several
+        # servers short; each returning server pays one off and the job
+        # restarts once the whole block is back (a struck step, a stall
+        # and a return never share a step)
+        deficit = (s["deficit"] + torch.where(goes_stall, 1.0, 0.0)) \
+            + torch.where(struck, shortfall, 0.0)
+        deficit = torch.where(to_stalled, (deficit - 1.0).clamp_min(0.0),
+                              deficit)
+        unstall = to_stalled & (deficit <= 1e-6)
+        ns["deficit"] = deficit
     phase_n = torch.where(unstall, OVERHEAD, phase_n)
     timer_n = torch.where(unstall, recovery, timer_n)
     ns["stall_time"] = s["stall_time"] \
         + torch.where(unstall, ns["t"] - s["stall_start"], 0.0)
     ns["recovery_overhead"] = recovery_oh + torch.where(unstall, recovery,
                                                         0.0)
+
+    if scen is not None:
+        # ---- shock and campaign execution --------------------------------
+        # the struck block leaves every pool at once for the automated
+        # stage, and its replacements join the running block in the step
+        hit = struck[:, None]
+        run_n = torch.where(hit, run_n - rm_run + mv_sb + mv_fw + mv_fs,
+                            run_n)
+        sb_n = torch.where(hit, sb_n - rm_sb - mv_sb, sb_n)
+        fw_n = torch.where(hit, fw_n - rm_fw - mv_fw, fw_n)
+        fs_n = torch.where(hit, fs_n - rm_fs - mv_fs, fs_n)
+        auto_n = torch.where(hit, auto_n + rm_run + rm_sb + rm_fw + rm_fs,
+                             auto_n)
+        ns["n_domain_shocks"] = s["n_domain_shocks"] \
+            + is_shock.to(torch.float32)
+        ns["n_campaign_events"] = s["n_campaign_events"] \
+            + is_camp.to(torch.float32)
+        ns["n_shock_killed"] = s["n_shock_killed"] + torch.where(
+            struck, k_run + k_sb + k_fw + k_fs + k_shop, 0.0)
+        ns["n_standby_swaps"] = ns["n_standby_swaps"] \
+            + torch.where(struck, t_sb, 0.0)
+        ns["n_host_selections"] = ns["n_host_selections"] \
+            + torch.where(struck, t_fw + t_fs, 0.0)
+        ns["n_preemptions"] = ns["n_preemptions"] \
+            + torch.where(struck, t_fs, 0.0)
+        if n_dom:
+            shocks = s["domain_shocks"].clone()
+            rows = torch.arange(B, device=device)
+            shocks[rows, shock_dom.long()] += is_shock.to(torch.float32)
+            ns["domain_shocks"] = shocks
+        if n_camp:
+            ns["camp_idx"] = s["camp_idx"] + is_camp.to(torch.int32)
+        if has_maint:
+            ns["maint"] = torch.where(
+                is_m_on, 1.0, torch.where(is_m_off, 0.0, s["maint"]))
+        timer_n = torch.where(sh_resolves, shock_timer, timer_n)
+        phase_n = torch.where(sh_resolves, OVERHEAD, phase_n)
+        phase_n = torch.where(sh_stalls, STALL, phase_n)
+        # a shock aborts a checkpoint write in flight: the OVERHEAD that
+        # follows is a recovery (the age resets when it ends)
+        ns["in_ckpt"] = torch.where(sh_affects, 0.0, ns["in_ckpt"])
+        ns["stall_start"] = torch.where(sh_stalls & ~stalled, ns["t"],
+                                        ns["stall_start"])
+        ns["recovery_overhead"] = ns["recovery_overhead"] \
+            + torch.where(sh_resolves, recovery, 0.0)
     ns.update(run=run_n, sb=sb_n, fw=fw_n, fs=fs_n, auto=auto_n, man=man_n,
               phase=phase_n, timer=timer_n)
 
@@ -870,6 +1104,13 @@ def _step_u(s: Dict[str, torch.Tensor], u: torch.Tensor, pv: torch.Tensor,
         downtime = torch.where(resolves, fail_timer, stall_wait + recovery)
         acquire_wait = torch.where(resolves, fail_timer - recovery,
                                    stall_wait)
+        if scen is not None:
+            # a shock resolved through the waterfall records its planned
+            # downtime at once, as a failure does
+            ended = ended | sh_resolves
+            downtime = torch.where(sh_resolves, shock_timer, downtime)
+            acquire_wait = torch.where(sh_resolves, shock_timer - recovery,
+                                       acquire_wait)
         channel_vals = {"run_duration": (run_val, record),
                         "recovery": (downtime, ended),
                         "waiting": (acquire_wait, ended),
@@ -898,7 +1139,9 @@ def _step_u(s: Dict[str, torch.Tensor], u: torch.Tensor, pv: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _params_vector(p: Params) -> np.ndarray:
-    """``(16 + N_HAZARD_COLS + N_REPAIR_COLS,)`` float32 parameter row."""
+    """float32 parameter row: the 16 base columns, the failure family's
+    hazard block, the repair family's block and, for a fault-domain
+    scenario, its ``2D + 3L`` trailing columns."""
     base = np.asarray([
         p.random_failure_rate, p.systematic_failure_rate, p.recovery_time,
         p.host_selection_time, p.waiting_time, p.auto_repair_time,
@@ -908,15 +1151,23 @@ def _params_vector(p: Params) -> np.ndarray:
         p.checkpoint_interval, p.preemption_cost, float(p.warm_standbys),
         p.checkpoint_cost,
     ], np.float32)
-    return np.concatenate([base, hazards.hazard_columns(p),
-                           hazards.repair_columns(p)])
+    parts = [base, hazards.hazard_columns(p), hazards.repair_columns(p)]
+    if faultdomains.scenario_key(p) is not None:
+        parts.append(faultdomains.scenario_columns(p).astype(np.float32))
+    return np.concatenate(parts)
 
 
 def default_max_steps(p: Params, safety: float = 2.0) -> int:
     """Expected events (failures x ~3 repair/replace hops) + head-room."""
     lam = hazards.effective_event_rate(p)
     horizon = p.job_length * (1.0 + lam * (p.recovery_time + 2.0))
-    steps = max(128, int(lam * horizon * 3.2 * safety))
+    extra = 0.0
+    if p.fault_domains is not None or p.campaign is not None:
+        # shocks, campaign entries and their bulk repair traffic, and the
+        # horizon stretch of maintenance windows and shock recoveries
+        extra, extra_h = faultdomains.scenario_budget(p, horizon)
+        horizon += extra_h
+    steps = max(128, int((lam * horizon + extra) * 3.2 * safety))
     if p.checkpoint_interval > 0:
         # every checkpoint_interval minutes of compute burns one
         # write-event step (plus its expiry step when the write is paid)
@@ -953,15 +1204,16 @@ def _steps_ref(state: Dict[str, torch.Tensor], us: torch.Tensor,
                pv: torch.Tensor, R: int, P: int, impl: Optional[str],
                hist_channels: tuple, kind: str = "exponential",
                n_seg: int = 0, rkind: str = "exponential",
-               n_rseg: int = 0) -> Dict[str, torch.Tensor]:
+               n_rseg: int = 0, scen=None) -> Dict[str, torch.Tensor]:
     """``us.shape[0]`` steps of the plain step loop on one chunk's draw.
 
     The plain version of the chunk kernel.  ``us`` is the chunk's
     ``(n_steps, R_draw, _n_uniforms(kind, rkind))`` draw; it is sliced to
     R replicas and tiled across the P points of a ``(P * R,)`` batch, so
     row b reads replica ``b % R``'s uniforms.  ``impl`` goes to the event
-    race of each step; ``kind`` / ``n_seg`` name the failure family and
-    ``rkind`` / ``n_rseg`` the repair family.
+    race of each step; ``kind`` / ``n_seg`` name the failure family,
+    ``rkind`` / ``n_rseg`` the repair family and ``scen`` the fault-domain
+    scenario's key (None for none).
     """
     if us.shape[1] != R:
         us = us[:, :R]
@@ -969,7 +1221,7 @@ def _steps_ref(state: Dict[str, torch.Tensor], us: torch.Tensor,
         us = us.repeat(1, P, 1)
     for k in range(us.shape[0]):
         state = _step_u(state, us[k], pv, impl, hist_channels, kind, n_seg,
-                        rkind, n_rseg)
+                        rkind, n_rseg, scen)
     return state
 
 
@@ -978,7 +1230,7 @@ def _chunk_loop(pv: torch.Tensor, seed: int, P: int, R: int, chunk: int,
                 early_exit: bool, hist_channels: tuple,
                 init_state: Dict[str, torch.Tensor],
                 kind: str = "exponential", n_seg: int = 0,
-                rkind: str = "exponential", n_rseg: int = 0,
+                rkind: str = "exponential", n_rseg: int = 0, scen=None,
                 ) -> Dict[str, torch.Tensor]:
     """Chunked scan with early exit; batch axis is B = P * R (point-major).
 
@@ -1005,13 +1257,14 @@ def _chunk_loop(pv: torch.Tensor, seed: int, P: int, R: int, chunk: int,
         us = us.clamp_min_(1e-12)
         if not fused:
             return _steps_ref(state, us, pv, R, P, impl, hist_channels,
-                              kind, n_seg, rkind, n_rseg)
+                              kind, n_seg, rkind, n_rseg, scen)
         # the first launch clones the lanes it writes; later ones update
         # those clones in place
         state = ctmc_chunk.ctmc_chunk_cuda(state, us, pv, R, P,
                                            hist_channels, kind=kind,
                                            n_seg=n_seg, rkind=rkind,
-                                           n_rseg=n_rseg, inplace=owned)
+                                           n_rseg=n_rseg, scen=scen,
+                                           inplace=owned)
         owned = True
         return state
 
@@ -1032,7 +1285,9 @@ def _chunk_loop(pv: torch.Tensor, seed: int, P: int, R: int, chunk: int,
 
 #: non-_METRICS outputs worth returning: completion flag + the exact
 #: run-duration records (ring buffer, attempt count, in-flight interval)
-_EXTRA_OUTPUTS = ("completed", "run_durations", "n_runs", "cur_run")
+#: + the per-domain shock counts of scenario runs (absent otherwise)
+_EXTRA_OUTPUTS = ("completed", "run_durations", "n_runs", "cur_run",
+                  "domain_shocks")
 
 
 def _host_outputs(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
@@ -1092,7 +1347,8 @@ def simulate_ctmc(params: Params, n_replicas: int = 1024, seed: int = 0,
                       init_state, hazards.hazard_kind(params),
                       hazards.hazard_segment_count(params),
                       hazards.repair_kind(params),
-                      hazards.repair_segment_count(params))
+                      hazards.repair_segment_count(params),
+                      faultdomains.scenario_key(params))
     return _extract(_host_outputs(out), channels=channels)
 
 
@@ -1117,9 +1373,11 @@ def simulate_ctmc_sweep(params_list, n_replicas: int = 1024, seed: int = 0,
     honored exactly, and real rows are then bit-identical to
     ``bucketed=False``.  Uniforms are shared across points (common random
     numbers).  The failure and repair families and their empirical segment
-    counts change the step and the draw's width, so a grid mixing families
-    runs one batch per ``(failure family, repair family, segment counts)``;
-    their parameters are columns and never split a batch.  ``impl``
+    counts change the step and the draw's width, and a scenario's key
+    (domain count and schedule codes) its race and lanes, so a grid mixing
+    them runs one batch per ``(failure family, repair family, scenario
+    key, segment counts)``; their parameters (shock rates, campaign times
+    included) are columns and never split a batch.  ``impl``
     overrides every point's ``event_race_impl``; otherwise points split by
     it.
 
@@ -1142,6 +1400,7 @@ def simulate_ctmc_sweep(params_list, n_replicas: int = 1024, seed: int = 0,
     groups: Dict[tuple, list] = {}
     for i, p in enumerate(params_list):
         gkey = (hazards.hazard_kind(p), hazards.repair_kind(p),
+                faultdomains.scenario_key(p),
                 hazards.hazard_segment_count(p),
                 hazards.repair_segment_count(p),
                 None if padded else _struct_key(p),
@@ -1153,7 +1412,7 @@ def simulate_ctmc_sweep(params_list, n_replicas: int = 1024, seed: int = 0,
     bucket = padded and bucketed
     channels = _hist_channels(params_list)
     results: list = [None] * len(params_list)
-    for (kind, rkind, n_seg, n_rseg, _skey, impl_eff), idxs in \
+    for (kind, rkind, scen, n_seg, n_rseg, _skey, impl_eff), idxs in \
             groups.items():
         pts = [params_list[i] for i in idxs]
         P, R = len(pts), n_replicas
@@ -1169,12 +1428,13 @@ def simulate_ctmc_sweep(params_list, n_replicas: int = 1024, seed: int = 0,
             pv = np.concatenate([pv, np.repeat(pv[-1:], P_run - P, 0)])
         pv_flat = torch.as_tensor(np.repeat(pv, R_run, axis=0), device=dev)
         init_state = _initial_state_batch(pts, R, mr, dev, rkind,
-                                          _repair_slots_for(pts, rkind))
+                                          _repair_slots_for(pts, rkind),
+                                          scen)
         if (P_run, R_run) != (P, R):
             init_state = _bucket_pad_state(init_state, P, R, P_run, R_run)
         out = _chunk_loop(pv_flat, seed, P_run, R_run, chunk, steps // chunk,
                           steps % chunk, impl_eff, early_exit, channels,
-                          init_state, kind, n_seg, rkind, n_rseg)
+                          init_state, kind, n_seg, rkind, n_rseg, scen)
         host = _host_outputs(out)
         for j, i in enumerate(idxs):
             results[i] = _extract(host, slice(j * R_run, j * R_run + R),

@@ -48,6 +48,19 @@
 // inside that rarely taken block, so there are five slot instances, one a
 // failure family, not twenty.
 //
+// Fault-domain scenarios.  A scenario with exponential repairs runs a
+// scenario instance of each failure family (kScenBit), a thread a row: the
+// race's exponential lanes are the 16 and then one shock lane a domain,
+// D of them for any D (45 for 40 racks in pods of 8; up to the fleet), read
+// in order from the row's parameter columns by event_race_row, since
+// they do not fit a thread's registers; the campaign's next entry is raced
+// first among the residuals; a maintenance window gates the repair clocks
+// to zero.  A shock or scripted kill (the struck step) sizes its kill and
+// refill in bulk_kill, out of line, on the uniforms the failure path leaves
+// idle, and the deficit lane holds the job stalled until the whole struck
+// block is back.  The scenario-free instances compile to their earlier
+// code: every scenario branch is behind `if constexpr`.
+//
 // Exactness.  Each operation is the plain step's, in its order, in
 // float32: the same products and sums (fail_sys = ((run*bad)*r_sys)*
 // computing; banked = progress - lost, then work_left - banked), the same
@@ -81,7 +94,13 @@
 //
 // A slot instance also moves each row's repair-slot lane in and out, 12
 // bytes a slot: at 128 slots a row that is 12.6 MB of the sweep's ~17 MB
-// a launch, about 6 us.
+// a launch, about 6 us.  A scenario instance also reads 2D + 3L + 3 more
+// parameter columns a row and does two more operations a shock lane a
+// step (the sum and the cumsum): at 45 domains and 4,096 rows about 2.5 us
+// a launch, set by bytes; on an H100 a launch took 0.27 ms (PERF.md), 40%
+// of it the 45 shock lanes and the struck steps they fire.  Whether the
+// rows share one parameter row or each reads its own copy moves a launch
+// by 2-3%.
 //
 // What the design does about that.  One thread a row (a warp a row in the
 // slot instances, see below), with the row's whole state and parameter
@@ -162,8 +181,10 @@ enum Kind { kExponential, kWeibull, kBathtub, kLognormal, kEmpirical };
 enum RepairKind { kRepExponential, kRepWeibull, kRepLognormal,
                   kRepDeterministic, kRepEmpirical };
 // An instance's template code: the failure family, plus kSlotBit for the
-// slot instance of a non-exponential repair family.
+// slot instance of a non-exponential repair family or kScenBit for the
+// scenario instance of a fault-domain scenario (never both).
 constexpr int kSlotBit = 8;
+constexpr int kScenBit = 16;
 constexpr unsigned kFullMask = 0xffffffffu;
 // Empirical segments a clock the kernel takes (kernels/ctmc_chunk.py's
 // MAX_SEGMENTS).
@@ -172,6 +193,8 @@ constexpr int kMaxSegments = 64;
 // literals round to the same float32 values (1e-9 and 1e-30 both).
 constexpr float kMinDiv = 1e-9f;
 constexpr float kMinTotal = 1e-30f;
+// the plain step's 1e-6 thresholds of integer-valued counts
+constexpr float kTiny = static_cast<float>(1e-6);
 
 // Histogram channel codes: the order of repro_torch.core.histograms.
 // HIST_CHANNELS (code 3 is goodput).
@@ -227,6 +250,20 @@ struct CtmcChunkArgs {
   int32_t rkind;            // repair family (RepairKind)
   int32_t n_rseg;           // empirical repair segment count, else 0
   int32_t n_slots;          // slot lane width
+  // a fault-domain scenario's lanes (kernels/ctmc_chunk.py's SCEN_LANES
+  // and SCEN_METRICS); null and 0 without a scenario
+  float* deficit;             // (B,) replacements still owed
+  float* domain_shocks;       // (B, n_dom); null when n_dom == 0
+  int32_t* camp_idx;          // (B,) next schedule entry; null if n_camp 0
+  float* maint;               // (B,) 1 in a maintenance window; null when
+                              // the schedule has no window
+  float* scen_metric[3];      // n_domain_shocks, n_shock_killed,
+                              // n_campaign_events
+  const int32_t* camp_codes;  // (n_camp,) schedule codes (KILL 0,
+                              // MAINT_START 1, MAINT_END 2)
+  int32_t n_dom;              // fault domains D
+  int32_t n_camp;             // schedule entries L
+  int32_t scen;               // 1: a scenario instance
 };
 
 namespace {
@@ -342,6 +379,121 @@ __device__ __forceinline__ float piecewise_gap(float t, const float* edges,
   return gap;
 }
 
+// ---- a shock or scripted kill, as core/vectorized.py's scen branches -------
+
+// x > 0 ? x : +0 (vectorized._pos): one bit pattern for every zero.
+__device__ __forceinline__ float pos0(float x) { return x > 0.0f ? x : 0.0f; }
+
+// vectorized._syscomp: systematic rounding of the per-class target tgt
+// with one uniform, the cumsum left to right.
+__device__ __forceinline__ void syscomp(float (&n)[4], const float (&tgt)[4],
+                                        float uu) {
+  float c = 0.0f, c_prev = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    c = j == 0 ? tgt[0] : c + tgt[j];
+    n[j] = pos0(ceilf(c - uu)) - pos0(ceilf(c_prev - uu));
+    c_prev = c;
+  }
+}
+
+// vectorized._take: a bulk take of t of the tot servers of a pool.
+__device__ __forceinline__ void take(float (&n)[4], const float (&cnt)[4],
+                                     float t, float tot, float uu) {
+  const float ratio = t / fmaxf(tot, 1.0f);
+  float tgt[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) tgt[j] = cnt[j] * ratio;
+  syscomp(n, tgt, uu);
+}
+
+// torch.remainder(x, 1.0) on CUDA: fmod, then the divisor added where the
+// signs differ (PyTorch's remainder kernel for floating types).
+__device__ __forceinline__ float remainder1(float x) {
+  float m = fmodf(x, 1.0f);
+  if (m != 0.0f && ((1.0f < 0.0f) != (m < 0.0f))) m += 1.0f;
+  return m;
+}
+
+// A row's pools through a struck step: read before, written after.
+struct BulkPools {
+  float run[4], sb[4], fw[4], fs[4], aut[4];
+};
+// What the rest of the step reads of a struck step.
+struct BulkSizes {
+  float k_run, k_killed, t_sb, t_fw, t_fs, shortfall;
+};
+
+// The struck step of the plain step, in its operations and order: the
+// kill of a rounded `frac` of every pool (u_diag, u_wrong, u_cls, u_esc),
+// the in-shop re-breaks counted (u_succ), the standby -> working -> spare
+// refill of the running block (u_pool and its golden-ratio shifts), and the
+// pools after the bulk move.  Out of line: it runs on shock and kill steps
+// only, and keeps its ~80 values out of the hot loop's registers.
+__device__ __noinline__ BulkSizes bulk_kill(BulkPools* p, float man_total,
+                                            float frac, float u_diag,
+                                            float u_wrong, float u_cls,
+                                            float u_esc, float u_succ,
+                                            float u_pool) {
+  // float32(0.6180339887498949) and float32(2 * 0.6180339887498949), as
+  // PyTorch casts the Python scalars
+  constexpr float kPhi = static_cast<float>(0.6180339887498949);
+  constexpr float kPhi2 = static_cast<float>(2.0 * 0.6180339887498949);
+  float tgt[4], rm_run[4], rm_sb[4], rm_fw[4], rm_fs[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) tgt[j] = p->run[j] * frac;
+  syscomp(rm_run, tgt, u_diag);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) tgt[j] = p->sb[j] * frac;
+  syscomp(rm_sb, tgt, u_wrong);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) tgt[j] = p->fw[j] * frac;
+  syscomp(rm_fw, tgt, u_cls);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) tgt[j] = p->fs[j] * frac;
+  syscomp(rm_fs, tgt, u_esc);
+  BulkSizes z;
+  z.k_run = ((rm_run[0] + rm_run[1]) + rm_run[2]) + rm_run[3];
+  const float k_sb = ((rm_sb[0] + rm_sb[1]) + rm_sb[2]) + rm_sb[3];
+  const float k_fw = ((rm_fw[0] + rm_fw[1]) + rm_fw[2]) + rm_fw[3];
+  const float k_fs = ((rm_fs[0] + rm_fs[1]) + rm_fs[2]) + rm_fs[3];
+  const float shop = fmaxf(
+      (((p->aut[0] + p->aut[1]) + p->aut[2]) + p->aut[3]) + man_total, 0.0f);
+  const float x = shop * frac;
+  const float x_fl = floorf(x);
+  const float k_shop = x_fl + (u_succ < x - x_fl ? 1.0f : 0.0f);
+  z.k_killed = (((z.k_run + k_sb) + k_fw) + k_fs) + k_shop;
+  const float sb_rem =
+      fmaxf((((p->sb[0] + p->sb[1]) + p->sb[2]) + p->sb[3]) - k_sb, 0.0f);
+  const float fw_rem =
+      fmaxf((((p->fw[0] + p->fw[1]) + p->fw[2]) + p->fw[3]) - k_fw, 0.0f);
+  const float fs_rem =
+      fmaxf((((p->fs[0] + p->fs[1]) + p->fs[2]) + p->fs[3]) - k_fs, 0.0f);
+  z.t_sb = fminf(z.k_run, sb_rem);
+  z.t_fw = fminf(z.k_run - z.t_sb, fw_rem);
+  z.t_fs = fminf((z.k_run - z.t_sb) - z.t_fw, fs_rem);
+  z.shortfall = fmaxf(((z.k_run - z.t_sb) - z.t_fw) - z.t_fs, 0.0f);
+  float cnt[4], mv_sb[4], mv_fw[4], mv_fs[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) cnt[j] = p->sb[j] - rm_sb[j];
+  take(mv_sb, cnt, z.t_sb, sb_rem, u_pool);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) cnt[j] = p->fw[j] - rm_fw[j];
+  take(mv_fw, cnt, z.t_fw, fw_rem, remainder1(u_pool + kPhi));
+#pragma unroll
+  for (int j = 0; j < 4; ++j) cnt[j] = p->fs[j] - rm_fs[j];
+  take(mv_fs, cnt, z.t_fs, fs_rem, remainder1(u_pool + kPhi2));
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    p->run[j] = (((p->run[j] - rm_run[j]) + mv_sb[j]) + mv_fw[j]) + mv_fs[j];
+    p->sb[j] = (p->sb[j] - rm_sb[j]) - mv_sb[j];
+    p->fw[j] = (p->fw[j] - rm_fw[j]) - mv_fw[j];
+    p->fs[j] = (p->fs[j] - rm_fs[j]) - mv_fs[j];
+    p->aut[j] = (((p->aut[j] + rm_run[j]) + rm_sb[j]) + rm_fw[j]) + rm_fs[j];
+  }
+  return z;
+}
+
 // ---- repair quantiles, as core/hazards.py's REPAIR_SAMPLERS draw them ------
 
 // piecewise_conditional_residual from age 0 with exp_draw = -log1p(-u):
@@ -404,13 +556,15 @@ __device__ __noinline__ float repair_quantile(int rkind, float u, float scale,
 template <int kKind>
 __global__ void __launch_bounds__(kThreads)
     ctmc_chunk_kernel(const CtmcChunkArgs a) {
-  // the failure family, and whether this is a slot instance
-  constexpr int kFamily = kKind & ~kSlotBit;
+  // the failure family, and whether this is a slot or a scenario instance
+  constexpr int kFamily = kKind & ~(kSlotBit | kScenBit);
   constexpr bool kSlots = (kKind & kSlotBit) != 0;
+  constexpr bool kScen = (kKind & kScenBit) != 0;
+  static_assert(!(kSlots && kScen), "a scenario runs exponential repairs");
   constexpr bool kExpOnly = kFamily == kExponential;
-  // residuals raced: [the slot lane's,] completion, timer, [the family's],
-  // checkpoint write
-  constexpr int kRoff = kSlots ? 1 : 0;
+  // residuals raced: [the slot lane's | the campaign's,] completion, timer,
+  // [the family's,] checkpoint write
+  constexpr int kRoff = kSlots || kScen ? 1 : 0;
   constexpr int kDet = (kExpOnly ? 3 : 4) + kRoff;
   // uniforms a step: 8, u_haz for a non-exponential failure family, u_dur
   // for a slot instance
@@ -486,6 +640,18 @@ __global__ void __launch_bounds__(kThreads)
   // auto rates (m), manual edges (m-1), manual rates (m)], m = n_rseg
   const float* rp = p + 16 + (kFamily == kEmpirical ? 4 * n_seg - 2 : 5);
   const int n_rseg = a.n_rseg;
+  // a scenario's columns after the exponential repair block (scenario_
+  // columns): [shock rates (D), fleet fractions (D), entry times (L), kill
+  // fractions (L), target domains (L)]; a kill needs only its fraction, so
+  // the target domains are not read.  The race's exponential lanes are the
+  // 16 and then the D shock lanes: kx of them.
+  const int n_dom = kScen ? a.n_dom : 0;
+  const int n_camp = kScen ? a.n_camp : 0;
+  const float* shock_rate = rp + 3;
+  const float* dom_frac = shock_rate + n_dom;
+  const float* camp_t = dom_frac + n_dom;
+  const float* camp_frac = camp_t + n_camp;
+  const int kx = kExp + n_dom;
 
   // ---- the row's state ---------------------------------------------------
   float run[4], sb[4], fw[4], fs[4], aut[4], man[4];
@@ -503,6 +669,19 @@ __global__ void __launch_bounds__(kThreads)
   float m[kNMetric];
 #pragma unroll
   for (int i = 0; i < kNMetric; ++i) m[i] = a.metric[i][b];
+  // a scenario's lanes: the deficit, the schedule pointer, the window flag
+  // and the three counters
+  float deficit = 0.0f, maint = 0.0f;
+  int32_t camp_idx = 0;
+  float n_shocks = 0.0f, n_killed = 0.0f, n_camp_events = 0.0f;
+  if constexpr (kScen) {
+    deficit = a.deficit[b];
+    if (n_camp > 0) camp_idx = a.camp_idx[b];
+    if (a.maint != nullptr) maint = a.maint[b];
+    n_shocks = a.scen_metric[0][b];
+    n_killed = a.scen_metric[1][b];
+    n_camp_events = a.scen_metric[2][b];
+  }
 
   // the repair rates aut[j] / auto_div and man[j] / man_div, kept
   // divided: a step changes at most one class of each pool, and only that
@@ -646,10 +825,23 @@ __global__ void __launch_bounds__(kThreads)
         rates[4 + j] = (((run[j] * bad) * hbar_s) * f(computing))
                        * f(active);
       }
-      rates[8 + j] = q_aut[j] * f(active);
-      rates[12 + j] = q_man[j] * f(active);
+      if constexpr (kScen) {
+        // a maintenance window gates the repair clocks to zero
+        rates[8 + j] = (maint == 0.0f ? q_aut[j] : 0.0f) * f(active);
+        rates[12 + j] = (maint == 0.0f ? q_man[j] : 0.0f) * f(active);
+      } else {
+        rates[8 + j] = q_aut[j] * f(active);
+        rates[12 + j] = q_man[j] * f(active);
+      }
     }
     if constexpr (kSlots) resid[0] = active ? slot_min : INFINITY;
+    // the campaign's next entry, raced first
+    const bool camp_pending = kScen && active && camp_idx < n_camp;
+    const int ci = min(max(camp_idx, 0), max(n_camp - 1, 0));
+    if constexpr (kScen) {
+      resid[0] = camp_pending ? fmaxf(__ldg(camp_t + ci) - t, 0.0f)
+                              : INFINITY;
+    }
     resid[kRoff] = computing ? work_left : INFINITY;
     resid[kRoff + 1] = in_overhead ? timer : INFINITY;
     resid[kDet - 1] = (computing && ckpt > 0.0f)
@@ -657,7 +849,11 @@ __global__ void __launch_bounds__(kThreads)
                           : INFINITY;
     float dt;
     int32_t ev;
-    event_race_row(rates, kExp, resid, kDet, u0.x, u0.y, &dt, &ev);
+    // a scenario's D shock lanes (a row's own parameter columns, alike for
+    // every row of a point) follow the 16; n_dom is 0 at compile time
+    // in the scenario-free instances
+    event_race_row(rates, kExp, shock_rate, n_dom, resid, kDet, u0.x, u0.y,
+                   &dt, &ev);
     dt = (active && isfinite(dt)) ? dt : 0.0f;
 
     int32_t cls = ev % 4;
@@ -666,7 +862,7 @@ __global__ void __launch_bounds__(kThreads)
     if constexpr (kFamily == kWeibull) {
       // the failure arrives on the hazard residual; the failing channel
       // is picked from the hazard shares with u_pick
-      const bool haz_fail = active && ev == kExp + kRoff + 2;
+      const bool haz_fail = active && ev == kx + kRoff + 2;
       if (haz_fail) {
         const float total = fmaxf(w_total, kMinTotal);
         float cum = 0.0f;
@@ -710,7 +906,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     // a slot's repair completed: its class and stage decide the completion
-    const bool is_rep = kSlots && active && ev == kExp;
+    const bool is_rep = kSlots && active && ev == kx;
     int32_t won_meta = 0;
     if constexpr (kSlots) won_meta = s_meta[slot_arg];
     if (is_rep) cls = won_meta & 0xffff;
@@ -718,21 +914,59 @@ __global__ void __launch_bounds__(kThreads)
                                 : active && ev >= 8 && ev < 12;
     const bool is_man = kSlots ? is_rep && (won_meta >> 16) == 1
                                : active && ev >= 12 && ev < 16;
-    const bool is_complete = active && ev == kExp + kRoff;
-    const bool is_timer = active && ev == kExp + kRoff + 1;
-    const bool is_ckpt = active && ev == kExp + kDet - 1;
+    const bool is_complete = active && ev == kx + kRoff;
+    const bool is_timer = active && ev == kx + kRoff + 1;
+    const bool is_ckpt = active && ev == kx + kDet - 1;
+
+    // ---- a shock or a campaign entry ---------------------------------------
+    // shock lanes [16, kx), the campaign on the first residual; a struck
+    // step sizes its kill and refill out of line, on the uniforms the
+    // failure path leaves idle
+    const bool is_shock = kScen && active && ev >= kExp && ev < kx;
+    const bool is_camp = kScen && camp_pending && ev == kx;
+    int32_t code = -1;
+    if (is_camp) code = __ldg(a.camp_codes + ci);
+    const bool is_kill = is_camp && code == 0;
+    const bool struck = is_shock || is_kill;
+    BulkPools pools;
+    BulkSizes bulk{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (kScen && struck) {
+      const float frac = is_shock ? __ldg(dom_frac + (ev - kExp))
+                                  : __ldg(camp_frac + ci);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        pools.run[j] = run[j];
+        pools.sb[j] = sb[j];
+        pools.fw[j] = fw[j];
+        pools.fs[j] = fs[j];
+        pools.aut[j] = aut[j];
+      }
+      bulk = bulk_kill(&pools, sum4(man), frac, u0.z, u0.w, u1.x, u1.y,
+                       u1.z, u1.w);
+    }
+    const bool sh_affects = struck && bulk.k_run > 0.0f;
+    const bool sh_resolves = sh_affects && bulk.shortfall <= kTiny
+                             && !stalled;
+    const bool sh_stalls = sh_affects && !sh_resolves;
+    const float shock_timer =
+        (recovery + (bulk.t_fw + bulk.t_fs > kTiny ? host_sel : 0.0f))
+        + (bulk.t_fs > kTiny ? waiting + preempt_cost : 0.0f);
 
     const float t_new = t + dt;
 
     // ---- progress accounting -------------------------------------------
+    // a failure, or a shock that guts the running block while it computes
+    // or writes a checkpoint, rolls back to the last checkpoint
+    const bool rollback =
+        is_fail || (sh_affects && (computing || in_ckpt_flag));
     const float progress = computing ? dt : 0.0f;
     const float new_ckpt_work = ckpt_work + progress;
-    const float lost = (is_fail && ckpt > 0.0f) ? new_ckpt_work : 0.0f;
+    const float lost = (rollback && ckpt > 0.0f) ? new_ckpt_work : 0.0f;
     const float banked = progress - lost;
     work_left = work_left - banked;
     m[kUsefulWork] = m[kUsefulWork] + banked;
     m[kLostWork] = m[kLostWork] + lost;
-    ckpt_work = (is_fail || is_ckpt || is_complete) ? 0.0f : new_ckpt_work;
+    ckpt_work = (rollback || is_ckpt || is_complete) ? 0.0f : new_ckpt_work;
 
     // ---- completion / timer ---------------------------------------------
     const float timer_dec = in_overhead ? timer - dt : timer;
@@ -750,7 +984,7 @@ __global__ void __launch_bounds__(kThreads)
                              + (in_ckpt_flag ? dt : 0.0f);
 
     // ---- exact run durations --------------------------------------------
-    const bool record = is_fail || is_complete;
+    const bool record = rollback || is_complete;
     const float run_val = cur_run + progress;
     if (record && a.max_runs > 0 && (!kSlots || lane == 0)) {
       a.run_durations[b * a.max_runs + n_runs % a.max_runs] = run_val;
@@ -847,18 +1081,56 @@ __global__ void __launch_bounds__(kThreads)
       fw_n[j] = fw_n[j] + out * f(to_pool && !spare_origin);
       fs_n[j] = fs_n[j] + out * f(to_pool && spare_origin);
     }
-    phase_n = to_stalled ? kOverhead : phase_n;
-    timer_n = to_stalled ? recovery : timer_n;
-    m[kStallTime] = m[kStallTime] + (to_stalled ? t_new - stall_start : 0.0f);
-    m[kRecoveryOverhead] = recovery_oh + (to_stalled ? recovery : 0.0f);
+    // the deficit: the job restarts once the whole struck block is back
+    bool unstall = to_stalled;
+    if constexpr (kScen) {
+      deficit = (deficit + (goes_stall ? 1.0f : 0.0f))
+                + (struck ? bulk.shortfall : 0.0f);
+      deficit = to_stalled ? fmaxf(deficit - 1.0f, 0.0f) : deficit;
+      unstall = to_stalled && deficit <= kTiny;
+    }
+    phase_n = unstall ? kOverhead : phase_n;
+    timer_n = unstall ? recovery : timer_n;
+    m[kStallTime] = m[kStallTime] + (unstall ? t_new - stall_start : 0.0f);
+    m[kRecoveryOverhead] = recovery_oh + (unstall ? recovery : 0.0f);
+
+    // ---- a shock's or a campaign entry's execution -------------------------
+    float stall_start_s = stall_start_n;
+    if constexpr (kScen) {
+      n_shocks = n_shocks + f(is_shock);
+      n_camp_events = n_camp_events + f(is_camp);
+      n_killed = n_killed + (struck ? bulk.k_killed : 0.0f);
+      m[kNStandbySwaps] = m[kNStandbySwaps] + (struck ? bulk.t_sb : 0.0f);
+      m[kNHostSelections] = m[kNHostSelections]
+                            + (struck ? bulk.t_fw + bulk.t_fs : 0.0f);
+      m[kNPreemptions] = m[kNPreemptions] + (struck ? bulk.t_fs : 0.0f);
+      if (is_shock) {
+        float* cell = a.domain_shocks + b * n_dom + (ev - kExp);
+        *cell = *cell + 1.0f;
+      }
+      camp_idx += is_camp ? 1 : 0;
+      maint = (is_camp && code == 1) ? 1.0f
+                                     : ((is_camp && code == 2) ? 0.0f : maint);
+      timer_n = sh_resolves ? shock_timer : timer_n;
+      phase_n = sh_resolves ? kOverhead : phase_n;
+      phase_n = sh_stalls ? kStall : phase_n;
+      // a shock aborts a checkpoint write in flight
+      in_ckpt = sh_affects ? 0.0f : in_ckpt;
+      stall_start_s = (sh_stalls && !stalled) ? t_new : stall_start_n;
+      m[kRecoveryOverhead] = m[kRecoveryOverhead]
+                             + (sh_resolves ? recovery : 0.0f);
+    }
 
     // ---- streaming histograms -------------------------------------------
-    const bool ended = resolves || to_stalled;
+    const bool ended = resolves || unstall || sh_resolves;
     if (a.n_sel > 0 && (record || ended)) {
       const float stall_wait = t_new - stall_start;
-      const float downtime = resolves ? fail_timer : stall_wait + recovery;
-      const float acquire_wait = resolves ? fail_timer - recovery
-                                          : stall_wait;
+      const float downtime =
+          sh_resolves ? shock_timer
+                      : (resolves ? fail_timer : stall_wait + recovery);
+      const float acquire_wait =
+          sh_resolves ? shock_timer - recovery
+                      : (resolves ? fail_timer - recovery : stall_wait);
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         if (c >= a.n_sel) break;
@@ -890,7 +1162,7 @@ __global__ void __launch_bounds__(kThreads)
     t = t_new;
     timer = timer_n;
     phase = phase_n;
-    stall_start = stall_start_n;
+    stall_start = stall_start_s;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       run[j] = run_n[j];
@@ -910,6 +1182,19 @@ __global__ void __launch_bounds__(kThreads)
       const float q = lane_of(man, cls) / man_div;
 #pragma unroll
       for (int j = 0; j < 4; ++j) q_man[j] = j == cls ? q : q_man[j];
+    }
+    if (kScen && struck) {
+      // the pools after the bulk move (the step's own updates leave a
+      // struck row's pools as they were), and every automated rate anew
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        run[j] = pools.run[j];
+        sb[j] = pools.sb[j];
+        fw[j] = pools.fw[j];
+        fs[j] = pools.fs[j];
+        aut[j] = pools.aut[j];
+        q_aut[j] = aut[j] / auto_div;
+      }
     }
 
     // ---- the repair-slot lane ---------------------------------------------
@@ -982,6 +1267,14 @@ __global__ void __launch_bounds__(kThreads)
   a.n_runs[b] = n_runs;
 #pragma unroll
   for (int i = 0; i < kNMetric; ++i) a.metric[i][b] = m[i];
+  if constexpr (kScen) {
+    a.deficit[b] = deficit;
+    if (n_camp > 0) a.camp_idx[b] = camp_idx;
+    if (a.maint != nullptr) a.maint[b] = maint;
+    a.scen_metric[0][b] = n_shocks;
+    a.scen_metric[1][b] = n_killed;
+    a.scen_metric[2][b] = n_camp_events;
+  }
 }
 
 }  // namespace
@@ -1011,8 +1304,9 @@ static int launch(const CtmcChunkArgs* args, cudaStream_t stream) {
 // Plain-C entry point for ctypes.  `args` points to the launch's struct in
 // host memory; `stream` is a cudaStream_t passed as an integer.  Returns
 // the first CUDA error of the shared-memory attribute or the launch (0 on
-// success), or cudaErrorInvalidValue for a family, segment count or slot
-// lane the kernel does not take; the caller raises on anything else.
+// success), or cudaErrorInvalidValue for a family, segment count, slot
+// lane or scenario the kernel does not take; the caller raises on anything
+// else.
 extern "C" int ctmc_chunk_launch(const CtmcChunkArgs* args, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool seg_ok = args->kind == kEmpirical
@@ -1025,10 +1319,20 @@ extern "C" int ctmc_chunk_launch(const CtmcChunkArgs* args, void* stream) {
   const bool slots_ok =
       slots ? args->rkind <= kRepEmpirical && args->n_slots >= 1
             : args->rkind == kRepExponential && args->n_slots == 0;
-  if (!seg_ok || !rseg_ok || !slots_ok) {
+  const bool scen = args->scen != 0;
+  const bool scen_ok =
+      !scen || (!slots && args->n_dom >= 0 && args->n_camp >= 0
+                && args->deficit != nullptr
+                && args->scen_metric[0] != nullptr
+                && args->scen_metric[1] != nullptr
+                && args->scen_metric[2] != nullptr
+                && (args->n_dom == 0) == (args->domain_shocks == nullptr)
+                && (args->n_camp == 0) == (args->camp_idx == nullptr)
+                && (args->n_camp == 0) == (args->camp_codes == nullptr));
+  if (!seg_ok || !rseg_ok || !slots_ok || !scen_ok) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  switch (args->kind | (slots ? kSlotBit : 0)) {
+  switch (args->kind | (slots ? kSlotBit : 0) | (scen ? kScenBit : 0)) {
     case kExponential: return launch<kExponential>(args, s);
     case kWeibull: return launch<kWeibull>(args, s);
     case kBathtub: return launch<kBathtub>(args, s);
@@ -1039,6 +1343,11 @@ extern "C" int ctmc_chunk_launch(const CtmcChunkArgs* args, void* stream) {
     case kBathtub | kSlotBit: return launch<kBathtub | kSlotBit>(args, s);
     case kLognormal | kSlotBit: return launch<kLognormal | kSlotBit>(args, s);
     case kEmpirical | kSlotBit: return launch<kEmpirical | kSlotBit>(args, s);
+    case kExponential | kScenBit: return launch<kExponential | kScenBit>(args, s);
+    case kWeibull | kScenBit: return launch<kWeibull | kScenBit>(args, s);
+    case kBathtub | kScenBit: return launch<kBathtub | kScenBit>(args, s);
+    case kLognormal | kScenBit: return launch<kLognormal | kScenBit>(args, s);
+    case kEmpirical | kScenBit: return launch<kEmpirical | kScenBit>(args, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

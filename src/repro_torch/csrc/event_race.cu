@@ -43,7 +43,7 @@ __global__ void event_race_kernel(const float* __restrict__ rates,
   const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x
                     + threadIdx.x;
   if (r >= n_rows) return;
-  event_race_row(rates + r * rates_stride, k_exp,
+  event_race_row(rates + r * rates_stride, k_exp, nullptr, 0,
                  residuals + r * resid_stride, k_det, u_time[r * u_time_stride],
                  u_pick[r * u_pick_stride], dt + r, event + r);
 }

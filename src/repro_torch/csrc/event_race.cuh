@@ -46,14 +46,24 @@ __device__ __forceinline__ bool ge_quot(float u, float c, float s) {
   return u >= c / s;
 }
 
+// The race over k_exp lanes in `rates` (in registers, after inlining with
+// a constant k_exp) followed by n_extra lanes read in order from `extra`
+// (a fault-domain scenario's shock rates, the same every step, so they stay
+// in memory; any count).  Callers without such lanes pass nullptr and a
+// literal 0, and the extra loops compile away.  The sum runs over the
+// k_exp lanes, then the extra ones, the plain race's order.
 __device__ __forceinline__ void event_race_row(const float* rates, int k_exp,
+                                               const float* extra,
+                                               int n_extra,
                                                const float* residuals,
                                                int k_det, float u_time,
                                                float u_pick, float* dt,
                                                int32_t* event) {
+  const int k_all = k_exp + n_extra;
   float total = 0.0f;
 #pragma unroll
   for (int j = 0; j < k_exp; ++j) total += rates[j];
+  for (int j = 0; j < n_extra; ++j) total += __ldg(extra + j);
   const float safe = fmaxf(total, 1e-30f);
   const float t_exp = total > 0.0f ? -logf(u_time) / safe : INFINITY;
 
@@ -63,7 +73,8 @@ __device__ __forceinline__ void event_race_row(const float* rates, int k_exp,
   // products (u_pick * safe >= cumsum_j, also a prefix) is checked on both
   // sides of its boundary with the exact test of ge_quot; only if either
   // check fails is every lane tested.  Either way pick is the count of the
-  // true-division test, as in the plain version.
+  // true-division test, as in the plain version.  The extra lanes' guess
+  // and exact count stop at the first lane past u_pick.
   const float u_scaled = u_pick * safe;
   float cum = 0.0f, cum_lo = 0.0f, cum_hi = 0.0f;
   int guess = 0;
@@ -77,9 +88,19 @@ __device__ __forceinline__ void event_race_row(const float* rates, int k_exp,
     cum_hi = (!below && !past) ? cum : cum_hi;
     past = past || !below;
   }
+  for (int j = 0; j < n_extra && !past; ++j) {
+    cum += __ldg(extra + j);
+    if (u_scaled >= cum) {
+      guess += 1;
+      cum_lo = cum;
+    } else {
+      cum_hi = cum;
+      past = true;
+    }
+  }
   int pick = guess;
   const bool lo_ok = guess == 0 || ge_quot(u_pick, cum_lo, safe);
-  const bool hi_ok = guess == k_exp || !ge_quot(u_pick, cum_hi, safe);
+  const bool hi_ok = guess == k_all || !ge_quot(u_pick, cum_hi, safe);
   if (!(lo_ok && hi_ok)) {
     cum = 0.0f;
     pick = 0;
@@ -88,8 +109,12 @@ __device__ __forceinline__ void event_race_row(const float* rates, int k_exp,
       cum += rates[j];
       pick += ge_quot(u_pick, cum, safe) ? 1 : 0;
     }
+    for (int j = 0; j < n_extra && pick == k_exp + j; ++j) {
+      cum += __ldg(extra + j);
+      pick += ge_quot(u_pick, cum, safe) ? 1 : 0;
+    }
   }
-  pick = min(pick, k_exp - 1);
+  pick = min(pick, k_all - 1);
 
   float t_det = residuals[0];
   int arg = 0;
@@ -103,5 +128,5 @@ __device__ __forceinline__ void event_race_row(const float* rates, int k_exp,
   }
 
   *dt = fminf(t_exp, t_det);
-  *event = t_exp <= t_det ? pick : k_exp + arg;
+  *event = t_exp <= t_det ? pick : k_all + arg;
 }

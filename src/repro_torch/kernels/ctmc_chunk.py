@@ -5,9 +5,11 @@ Counterpart, on the single-job path, of the Pallas TPU kernel
 ``lax.scan`` of ``src/repro/core/vectorized.py::_chunk_loop`` around it,
 for every failure family of :data:`KINDS` and repair family of
 :data:`REPAIR_KINDS`: one instance a failure family for exponential
-repairs (a thread a row), and one slot instance a failure family for the
+repairs (a thread a row), one slot instance a failure family for the
 other repair families (a warp a row, the row's repair-slot lane in shared
-memory; :func:`slot_plan`).
+memory; :func:`slot_plan`), and one scenario instance a failure family for
+a fault-domain scenario with exponential repairs (a thread a row, D shock
+lanes after the 16 in the race, the campaign residual first).
 The kernel lives in ``repro_torch/csrc/ctmc_chunk.cu`` (what it computes,
 its bound and its design are noted there); :mod:`._build` builds it with
 ``nvcc -fmad=false`` on first use and binds it with ``ctypes``, and
@@ -19,14 +21,16 @@ and any lane dtype or shape but that path's, so a lane that a later
 engine adds cannot be dropped without notice.
 
 ``LAUNCHES`` counts kernel launches, ``LAUNCHES_BY_KIND`` the same by
-failure family, ``LAUNCHES_BY_REPAIR`` by repair family and ``STEPS`` the
-steps they ran, so a run can show that its main path went through the
-kernel.
+failure family, ``LAUNCHES_BY_REPAIR`` by repair family,
+``LAUNCHES_BY_SCEN`` the scenario instances' by failure family and
+``STEPS`` the steps they ran, so a run can show that its main path went
+through the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Sequence
 
 import torch
@@ -49,6 +53,8 @@ LAUNCHES = 0
 LAUNCHES_BY_KIND = dict.fromkeys(KINDS, 0)
 #: the same launches by repair family
 LAUNCHES_BY_REPAIR = dict.fromkeys(REPAIR_KINDS, 0)
+#: the scenario instances' launches by failure family
+LAUNCHES_BY_SCEN = dict.fromkeys(KINDS, 0)
 #: steps those launches ran
 STEPS = 0
 
@@ -67,7 +73,8 @@ METRICS = ("total_time", "n_failures", "n_random_failures",
 #: (B,) int32 lanes
 INT_LANES = ("phase", "n_runs")
 #: (B,) float32 metrics the step leaves as they are (the slot instances
-#: write the first), so they pass through untouched
+#: write the first, the scenario instances the other three), so they pass
+#: through untouched
 CARRIED = ("n_repair_overflow", "n_domain_shocks", "n_shock_killed",
            "n_campaign_events")
 #: histogram channels by kernel code (``core.histograms.HIST_CHANNELS``)
@@ -82,6 +89,15 @@ _KNOWN = frozenset(WRITTEN + CARRIED + ("hist_edges",))
 SLOT_LANES = ("repair_rem", "repair_cls", "repair_stage")
 #: what a slot instance writes besides WRITTEN
 SLOT_WRITTEN = SLOT_LANES + ("n_repair_overflow",)
+#: a fault-domain scenario's lanes: the deficit (B,) float32, the shock
+#: counts (B, D) float32, the schedule pointer (B,) int32 and the window
+#: flag (B,) float32, each present as the scenario key calls for it
+#: (:func:`scenario_lanes`)
+SCEN_LANES = ("deficit", "domain_shocks", "camp_idx", "maint")
+#: the counters a scenario instance writes, in its slot order
+SCEN_METRICS = ("n_domain_shocks", "n_shock_killed", "n_campaign_events")
+#: the schedule codes (``core.faultdomains``): KILL, MAINT_START, MAINT_END
+_CODES = (0, 1, 2)
 _N_PARAMS = 16
 #: columns of the hazard block of the closed-form families, and of the
 #: repair block of exponential repairs (``core.hazards``)
@@ -90,19 +106,37 @@ _MAX_SHARED = 227 * 1024
 
 
 def pv_width(kind: str, n_seg: int = 0, rkind: str = "exponential",
-             n_rseg: int = 0) -> int:
+             n_rseg: int = 0, n_dom: int = 0, n_camp: int = 0) -> int:
     """Parameter columns of one row for these families: the 16 base
-    columns, the failure family's hazard block and the repair family's
-    block.
+    columns, the failure family's hazard block, the repair family's block
+    and a scenario's ``2 n_dom + 3 n_camp`` columns.
 
     >>> pv_width("exponential"), pv_width("empirical", 3)
     (24, 29)
     >>> pv_width("exponential", 0, "empirical", 2)
     27
+    >>> pv_width("exponential", n_dom=45, n_camp=3)
+    123
     """
     hazard = 4 * n_seg - 2 if kind == "empirical" else _N_HAZARD_COLS
     repair = 4 * n_rseg - 2 if rkind == "empirical" else _N_REPAIR_COLS
-    return _N_PARAMS + hazard + repair
+    return _N_PARAMS + hazard + repair + 2 * n_dom + 3 * n_camp
+
+
+def scenario_lanes(scen) -> tuple:
+    """The lanes of :data:`SCEN_LANES` that the scenario key ``(D,
+    codes)`` calls for: the deficit always, the shock counts for D > 0,
+    the schedule pointer for a non-empty schedule, the window flag for a
+    schedule with a maintenance start.
+
+    >>> scenario_lanes((45, (0, 1, 2)))
+    ('deficit', 'domain_shocks', 'camp_idx', 'maint')
+    >>> scenario_lanes((0, (0,)))
+    ('deficit', 'camp_idx')
+    """
+    n_dom, codes = scen
+    return tuple(k for k, on in zip(SCEN_LANES, (
+        True, n_dom > 0, len(codes) > 0, 1 in codes)) if on)
 
 
 def n_uniforms(kind: str, rkind: str = "exponential") -> int:
@@ -158,7 +192,13 @@ class ChunkArgs(ctypes.Structure):
                 ("repair_stage", ctypes.c_void_p),
                 ("n_repair_overflow", ctypes.c_void_p),
                 ("rkind", ctypes.c_int32), ("n_rseg", ctypes.c_int32),
-                ("n_slots", ctypes.c_int32)]
+                ("n_slots", ctypes.c_int32),
+                ("deficit", ctypes.c_void_p),
+                ("domain_shocks", ctypes.c_void_p),
+                ("camp_idx", ctypes.c_void_p), ("maint", ctypes.c_void_p),
+                ("scen_metric", ctypes.c_void_p * len(SCEN_METRICS)),
+                ("camp_codes", ctypes.c_void_p), ("n_dom", ctypes.c_int32),
+                ("n_camp", ctypes.c_int32), ("scen", ctypes.c_int32)]
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -190,7 +230,7 @@ def chunk_layout(state: Dict[str, torch.Tensor], us: torch.Tensor,
                  pv: torch.Tensor, R: int, P: int,
                  hist_channels: Sequence[str], *, kind: str = "exponential",
                  n_seg: int = 0, rkind: str = "exponential",
-                 n_rseg: int = 0) -> dict:
+                 n_rseg: int = 0, scen=None) -> dict:
     """The launch's layout, after every check the kernel needs.
 
     ``state`` is the engine's state dict over ``B = P * R`` rows, ``us``
@@ -201,18 +241,24 @@ def chunk_layout(state: Dict[str, torch.Tensor], us: torch.Tensor,
     and repair families and ``n_seg`` / ``n_rseg`` their empirical segment
     counts (0 for the other families).  A non-exponential repair family
     needs the state's repair-slot lane (:data:`SLOT_LANES`), which an
-    exponential one must not have.  Returns a dict: ``pointers`` (lane
+    exponential one must not have.  ``scen`` is a fault-domain scenario's
+    key ``(D, codes)`` (``core.faultdomains.scenario_key``), or None: a
+    scenario launch runs the scenario instance, takes exponential repairs
+    only, needs exactly the lanes :func:`scenario_lanes` names and the
+    parameter row's ``2D + 3L`` trailing columns, and a launch without one
+    refuses those lanes.  Returns a dict: ``pointers`` (lane
     name -> data pointer), ``pv_stride`` (0 for a shared row), ``n_rows``,
     ``R``, ``P``, ``R_draw``, ``n_steps``, ``max_runs``, ``n_sel``,
     ``n_edges``, ``chan`` (the kernel's code of each carried channel, its
     index in :data:`CHANNELS`), ``kind`` and ``rkind`` (the families'
     codes, their indices in :data:`KINDS` and :data:`REPAIR_KINDS`),
-    ``n_seg``, ``n_rseg``, ``n_slots`` (0 for exponential repairs) and
-    ``plan`` (:func:`slot_plan`'s, or None).  Raises ``ValueError`` on a
-    family or segment count the kernel does not run, a key it does not
-    know or lacks, a dtype, shape, device, stride or alignment it does not
-    take, or a slot lane too wide for shared memory.  Works on tensors of
-    any device.
+    ``n_seg``, ``n_rseg``, ``n_slots`` (0 for exponential repairs),
+    ``plan`` (:func:`slot_plan`'s, or None), ``scen`` (whether the
+    scenario instance runs), ``n_dom``, ``n_camp`` and ``codes`` (the
+    schedule codes).  Raises ``ValueError`` on a family, segment count or
+    scenario the kernel does not run, a key it does not know or lacks, a
+    dtype, shape, device, stride or alignment it does not take, or a slot
+    lane too wide for shared memory.  Works on tensors of any device.
     """
     if kind not in KINDS:
         _fail(f"failure family {kind!r} is not one of {KINDS}")
@@ -236,11 +282,28 @@ def chunk_layout(state: Dict[str, torch.Tensor], us: torch.Tensor,
         _fail(f"state keys {slots} are the repair-slot lane of a "
               "non-exponential repair family, and the launch's repairs "
               "are exponential")
-    known = _KNOWN | (set(SLOT_LANES) if slotted else set())
+    n_dom, codes = 0, ()
+    if scen is not None:
+        n_dom, codes = scen
+        codes = tuple(codes)
+        if not isinstance(n_dom, int) or n_dom < 0 \
+                or any(c not in _CODES for c in codes):
+            _fail(f"scenario key {scen!r} is not (D >= 0, codes in "
+                  f"{_CODES})")
+        if slotted:
+            _fail(f"a fault-domain scenario runs with exponential repairs, "
+                  f"not {rkind} (the reference's CTMC engine sends such a "
+                  "study to the event engine)")
+    scen_keys = scenario_lanes(scen) if scen is not None else ()
+    scen_lanes = sorted(set(state) & set(SCEN_LANES))
+    if scen_lanes and scen is None:
+        _fail(f"state keys {scen_lanes} are the lanes of a fault-domain "
+              "scenario, and the launch has none")
+    known = _KNOWN | (set(SLOT_LANES) if slotted else set()) | set(scen_keys)
     unknown = sorted(set(state) - known)
     if unknown:
         _fail(f"state keys {unknown} are lanes the kernel does not carry "
-              "(it runs the single-job step without fault domains)")
+              "(it runs the single-job step)")
     has_hist = "hist" in state
     needed = set(known) - ({"hist", "hist_edges"} if not has_hist else set())
     missing = sorted(needed - set(state))
@@ -258,6 +321,10 @@ def chunk_layout(state: Dict[str, torch.Tensor], us: torch.Tensor,
         _check(k, state[k], (B,), f32, device)
     for k in INT_LANES:
         _check(k, state[k], (B,), torch.int32, device)
+    for k in scen_keys:
+        shape = (B, n_dom) if k == "domain_shocks" else (B,)
+        _check(k, state[k], shape,
+               torch.int32 if k == "camp_idx" else f32, device)
     n_slots = 0
     if slotted:
         rem = state["repair_rem"]
@@ -305,10 +372,13 @@ def chunk_layout(state: Dict[str, torch.Tensor], us: torch.Tensor,
         pv_stride = pv.stride(0)
     else:
         _fail(f"pv {tuple(pv.shape)} is neither one row nor (B={B}, n_cols)")
-    width = pv_width(kind, n_seg, rkind, n_rseg)
+    width = pv_width(kind, n_seg, rkind, n_rseg, n_dom, len(codes))
     if pv.shape[-1] != width:
         _fail(f"pv has {pv.shape[-1]} columns; the step of {kind} failures "
-              f"and {rkind} repairs reads {width}")
+              f"and {rkind} repairs"
+              + (f" under a scenario of {n_dom} domains and {len(codes)} "
+                 "entries" if scen is not None else "")
+              + f" reads {width}")
     pointers = {k: v.data_ptr() for k, v in state.items()}
     pointers.update(pv=pv.data_ptr(), us=us.data_ptr())
     # the exponential instance loads its 8-float uniform rows as float4
@@ -321,10 +391,13 @@ def chunk_layout(state: Dict[str, torch.Tensor], us: torch.Tensor,
             "max_runs": max_runs, "n_sel": n_sel, "n_edges": n_edges,
             "chan": tuple(chan), "kind": KINDS.index(kind), "n_seg": n_seg,
             "rkind": REPAIR_KINDS.index(rkind), "n_rseg": n_rseg,
-            "n_slots": n_slots, "plan": plan}
+            "n_slots": n_slots, "plan": plan, "scen": scen is not None,
+            "n_dom": n_dom, "n_camp": len(codes), "codes": codes}
 
 
-def _args(layout: dict) -> ChunkArgs:
+def _args(layout: dict, codes=None) -> ChunkArgs:
+    """The launch's struct; ``codes`` is the schedule codes as an int32
+    tensor on the state's device (a scenario with a schedule only)."""
     ptr = layout["pointers"]
     args = ChunkArgs()
     args.comp[:] = [ptr[k] for k in COMPARTMENTS]
@@ -343,7 +416,23 @@ def _args(layout: dict) -> ChunkArgs:
     if layout["plan"] is not None:
         for k in SLOT_WRITTEN:
             setattr(args, k, ptr[k])
+    if layout["scen"]:
+        args.scen, args.n_dom = 1, layout["n_dom"]
+        args.n_camp = layout["n_camp"]
+        for k in SCEN_LANES:
+            setattr(args, k, ptr.get(k))
+        args.scen_metric[:] = [ptr[k] for k in SCEN_METRICS]
+        if layout["n_camp"]:
+            args.camp_codes = codes.data_ptr()
     return args
+
+
+@functools.lru_cache(maxsize=None)
+def schedule_codes(codes: tuple, device: torch.device) -> torch.Tensor:
+    """A scenario's schedule codes as an int32 tensor on ``device``, made
+    once and kept (no copy a step or a launch, and a launch in flight
+    never reads freed memory)."""
+    return torch.tensor(codes, dtype=torch.int32, device=device)
 
 
 def ctmc_chunk_cuda(state: Dict[str, torch.Tensor], us: torch.Tensor,
@@ -351,12 +440,14 @@ def ctmc_chunk_cuda(state: Dict[str, torch.Tensor], us: torch.Tensor,
                     hist_channels: Sequence[str], *,
                     kind: str = "exponential", n_seg: int = 0,
                     rkind: str = "exponential", n_rseg: int = 0,
+                    scen=None,
                     inplace: bool = False) -> Dict[str, torch.Tensor]:
     """Launch the kernel: ``us.shape[0]`` steps for every row at once.
 
-    ``kind`` / ``n_seg`` and ``rkind`` / ``n_rseg`` choose the instance
-    (see :func:`chunk_layout`): the failure family's, or its slot instance
-    for a non-exponential repair family.  Returns the new state dict.  By
+    ``kind`` / ``n_seg``, ``rkind`` / ``n_rseg`` and ``scen`` choose the
+    instance (see :func:`chunk_layout`): the failure family's, its slot
+    instance for a non-exponential repair family, or its scenario instance
+    for a fault-domain scenario.  Returns the new state dict.  By
     default the lanes the kernel writes are cloned first, so ``state`` is
     left as it was (as ``_step_u`` leaves it); ``inplace=True`` writes
     into ``state``'s own tensors, for a caller that owns them.  Takes CUDA
@@ -364,17 +455,19 @@ def ctmc_chunk_cuda(state: Dict[str, torch.Tensor], us: torch.Tensor,
     nothing synchronises.
     """
     global LAUNCHES, STEPS
-    written = WRITTEN + (SLOT_WRITTEN if rkind != "exponential" else ())
+    written = WRITTEN + (SLOT_WRITTEN if rkind != "exponential" else ()) \
+        + (SCEN_LANES + SCEN_METRICS if scen is not None else ())
     new = dict(state) if inplace else {
         k: v.clone() if k in written else v for k, v in state.items()}
     layout = chunk_layout(new, us, pv, R, P, hist_channels, kind=kind,
-                          n_seg=n_seg, rkind=rkind, n_rseg=n_rseg)
+                          n_seg=n_seg, rkind=rkind, n_rseg=n_rseg, scen=scen)
     device = new["phase"].device
     if device.type != "cuda":
         _fail(f"the state is on {device}, not a CUDA device")
     if layout["n_rows"] == 0 or layout["n_steps"] == 0:
         return new
-    args = _args(layout)
+    args = _args(layout, schedule_codes(layout["codes"], device)
+                 if layout["n_camp"] else None)
     lib = LIBRARY.load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -384,5 +477,7 @@ def ctmc_chunk_cuda(state: Dict[str, torch.Tensor], us: torch.Tensor,
     LAUNCHES += 1
     LAUNCHES_BY_KIND[kind] += 1
     LAUNCHES_BY_REPAIR[rkind] += 1
+    if scen is not None:
+        LAUNCHES_BY_SCEN[kind] += 1
     STEPS += layout["n_steps"]
     return new

@@ -55,6 +55,11 @@ ROUTES = {
     "fault_domains_weibull_repairs": ({
         "fault_domains": jc.FaultTopology(n_racks=4, rack_shock_rate=1e-4),
         "repair_distribution": "weibull"}, None),
+    "campaign_lognormal_repairs": ({
+        "fault_domains": jc.FaultTopology(n_racks=4),
+        "campaign": jc.Campaign(events=(jc.CampaignEvent(
+            time=60.0, kind="kill", domain=1),)),
+        "repair_distribution": "lognormal"}, None),
     "weibull": ({"failure_distribution": "weibull",
                  "distribution_kwargs": {"k": 1.5}}, None),
     "bathtub": ({"failure_distribution": "bathtub"}, None),
@@ -80,7 +85,9 @@ ROUTES = {
                                            "rates": [2.0]}}, None),
     "age_float64": ({"age_dtype": "float64"}, "item 8b"),
     "fault_domains": ({"fault_domains": jc.FaultTopology(
-        n_racks=4, rack_shock_rate=1e-4)}, "item 9"),
+        n_racks=4, rack_shock_rate=1e-4)}, None),
+    "campaign": ({"campaign": jc.Campaign(events=(jc.CampaignEvent(
+        time=60.0, kind="maintenance", duration=30.0),))}, None),
     "engine_shards": ({"engine_shards": 2}, "item 11"),
 }
 
@@ -113,6 +120,28 @@ def test_auto_routes_as_the_reference(name):
                                              "repair-shop|require"):
             tb.resolve_engine(port, "ctmc")
     assert tb.resolve_engine(port, "event") == "event"
+
+
+@pytest.mark.parametrize("repairs", ["weibull", "lognormal"])
+def test_scenario_with_nonexp_repairs_goes_to_the_event_engine(repairs):
+    """Fault domains or campaigns with non-exponential repairs run on the
+    event engine, for the reference's own reason, word for word."""
+    ref = JParams(**SMALL, repair_distribution=repairs,
+                  fault_domains=jc.FaultTopology(n_racks=4,
+                                                 rack_shock_rate=1e-4))
+    port = TParams.from_dict(ref.to_dict())
+    from repro.core import vectorized as jv
+    from repro_torch.core import vectorized as tv
+    reason = ("fault domains / campaigns require exponential repairs on "
+              "the fast path (a struck in-shop server would need a "
+              "per-slot redraw)")
+    assert tv.reference_reasons(port) == jv.unsupported_reasons(ref) \
+        == [reason]
+    assert tv.port_reasons(port) == []
+    assert tb.resolve_engine(port, "auto") == "event" \
+        == jb.resolve_engine(ref, "auto")
+    with pytest.raises(ValueError, match="per-slot redraw"):
+        tb.resolve_engine(port, "ctmc")
 
 
 def test_registered_family_routes_by_its_instance():

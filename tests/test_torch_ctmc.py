@@ -153,9 +153,13 @@ def test_padding_rows_stay_inert():
 
 
 @pytest.mark.parametrize("kw", [
-    {"fault_domains": FaultTopology(n_racks=8, rack_shock_rate=1e-5)},
+    # fault domains and campaigns run on the port's CTMC engine; combined
+    # with what it does not run yet they are still refused
+    {"fault_domains": FaultTopology(n_racks=8, rack_shock_rate=1e-5),
+     "engine_shards": 2},
     {"campaign": Campaign(events=({"time": 10.0, "kind": "maintenance",
-                                   "duration": 5.0},))},
+                                   "duration": 5.0},)),
+     "age_dtype": "float64"},
     {"engine_shards": 2}, {"age_dtype": "float64"}])
 def test_unported_params_refused(kw):
     p = TParams(**kw)
@@ -168,10 +172,22 @@ def test_unported_params_refused(kw):
 
 
 def test_fault_domains_refused():
-    from repro_torch.core.faultdomains import FaultTopology
-    p = TParams(fault_domains=FaultTopology(n_racks=8, rack_shock_rate=1e-5))
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 9"):
-        tv.simulate_ctmc_sweep([p], n_replicas=4, device="cpu")
+    """Fault domains run on the port's CTMC engine (ROADMAP queue 1 item 9
+    is done): a rack-shock sweep completes, and its counters agree."""
+    p = SMALL.replace(fault_domains=FaultTopology(n_racks=8,
+                                                  rack_shock_rate=1e-3))
+    assert tv.supports(p) and tb.resolve_engine(p, "auto") == "ctmc"
+    out = tv.simulate_ctmc_sweep([p, p.replace(fault_domains=FaultTopology(
+        n_racks=8))], n_replicas=16, device="cpu")
+    assert all(o["completed"].all() for o in out)
+    shocked, calm = out
+    assert shocked["n_domain_shocks"].sum() > 0
+    assert shocked["n_shock_killed"].sum() >= shocked["n_domain_shocks"].sum()
+    np.testing.assert_array_equal(shocked["domain_shocks"].sum(1),
+                                  shocked["n_domain_shocks"])
+    assert shocked["domain_shocks"].shape == (16, 8)
+    assert calm["n_domain_shocks"].sum() == calm["n_shock_killed"].sum() == 0
+    assert (shocked["n_campaign_events"] == 0).all()
 
 
 def test_engine_dispatch_refuses_loudly():

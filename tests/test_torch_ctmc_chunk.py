@@ -7,7 +7,9 @@ over 64 steps on the same numpy uniforms (integer lanes under the
 pick-flip budget of ``test_torch_step.py``).  On the card (marked
 ``gpu``): the kernel against ``_steps_ref`` on the same state and draw,
 every lane, over configurations that reach each branch of the step, for
-each failure family and, through the slot instances, each repair family.
+each failure family and, through the slot instances, each repair family,
+and through the scenario instances each failure family under fault
+domains and a campaign.
 Integer lanes and histogram counts must match exactly and float lanes
 within 1e-6 relative; both run the same float32 operations in the same
 order, so they are expected to agree bit for bit.
@@ -17,8 +19,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import hazards
+from repro_torch.core import faultdomains, hazards
 from repro_torch.core import vectorized as tv
+from repro_torch.core.faultdomains import (Campaign, CampaignEvent,
+                                           FaultTopology)
 from repro_torch.core.histograms import HIST_CHANNELS, HistogramSpec
 from repro_torch.core.params import MINUTES_PER_DAY as DAY
 from repro_torch.core.params import Params
@@ -92,6 +96,24 @@ REPAIRS = {
         auto_repair_time=0.5 * DAY, manual_repair_time=30 * DAY,
         automated_repair_probability=0.3, repair_slots=44),
 }
+#: each failure family under a fault-domain scenario, for the scenario
+#: instances: rack and pod shocks, a kill of pod 1 and a maintenance
+#: window inside the first 64 steps, one warm standby and frequent paid
+#: checkpoint writes, so that the first chunk holds shock steps, the kill,
+#: the window's start and end, stalls owing more than one server and kills
+#: during a checkpoint write (test_scenario_chunk_reaches_every_branch)
+SCEN_TOPO = FaultTopology(n_racks=4, racks_per_pod=2, rack_shock_rate=2e-3,
+                          pod_shock_rate=6e-4)
+SCEN_CAMPAIGN = Campaign(events=(
+    CampaignEvent(time=60.0, kind="kill", domain=5),
+    CampaignEvent(time=100.0, kind="maintenance", duration=60.0)))
+SCENARIOS = {
+    name: p.replace(fault_domains=SCEN_TOPO, campaign=SCEN_CAMPAIGN,
+                    warm_standbys=1, checkpoint_interval=10.0,
+                    checkpoint_cost=4.0)
+    for name, p in (("exponential", NONEXP),
+                    *((k, FAMILIES[k]) for k in ("weibull", "bathtub",
+                                                 "lognormal", "empirical")))}
 #: name -> (points, replicas a point, ring size or None for the default,
 #: per-row pv, pow2-bucketed, chunks of 64 steps)
 CASES = {
@@ -163,6 +185,18 @@ CASES = {
         for v in (20.0, 45.0, 90.0)], 20, None, True, True, 3),
     "repair_short": ([REPAIRS["lognormal"].replace(job_length=0.1 * DAY)],
                      40, None, False, False, 3),
+    # each failure family through its scenario instance, one chunk
+    **{f"scen_{name}": ([p], 48, None, False, False, 1)
+       for name, p in SCENARIOS.items()},
+    # a bucketed shock-rate sweep (rate 0 included) over three chunks, and
+    # shocks alone with rows that finish
+    "scen_rate_grid": ([SCENARIOS["exponential"].replace(
+        fault_domains=FaultTopology(n_racks=4, racks_per_pod=2,
+                                    rack_shock_rate=r, pod_shock_rate=6e-4))
+        for r in (0.0, 1e-3, 3e-3)], 20, None, True, True, 3),
+    "scen_shocks_only": ([SMALL.replace(
+        fault_domains=FaultTopology(n_racks=5, rack_shock_rate=5e-3),
+        job_length=0.1 * DAY)], 40, None, False, False, 3),
 }
 
 
@@ -181,10 +215,18 @@ def _families(pts):
     return keys.pop()
 
 
+def _scen(pts):
+    """The scenario key the case's points share (None for none)."""
+    keys = {faultdomains.scenario_key(p) for p in pts}
+    assert len(keys) == 1, keys
+    return keys.pop()
+
+
 def _fam_kw(pts):
     """The launch's family keywords for a case's points."""
     kind, n_seg, rkind, n_rseg = _families(pts)
-    return dict(kind=kind, n_seg=n_seg, rkind=rkind, n_rseg=n_rseg)
+    return dict(kind=kind, n_seg=n_seg, rkind=rkind, n_rseg=n_rseg,
+                scen=_scen(pts))
 
 
 def _setup(name, device):
@@ -195,7 +237,8 @@ def _setup(name, device):
     mr = max(p.max_run_records for p in pts) if mr is None else mr
     rkind = _families(pts)[2]
     state = tv._initial_state_batch(pts, R, mr, device, rkind,
-                                    tv._repair_slots_for(pts, rkind))
+                                    tv._repair_slots_for(pts, rkind),
+                                    _scen(pts))
     rows = np.stack([tv._params_vector(p) for p in pts])
     if bucket:
         P_run, R_run = tv._next_pow2(P), tv._next_pow2(R)
@@ -518,6 +561,121 @@ def test_library_hash_covers_headers_and_flags(tmp_path, monkeypatch):
     assert lib.library_path() != first
 
 
+@pytest.mark.parametrize("name", ["scen_exponential", "scen_lognormal",
+                                  "scen_empirical", "scen_rate_grid",
+                                  "scen_shocks_only"])
+def test_layout_of_each_scenario_instance(name):
+    state, pv, R, P, channels = _setup(name, "cpu")
+    fam = _fam_kw(CASES[name][0])
+    n_dom, codes = fam["scen"]
+    us = _draw(R, 0, n_steps=2, kind=fam["kind"])
+    lay = ctmc_chunk.chunk_layout(state, us, pv, R, P, channels, **fam)
+    assert lay["scen"] and (lay["n_dom"], lay["n_camp"], lay["codes"]) == (
+        n_dom, len(codes), codes)
+    assert pv.shape[-1] == ctmc_chunk.pv_width(
+        fam["kind"], fam["n_seg"], n_dom=n_dom, n_camp=len(codes))
+    assert set(state) & set(ctmc_chunk.SCEN_LANES) == set(
+        ctmc_chunk.scenario_lanes(fam["scen"]))
+    codes_t = torch.tensor(codes, dtype=torch.int32) if codes else None
+    args = ctmc_chunk._args(lay, codes_t)
+    assert (args.scen, args.n_dom, args.n_camp) == (1, n_dom, len(codes))
+    assert args.deficit == state["deficit"].data_ptr()
+    assert list(args.scen_metric) == [state[k].data_ptr()
+                                      for k in ctmc_chunk.SCEN_METRICS]
+    assert (args.camp_codes or 0) == (codes_t.data_ptr() if codes else 0)
+    assert (args.domain_shocks or 0) == (
+        state["domain_shocks"].data_ptr() if n_dom else 0)
+    # the scenario-free launch refuses the lanes, and the parameter row's
+    # trailing columns are counted
+    with pytest.raises(ValueError, match="fault-domain scenario"):
+        ctmc_chunk.chunk_layout(state, us, pv, R, P, channels,
+                                kind=fam["kind"], n_seg=fam["n_seg"])
+    with pytest.raises(ValueError, match="columns"):
+        ctmc_chunk.chunk_layout(state, us, pv[..., :-1].contiguous(), R, P,
+                                channels, **fam)
+
+
+@pytest.mark.parametrize("what", ["slots", "codes", "domains", "lane",
+                                  "missing", "dtype"])
+def test_layout_refuses_a_bad_scenario(what):
+    state, pv, R, P, channels = _setup("scen_exponential", "cpu")
+    fam = _fam_kw(CASES["scen_exponential"][0])
+    us = _draw(R, 0, n_steps=2)
+    match = "ctmc_chunk"
+    if what == "slots":
+        fam.update(rkind="weibull")
+        match = "exponential repairs"
+    elif what == "codes":
+        fam["scen"] = (fam["scen"][0], (0, 7))
+        match = "scenario key"
+    elif what == "domains":
+        fam["scen"] = (fam["scen"][0] + 1, fam["scen"][1])
+        match = "domain_shocks has shape"
+    elif what == "lane":
+        fam["scen"] = (fam["scen"][0], (0,))       # no window: no maint
+        match = "does not carry"
+    elif what == "missing":
+        del state["deficit"]
+        match = "lacks"
+    elif what == "dtype":
+        state["camp_idx"] = state["camp_idx"].float()
+        match = "camp_idx has dtype"
+    with pytest.raises(ValueError, match=match):
+        ctmc_chunk.chunk_layout(state, us, pv, R, P, channels, **fam)
+    before = dict(ctmc_chunk.LAUNCHES_BY_SCEN)
+    with pytest.raises(ValueError, match="ctmc_chunk"):
+        ctmc_chunk.ctmc_chunk_cuda(state, us, pv, R, P, channels, **fam)
+    assert ctmc_chunk.LAUNCHES_BY_SCEN == before
+
+
+def _scenario_reach(state, us, pv, R, P, channels, fam):
+    """What the plain chunk reaches of a scenario over ``us``'s steps, a
+    step at a time: shock steps, campaign kills, window starts and ends,
+    stalls owing more than one server, kills during a checkpoint write."""
+    n = dict.fromkeys(("shock", "kill", "window_start", "window_end",
+                       "deep_stall", "kill_in_write"), 0)
+    codes = fam["scen"][1]
+    for k in range(us.shape[0]):
+        before = state
+        state = tv._steps_ref(state, us[k:k + 1], pv, R, P, "ref", channels,
+                              fam["kind"], fam["n_seg"], fam["rkind"],
+                              fam["n_rseg"], fam["scen"])
+        n["shock"] += int((state["n_domain_shocks"]
+                           > before["n_domain_shocks"]).sum())
+        if codes:
+            fired = state["camp_idx"] > before["camp_idx"]
+            code = torch.tensor(codes)[before["camp_idx"].clamp(
+                max=len(codes) - 1).long().cpu()]
+            n["kill"] += int((fired.cpu() & (code == 0)).sum())
+            n["window_start"] += int((fired.cpu() & (code == 1)).sum())
+            n["window_end"] += int((fired.cpu() & (code == 2)).sum())
+        n["deep_stall"] += int(((state["phase"] == tv.STALL)
+                                & (before["phase"] != tv.STALL)
+                                & (state["deficit"] > 1.0)).sum())
+        n["kill_in_write"] += int(((before["in_ckpt"] > 0)
+                                   & (state["n_shock_killed"]
+                                      > before["n_shock_killed"])).sum())
+    return n
+
+
+#: the scenario cases whose first chunk must reach every branch
+SCEN_CHUNK_CASES = tuple(f"scen_{name}" for name in SCENARIOS)
+
+
+@pytest.mark.parametrize("name", SCEN_CHUNK_CASES)
+def test_scenario_chunk_reaches_every_branch(name):
+    """The first 64 steps of each scenario case hold a shock step, the
+    campaign kill, the window's start and end, a stall owing more than
+    one server and a kill during a checkpoint write (so the card cases
+    below hold the kernel's every scenario branch against the plain
+    chunk)."""
+    state, pv, R, P, channels = _setup(name, "cpu")
+    fam = _fam_kw(CASES[name][0])
+    reach = _scenario_reach(state, _draw(R, 0, kind=fam["kind"]), pv, R, P,
+                            channels, fam)
+    assert min(reach.values()) > 0, reach
+
+
 # ---------------------------------------------------------------------------
 # the plain chunk (CPU)
 # ---------------------------------------------------------------------------
@@ -648,10 +806,15 @@ def test_chunk_kernel_matches_steps_ref(name):
         by_kind = ctmc_chunk.LAUNCHES_BY_KIND[kind]
         by_repair = ctmc_chunk.LAUNCHES_BY_REPAIR[rkind]
         race = des_step.LAUNCHES
+        scen_launches = ctmc_chunk.LAUNCHES_BY_SCEN[kind]
         got = ctmc_chunk.ctmc_chunk_cuda(got, us, pv, R, P, channels, **fam)
+        if fam["scen"] is not None and i == 0:
+            reach = _scenario_reach(want, us, pv, R, P, channels, fam)
         want = tv._steps_ref(want, us, pv, R, P, "ref", channels, kind,
-                             fam["n_seg"], rkind, fam["n_rseg"])
+                             fam["n_seg"], rkind, fam["n_rseg"], fam["scen"])
         torch.cuda.synchronize()
+        assert ctmc_chunk.LAUNCHES_BY_SCEN[kind] == scen_launches + (
+            fam["scen"] is not None)
         assert ctmc_chunk.LAUNCHES == launches + 1
         assert ctmc_chunk.LAUNCHES_BY_KIND[kind] == by_kind + 1
         assert ctmc_chunk.LAUNCHES_BY_REPAIR[rkind] == by_repair + 1
@@ -668,6 +831,8 @@ def test_chunk_kernel_matches_steps_ref(name):
         assert float(want["n_repair_overflow"].sum()) > 0
     if name == "repair_width_44":
         assert int(torch.isfinite(want["repair_rem"]).sum(-1).max()) > 32
+    if name.startswith("scen_") and name in SCEN_CHUNK_CASES:
+        assert min(reach.values()) > 0, reach
 
 
 @pytest.mark.gpu
