@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths on the card -- a Table-I
-capacity-planning sweep through ``repro_torch.core.OneWaySweep``, and LLM
+Drives the port's main paths on the card -- a Table-I
+capacity-planning sweep through ``repro_torch.core.OneWaySweep``, a
+multi-job capacity grid through ``repro_torch.core.MultiJobSweep``, and LLM
 serving (prefill + greedy decode) of qwen2.5-3b and falcon-mamba-7b at
 their full published widths through ``repro_torch.models.build_model`` --
 and holds each hand-written kernel against its plain PyTorch version;
@@ -131,7 +132,26 @@ Phases, each of which fails the run loudly:
     run traced; the whole lognormal run through the plain step loop (0
     bit-different elements); then run parity of tests/test_faultdomains
     .py's SCENARIO, the CTMC engine on the card (768 replicas) against the
-    event engine on the host (48), every compared metric within |z| < 3.5.
+    event engine on the host (48), every compared metric within |z| < 3.5;
+20. examples/capacity_planning.py's multi-job what-if: ``MultiJobSweep``
+    over ``spare_pool_size`` in {8, 10, 12} x ``repair_servers`` in {3, 4},
+    three jobs (64/32/16 servers) sharing one 200-server pool and one
+    repair shop, 256 replicas, ``engine="auto"``, each step's race one
+    launch of the standalone race kernel (``csrc/event_race.cu``, 48 rates
+    x 6 residuals), its launches counted from 0: launches equal to the
+    steps run and no chunk-kernel launch, every replica complete with its
+    servers conserved, each point's makespan, stall hand-offs and queue;
+    the same sweep through the plain race on the card (0 bit-different
+    elements); the 1-job unbounded-shop point through the multi-job API
+    (chunk-kernel launches, no race launch, 0 differing elements against
+    ``simulate_ctmc_sweep``); the race alone at a mid-run step's inputs
+    against its plain version, with both one's times and the kernel's
+    bound; and a traced run (device kernels a step, the device's busy
+    share, the race's device time a launch);
+21. run parity of tests/test_multijob_parity.py's two- and four-job
+    clusters: the multi-job CTMC engine on the card (1,024 replicas, a race
+    launch a step) against the port's event engine on the host (96 and
+    80), every pinned per-job and fleet mean within |z| < 3.5.
 
 Prints a ``{"serving": ..., "host_paths": ...}`` line, a ``{"kernels":
 [...]}`` line and, as its last line, ``{"ok": true, "device": {...}}``.  Exits non-zero, with
@@ -377,6 +397,42 @@ BULK_OPS = 4 * 36 + 20 + 20 + 3 * 41 + 20
 #: bytes of a row's scenario lanes in the state (deficit, schedule pointer,
 #: window flag, the three counters)
 SCEN_LANE_BYTES = 6 * 4
+
+#: phase 20: examples/capacity_planning.py's multi-job what-if: three
+#: mixed-size jobs (job_size, job_length, warm_standbys) on one 200-server
+#: pool, a spare_pool_size x repair_servers grid, the example's 256
+#: replicas (its --fast count is 16)
+MJ_CLUSTER = dict(working_pool_size=200, spare_pool_size=12, job_size=64,
+                  job_length=720.0, random_failure_rate=0.004,
+                  systematic_failure_rate=0.01, auto_repair_time=180.0,
+                  manual_repair_time=480.0, repair_servers=4,
+                  histogram=None)
+MJ_JOBS = ((64, 720.0, 2), (32, 1000.0, 1), (16, 860.0, 1))
+MJ_SPARES, MJ_SHOPS, MJ_REPLICAS = [8, 10, 12], [3, 4], 256
+#: steps of phase 20's traced run
+MJ_TRACE_STEPS = 64
+#: phase 21: tests/test_multijob_parity.py's two clusters (cluster Params
+#: keywords, jobs, event replications, seed) and the metrics it pins
+MJ_PARITY = {
+    "two_job": (dict(working_pool_size=110, spare_pool_size=16,
+                     job_size=16, job_length=4000.0,
+                     random_failure_rate=0.001,
+                     systematic_failure_rate=0.005, auto_repair_time=180.0,
+                     manual_repair_time=480.0, repair_servers=6),
+                ((32, 4000.0, 2), (16, 6000.0, 1)), 96, 17),
+    "four_job": (dict(working_pool_size=110, spare_pool_size=12,
+                      job_size=16, job_length=3000.0,
+                      random_failure_rate=0.001,
+                      systematic_failure_rate=0.005, auto_repair_time=150.0,
+                      manual_repair_time=420.0, repair_servers=5),
+                 ((24, 3000.0, 2), (16, 4000.0, 1), (12, 3500.0, 1),
+                  (8, 5000.0, 1)), 80, 29),
+}
+MJ_PARITY_CTMC = 1024
+MJ_JOB_METRICS = ("total_time", "n_failures", "stall_time", "n_preemptions",
+                  "recovery_overhead")
+MJ_FLEET_METRICS = ("makespan", "stall_handoffs", "n_auto_repairs",
+                    "n_manual_repairs", "n_shop_queued")
 
 
 def fail(msg: str) -> None:
@@ -1964,6 +2020,331 @@ def scenario_parity_phase(core, cc):
             "event_s": event_s}
 
 
+def bit_different(a, b):
+    """(elements whose bits differ, elements, arrays) between two lists of
+    multi-job point dicts: every per-job array and every cluster lane."""
+    import numpy as np
+    pairs = []
+    for pa, pb in zip(a, b):
+        pairs += [(pa[k], pb[k]) for k in pa if k != "per_job"]
+        for da, db in zip(pa["per_job"], pb["per_job"]):
+            if sorted(da) != sorted(db):
+                fail(f"point lanes differ: {sorted(da)} vs {sorted(db)}")
+            pairs += [(da[k], db[k]) for k in da]
+    n = total = 0
+    for x, y in pairs:
+        x, y = np.ascontiguousarray(x), np.ascontiguousarray(y)
+        if x.shape != y.shape or x.dtype != y.dtype:
+            fail(f"lane shapes differ: {x.shape} {x.dtype} vs {y.shape} "
+                 f"{y.dtype}")
+        bits = f"u{x.itemsize}"
+        n += int((x.view(bits) != y.view(bits)).sum())
+        total += x.size
+    return n, total, len(pairs)
+
+
+def multijob_phase(core, cc, des_step, ref):
+    """Phase 20: the multi-job CTMC engine on the card, through
+    ``MultiJobSweep`` and ``engine="auto"``; see the module docstring."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    vmj = core.vectorized_multijob
+    t_phase = time.perf_counter()
+    cluster = core.Params(**MJ_CLUSTER)
+    jobs = [core.JobSpec(*j) for j in MJ_JOBS]
+    sweep = core.MultiJobSweep(
+        "fleet-capacity", jobs, "spare_pool_size", MJ_SPARES,
+        parameter_b="repair_servers", values_b=MJ_SHOPS,
+        n_replications=MJ_REPLICAS, base_params=cluster, engine="auto",
+        device="cuda")
+    rec = {"steps": 0, "samples": {}}
+    orig_steps = vmj._mj_steps
+    orig_sweep = vmj.simulate_multijob_ctmc_sweep
+    orig_race = des_step.event_race_cuda
+
+    def steps(state, us, *args, **kwargs):
+        rec["steps"] += us.shape[0]
+        return orig_steps(state, us, *args, **kwargs)
+
+    def sweep_fn(*args, **kwargs):
+        rec["call"] = (args, kwargs)
+        rec["points"] = orig_sweep(*args, **kwargs)
+        return rec["points"]
+
+    def race(*args):
+        # keep the race's inputs every 128 steps, to time it alone at a
+        # step's shape below
+        if des_step.LAUNCHES % 128 == 0:
+            rec["samples"][des_step.LAUNCHES] = [t.clone() for t in args]
+        return orig_race(*args)
+
+    vmj._mj_steps, vmj.simulate_multijob_ctmc_sweep = steps, sweep_fn
+    des_step.event_race_cuda = race
+    try:
+        zero_counts(cc)
+        des_step.LAUNCHES = 0                      # the multi-job path's run
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sweep.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, chunk_launches = des_step.LAUNCHES, cc.LAUNCHES
+    finally:
+        vmj._mj_steps, vmj.simulate_multijob_ctmc_sweep = orig_steps, \
+            orig_sweep
+        des_step.event_race_cuda = orig_race
+    n_steps = rec["steps"]
+    print(f"  {len(res.points)} points x {MJ_REPLICAS} replicas, "
+          f"{len(jobs)} jobs: {n_steps} steps, standalone race launches "
+          f"{launches}, chunk kernel launches {chunk_launches}; wall "
+          f"{wall:.6f} s = {wall / max(n_steps, 1) * 1e3:.4f} ms a step")
+    if n_steps <= 0 or launches != n_steps or chunk_launches:
+        fail(f"multi-job sweep: {n_steps} steps but {launches} race and "
+             f"{chunk_launches} chunk launches")
+    for pt in res.points:
+        st = pt.stats
+        if pt.engine != "ctmc":
+            fail(f"multi-job point {pt.values} ran on {pt.engine}")
+        if st["completed"].mean != 1.0 or st["conservation_err"].maximum:
+            fail(f"multi-job point {pt.values}: completed "
+                 f"{st['completed'].mean}, conservation error "
+                 f"{st['conservation_err'].maximum}")
+        for name, stat in st.items():
+            if not math.isfinite(stat.mean):
+                fail(f"multi-job point {pt.values}: {name} is not finite")
+        print(f"  spares={pt.values['spare_pool_size']} "
+              f"shop={pt.values['repair_servers']}: makespan "
+              f"{st['makespan'].mean / 60:.3f} h, stall hand-offs "
+              f"{st['stall_handoffs'].mean:.3f}, queued "
+              f"{st['n_shop_queued'].mean:.3f}, failures "
+              f"{st['fleet_n_failures'].mean:.3f}, job0 "
+              f"{st['job0_total_time'].mean / 60:.3f} h, job2 "
+              f"{st['job2_total_time'].mean / 60:.3f} h")
+
+    # the same sweep through the plain race on the card, same draws
+    args, kwargs = rec["call"]
+    before = des_step.LAUNCHES
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = orig_sweep(*args, **dict(kwargs, impl="ref"))
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    if des_step.LAUNCHES != before:
+        fail("impl='ref' launched the race kernel")
+    diff, total, lanes = bit_different(rec["points"], plain)
+    print(f"  impl='ref' on the card: wall {plain_wall:.6f} s; "
+          f"bit-different elements against the kernel's run {diff} of "
+          f"{total} over {lanes} arrays")
+    if diff:
+        fail(f"the race kernel's sweep differs from the plain race's in "
+             f"{diff} elements")
+
+    # the 1-job, unbounded-shop point: the single-job engine's chunk kernel
+    t_part = time.perf_counter()
+    one = cluster.replace(repair_servers=0)
+    spec = jobs[0]
+    race0, chunk0 = des_step.LAUNCHES, cc.LAUNCHES
+    got = vmj.simulate_multijob_ctmc_sweep([(one, (spec,))],
+                                           n_replicas=MJ_REPLICAS, seed=0,
+                                           device="cuda")
+    one_race, one_chunks = des_step.LAUNCHES - race0, cc.LAUNCHES - chunk0
+    want = core.simulate_ctmc_sweep(
+        [one.replace(job_size=spec.job_size, job_length=spec.job_length,
+                     warm_standbys=spec.warm_standbys)],
+        n_replicas=MJ_REPLICAS, seed=0, device="cuda")
+    one_diff, one_total, one_lanes = bit_different(
+        [{"per_job": [got[0]["per_job"][0]]}], [{"per_job": want}])
+    print(f"  1-job point through the multi-job API: {one_chunks} chunk "
+          f"launches, race launches {one_race}; differing elements against "
+          f"simulate_ctmc_sweep {one_diff} of {one_total} over {one_lanes} "
+          "lanes")
+    if one_race or one_chunks <= 0 or one_diff:
+        fail(f"1-job point: {one_race} race launches, {one_chunks} chunk "
+             f"launches, {one_diff} differing elements")
+    parts = {"sweep": wall, "plain_sweep": plain_wall,
+             "one_job": time.perf_counter() - t_part}
+    t_part = time.perf_counter()
+
+    # the race alone at a step's shape, mid-run, against the plain race
+    at = min(rec["samples"], key=lambda i: abs(i - n_steps // 2))
+    race_args = rec["samples"][at]
+    rates, resid = race_args[:2]
+    counted = des_step.LAUNCHES
+    dt_k, ev_k = orig_race(*race_args)
+    dt_r, ev_r = ref.event_race_ref(*race_args)
+    torch.cuda.synchronize()
+    mism = int((ev_k != ev_r).sum())
+    fin = torch.isfinite(dt_r)
+    if not torch.equal(fin, torch.isfinite(dt_k)):
+        fail("multi-job race: kernel and plain version disagree on +inf dt")
+    d = (dt_k[fin] - dt_r[fin]).abs()
+    rel = float((d / dt_r[fin].abs().clamp_min(1e-30)).max()) \
+        if bool(fin.any()) else 0.0
+    abs_err = float(d.max()) if bool(fin.any()) else 0.0
+    if mism or rel > 1e-6:
+        fail(f"multi-job race: {mism} event mismatches, dt rel err {rel}")
+    dead = int(((rates.sum(-1) == 0) & torch.isinf(resid).all(-1)).sum())
+    k_ms = event_ms(lambda: orig_race(*race_args), 500)
+    r_ms = event_ms(lambda: ref.event_race_ref(*race_args), 200)
+    k_dev = device_ms(lambda: orig_race(*race_args), 100)
+    r_dev = device_ms(lambda: ref.event_race_ref(*race_args), 50)
+    des_step.LAUNCHES = counted
+    R, ke = rates.shape
+    kd = resid.shape[1]
+    row_bytes = (ke + kd + 2) * 4 + 4 + 4      # inputs read once + outputs
+    row_ops = 4 * ke + kd + 4                  # sum, cumsum, divide, compare
+    bytes_ms = R * row_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = R * row_ops / FP32_OPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    print(f"  race at step {at} ({R}x{ke}x{kd}, {dead} rows with no live "
+          f"clock): event mismatches {mism}, dt max rel err {rel:.3e}, max "
+          f"abs err {abs_err:.3e}; CUDA events (back-to-back): kernel "
+          f"{k_ms:.6f} ms, plain {r_ms:.6f} ms; device time: kernel {k_dev} "
+          f"ms, plain {r_dev} ms; bound {bound_ms:.6f} ms ({bound_by})")
+
+    parts["race_alone"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # a traced run: device kernels a step, the device's busy share
+    rec["steps"] = 0
+    vmj._mj_steps = steps
+    try:
+        counted = des_step.LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            orig_sweep(*args, **dict(kwargs, max_steps=MJ_TRACE_STEPS))
+            torch.cuda.synchronize()
+        traced_wall = time.perf_counter() - t0
+        traced_launches = des_step.LAUNCHES - counted
+        des_step.LAUNCHES = counted
+    finally:
+        vmj._mj_steps = orig_steps
+    traced_steps = rec["steps"]
+    parts["traced_run"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")]
+    busy = device_seconds(prof)
+    n_kernels = sum(e.count for e in events)
+    race_ms = sum(getattr(e, "self_device_time_total", 0.0) for e in events
+                  if "event_race_kernel" in e.key) / 1e3
+    per_step = n_kernels / max(traced_steps, 1)
+    race_us = race_ms * 1e3 / max(traced_launches, 1)
+    print(f"  traced run of {traced_steps} steps: wall {traced_wall:.6f} s, "
+          f"device busy {busy:.6f} s = {busy / traced_wall * 100:.2f}% of "
+          f"it, {n_kernels} device kernels and copies = {per_step:.2f} a "
+          f"step; race kernel {race_ms:.6f} ms in {traced_launches} "
+          f"launches = {race_us:.4f} us a launch")
+    for e in sorted(events, key=lambda e: -getattr(
+            e, "self_device_time_total", 0.0))[:6]:
+        print(f"    device {e.key[:60]}: {e.count} calls, "
+              f"{getattr(e, 'self_device_time_total', 0.0) / 1e3:.3f} ms")
+    if traced_launches != traced_steps:
+        fail(f"traced run: {traced_steps} steps, {traced_launches} launches")
+    parts["trace_reading"] = time.perf_counter() - t_part
+    # the traced run's device time a step over the untraced run's wall a
+    # step: the profiler's own host cost inflates the traced wall
+    busy_untraced = busy / max(traced_steps, 1) / (wall / n_steps)
+    print(f"  device time a step {busy / max(traced_steps, 1) * 1e3:.6f} "
+          f"ms over the untraced {wall / n_steps * 1e3:.6f} ms a step: "
+          f"busy {busy_untraced * 100:.2f}%; seconds: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()))
+    return {"launches": launches, "steps": n_steps, "wall_s": wall,
+            "ms_per_step": wall / n_steps * 1e3, "plain_wall_s": plain_wall,
+            "plain_bit_different": diff,
+            "single_job_chunk_launches": one_chunks,
+            "single_job_race_launches": one_race,
+            "single_job_differing": one_diff,
+            "busy_share": busy / traced_wall,
+            "busy_share_untraced_wall": busy_untraced, "parts_s": parts,
+            "kernels_per_step": per_step,
+            "traced_race_us_per_launch": race_us,
+            "max_abs_err": abs_err, "event_mismatches": mism,
+            "dt_max_rel_err": rel, "shape": [R, ke, kd],
+            "rows_without_live_clock": dead,
+            "ms": k_ms if k_dev is None else k_dev,
+            "plain_ms": r_ms if r_dev is None else r_dev,
+            "call_ms": k_ms, "plain_call_ms": r_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "seconds": time.perf_counter() - t_phase}
+
+
+def multijob_parity_phase(core, des_step):
+    """Phase 21: tests/test_multijob_parity.py's two- and four-job
+    clusters, the multi-job CTMC engine on the card against the port's
+    event engine on the host, every pinned mean within |z| < 3.5."""
+    import numpy as np
+    vmj = core.vectorized_multijob
+    t_phase = time.perf_counter()
+    out = {}
+    for name, (kw, job_rows, n_event, seed) in MJ_PARITY.items():
+        cluster = core.Params(**kw)
+        jobs = [core.JobSpec(*j) for j in job_rows]
+        steps = [0]
+        orig_steps = vmj._mj_steps
+
+        def counted(state, us, *args, **kwargs):
+            steps[0] += us.shape[0]
+            return orig_steps(state, us, *args, **kwargs)
+
+        vmj._mj_steps = counted
+        try:
+            before = des_step.LAUNCHES
+            t0 = time.perf_counter()
+            point = vmj.simulate_multijob_ctmc_sweep(
+                [(cluster, jobs)], n_replicas=MJ_PARITY_CTMC, seed=seed,
+                device="cuda")[0]
+            ctmc_s = time.perf_counter() - t0
+            launches = des_step.LAUNCHES - before
+        finally:
+            vmj._mj_steps = orig_steps
+        t0 = time.perf_counter()
+        results = core.simulate_multijob(cluster, jobs,
+                                         n_replications=n_event,
+                                         base_seed=seed + 1)
+        event_s = time.perf_counter() - t0
+        if launches != steps[0] or launches <= 0 \
+                or float(point["completed"].min()) != 1.0 \
+                or float(np.max(point["conservation_err"])) != 0.0:
+            fail(f"{name}: {launches} launches for {steps[0]} steps, "
+                 f"completed {point['completed'].min()}, conservation "
+                 f"error {np.max(point['conservation_err'])}")
+        zs = {}
+        for j in range(len(jobs)):
+            zs.update({f"job{j}_{m}": z for m, z in parity_z(
+                point["per_job"][j], [r.per_job[j] for r in results],
+                MJ_JOB_METRICS).items()})
+        fleet = {"makespan": "makespan", "stall_handoffs": "stall_events",
+                 "n_shop_queued": "queue_events"}
+        ev_rows = [dict({m: float(getattr(r, fleet[m])) for m in fleet},
+                        n_auto_repairs=float(r.cluster.n_auto_repairs),
+                        n_manual_repairs=float(r.cluster.n_manual_repairs))
+                   for r in results]
+
+        class Row:
+            def __init__(self, d):
+                self.__dict__.update(d)
+
+        zs.update(parity_z(point, [Row(d) for d in ev_rows],
+                           MJ_FLEET_METRICS))
+        worst = max(abs(z) for z in zs.values())
+        print(f"  {name}: CTMC {MJ_PARITY_CTMC} replicas on the card "
+              f"{ctmc_s:.3f} s ({steps[0]} steps, {launches} race "
+              f"launches), event {n_event} on the host {event_s:.3f} s; "
+              f"largest |z| {worst:.3f}; z: "
+              + ", ".join(f"{m} {z:+.3f}" for m, z in zs.items()))
+        if worst >= PARITY_Z:
+            fail(f"multi-job parity {name}: |z| = {worst:.3f} >= "
+                 f"{PARITY_Z}")
+        out[name] = {"launches": launches, "steps": steps[0],
+                     "max_abs_z": worst, "ctmc_s": ctmc_s,
+                     "event_s": event_s}
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2321,17 +2702,53 @@ def main() -> int:
             + (("plain_wall_s", "plain_identity") if "plain_identity" in rec
                else ())} for name, rec in campaigns.items()}}
 
+    # ---- phases 20-21: the multi-job CTMC engine ---------------------------
+    t20 = time.perf_counter()
+    phase(f"phase 20: MultiJobSweep spare_pool_size={MJ_SPARES} x "
+          f"repair_servers={MJ_SHOPS}, {len(MJ_JOBS)} jobs "
+          f"({'/'.join(str(j[0]) for j in MJ_JOBS)}) on a "
+          f"{MJ_CLUSTER['working_pool_size']}-server pool, {MJ_REPLICAS} "
+          "replicas, engine='auto'")
+    multijob = multijob_phase(core, cc, des_step, ref)
+    secs20 = time.perf_counter() - t20
+    print(f"  phase 20: {secs20:.3f} s")
+    phase(f"phase 21: run parity of tests/test_multijob_parity.py's two- "
+          f"and four-job clusters, CTMC on the card ({MJ_PARITY_CTMC} "
+          "replicas) against the event engine")
+    mj_parity = multijob_parity_phase(core, des_step)
+    secs21 = time.perf_counter() - t20 - secs20
+    print(f"  phase 21: {secs21:.3f} s; phases 20-21: {secs20 + secs21:.3f} "
+          "s")
+    host_paths["multijob"] = {"seconds": secs20 + secs21,
+                              "parity": mj_parity, **{
+                                  k: multijob[k] for k in (
+                                      "launches", "steps", "wall_s",
+                                      "ms_per_step", "plain_wall_s",
+                                      "plain_bit_different",
+                                      "single_job_chunk_launches",
+                                      "single_job_differing", "busy_share",
+                                      "kernels_per_step",
+                                      "traced_race_us_per_launch")}}
+
+    # the standalone race's record: its launches, times and bound on the
+    # multi-job path (phase 20), the path that launches it; phase 2's
+    # numbers at the single-job shape beside them
     mism, rel, abs_err = main_err
     record = {"name": "event_race", "route": "cuda", "source": KERNEL_SOURCE,
               "replaces": TPU_KERNEL,
               "replaces_function": "src/repro/kernels/des_step.py:"
                                    "_event_race_kernel",
-              "launches": race_launches, "max_abs_err": abs_err,
-              "event_mismatches": mism, "dt_max_rel_err": rel,
-              "ms": k_ms if k_dev is None else k_dev,
-              "plain_ms": r_ms if r_dev is None else r_dev,
-              "call_ms": k_ms, "plain_call_ms": r_ms, "bound_ms": bound_ms,
-              "bound_by": bound_by, "library_ms": None}
+              "launches": multijob["launches"],
+              **{k: multijob[k] for k in (
+                  "max_abs_err", "event_mismatches", "dt_max_rel_err",
+                  "shape", "ms", "plain_ms", "call_ms", "plain_call_ms",
+                  "bound_ms", "bound_by", "steps")},
+              "single_job_path_launches": race_launches,
+              "phase2_shape": [B_main, 16, 3], "phase2_max_abs_err": abs_err,
+              "phase2_event_mismatches": mism, "phase2_dt_max_rel_err": rel,
+              "phase2_ms": k_ms if k_dev is None else k_dev,
+              "phase2_plain_ms": r_ms if r_dev is None else r_dev,
+              "phase2_bound_ms": bound_ms, "library_ms": None}
     chunk_record = dict(
         chunk, name="ctmc_chunk", instance="exponential", route="cuda",
         source=CHUNK_SOURCE,

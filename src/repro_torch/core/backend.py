@@ -1,14 +1,18 @@
 """Engine dispatch: route replication studies to the right simulator.
 
-Counterpart of ``src/repro/core/backend.py`` (its single-job part).  The
-port has the reference's two engines:
+Counterpart of ``src/repro/core/backend.py``.  The port has the
+reference's two engines, each for one job and for several jobs sharing a
+fleet:
 
   * ``event`` — the generator-coroutine DES
-    (:mod:`repro_torch.core.simulation`), host code in pure Python and
-    numpy, bit-identical to the reference's for the same Params and seed.
-  * ``ctmc``  — the vectorized PyTorch engine
-    (:mod:`repro_torch.core.vectorized`), on ``device=`` (default the
-    card, where a chunk of 64 steps is one launch of the chunk kernel).
+    (:mod:`repro_torch.core.simulation`, :mod:`repro_torch.core.multijob`),
+    host code in pure Python and numpy, bit-identical to the reference's
+    for the same Params and seed.
+  * ``ctmc``  — the vectorized PyTorch engines
+    (:mod:`repro_torch.core.vectorized`, where a chunk of 64 steps is one
+    launch of the chunk kernel on the card, and
+    :mod:`repro_torch.core.vectorized_multijob`, one launch of the race
+    kernel a step), on ``device=`` (default the card).
 
 ``engine="auto"`` routes as the reference does wherever the port can: it
 picks ``ctmc`` when the port's CTMC engine runs the params, and ``event``
@@ -20,6 +24,7 @@ engine and the port has not ported yet), ``auto`` raises with the ROADMAP
 item instead of moving a study the reference runs on its device onto the
 host.  ``engine="ctmc"`` refuses with every reason; ``engine="event"``
 always runs the event engine.  The event engine takes no device.
+:func:`resolve_engine_multijob` routes multi-job clusters the same way.
 """
 
 from __future__ import annotations
@@ -30,10 +35,12 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
-from . import vectorized
+from . import vectorized, vectorized_multijob
 from .histograms import Histogram
 from .metrics import (RunResult, Stat, aggregate, aggregate_arrays,
-                      histograms_from_arrays, histograms_from_results)
+                      aggregate_multijob_arrays, histograms_from_arrays,
+                      histograms_from_results, pool_histograms)
+from .multijob import JobSpec, MultiJobResult, simulate_multijob
 from .params import Params
 from .simulation import simulate
 
@@ -189,4 +196,175 @@ def run_replications_batch(params_list: Sequence[Params], n: int,
                 progress(i)
             results = simulate(params_list[i], n, base_seed=base_seed)
             out[i] = _from_results(results, n, params_list[i])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# multi-job dispatch
+# ---------------------------------------------------------------------------
+
+def resolve_engine_multijob(cluster: Params, jobs: Sequence[JobSpec],
+                            engine: str = "auto") -> str:
+    """Multi-job twin of :func:`resolve_engine`.
+
+    ``auto`` picks the multi-job CTMC engine
+    (:mod:`repro_torch.core.vectorized_multijob`) whenever the cluster is
+    inside its envelope -- exponential failures and repairs, all jobs
+    starting at t=0, none of the event-only extensions -- and falls back
+    to the event engine's :class:`~repro_torch.core.multijob.MultiJobSimulation`
+    where the reference's CTMC engine refuses too.  Where only the port is
+    short, ``auto`` raises with the ROADMAP item, as :func:`resolve_engine`
+    does.
+
+    >>> jobs = [JobSpec(8, 100.0), JobSpec(4, 50.0)]
+    >>> resolve_engine_multijob(Params(repair_servers=2), jobs)
+    'ctmc'
+    >>> resolve_engine_multijob(Params(checkpoint_interval=60.0), jobs)
+    'event'
+    """
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}; expected one of "
+                         f"{ENGINES}")
+    if engine == "auto":
+        if vectorized_multijob.supports_multijob(cluster, jobs):
+            return "ctmc"
+        if vectorized_multijob.reference_reasons_multijob(cluster, jobs):
+            return "event"
+        raise ValueError(
+            "engine='auto' cannot run this multi-job cluster on the port: "
+            "the reference runs it on its CTMC engine, but "
+            + "; ".join(vectorized_multijob.port_reasons_multijob(
+                cluster, jobs))
+            + "; pass engine='event' to run it on the event engine")
+    if engine == "ctmc":
+        reasons = vectorized_multijob.unsupported_reasons_multijob(
+            cluster, jobs)
+        if reasons:
+            raise ValueError(
+                "engine='ctmc' requested but this multi-job cluster is "
+                "outside the CTMC envelope: " + "; ".join(reasons)
+                + "; use engine='auto' to fall back")
+    return engine
+
+
+@dataclass
+class MultiJobReplications:
+    """Aggregated outcome of one multi-job replication study."""
+
+    engine: str                     # concrete engine that ran
+    n: int                          # number of replications
+    #: one full Replications per job (same Stat keys as single-job runs)
+    per_job: List[Replications]
+    #: fleet-level Stats: makespan, shared-shop counters, stall_handoffs,
+    #: n_shop_queued, conservation_err, completed, fleet_* sums, and
+    #: fleet-pooled {channel}_dist
+    fleet: Dict[str, Stat]
+    #: fleet-pooled streaming histograms (all jobs' channels merged)
+    histograms: Dict[str, Histogram] = field(default_factory=dict)
+
+
+def _multijob_from_arrays(point: Dict[str, object],
+                          n: int) -> MultiJobReplications:
+    agg = aggregate_multijob_arrays(point)
+    per_job = []
+    for arrays, stats, hists in zip(point["per_job"], agg["per_job"],
+                                    agg["per_job_histograms"]):
+        per_job.append(Replications(engine="ctmc", n=n, stats=stats,
+                                    arrays=arrays, histograms=hists))
+    incomplete = int(n - point["completed"].sum())
+    if incomplete:
+        warnings.warn(
+            f"{incomplete}/{n} multi-job CTMC replicas hit the step budget "
+            "before every job finished; means are biased low — raise "
+            "max_steps", RuntimeWarning, stacklevel=3)
+    return MultiJobReplications(engine="ctmc", n=n, per_job=per_job,
+                                fleet=agg["fleet"],
+                                histograms=agg["histograms"])
+
+
+def _multijob_from_results(results: List[MultiJobResult], n: int,
+                           cluster: Params) -> MultiJobReplications:
+    n_jobs = len(results[0].per_job)
+    per_job = [
+        _from_results([r.per_job[j] for r in results], n, cluster)
+        for j in range(n_jobs)]
+    fleet: Dict[str, Stat] = {}
+    lanes = {
+        "makespan": [r.makespan for r in results],
+        "stall_handoffs": [float(r.stall_events) for r in results],
+        "n_auto_repairs": [float(r.cluster.n_auto_repairs)
+                           for r in results],
+        "n_manual_repairs": [float(r.cluster.n_manual_repairs)
+                             for r in results],
+        "n_failed_repairs": [float(r.cluster.n_failed_repairs)
+                             for r in results],
+        "n_shop_queued": [float(r.queue_events) for r in results],
+        # the event loop conserves servers by construction; reported for
+        # key parity
+        "conservation_err": [0.0] * n,
+        "completed": [0.0 if any(p.timed_out for p in r.per_job) else 1.0
+                      for r in results],
+        "fleet_n_failures": [float(r.total_failures) for r in results],
+        "fleet_stall_time": [sum(p.stall_time for p in r.per_job)
+                             for r in results],
+        "fleet_useful_work": [sum(p.useful_work for p in r.per_job)
+                              for r in results],
+    }
+    for name, xs in lanes.items():
+        fleet[name] = Stat.of(xs)
+    pooled = pool_histograms([rep.histograms for rep in per_job])
+    for ch, h in pooled.items():
+        fleet[f"{ch}_dist"] = Stat.from_histogram(h)
+    return MultiJobReplications(engine="event", n=n, per_job=per_job,
+                                fleet=fleet, histograms=pooled)
+
+
+def run_replications_multijob(cluster: Params, jobs: Sequence[JobSpec],
+                              n: int, engine: str = "auto",
+                              base_seed: Optional[int] = None,
+                              impl: Optional[str] = None,
+                              max_steps: Optional[int] = None,
+                              device=None) -> MultiJobReplications:
+    """``n`` independent multi-job replications on the selected engine
+    (the CTMC engine on ``device``, default the card)."""
+    return run_multijob_batch([(cluster, tuple(jobs))], n, engine=engine,
+                              base_seed=base_seed, impl=impl,
+                              max_steps=max_steps, device=device)[0]
+
+
+def run_multijob_batch(points: Sequence, n: int, engine: str = "auto",
+                       base_seed: Optional[int] = None,
+                       impl: Optional[str] = None,
+                       max_steps: Optional[int] = None,
+                       device=None) -> List[MultiJobReplications]:
+    """Multi-job replication studies for a whole capacity grid.
+
+    ``points`` is a sequence of ``(cluster Params, [JobSpec, ...])``
+    pairs.  Every point inside the multi-job CTMC envelope runs in a
+    single :func:`~repro_torch.core.vectorized_multijob.simulate_multijob_ctmc_sweep`
+    call on ``device`` -- points sharing a job count run as ONE batch no
+    matter how sizes, rates, or pool/shop capacities vary -- and the rest
+    run on the event engine one by one.  Results come back in input order.
+    """
+    points = [(c, tuple(js)) for c, js in points]
+    chosen = [resolve_engine_multijob(c, js, engine) for c, js in points]
+    out: List[Optional[MultiJobReplications]] = [None] * len(points)
+
+    ctmc_idx = [i for i, c in enumerate(chosen) if c == "ctmc"]
+    if ctmc_idx:
+        seed = (points[ctmc_idx[0]][0].seed if base_seed is None
+                else base_seed)
+        point_outs = vectorized_multijob.simulate_multijob_ctmc_sweep(
+            [points[i] for i in ctmc_idx], n_replicas=n, seed=seed,
+            impl=impl, max_steps=max_steps, device=device)
+        for i, po in zip(ctmc_idx, point_outs):
+            out[i] = _multijob_from_arrays(po, n)
+
+    for i, c in enumerate(chosen):
+        if c == "event":
+            cluster, js = points[i]
+            results = simulate_multijob(
+                cluster, list(js), n_replications=n,
+                base_seed=cluster.seed if base_seed is None else base_seed)
+            out[i] = _multijob_from_results(results, n, cluster)
     return out

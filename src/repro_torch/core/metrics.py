@@ -1,11 +1,13 @@
 """Output metrics of a simulation run (paper §III-B Outputs).
 
-Counterpart of ``src/repro/core/metrics.py`` for both of the port's
-single-job engines: :class:`RunResult` and :class:`Stat`; the event
-engine's :func:`histograms_from_results`, :func:`aggregate` and
-:func:`summarize` over per-replication results; and the CTMC engine's
+Counterpart of ``src/repro/core/metrics.py`` for the port's engines:
+:class:`RunResult` and :class:`Stat`; the event engine's
+:func:`histograms_from_results`, :func:`aggregate` and :func:`summarize`
+over per-replication results; the CTMC engine's
 :func:`histograms_from_arrays` and :func:`aggregate_arrays` over the
-per-replica arrays it returns, all computed on the host in numpy.
+per-replica arrays it returns; and the multi-job engines'
+:func:`pool_histograms` and :func:`aggregate_multijob_arrays`, all
+computed on the host in numpy.
 
 AIReSim reports: (1) total time to train the job, (2) failure counts split
 random/systematic, (3) preemptions, (4) repair counts (auto/manual), and
@@ -412,6 +414,66 @@ def aggregate_arrays(arrays: Dict[str, np.ndarray],
                 out[f"{ch}_p{REPLICA_TAIL_PERCENTILE}_replica"] = Stat.of(
                     per[np.isfinite(per)])
     return out
+
+
+def pool_histograms(hist_dicts: Sequence[Dict[str, Histogram]],
+                    ) -> Dict[str, Histogram]:
+    """Merge per-channel histogram dicts by summing bin counts.
+
+    The multi-job engines report one histogram dict per job; pooling
+    them gives the fleet-level ETTF/recovery/waiting distributions (all
+    dicts share the cluster's single ``Params.histogram`` layout)."""
+    out: Dict[str, Histogram] = {}
+    for d in hist_dicts:
+        for ch, h in d.items():
+            out[ch] = out[ch].merge(h) if ch in out else Histogram(
+                h.edges, h.counts)
+    return out
+
+
+#: fleet-level (R,) lanes of a multi-job CTMC point dict
+_MJ_FLEET_METRICS = ("makespan", "stall_handoffs", "n_auto_repairs",
+                     "n_manual_repairs", "n_failed_repairs",
+                     "n_shop_queued", "conservation_err", "completed")
+
+
+def aggregate_multijob_arrays(point: Dict[str, Any],
+                              ) -> Dict[str, Any]:
+    """Per-job + fleet-pooled statistics for one multi-job CTMC point.
+
+    ``point`` is one element of
+    :func:`repro_torch.core.vectorized_multijob.simulate_multijob_ctmc_sweep`'s
+    return: per-job array dicts (each :func:`aggregate_arrays`-shaped)
+    plus cluster-level (R,) lanes.  Returns::
+
+        {"per_job": [Stat dict per job],
+         "fleet":   {makespan, shop counters, stall_handoffs,
+                     n_shop_queued, conservation_err, completed,
+                     fleet_n_failures, fleet_stall_time,
+                     fleet_useful_work, {channel}_dist, ...},
+         "histograms": fleet-pooled {channel: Histogram},
+         "per_job_histograms": [{channel: Histogram} per job]}
+
+    Fleet sums are per-replication (summed across jobs, then aggregated
+    across replicas), so their Stats carry real cross-replica spread.
+    """
+    per_job_hists = [histograms_from_arrays(d) for d in point["per_job"]]
+    per_job = [aggregate_arrays(d, histograms=h)
+               for d, h in zip(point["per_job"], per_job_hists)]
+    fleet: Dict[str, Stat] = {}
+    for name in _MJ_FLEET_METRICS:
+        fleet[name] = Stat.of(np.asarray(point[name], np.float64))
+    for pooled_name, src in (("fleet_n_failures", "n_failures"),
+                             ("fleet_stall_time", "stall_time"),
+                             ("fleet_useful_work", "useful_work")):
+        tot = np.sum([np.asarray(d[src], np.float64)
+                      for d in point["per_job"]], axis=0)
+        fleet[pooled_name] = Stat.of(tot)
+    pooled = pool_histograms(per_job_hists)
+    for ch, h in pooled.items():
+        fleet[f"{ch}_dist"] = Stat.from_histogram(h)
+    return {"per_job": per_job, "fleet": fleet, "histograms": pooled,
+            "per_job_histograms": per_job_hists}
 
 
 def summarize(results: Sequence[RunResult]) -> Dict[str, float]:

@@ -1,13 +1,15 @@
 """Experiment harness: one-way and two-way parameter sweeps (paper §III-D).
 
-Counterpart of ``src/repro/core/sweeps.py`` (its single-job sweeps).  The
-paper's user-facing API:
+Counterpart of ``src/repro/core/sweeps.py``.  The paper's user-facing
+API:
 
     OneWaySweep("Systematic Failure Fraction",
                 "systematic_failure_fraction", [0.1, 0.2, 0.3])
 
 Each sweep point runs ``n_replications`` replications and aggregates the
-paper's output metrics; TwoWaySweep crosses two parameter ranges.  Sweeps
+paper's output metrics; TwoWaySweep crosses two parameter ranges, and
+MultiJobSweep crosses cluster parameters under a fixed mix of jobs that
+share one fleet.  Sweeps
 route through :mod:`repro_torch.core.backend` (``engine=``, default
 ``"auto"``): every point inside the port's CTMC engine runs in one batch
 on ``device=`` (default the card; ``device="cpu"`` must be asked for),
@@ -29,8 +31,10 @@ import os
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
-from .backend import Replications, run_replications_batch
+from .backend import (MultiJobReplications, Replications,
+                      run_multijob_batch, run_replications_batch)
 from .metrics import RunResult, Stat
+from .multijob import JobSpec
 from .params import Params
 
 #: sweep-table columns (means over replications)
@@ -250,6 +254,119 @@ class TwoWaySweep:
                   for (va, vb), rep in zip(combos, reps)]
         return SweepResult(self.title,
                            [self.parameter_a, self.parameter_b], points)
+
+
+#: fleet-level sweep-table columns for multi-job capacity grids
+MULTIJOB_FLEET_STATS = ("makespan", "fleet_n_failures", "fleet_stall_time",
+                        "n_auto_repairs", "n_manual_repairs",
+                        "n_failed_repairs", "stall_handoffs",
+                        "n_shop_queued", "completed")
+
+#: per-job columns expanded to ``job{i}_{name}`` in multi-job tables
+MULTIJOB_JOB_STATS = ("total_time", "n_failures", "stall_time",
+                      "n_preemptions", "overhead_fraction")
+
+
+def _multijob_point_stats(rep: MultiJobReplications) -> Dict[str, Stat]:
+    """Flatten a MultiJobReplications into one SweepPoint stats dict.
+
+    Fleet stats keep their names (plus a ``total_time`` alias for the
+    makespan, which the generic CSV writer's ci95 column reads); per-job
+    stats are prefixed ``job{i}_``.
+    """
+    stats: Dict[str, Stat] = dict(rep.fleet)
+    stats["total_time"] = rep.fleet["makespan"]
+    for i, job_rep in enumerate(rep.per_job):
+        for name in MULTIJOB_JOB_STATS:
+            stats[f"job{i}_{name}"] = job_rep.stats[name]
+    return stats
+
+
+class MultiJobSweep:
+    """Capacity-planning grid over a fixed multi-job cluster.
+
+    Crosses one or two *cluster-level* parameters (spare_pool_size,
+    repair_servers, failure rates, ...) while the job mix -- sizes,
+    lengths, warm-standby targets -- stays fixed.  On ``engine="auto"``
+    every point inside the multi-job CTMC envelope runs in one
+    ``simulate_multijob_ctmc_sweep`` call on ``device`` (default the
+    card): the job count is the only structure key, so the whole grid
+    (mixed job sizes included) is ONE batch.  CSV rows carry the fleet
+    columns (:data:`MULTIJOB_FLEET_STATS`) plus per-job
+    ``job{i}_{metric}`` columns (:data:`MULTIJOB_JOB_STATS`).
+
+    >>> from repro_torch.core import JobSpec, MultiJobSweep, Params
+    >>> calm = Params(job_size=2, working_pool_size=8, spare_pool_size=2,
+    ...               warm_standbys=0, job_length=10.0,
+    ...               random_failure_rate=0.0, systematic_failure_rate=0.0,
+    ...               histogram=None)
+    >>> jobs = [JobSpec(2, 10.0, warm_standbys=0),
+    ...         JobSpec(3, 20.0, warm_standbys=0)]
+    >>> sweep = MultiJobSweep("demo", jobs, "spare_pool_size", [2, 4],
+    ...                       n_replications=2, base_params=calm,
+    ...                       engine="event")
+    >>> res = sweep.run()
+    >>> [round(p.stats["makespan"].mean, 1) for p in res.points]  # +3 select
+    [23.0, 23.0]
+    >>> sorted(res.to_rows(sweep.columns())[0])[:3]
+    ['completed', 'fleet_n_failures', 'fleet_stall_time']
+    """
+
+    def __init__(self, title: str, jobs: Sequence[JobSpec],
+                 parameter: str, values: Sequence[Any],
+                 parameter_b: Optional[str] = None,
+                 values_b: Optional[Sequence[Any]] = None,
+                 n_replications: int = 5,
+                 base_params: Optional[Params] = None,
+                 base_seed: int = 0, engine: str = "auto", device=None):
+        self.title = title
+        self.jobs = [JobSpec(j.job_size, j.job_length, j.warm_standbys,
+                             j.start_time) if not isinstance(j, JobSpec)
+                     else j for j in jobs]
+        self.parameter, self.values = parameter, list(values)
+        self.parameter_b = parameter_b
+        self.values_b = list(values_b) if values_b is not None else None
+        self.n_replications = n_replications
+        self.base_params = base_params or Params()
+        self.base_seed = base_seed
+        self.engine = engine
+        self.device = device
+
+    def columns(self) -> List[str]:
+        """Default CSV column list for this grid's job count."""
+        return list(MULTIJOB_FLEET_STATS) + [
+            f"job{i}_{name}" for i in range(len(self.jobs))
+            for name in MULTIJOB_JOB_STATS]
+
+    def _combos(self) -> List[Dict[str, Any]]:
+        if self.parameter_b is None:
+            return [{self.parameter: v} for v in self.values]
+        return [{self.parameter: va, self.parameter_b: vb}
+                for va in self.values for vb in self.values_b]
+
+    def run(self, progress: Optional[Callable[[str], None]] = None,
+            ) -> SweepResult:
+        combos = self._combos()
+        grid = []
+        for values in combos:
+            p = self.base_params
+            for name, v in values.items():
+                p = _apply_param(p, name, v)
+            grid.append((p, tuple(self.jobs)))
+        if progress:
+            progress(f"{self.title}: {len(grid)} points x "
+                     f"{len(self.jobs)} jobs")
+        reps = run_multijob_batch(grid, self.n_replications,
+                                  engine=self.engine,
+                                  base_seed=self.base_seed,
+                                  device=self.device)
+        points = [SweepPoint(values, [], _multijob_point_stats(rep),
+                             n=rep.n, engine=rep.engine,
+                             histograms=rep.histograms)
+                  for values, rep in zip(combos, reps)]
+        names = [self.parameter] + ([self.parameter_b]
+                                    if self.parameter_b else [])
+        return SweepResult(self.title, names, points)
 
 
 def load_experiment(path: str, engine: Optional[str] = None,

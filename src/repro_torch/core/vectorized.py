@@ -372,7 +372,7 @@ def _bucket_pad_state(state: Dict[str, torch.Tensor], P: int, R: int,
         padded = v.new_zeros((P_pad, R_pad) + v.shape[2:])
         padded[:P, :R] = v
         out[k] = padded.reshape((P_pad * R_pad,) + v.shape[2:])
-    phase = out["phase"].reshape(P_pad, R_pad)
+    phase = out["phase"].reshape(P_pad, R_pad, -1)     # (B,) or (B, J)
     phase[P:] = DONE
     phase[:, R:] = DONE
     return out
@@ -447,10 +447,13 @@ def _lane_consts(device: torch.device):
 
 
 def _pick_classes(counts: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """Categorical draws proportional to counts: (R, G, 4) x (R, G) -> (R, G)."""
+    """Categorical draws proportional to counts over the last axis: (..., K)
+    x (...) -> (...) int32.  Counts are whole numbers, so the sum and the
+    cumulative sum are exact in any order."""
     total = counts.sum(-1).clamp_min(1e-30)
     cdf = counts.cumsum(-1) / total[..., None]
-    return (u[..., None] >= cdf).sum(-1).clamp_max(3).to(torch.int32)
+    return (u[..., None] >= cdf).sum(-1).clamp_max(counts.shape[-1] - 1) \
+        .to(torch.int32)
 
 
 def _onehot(c: torch.Tensor) -> torch.Tensor:
