@@ -5,7 +5,8 @@
 
 Drives the port's main paths on the card -- a Table-I
 capacity-planning sweep through ``repro_torch.core.OneWaySweep``, a
-multi-job capacity grid through ``repro_torch.core.MultiJobSweep``, and LLM
+multi-job capacity grid through ``repro_torch.core.MultiJobSweep`` (and at
+the multi-job benchmark's shape through ``run_multijob_batch``), and LLM
 serving (prefill + greedy decode) of qwen2.5-3b and falcon-mamba-7b at
 their full published widths through ``repro_torch.models.build_model`` --
 and holds each hand-written kernel against its plain PyTorch version;
@@ -13,10 +14,10 @@ then the event engine with the reference's routing, the optimizer and an
 experiment file, whose CTMC points run through the chunk kernel.
 Phases, each of which fails the run loudly:
 
-1. the card's name and power limit; build the four kernel libraries
-   (``src/repro_torch/csrc/{event_race,ctmc_chunk,flash_attention,
-   mamba_scan}.cu``) with nvcc, all at once, and print nvcc's register,
-   spill and shared-memory report;
+1. the card's name and power limit; build the five kernel libraries
+   (``src/repro_torch/csrc/{event_race,ctmc_chunk,mj_chunk,
+   flash_attention,mamba_scan}.cu``) with nvcc, all at once, and print
+   nvcc's register, spill and shared-memory report;
 2. the event-race kernel against ``event_race_ref`` on the card, at the
    main path's shape (4,096 x 16 x 3) and at odd shapes, with all-zero-rate
    rows and exact residual ties: events exact, dt within rtol 1e-6; then
@@ -136,22 +137,38 @@ Phases, each of which fails the run loudly:
 20. examples/capacity_planning.py's multi-job what-if: ``MultiJobSweep``
     over ``spare_pool_size`` in {8, 10, 12} x ``repair_servers`` in {3, 4},
     three jobs (64/32/16 servers) sharing one 200-server pool and one
-    repair shop, 256 replicas, ``engine="auto"``, each step's race one
-    launch of the standalone race kernel (``csrc/event_race.cu``, 48 rates
-    x 6 residuals), its launches counted from 0: launches equal to the
-    steps run and no chunk-kernel launch, every replica complete with its
-    servers conserved, each point's makespan, stall hand-offs and queue;
-    the same sweep through the plain race on the card (0 bit-different
+    repair shop, 256 replicas, ``engine="auto"``, each chunk of 64 steps
+    one launch of the multi-job chunk kernel (``csrc/mj_chunk.cu``, its
+    J = 3 instance, the race of 48 rates x 6 residuals fused in), its
+    launches counted from 0: launches equal to the chunks run, steps equal
+    to the steps run, no launch of the standalone race or of the
+    single-job chunk kernel, every replica complete with its servers
+    conserved, each point's makespan, stall hand-offs and queue; the same
+    sweep through the plain step loop on the card (0 bit-different
     elements); the 1-job unbounded-shop point through the multi-job API
-    (chunk-kernel launches, no race launch, 0 differing elements against
-    ``simulate_ctmc_sweep``); the race alone at a mid-run step's inputs
-    against its plain version, with both one's times and the kernel's
-    bound; and a traced run (device kernels a step, the device's busy
-    share, the race's device time a launch);
+    (single-job chunk launches, no other launch, 0 differing elements
+    against ``simulate_ctmc_sweep``); the grid's middle chunk again, the
+    kernel held bit for bit against the plain step loop, with the
+    kernel's device time a launch (128 rows a block), the plain loop's
+    times and the launch's bound; the standalone race alone on the plain
+    loop's race inputs at that chunk's middle step against its plain
+    version, with both one's times and its bound; and the whole sweep traced
+    (device kernels a step, the device's busy share, the kernel's device
+    time a launch);
+20b. the multi-job grid at benchmarks/engine_perf.py::
+    multijob_sweep_throughput's shape (its multijob_bench_params as data:
+    jobs of 64/32/16 servers and 0.5/0.7/0.6 days, no histograms, 77 ring
+    records; ``spare_pool_size`` {7, 8, 9, 10} x ``repair_servers`` {3, 4},
+    256 replicas, 2,048 rows) through ``run_multijob_batch``: the sweep
+    wall, ms a step, launches, the kernel's device time a launch over a
+    traced sweep, and the middle chunk held and timed as in phase 20 with
+    the launch's bound;
 21. run parity of tests/test_multijob_parity.py's two- and four-job
-    clusters: the multi-job CTMC engine on the card (1,024 replicas, a race
-    launch a step) against the port's event engine on the host (96 and
-    80), every pinned per-job and fleet mean within |z| < 3.5.
+    clusters: the multi-job CTMC engine on the card (1,024 replicas, a
+    multi-job chunk launch a chunk, no race launch) against the port's
+    event engine on the host (96 and 80), every pinned per-job and fleet
+    mean within |z| < 3.5; each cluster's middle chunk (its J = 2 and J = 4
+    instances) held and timed as in phase 20.
 
 Prints a ``{"serving": ..., "host_paths": ...}`` line, a ``{"kernels":
 [...]}`` line and, as its last line, ``{"ok": true, "device": {...}}``.  Exits non-zero, with
@@ -409,8 +426,21 @@ MJ_CLUSTER = dict(working_pool_size=200, spare_pool_size=12, job_size=64,
                   histogram=None)
 MJ_JOBS = ((64, 720.0, 2), (32, 1000.0, 1), (16, 860.0, 1))
 MJ_SPARES, MJ_SHOPS, MJ_REPLICAS = [8, 10, 12], [3, 4], 256
-#: steps of phase 20's traced run
-MJ_TRACE_STEPS = 64
+MJ_SOURCE = "src/repro_torch/csrc/mj_chunk.cu"
+MJ_SCAN = "src/repro/core/vectorized_multijob.py:649"
+#: phase 20b: benchmarks/engine_perf.py::multijob_sweep_throughput's shape
+#: (its multijob_bench_params, taken as data): three jobs of 64/32/16
+#: servers and 0.5/0.7/0.6 days on one 200-server pool, histograms off, 77
+#: ring records; spare_pool_size {7, 8, 9, 10} x repair_servers {3, 4},
+#: 256 replicas, 2,048 rows
+MJ_BENCH_CLUSTER = dict(job_size=16, working_pool_size=200,
+                        spare_pool_size=12, job_length=0.5 * DAY,
+                        random_failure_rate=0.004,
+                        systematic_failure_rate=0.01, auto_repair_time=180.0,
+                        manual_repair_time=480.0, repair_servers=4,
+                        histogram=None, seed=0, max_run_records=77)
+MJ_BENCH_JOBS = ((64, 0.5 * DAY, 2), (32, 0.7 * DAY, 1), (16, 0.6 * DAY, 1))
+MJ_BENCH_SPARES, MJ_BENCH_SHOPS = [7, 8, 9, 10], [3, 4]
 #: phase 21: tests/test_multijob_parity.py's two clusters (cluster Params
 #: keywords, jobs, event replications, seed) and the metrics it pins
 MJ_PARITY = {
@@ -2043,12 +2073,216 @@ def bit_different(a, b):
     return n, total, len(pairs)
 
 
-def multijob_phase(core, cc, des_step, ref):
+def save_mj_counts(mjc):
+    """The multi-job chunk kernel's launch counters, to put back after
+    launches made only to compare or time."""
+    return mjc.LAUNCHES, mjc.STEPS, dict(mjc.LAUNCHES_BY_J)
+
+
+def restore_mj_counts(mjc, counts):
+    mjc.LAUNCHES, mjc.STEPS = counts[:2]
+    mjc.LAUNCHES_BY_J.update(counts[2])
+
+
+def zero_mj_counts(mjc):
+    """Every launch counter of the multi-job chunk kernel to 0."""
+    restore_mj_counts(mjc, (0, 0, dict.fromkeys(mjc.LAUNCHES_BY_J, 0)))
+
+
+def capture_mj_chunks(vmj, vectorized, mjc, keep=None):
+    """Wrap the multi-job chunk loop and the chunk seeding to count the
+    chunks and steps the loop runs, and the kernel's wrapper to keep chunk
+    ``keep``'s inputs (cloned before its launch).  Returns (record,
+    restore): record["chunks"], record["steps"], record["calls"] (each
+    loop call's arguments) and record["kept"] (state, draw, pv, R, P, J,
+    channels), or None."""
+    record = {"chunks": 0, "steps": 0, "calls": [], "kept": None, "i": None}
+    orig = (vmj._mj_chunk_loop, vectorized._chunk_seed, mjc.mj_chunk_cuda)
+
+    def loop(*args, **kwargs):
+        record["calls"].append(args)
+        record["plan"] = args[4:7]
+        return orig[0](*args, **kwargs)
+
+    def seed(seed_, i):
+        # one call a chunk; chunk n_chunks is the remainder
+        chunk, n_chunks, rem = record["plan"]
+        record["chunks"] += 1
+        record["steps"] += chunk if i < n_chunks else rem
+        record["i"] = i
+        return orig[1](seed_, i)
+
+    def kernel(state, us, pv, R, P, J, channels, **kwargs):
+        if keep is not None and record["i"] == keep:
+            record["kept"] = ({k: v.clone() for k, v in state.items()},
+                              us.clone(), pv, R, P, J, tuple(channels))
+        return orig[2](state, us, pv, R, P, J, channels, **kwargs)
+
+    vmj._mj_chunk_loop, vectorized._chunk_seed = loop, seed
+    mjc.mj_chunk_cuda = kernel
+
+    def restore():
+        vmj._mj_chunk_loop, vectorized._chunk_seed, mjc.mj_chunk_cuda = orig
+    return record, restore
+
+
+def mj_step_ops(J: int) -> int:
+    """float32 operations a live row-step of the multi-job chunk kernel: the
+    race's sum, cumsum, product test and compare over 16J lanes, the 16J
+    rates' products, the per-job progress and timer loop, the conservation
+    sum over the 20J compartment counts, and the event's own ~48."""
+    return 4 * 16 * J + 8 * J + 6 * J + 20 * J + 48
+
+
+def mj_chunk_bound_ms(row_steps, uniform_rows, live_rows, J, param_rows,
+                      n_edges, hist_adds, ring_writes):
+    """Least time for one multi-job chunk launch on these inputs, reckoned
+    as chunk_bound_ms: the launch's unique uniform rows (``uniform_rows``
+    rows of 40 B: a step's distinct replicas among its live rows), each
+    live row's state read and written once ((38 J + 15) words: the five
+    (J, 4) blocks, the pools, the per-job lanes, metrics, phase and run
+    count, the clock and the cluster counters) and its fleet size read,
+    each parameter row read once (14 + J columns), the bin edges, each
+    histogram bin added to (read and written) and each ring slot written;
+    mj_step_ops(J) float32 operations a live row-step (``row_steps``) at
+    the float32 peak."""
+    nbytes = (uniform_rows * 40 + live_rows * (2 * 4 * (38 * J + 15) + 4)
+              + param_rows * (14 + J) * 4 + 4 * n_edges + 8 * hist_adds
+              + 4 * ring_writes)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = row_steps * mj_step_ops(J) / FP32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms \
+        else "operations"
+
+
+def mj_state_bits(got, want):
+    """(bit-different elements, largest absolute difference of a finite
+    float lane) between two multi-job states; fails if their infinities
+    differ."""
+    import torch
+    bits, err = 0, 0.0
+    for k, w in want.items():
+        g = got[k]
+        if not w.dtype.is_floating_point:
+            bits += int((g != w).sum())
+            continue
+        bits += int((g.view(torch.int32) != w.view(torch.int32)).sum())
+        if not torch.equal(torch.isfinite(g), torch.isfinite(w)):
+            fail(f"multi-job chunk: infinities differ in {k}")
+        fin = torch.isfinite(w)
+        if bool(fin.any()):
+            err = max(err, float((g[fin] - w[fin]).abs().max()))
+    return bits, err
+
+
+def mj_chunk_check(mjc, vmj, ref, kept, label):
+    """The multi-job chunk kernel on a captured chunk (its input state,
+    draw and parameters) against the plain step loop (``_mj_steps`` with
+    ``impl="ref"``), every lane bit for bit, the plain race's inputs kept
+    at the chunk's middle step; then the kernel's device time a launch,
+    the plain loop's times and the launch's bound from the work this
+    chunk's data needs."""
+    state, us, pv, R, P, J, ch = kept
+    n_steps = us.shape[0]
+    counts = save_mj_counts(mjc)
+    got = mjc.mj_chunk_cuda(state, us, pv, R, P, J, ch)
+    # the plain loop a step at a time, counting the live rows each step and
+    # keeping the plain race's inputs at the middle step
+    orig_race = ref.event_race_ref
+    sample = {}
+
+    def race(*args):
+        if "step" in sample and "args" not in sample:
+            sample["args"] = [t.clone() for t in args]
+        return orig_race(*args)
+
+    want, row_steps, uniform_rows = state, 0, 0
+    ref.event_race_ref = race
+    try:
+        for k in range(n_steps):
+            live = (want["phase"] != vmj.DONE).any(-1)
+            row_steps += int(live.sum())
+            uniform_rows += int(live.view(P, R).any(0).sum())
+            if k == n_steps // 2:
+                sample["step"] = k
+            want = vmj._mj_steps(want, us[k:k + 1], pv, R, P, J, "ref", ch)
+    finally:
+        ref.event_race_ref = orig_race
+    bits, err = mj_state_bits(got, want)
+    live_rows = int((state["phase"] != vmj.DONE).any(-1).sum())
+    print(f"  {label}: {got['phase'].shape[0]} rows ({live_rows} live), J="
+          f"{J}, {n_steps} steps: bit-different elements against the plain "
+          f"loop {bits} (max abs err {err:.3e})")
+    if bits:
+        fail(f"{label}: the multi-job chunk kernel differs from the plain "
+             f"loop in {bits} elements")
+
+    def launch():
+        return mjc.mj_chunk_cuda(state, us, pv, R, P, J, ch)
+
+    split = device_kernels_ms(launch, 20)
+    n_edges = state["hist_edges"].numel() if "hist_edges" in state else 0
+    t = {"bit_different": bits, "max_abs_err": err,
+         "race_args": sample.get("args"), "race_step": sample.get("step"),
+         "ms": sum(ms for name, ms in split if "mj_chunk_kernel" in name)
+         or None, "rows_per_block": mjc.rows_per_block(J, n_edges)}
+    t["call_ms"] = event_ms(launch, 50, warmup=5)
+    t["plain_ms"] = device_ms(lambda: vmj._mj_steps(
+        state, us, pv, R, P, J, "ref", ch), 1)
+    t["plain_call_ms"] = event_ms(lambda: vmj._mj_steps(
+        state, us, pv, R, P, J, "ref", ch), 1, warmup=1)
+    restore_mj_counts(mjc, counts)
+    hist_adds = int((want["hist"] - state["hist"]).sum()) \
+        if "hist" in want else 0
+    ring = int((want["n_runs"] - state["n_runs"]).sum()) \
+        if want["run_durations"].shape[2] else 0
+    t["bound_ms"], t["bound_by"] = mj_chunk_bound_ms(
+        row_steps, uniform_rows, live_rows, J,
+        1 if pv.ndim == 1 else live_rows, n_edges, hist_adds, ring)
+    t.update(live_rows=live_rows, row_steps=row_steps,
+             uniform_rows=uniform_rows, hist_adds=hist_adds,
+             ring_writes=ring)
+    t["ms_per_step"] = None if t["ms"] is None else t["ms"] / n_steps
+    print(f"  {label}: kernel device {t['ms']} ms a launch at "
+          f"{t['rows_per_block']} rows a block, host-clocked "
+          f"{t['call_ms']:.6f} ms a call; plain step loop {t['plain_ms']} ms "
+          f"device, {t['plain_call_ms']:.6f} ms host-clocked; bound "
+          f"{t['bound_ms']:.6f} ms ({t['bound_by']}; {row_steps} live "
+          f"row-steps, {uniform_rows} uniform rows, {hist_adds} bin adds, "
+          f"{ring} ring writes)")
+    return t
+
+
+def traced_mj_sweep(mjc, fn):
+    """(wall s, device busy s, device kernels and copies, the multi-job
+    chunk kernel's device ms, its launches, top device events) of ``fn``
+    under torch.profiler; the kernel's counters are put back."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    counts = save_mj_counts(mjc)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = mjc.LAUNCHES - counts[0]
+    restore_mj_counts(mjc, counts)
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")]
+    kernel_ms = sum(getattr(e, "self_device_time_total", 0.0)
+                    for e in events if "mj_chunk_kernel" in e.key) / 1e3
+    top = sorted(events, key=lambda e: -getattr(
+        e, "self_device_time_total", 0.0))[:6]
+    return (wall, device_seconds(prof), sum(e.count for e in events),
+            kernel_ms, launches, top)
+
+
+def multijob_phase(core, cc, mjc, des_step, ref):
     """Phase 20: the multi-job CTMC engine on the card, through
     ``MultiJobSweep`` and ``engine="auto"``; see the module docstring."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    vmj = core.vectorized_multijob
+    vmj, vectorized = core.vectorized_multijob, core.vectorized
     t_phase = time.perf_counter()
     cluster = core.Params(**MJ_CLUSTER)
     jobs = [core.JobSpec(*j) for j in MJ_JOBS]
@@ -2057,50 +2291,46 @@ def multijob_phase(core, cc, des_step, ref):
         parameter_b="repair_servers", values_b=MJ_SHOPS,
         n_replications=MJ_REPLICAS, base_params=cluster, engine="auto",
         device="cuda")
-    rec = {"steps": 0, "samples": {}}
-    orig_steps = vmj._mj_steps
+    rec = {}
     orig_sweep = vmj.simulate_multijob_ctmc_sweep
-    orig_race = des_step.event_race_cuda
-
-    def steps(state, us, *args, **kwargs):
-        rec["steps"] += us.shape[0]
-        return orig_steps(state, us, *args, **kwargs)
 
     def sweep_fn(*args, **kwargs):
         rec["call"] = (args, kwargs)
         rec["points"] = orig_sweep(*args, **kwargs)
         return rec["points"]
 
-    def race(*args):
-        # keep the race's inputs every 128 steps, to time it alone at a
-        # step's shape below
-        if des_step.LAUNCHES % 128 == 0:
-            rec["samples"][des_step.LAUNCHES] = [t.clone() for t in args]
-        return orig_race(*args)
-
-    vmj._mj_steps, vmj.simulate_multijob_ctmc_sweep = steps, sweep_fn
-    des_step.event_race_cuda = race
+    main_run, restore = capture_mj_chunks(vmj, vectorized, mjc)
+    vmj.simulate_multijob_ctmc_sweep = sweep_fn
     try:
+        zero_mj_counts(mjc)                       # the multi-job path's run
         zero_counts(cc)
-        des_step.LAUNCHES = 0                      # the multi-job path's run
+        des_step.LAUNCHES = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = sweep.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches, chunk_launches = des_step.LAUNCHES, cc.LAUNCHES
+        launches, kernel_steps = mjc.LAUNCHES, mjc.STEPS
+        by_j = dict(mjc.LAUNCHES_BY_J)
+        race_launches, chunk_launches = des_step.LAUNCHES, cc.LAUNCHES
     finally:
-        vmj._mj_steps, vmj.simulate_multijob_ctmc_sweep = orig_steps, \
-            orig_sweep
-        des_step.event_race_cuda = orig_race
-    n_steps = rec["steps"]
+        restore()
+        vmj.simulate_multijob_ctmc_sweep = orig_sweep
+    chunks, n_steps = main_run["chunks"], main_run["steps"]
     print(f"  {len(res.points)} points x {MJ_REPLICAS} replicas, "
-          f"{len(jobs)} jobs: {n_steps} steps, standalone race launches "
-          f"{launches}, chunk kernel launches {chunk_launches}; wall "
-          f"{wall:.6f} s = {wall / max(n_steps, 1) * 1e3:.4f} ms a step")
-    if n_steps <= 0 or launches != n_steps or chunk_launches:
-        fail(f"multi-job sweep: {n_steps} steps but {launches} race and "
-             f"{chunk_launches} chunk launches")
+          f"{len(jobs)} jobs: {chunks} chunks of {n_steps} steps; multi-job "
+          f"chunk kernel launches {launches} ({kernel_steps} steps, by J "
+          f"{ {j: n for j, n in by_j.items() if n} }), standalone race "
+          f"launches {race_launches}, single-job chunk launches "
+          f"{chunk_launches}; wall {wall:.6f} s = "
+          f"{wall / max(n_steps, 1) * 1e3:.4f} ms a step")
+    if n_steps <= 0 or launches != chunks or kernel_steps != n_steps \
+            or by_j[len(jobs)] != launches:
+        fail(f"multi-job sweep: {chunks} chunks of {n_steps} steps but "
+             f"{launches} multi-job chunk launches of {kernel_steps} steps")
+    if race_launches or chunk_launches:
+        fail(f"multi-job sweep: {race_launches} standalone race and "
+             f"{chunk_launches} single-job chunk launches")
     for pt in res.points:
         st = pt.stats
         if pt.engine != "ctmc":
@@ -2121,33 +2351,52 @@ def multijob_phase(core, cc, des_step, ref):
               f"{st['job0_total_time'].mean / 60:.3f} h, job2 "
               f"{st['job2_total_time'].mean / 60:.3f} h")
 
-    # the same sweep through the plain race on the card, same draws
+    # the grid again, warm (the library loaded, its first launch's set-up
+    # done), and the engine's call alone (set-up, scan, extraction; the
+    # rest of a run is the sweep's per-point statistics)
     args, kwargs = rec["call"]
-    before = des_step.LAUNCHES
+    counts = save_mj_counts(mjc)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sweep.run()
+    torch.cuda.synchronize()
+    warm_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    orig_sweep(*args, **kwargs)
+    torch.cuda.synchronize()
+    engine_wall = time.perf_counter() - t0
+    restore_mj_counts(mjc, counts)
+    print(f"  warm: MultiJobSweep.run {warm_wall:.6f} s "
+          f"({warm_wall / n_steps * 1e3:.4f} ms a step), the engine's call "
+          f"alone {engine_wall:.6f} s")
+
+    # the same sweep through the plain step loop on the card, same draws
+    before = (mjc.LAUNCHES, des_step.LAUNCHES)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     plain = orig_sweep(*args, **dict(kwargs, impl="ref"))
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
-    if des_step.LAUNCHES != before:
-        fail("impl='ref' launched the race kernel")
+    if (mjc.LAUNCHES, des_step.LAUNCHES) != before:
+        fail("impl='ref' launched a CUDA kernel")
     diff, total, lanes = bit_different(rec["points"], plain)
     print(f"  impl='ref' on the card: wall {plain_wall:.6f} s; "
           f"bit-different elements against the kernel's run {diff} of "
           f"{total} over {lanes} arrays")
     if diff:
-        fail(f"the race kernel's sweep differs from the plain race's in "
-             f"{diff} elements")
+        fail(f"the multi-job chunk kernel's sweep differs from the plain "
+             f"loop's in {diff} elements")
 
     # the 1-job, unbounded-shop point: the single-job engine's chunk kernel
     t_part = time.perf_counter()
     one = cluster.replace(repair_servers=0)
     spec = jobs[0]
-    race0, chunk0 = des_step.LAUNCHES, cc.LAUNCHES
+    race0, chunk0, mj0 = des_step.LAUNCHES, cc.LAUNCHES, mjc.LAUNCHES
     got = vmj.simulate_multijob_ctmc_sweep([(one, (spec,))],
                                            n_replicas=MJ_REPLICAS, seed=0,
                                            device="cuda")
     one_race, one_chunks = des_step.LAUNCHES - race0, cc.LAUNCHES - chunk0
+    one_mj = mjc.LAUNCHES - mj0
     want = core.simulate_ctmc_sweep(
         [one.replace(job_size=spec.job_size, job_length=spec.job_length,
                      warm_standbys=spec.warm_standbys)],
@@ -2155,22 +2404,44 @@ def multijob_phase(core, cc, des_step, ref):
     one_diff, one_total, one_lanes = bit_different(
         [{"per_job": [got[0]["per_job"][0]]}], [{"per_job": want}])
     print(f"  1-job point through the multi-job API: {one_chunks} chunk "
-          f"launches, race launches {one_race}; differing elements against "
-          f"simulate_ctmc_sweep {one_diff} of {one_total} over {one_lanes} "
-          "lanes")
-    if one_race or one_chunks <= 0 or one_diff:
-        fail(f"1-job point: {one_race} race launches, {one_chunks} chunk "
-             f"launches, {one_diff} differing elements")
-    parts = {"sweep": wall, "plain_sweep": plain_wall,
+          f"launches, multi-job chunk launches {one_mj}, race launches "
+          f"{one_race}; differing elements against simulate_ctmc_sweep "
+          f"{one_diff} of {one_total} over {one_lanes} lanes")
+    if one_race or one_mj or one_chunks <= 0 or one_diff:
+        fail(f"1-job point: {one_race} race launches, {one_mj} multi-job "
+             f"and {one_chunks} chunk launches, {one_diff} differing "
+             "elements")
+    parts = {"sweep": wall, "warm_sweep": warm_wall,
+             "engine_call": engine_wall, "plain_sweep": plain_wall,
              "one_job": time.perf_counter() - t_part}
     t_part = time.perf_counter()
 
-    # the race alone at a step's shape, mid-run, against the plain race
-    at = min(rec["samples"], key=lambda i: abs(i - n_steps // 2))
-    race_args = rec["samples"][at]
+    # the middle chunk again, kept: the kernel against the plain loop, its
+    # times and bound
+    mid = chunks // 2
+    kept_run, restore = capture_mj_chunks(vmj, vectorized, mjc, keep=mid)
+    counts = save_mj_counts(mjc)
+    try:
+        again = orig_sweep(*args, **kwargs)
+    finally:
+        restore()
+        restore_mj_counts(mjc, counts)
+    again_diff = bit_different(rec["points"], again)[0]
+    if again_diff or kept_run["kept"] is None:
+        fail(f"the sweep run again differs in {again_diff} elements, or "
+             "its middle chunk was not kept")
+    chunk = mj_chunk_check(mjc, vmj, ref, kept_run["kept"],
+                           f"chunk {mid} of the grid")
+    parts["chunk_check"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # the race alone at the chunk's middle step, against the plain race
+    race_args = chunk["race_args"]
+    if race_args is None:
+        fail("the plain loop raced no row at the chunk's middle step")
     rates, resid = race_args[:2]
     counted = des_step.LAUNCHES
-    dt_k, ev_k = orig_race(*race_args)
+    dt_k, ev_k = des_step.event_race_cuda(*race_args)
     dt_r, ev_r = ref.event_race_ref(*race_args)
     torch.cuda.synchronize()
     mism = int((ev_k != ev_r).sum())
@@ -2184,9 +2455,9 @@ def multijob_phase(core, cc, des_step, ref):
     if mism or rel > 1e-6:
         fail(f"multi-job race: {mism} event mismatches, dt rel err {rel}")
     dead = int(((rates.sum(-1) == 0) & torch.isinf(resid).all(-1)).sum())
-    k_ms = event_ms(lambda: orig_race(*race_args), 500)
+    k_ms = event_ms(lambda: des_step.event_race_cuda(*race_args), 500)
     r_ms = event_ms(lambda: ref.event_race_ref(*race_args), 200)
-    k_dev = device_ms(lambda: orig_race(*race_args), 100)
+    k_dev = device_ms(lambda: des_step.event_race_cuda(*race_args), 100)
     r_dev = device_ms(lambda: ref.event_race_ref(*race_args), 50)
     des_step.LAUNCHES = counted
     R, ke = rates.shape
@@ -2197,120 +2468,181 @@ def multijob_phase(core, cc, des_step, ref):
     ops_ms = R * row_ops / FP32_OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-    print(f"  race at step {at} ({R}x{ke}x{kd}, {dead} rows with no live "
-          f"clock): event mismatches {mism}, dt max rel err {rel:.3e}, max "
-          f"abs err {abs_err:.3e}; CUDA events (back-to-back): kernel "
-          f"{k_ms:.6f} ms, plain {r_ms:.6f} ms; device time: kernel {k_dev} "
-          f"ms, plain {r_dev} ms; bound {bound_ms:.6f} ms ({bound_by})")
-
+    print(f"  race alone at the chunk's step {chunk['race_step']} "
+          f"({R}x{ke}x{kd}, {dead} rows with no live clock): event "
+          f"mismatches {mism}, dt max rel err {rel:.3e}, max abs err "
+          f"{abs_err:.3e}; CUDA events (back-to-back): kernel {k_ms:.6f} "
+          f"ms, plain {r_ms:.6f} ms; device time: kernel {k_dev} ms, plain "
+          f"{r_dev} ms; bound {bound_ms:.6f} ms ({bound_by})")
     parts["race_alone"] = time.perf_counter() - t_part
     t_part = time.perf_counter()
 
-    # a traced run: device kernels a step, the device's busy share
-    rec["steps"] = 0
-    vmj._mj_steps = steps
-    try:
-        counted = des_step.LAUNCHES
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            orig_sweep(*args, **dict(kwargs, max_steps=MJ_TRACE_STEPS))
-            torch.cuda.synchronize()
-        traced_wall = time.perf_counter() - t0
-        traced_launches = des_step.LAUNCHES - counted
-        des_step.LAUNCHES = counted
-    finally:
-        vmj._mj_steps = orig_steps
-    traced_steps = rec["steps"]
-    parts["traced_run"] = time.perf_counter() - t_part
-    t_part = time.perf_counter()
-    events = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA")]
-    busy = device_seconds(prof)
-    n_kernels = sum(e.count for e in events)
-    race_ms = sum(getattr(e, "self_device_time_total", 0.0) for e in events
-                  if "event_race_kernel" in e.key) / 1e3
-    per_step = n_kernels / max(traced_steps, 1)
-    race_us = race_ms * 1e3 / max(traced_launches, 1)
-    print(f"  traced run of {traced_steps} steps: wall {traced_wall:.6f} s, "
-          f"device busy {busy:.6f} s = {busy / traced_wall * 100:.2f}% of "
-          f"it, {n_kernels} device kernels and copies = {per_step:.2f} a "
-          f"step; race kernel {race_ms:.6f} ms in {traced_launches} "
-          f"launches = {race_us:.4f} us a launch")
-    for e in sorted(events, key=lambda e: -getattr(
-            e, "self_device_time_total", 0.0))[:6]:
+    # the whole sweep traced: device kernels a step, the device's busy share
+    traced_wall, busy, n_kernels, kernel_ms, traced_launches, top = \
+        traced_mj_sweep(mjc, lambda: orig_sweep(*args, **kwargs))
+    per_step = n_kernels / n_steps
+    chunk["sweep_ms_per_launch"] = kernel_ms / max(traced_launches, 1)
+    print(f"  traced sweep: wall {traced_wall:.6f} s, device busy "
+          f"{busy:.6f} s = {busy / traced_wall * 100:.2f}% of it, "
+          f"{n_kernels} device kernels and copies = {per_step:.4f} a step; "
+          f"multi-job chunk kernel {kernel_ms:.6f} ms in {traced_launches} "
+          f"launches = {chunk['sweep_ms_per_launch']:.6f} ms a launch")
+    for e in top:
         print(f"    device {e.key[:60]}: {e.count} calls, "
               f"{getattr(e, 'self_device_time_total', 0.0) / 1e3:.3f} ms")
-    if traced_launches != traced_steps:
-        fail(f"traced run: {traced_steps} steps, {traced_launches} launches")
-    parts["trace_reading"] = time.perf_counter() - t_part
-    # the traced run's device time a step over the untraced run's wall a
-    # step: the profiler's own host cost inflates the traced wall
-    busy_untraced = busy / max(traced_steps, 1) / (wall / n_steps)
-    print(f"  device time a step {busy / max(traced_steps, 1) * 1e3:.6f} "
-          f"ms over the untraced {wall / n_steps * 1e3:.6f} ms a step: "
-          f"busy {busy_untraced * 100:.2f}%; seconds: "
+    if traced_launches != launches:
+        fail(f"traced sweep: {traced_launches} launches, {launches} before")
+    parts["traced_sweep"] = time.perf_counter() - t_part
+    print(f"  device time a step {busy / n_steps * 1e3:.6f} ms over the "
+          f"untraced {wall / n_steps * 1e3:.6f} ms a step: busy "
+          f"{busy / wall * 100:.2f}%; seconds: "
           + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()))
-    return {"launches": launches, "steps": n_steps, "wall_s": wall,
-            "ms_per_step": wall / n_steps * 1e3, "plain_wall_s": plain_wall,
+    chunk.pop("race_args")
+    return {"launches": launches, "chunks": chunks, "steps": n_steps,
+            "race_launches": race_launches, "wall_s": wall,
+            "ms_per_step": wall / n_steps * 1e3, "warm_wall_s": warm_wall,
+            "engine_wall_s": engine_wall, "plain_wall_s": plain_wall,
             "plain_bit_different": diff,
             "single_job_chunk_launches": one_chunks,
             "single_job_race_launches": one_race,
+            "single_job_mj_launches": one_mj,
             "single_job_differing": one_diff,
             "busy_share": busy / traced_wall,
-            "busy_share_untraced_wall": busy_untraced, "parts_s": parts,
-            "kernels_per_step": per_step,
-            "traced_race_us_per_launch": race_us,
-            "max_abs_err": abs_err, "event_mismatches": mism,
-            "dt_max_rel_err": rel, "shape": [R, ke, kd],
-            "rows_without_live_clock": dead,
-            "ms": k_ms if k_dev is None else k_dev,
-            "plain_ms": r_ms if r_dev is None else r_dev,
-            "call_ms": k_ms, "plain_call_ms": r_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by,
+            "busy_share_untraced_wall": busy / wall, "parts_s": parts,
+            "kernels_per_step": per_step, "chunk": chunk,
+            "race": {"max_abs_err": abs_err, "event_mismatches": mism,
+                     "dt_max_rel_err": rel, "shape": [R, ke, kd],
+                     "rows_without_live_clock": dead,
+                     "ms": k_ms if k_dev is None else k_dev,
+                     "plain_ms": r_ms if r_dev is None else r_dev,
+                     "call_ms": k_ms, "plain_call_ms": r_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by},
             "seconds": time.perf_counter() - t_phase}
 
 
-def multijob_parity_phase(core, des_step):
+def multijob_bench_phase(core, cc, mjc, des_step, ref):
+    """Phase 20b: the multi-job grid at benchmarks/engine_perf.py::
+    multijob_sweep_throughput's shape through ``run_multijob_batch``: its
+    wall, ms a step, launches, the kernel's time a launch over the traced
+    sweep, and the middle chunk held against the plain loop with its
+    bound."""
+    import torch
+    vmj, vectorized = core.vectorized_multijob, core.vectorized
+    t_phase = time.perf_counter()
+    cluster = core.Params(**MJ_BENCH_CLUSTER)
+    jobs = tuple(core.JobSpec(*j) for j in MJ_BENCH_JOBS)
+    grid = [(cluster.replace(spare_pool_size=s, repair_servers=r), jobs)
+            for s in MJ_BENCH_SPARES for r in MJ_BENCH_SHOPS]
+
+    def run():
+        return core.run_multijob_batch(grid, MJ_REPLICAS, engine="ctmc",
+                                       base_seed=0, device="cuda")
+
+    main_run, restore = capture_mj_chunks(vmj, vectorized, mjc)
+    try:
+        zero_mj_counts(mjc)                       # the benchmark shape's run
+        race0, chunk0 = des_step.LAUNCHES, cc.LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reps = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = mjc.LAUNCHES
+        race, single = des_step.LAUNCHES - race0, cc.LAUNCHES - chunk0
+    finally:
+        restore()
+    chunks, n_steps = main_run["chunks"], main_run["steps"]
+    rows = main_run["calls"][0][2] * main_run["calls"][0][3]
+    for (c, _), rep in zip(grid, reps):
+        if rep.engine != "ctmc" or rep.fleet["completed"].mean != 1.0 \
+                or rep.fleet["conservation_err"].maximum:
+            fail(f"benchmark-shape point spares={c.spare_pool_size} "
+                 f"shop={c.repair_servers}: engine {rep.engine}, completed "
+                 f"{rep.fleet['completed'].mean}, conservation error "
+                 f"{rep.fleet['conservation_err'].maximum}")
+    if launches != chunks or race or single or n_steps <= 0:
+        fail(f"benchmark shape: {chunks} chunks, {launches} multi-job "
+             f"chunk, {race} race and {single} chunk launches")
+    counts = save_mj_counts(mjc)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    warm_wall = time.perf_counter() - t0
+    restore_mj_counts(mjc, counts)
+    traced_wall, busy, n_kernels, kernel_ms, traced_launches, _ = \
+        traced_mj_sweep(mjc, run)
+    mid = chunks // 2
+    kept_run, restore = capture_mj_chunks(vmj, vectorized, mjc, keep=mid)
+    counts = save_mj_counts(mjc)
+    try:
+        run()
+    finally:
+        restore()
+        restore_mj_counts(mjc, counts)
+    chunk = mj_chunk_check(mjc, vmj, ref, kept_run["kept"],
+                           f"benchmark shape, chunk {mid}")
+    chunk.pop("race_args")
+    per_launch = kernel_ms / max(traced_launches, 1)
+    print(f"  {len(grid)} points x {MJ_REPLICAS} replicas ({rows} rows), "
+          f"{len(jobs)} jobs: sweep wall {wall:.6f} s (warm "
+          f"{warm_wall:.6f} s), {n_steps} steps = "
+          f"{wall / n_steps * 1e3:.4f} ms a step, {launches} multi-job chunk "
+          f"launches; the kernel {per_launch:.6f} ms a launch over the "
+          f"traced sweep (busy {busy / traced_wall * 100:.2f}% of its "
+          f"{traced_wall:.6f} s, {n_kernels / n_steps:.4f} device kernels "
+          f"a step); bound {chunk['bound_ms']:.6f} ms a launch "
+          f"({chunk['bound_by']}, the middle chunk); mean makespan "
+          + ", ".join(f"{r.fleet['makespan'].mean / 60:.2f}" for r in reps)
+          + " h")
+    return dict(chunk, launches=launches, chunks=chunks, steps=n_steps,
+                rows=rows, wall_s=wall, warm_wall_s=warm_wall,
+                sweep_ms_per_step=wall / n_steps * 1e3,
+                sweep_ms_per_launch=per_launch,
+                busy_share=busy / traced_wall,
+                seconds=time.perf_counter() - t_phase)
+
+
+def multijob_parity_phase(core, mjc, des_step, ref):
     """Phase 21: tests/test_multijob_parity.py's two- and four-job
-    clusters, the multi-job CTMC engine on the card against the port's
-    event engine on the host, every pinned mean within |z| < 3.5."""
+    clusters, the multi-job CTMC engine on the card (a multi-job chunk
+    launch a chunk) against the port's event engine on the host, every
+    pinned mean within |z| < 3.5; then each cluster's run again with its
+    middle chunk kept, that chunk held bit for bit against the plain loop
+    and timed (mj_chunk_check)."""
     import numpy as np
-    vmj = core.vectorized_multijob
+    vmj, vectorized = core.vectorized_multijob, core.vectorized
     t_phase = time.perf_counter()
     out = {}
     for name, (kw, job_rows, n_event, seed) in MJ_PARITY.items():
         cluster = core.Params(**kw)
         jobs = [core.JobSpec(*j) for j in job_rows]
-        steps = [0]
-        orig_steps = vmj._mj_steps
-
-        def counted(state, us, *args, **kwargs):
-            steps[0] += us.shape[0]
-            return orig_steps(state, us, *args, **kwargs)
-
-        vmj._mj_steps = counted
+        run, restore = capture_mj_chunks(vmj, vectorized, mjc)
         try:
-            before = des_step.LAUNCHES
+            zero_mj_counts(mjc)                   # this cluster's run
+            des_step.LAUNCHES = 0
             t0 = time.perf_counter()
             point = vmj.simulate_multijob_ctmc_sweep(
                 [(cluster, jobs)], n_replicas=MJ_PARITY_CTMC, seed=seed,
                 device="cuda")[0]
             ctmc_s = time.perf_counter() - t0
-            launches = des_step.LAUNCHES - before
+            launches, race = mjc.LAUNCHES, des_step.LAUNCHES
+            by_j = mjc.LAUNCHES_BY_J[len(jobs)]
         finally:
-            vmj._mj_steps = orig_steps
+            restore()
         t0 = time.perf_counter()
         results = core.simulate_multijob(cluster, jobs,
                                          n_replications=n_event,
                                          base_seed=seed + 1)
         event_s = time.perf_counter() - t0
-        if launches != steps[0] or launches <= 0 \
+        if launches != run["chunks"] or launches <= 0 or race \
+                or by_j != launches \
                 or float(point["completed"].min()) != 1.0 \
                 or float(np.max(point["conservation_err"])) != 0.0:
-            fail(f"{name}: {launches} launches for {steps[0]} steps, "
-                 f"completed {point['completed'].min()}, conservation "
-                 f"error {np.max(point['conservation_err'])}")
+            fail(f"{name}: {launches} multi-job chunk launches for "
+                 f"{run['chunks']} chunks, {race} race launches, completed "
+                 f"{point['completed'].min()}, conservation error "
+                 f"{np.max(point['conservation_err'])}")
         zs = {}
         for j in range(len(jobs)):
             zs.update({f"job{j}_{m}": z for m, z in parity_z(
@@ -2331,21 +2663,40 @@ def multijob_parity_phase(core, des_step):
                            MJ_FLEET_METRICS))
         worst = max(abs(z) for z in zs.values())
         print(f"  {name}: CTMC {MJ_PARITY_CTMC} replicas on the card "
-              f"{ctmc_s:.3f} s ({steps[0]} steps, {launches} race "
-              f"launches), event {n_event} on the host {event_s:.3f} s; "
-              f"largest |z| {worst:.3f}; z: "
+              f"{ctmc_s:.3f} s ({run['steps']} steps in {run['chunks']} "
+              f"chunks, {launches} multi-job chunk launches), event "
+              f"{n_event} on the host {event_s:.3f} s; largest |z| "
+              f"{worst:.3f}; z: "
               + ", ".join(f"{m} {z:+.3f}" for m, z in zs.items()))
         if worst >= PARITY_Z:
             fail(f"multi-job parity {name}: |z| = {worst:.3f} >= "
                  f"{PARITY_Z}")
-        out[name] = {"launches": launches, "steps": steps[0],
-                     "max_abs_z": worst, "ctmc_s": ctmc_s,
-                     "event_s": event_s}
+        mid = run["chunks"] // 2
+        kept_run, restore = capture_mj_chunks(vmj, vectorized, mjc, keep=mid)
+        counts = save_mj_counts(mjc)
+        try:
+            again = vmj.simulate_multijob_ctmc_sweep(
+                [(cluster, jobs)], n_replicas=MJ_PARITY_CTMC, seed=seed,
+                device="cuda")[0]
+        finally:
+            restore()
+            restore_mj_counts(mjc, counts)
+        again_diff = bit_different([point], [again])[0]
+        if again_diff or kept_run["kept"] is None:
+            fail(f"{name}: the run again differs in {again_diff} elements, "
+                 "or its middle chunk was not kept")
+        chunk = mj_chunk_check(mjc, vmj, ref, kept_run["kept"],
+                               f"{name}, chunk {mid}")
+        chunk.pop("race_args")
+        out[name] = dict(chunk, launches=launches, steps=run["steps"],
+                         J=len(jobs), max_abs_z=worst, ctmc_s=ctmc_s,
+                         event_s=event_s)
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script runs "
@@ -2356,6 +2707,7 @@ def main() -> int:
                                   analytical, run_replications, vectorized)
     from repro_torch.kernels import ctmc_chunk as cc
     from repro_torch.kernels import des_step, ref
+    from repro_torch.kernels import mj_chunk as mjc
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba_scan as ms
     # float32 products in full float32 on the card, for the A/B of phase 9
@@ -2372,7 +2724,8 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"device: {kind} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.device_count()} visible)")
-    build_kernels([des_step.LIBRARY, cc.LIBRARY, fa.LIBRARY, ms.LIBRARY])
+    build_kernels([des_step.LIBRARY, cc.LIBRARY, mjc.LIBRARY, fa.LIBRARY,
+                   ms.LIBRARY])
 
     # ---- phase 2: kernel against plain version ----------------------------
     phase("phase 2: event_race kernel vs plain PyTorch version")
@@ -2709,46 +3062,89 @@ def main() -> int:
           f"({'/'.join(str(j[0]) for j in MJ_JOBS)}) on a "
           f"{MJ_CLUSTER['working_pool_size']}-server pool, {MJ_REPLICAS} "
           "replicas, engine='auto'")
-    multijob = multijob_phase(core, cc, des_step, ref)
+    multijob = multijob_phase(core, cc, mjc, des_step, ref)
     secs20 = time.perf_counter() - t20
     print(f"  phase 20: {secs20:.3f} s")
+    t20b = time.perf_counter()
+    phase(f"phase 20b: the multi-job grid at benchmarks/engine_perf.py::"
+          f"multijob_sweep_throughput's shape: spare_pool_size="
+          f"{MJ_BENCH_SPARES} x repair_servers={MJ_BENCH_SHOPS}, "
+          f"{MJ_REPLICAS} replicas")
+    mj_bench = multijob_bench_phase(core, cc, mjc, des_step, ref)
+    secs20b = time.perf_counter() - t20b
+    print(f"  phase 20b: {secs20b:.3f} s")
+    t21 = time.perf_counter()
     phase(f"phase 21: run parity of tests/test_multijob_parity.py's two- "
           f"and four-job clusters, CTMC on the card ({MJ_PARITY_CTMC} "
           "replicas) against the event engine")
-    mj_parity = multijob_parity_phase(core, des_step)
-    secs21 = time.perf_counter() - t20 - secs20
-    print(f"  phase 21: {secs21:.3f} s; phases 20-21: {secs20 + secs21:.3f} "
-          "s")
-    host_paths["multijob"] = {"seconds": secs20 + secs21,
-                              "parity": mj_parity, **{
-                                  k: multijob[k] for k in (
-                                      "launches", "steps", "wall_s",
-                                      "ms_per_step", "plain_wall_s",
-                                      "plain_bit_different",
-                                      "single_job_chunk_launches",
-                                      "single_job_differing", "busy_share",
-                                      "kernels_per_step",
-                                      "traced_race_us_per_launch")}}
+    mj_parity = multijob_parity_phase(core, mjc, des_step, ref)
+    secs21 = time.perf_counter() - t21
+    print(f"  phase 21: {secs21:.3f} s; phases 20-21: "
+          f"{secs20 + secs20b + secs21:.3f} s")
+    host_paths["multijob"] = {
+        "seconds": secs20 + secs20b + secs21, "parity": mj_parity,
+        "benchmark_shape": {k: mj_bench[k] for k in (
+            "launches", "steps", "rows", "wall_s", "warm_wall_s",
+            "sweep_ms_per_step", "sweep_ms_per_launch", "busy_share",
+            "bound_ms")},
+        **{k: multijob[k] for k in (
+            "launches", "chunks", "steps", "race_launches", "wall_s",
+            "ms_per_step", "warm_wall_s", "engine_wall_s", "plain_wall_s",
+            "plain_bit_different",
+            "single_job_chunk_launches", "single_job_mj_launches",
+            "single_job_differing", "busy_share",
+            "busy_share_untraced_wall", "kernels_per_step")}}
 
-    # the standalone race's record: its launches, times and bound on the
-    # multi-job path (phase 20), the path that launches it; phase 2's
-    # numbers at the single-job shape beside them
+    # the standalone race's record: its launches on the main paths, the
+    # single-job (phase 5) and multi-job (phases 20, 20b, 21) ones, where
+    # the chunk kernels replaced it (0: each phase fails on a race launch);
+    # its times and bound alone at phase 20's middle chunk's middle step,
+    # and phase 2's numbers at the single-job shape beside them
     mism, rel, abs_err = main_err
+    mj_race = multijob["race"]
     record = {"name": "event_race", "route": "cuda", "source": KERNEL_SOURCE,
               "replaces": TPU_KERNEL,
               "replaces_function": "src/repro/kernels/des_step.py:"
                                    "_event_race_kernel",
-              "launches": multijob["launches"],
-              **{k: multijob[k] for k in (
+              "launches": race_launches + multijob["race_launches"],
+              "launches_path": "the single-job and multi-job main paths "
+                               "(phases 5 and 20)",
+              **{k: mj_race[k] for k in (
                   "max_abs_err", "event_mismatches", "dt_max_rel_err",
                   "shape", "ms", "plain_ms", "call_ms", "plain_call_ms",
-                  "bound_ms", "bound_by", "steps")},
-              "single_job_path_launches": race_launches,
+                  "bound_ms", "bound_by")},
               "phase2_shape": [B_main, 16, 3], "phase2_max_abs_err": abs_err,
               "phase2_event_mismatches": mism, "phase2_dt_max_rel_err": rel,
               "phase2_ms": k_ms if k_dev is None else k_dev,
               "phase2_plain_ms": r_ms if r_dev is None else r_dev,
               "phase2_bound_ms": bound_ms, "library_ms": None}
+    mj_records = []
+    for J, label, rec, launches_, extra in (
+            (3, "capacity_planning grid", multijob["chunk"],
+             multijob["launches"],
+             {"steps": multijob["steps"], "sweep_ms_per_launch":
+              multijob["chunk"]["sweep_ms_per_launch"]}),
+            (3, "multijob_sweep_throughput shape", mj_bench,
+             mj_bench["launches"],
+             {"steps": mj_bench["steps"], "wall_s": mj_bench["wall_s"],
+              "sweep_ms_per_launch": mj_bench["sweep_ms_per_launch"]}),
+            *((v["J"], f"phase 21 {k} run parity", v, v["launches"],
+               {"steps": v["steps"]})
+              for k, v in mj_parity.items() if k != "seconds")):
+        mj_records.append(dict(
+            {k: rec[k] for k in ("max_abs_err", "bit_different", "call_ms",
+                                 "plain_ms", "plain_call_ms", "bound_ms",
+                                 "bound_by", "ms_per_step", "rows_per_block",
+                                 "live_rows", "row_steps")},
+            name=f"mj_chunk[J={J}]", instance=label, route="cuda",
+            source=MJ_SOURCE, replaces=TPU_KERNEL,
+            replaces_function="src/repro/kernels/des_step.py:"
+                              f"_event_race_kernel ({16 * J} rates x "
+                              f"{2 * J} residuals) and the lax.scan of "
+                              f"{MJ_SCAN} (_mj_chunk_loop)",
+            launches=launches_,
+            ms=rec["call_ms"] if rec["ms"] is None else rec["ms"],
+            library_ms=None, **extra))
     chunk_record = dict(
         chunk, name="ctmc_chunk", instance="exponential", route="cuda",
         source=CHUNK_SOURCE,
@@ -2763,7 +3159,7 @@ def main() -> int:
         experiment_launches=host_paths["experiment"]["launches"],
         ms=chunk["call_ms"] if chunk["ms"] is None else chunk["ms"],
         library_ms=None)
-    kernels = [record, chunk_record]
+    kernels = [record, chunk_record] + mj_records
     for name, rec in families.items():
         kernels.append(dict(
             {k: rec[k] for k in ("max_abs_err", "bit_different", "call_ms",
@@ -2823,6 +3219,8 @@ def main() -> int:
         kernels.append(dict(t, name=name, route="cuda", source=source,
                             replaces=replaces, launches=launches_,
                             ms=t["call_ms"] if t["ms"] is None else t["ms"]))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, builds "
+          "included")
     print(json.dumps({"serving": serving, "ab_float32": ab,
                       "host_paths": host_paths}))
     print(json.dumps({"kernels": kernels}))

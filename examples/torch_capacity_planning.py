@@ -29,7 +29,7 @@ percentile table, one batch through the repair-slot lane.
 
 CTMC studies run on ``--device`` (default: the card).  The multi-job
 what-if runs its whole grid through the multi-job CTMC engine, one launch
-of the event-race kernel a step on the card.
+of the multi-job chunk kernel every 64 steps on the card.
 
     PYTHONPATH=src python examples/torch_capacity_planning.py [--fast] \
         [--device cpu]
@@ -261,12 +261,13 @@ if args.shock == "on":
 # ---------------------------------------------------------------------------
 if args.jobs == "on":
     from repro_torch.core import JobSpec, MultiJobSweep
-    from repro_torch.kernels import ctmc_chunk, des_step
+    from repro_torch.kernels import ctmc_chunk, des_step, mj_chunk
 
     # three mixed-size jobs on one 200-server pool: how many spares and
     # repair servers does the *fleet* need?  Job count is the only
     # structure key, so the whole 3x2 grid (mixed sizes included) is one
-    # batch: on the card, one launch of the event-race kernel a step.
+    # batch: on the card, one launch of the multi-job chunk kernel every
+    # 64 steps.
     mj_cluster = Params(
         working_pool_size=200, spare_pool_size=12, job_size=64,
         job_length=720.0, random_failure_rate=0.004,
@@ -280,6 +281,7 @@ if args.jobs == "on":
           f"pool, spare x repair-server grid, engine=auto, {n_rep_mj} "
           f"reps ===")
     race_before, chunk_before = des_step.LAUNCHES, ctmc_chunk.LAUNCHES
+    mj_before = mj_chunk.LAUNCHES
     mj = MultiJobSweep("fleet-capacity", mj_jobs, "spare_pool_size",
                        [8, 10, 12], parameter_b="repair_servers",
                        values_b=[3, 4], n_replications=n_rep_mj,
@@ -287,6 +289,7 @@ if args.jobs == "on":
                        device=args.device).run()
     race = des_step.LAUNCHES - race_before
     chunks = ctmc_chunk.LAUNCHES - chunk_before
+    mj_launches = mj_chunk.LAUNCHES - mj_before
     print(f"{'spares':>7} {'shop':>5} {'engine':>7} {'makespan h':>11} "
           f"{'stalls':>7} {'queued':>7} {'job0 h':>7} {'job2 h':>7}")
     for p in mj.points:
@@ -300,12 +303,15 @@ if args.jobs == "on":
     assert all(p.engine == "ctmc" for p in mj.points), \
         "multi-job grid should ride the compartment engine via auto"
     on_card = args.device is None or str(args.device).startswith("cuda")
-    print(f"\nevent-race kernel launches {race}, chunk-kernel launches "
-          f"{chunks}")
-    # on the card every step of the grid is one race launch and no 1-job
-    # point takes the chunk kernel; on the CPU nothing launches
-    assert chunks == 0 and (race > 0 if on_card else race == 0), \
-        f"multi-job grid: {race} race and {chunks} chunk launches"
+    print(f"\nmulti-job chunk-kernel launches {mj_launches}, event-race "
+          f"kernel launches {race}, chunk-kernel launches {chunks}")
+    # on the card every chunk of the grid is one multi-job chunk launch, the
+    # standalone race never launches and no 1-job point takes the
+    # single-job chunk kernel; on the CPU nothing launches
+    assert race == chunks == 0 and (mj_launches > 0 if on_card
+                                    else mj_launches == 0), \
+        (f"multi-job grid: {mj_launches} multi-job chunk, {race} race and "
+         f"{chunks} chunk launches")
     print("\nThe fleet view prices what single-job sweeps cannot: spares "
           "and repair servers are shared, so the small job's stalls are "
           "set by the big job's failure traffic.  Watch the queued "

@@ -47,10 +47,14 @@ stalled jobs grab one each (earliest stall first -- the release-watcher
 order of the event engine) with the host-selection surcharge always
 charged (released servers are never members of the starved job).
 
-Each step races 16J exponential lanes against 2J deterministic residuals
-through ``ops.event_race``: on the card that is one launch of the
-standalone race kernel (``csrc/event_race.cu``) a step, with the rest of
-the step in PyTorch ops; on the CPU and for ``impl="ref"`` the plain race.
+Each step races 16J exponential lanes against 2J deterministic residuals.
+On the card a chunk of steps is one launch of the multi-job chunk kernel
+(``csrc/mj_chunk.cu`` through :mod:`repro_torch.kernels.mj_chunk`), which
+runs :func:`_mj_step_u` with the race fused in, for J up to
+``mj_chunk.MAX_JOBS``; on the CPU and for ``impl="ref"`` each step is
+:func:`_mj_step_u` in PyTorch ops with the plain race (:func:`_mj_steps`,
+the kernel's plain version), and ``_mj_steps(..., impl="cuda")`` still
+races through the standalone race kernel (``csrc/event_race.cu``).
 Random numbers copy the *shape* of the reference's draws, not its bits:
 each chunk makes one ``(chunk, next_pow2(R), 10)`` draw in ``[1e-12, 1)``
 from a ``torch.Generator`` seeded from ``(seed, chunk index)``, sliced to
@@ -79,7 +83,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..kernels import ops
+from ..kernels import mj_chunk, ops
 from . import hazards
 from . import vectorized as vz
 from .histograms import HIST_CHANNELS
@@ -707,7 +711,9 @@ def _mj_steps(state: Dict[str, torch.Tensor], us: torch.Tensor,
     ``us`` is the chunk's ``(n_steps, R_draw, 10)`` draw; it is sliced to
     R replicas and tiled across the P points of a ``(P * R,)`` batch, so
     row b reads replica ``b % R``'s uniforms.  ``impl`` goes to the event
-    race of each step.
+    race of each step.  The plain version of the multi-job chunk kernel
+    (``impl="ref"``); ``impl="cuda"`` races through the standalone race
+    kernel, for tests and timing.
     """
     if us.shape[1] != R:
         us = us[:, :R]
@@ -727,18 +733,32 @@ def _mj_chunk_loop(pv: torch.Tensor, seed: int, P: int, R: int, chunk: int,
     single-job ``_chunk_loop`` (same chunking, bucketing, and
     common-random-number conventions; see that docstring).  Each chunk
     draws ``(chunk, next_pow2(R), 10)`` uniforms in one call; the
-    early-exit test reads the device once per chunk.  ``init_state`` is
-    left as it was."""
+    early-exit test reads the device once per chunk.  A chunk is one
+    launch of the multi-job chunk kernel for ``impl=None`` or ``"cuda"``
+    on the card (a J above ``mj_chunk.MAX_JOBS`` is refused, naming
+    ``impl="ref"``), and :func:`_mj_steps` with the plain race for
+    ``impl="ref"`` and on the CPU (where ``impl="cuda"`` raises).
+    ``init_state`` is left as it was."""
     device = init_state["phase"].device
     R_draw = _next_pow2(R)
+    fused = ops._use_kernel("mj_chunk", impl, init_state["phase"])
+    owned = False
 
     def run_chunk(state, i, n_steps):
+        nonlocal owned
         gen = torch.Generator(device=device)
         gen.manual_seed(vz._chunk_seed(seed, i))
         us = torch.rand((n_steps, R_draw, _N_UNIFORMS), generator=gen,
                         dtype=torch.float32, device=device)
         us = us.clamp_min_(1e-12)
-        return _mj_steps(state, us, pv, R, P, J, impl, hist_channels)
+        if not fused:
+            return _mj_steps(state, us, pv, R, P, J, impl, hist_channels)
+        # the first launch clones the lanes it writes; later ones update
+        # those clones in place
+        state = mj_chunk.mj_chunk_cuda(state, us, pv, R, P, J,
+                                       hist_channels, inplace=owned)
+        owned = True
+        return state
 
     state = init_state
     i = 0
@@ -841,8 +861,8 @@ def simulate_multijob_ctmc_sweep(
     card; ``device="cpu"`` must be asked for), with pow2 shape bucketing
     and common random numbers exactly like the single-job sweep.
     ``impl`` overrides every point's ``event_race_impl`` (``None`` /
-    ``"cuda"``: the race kernel on the card; ``"ref"``: the plain race);
-    otherwise points split by it.
+    ``"cuda"``: the multi-job chunk kernel on the card; ``"ref"``: the
+    plain step loop); otherwise points split by it.
 
     Returns one dict per point: ``per_job`` is a list of
     single-job-compatible array dicts (feed each to

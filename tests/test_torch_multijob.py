@@ -18,8 +18,11 @@ invariants inside the port: ``conservation_err`` is 0 at every step, the
 without building a multi-job batch, bucketed and unbucketed runs and
 ``early_exit`` on and off are value-identical on real rows, a mixed-size
 grid runs as one batch per job count, and stall ties go to the lowest job
-index.  On the card (marked ``gpu``): the race kernel against the plain
-race bit for bit, one race launch a step, none for the 1-job point.
+index.  On the card (marked ``gpu``): the sweep through the multi-job
+chunk kernel against the plain step loop bit for bit, one chunk-kernel
+launch a chunk and no standalone race launch, neither for the 1-job point;
+the standalone race, driven through ``_mj_step_u`` and ``ops.event_race``,
+at the multi-job widths and on stall ties.
 """
 
 import functools
@@ -34,7 +37,7 @@ from repro_torch.core import vectorized as tv
 from repro_torch.core import vectorized_multijob as tm
 from repro_torch.core.multijob import JobSpec
 from repro_torch.core.params import Params
-from repro_torch.kernels import ctmc_chunk, des_step, ops
+from repro_torch.kernels import ctmc_chunk, des_step, mj_chunk, ops
 from repro_torch.kernels.ref import event_race_ref
 
 torch.set_num_threads(1)
@@ -446,7 +449,7 @@ def test_stall_ties_go_to_the_lowest_job(ref, handoff):
 
 def test_kernel_request_on_the_cpu_raises():
     cluster, jobs = LOCKSTEP["two_shop3"]
-    with pytest.raises(ValueError, match="event_race impl='cuda'"):
+    with pytest.raises(ValueError, match="mj_chunk impl='cuda'"):
         _run([(cluster, jobs)], n_replicas=4, impl="cuda")
 
 
@@ -459,16 +462,16 @@ def _needs_cuda():
         pytest.skip("needs a CUDA device")
 
 
-def _count_steps(monkeypatch):
-    """Steps run through the multi-job step loop, counted per call."""
+def _count_chunks(monkeypatch):
+    """Chunks run (each draws once from its seed), counted per call."""
     count = [0]
-    steps = tm._mj_steps
+    seed_fn = tv._chunk_seed
 
-    def counted(state, us, *args, **kwargs):
-        count[0] += us.shape[0]
-        return steps(state, us, *args, **kwargs)
+    def counted(seed, i):
+        count[0] += 1
+        return seed_fn(seed, i)
 
-    monkeypatch.setattr(tm, "_mj_steps", counted)
+    monkeypatch.setattr(tv, "_chunk_seed", counted)
     return count
 
 
@@ -477,18 +480,22 @@ def _count_steps(monkeypatch):
 def test_cuda_race_equals_plain_race_bit_for_bit(monkeypatch, name):
     _needs_cuda()
     cluster, jobs = LOCKSTEP[name]
-    steps = _count_steps(monkeypatch)
-    race = des_step.LAUNCHES
+    chunks = _count_chunks(monkeypatch)
+    race, fused = des_step.LAUNCHES, mj_chunk.LAUNCHES
     kernel = tm.simulate_multijob_ctmc_sweep(
         [(cluster, jobs), (cluster.replace(spare_pool_size=8), jobs)],
         n_replicas=200, seed=6, device="cuda")
     torch.cuda.synchronize()
-    launches = des_step.LAUNCHES - race
-    assert steps[0] > 0 and launches == steps[0]
+    launches = mj_chunk.LAUNCHES - fused
+    # a chunk-kernel launch a chunk, with the race fused in: the
+    # standalone race never launches
+    assert chunks[0] > 0 and launches == chunks[0]
+    assert des_step.LAUNCHES == race
     plain = tm.simulate_multijob_ctmc_sweep(
         [(cluster, jobs), (cluster.replace(spare_pool_size=8), jobs)],
         n_replicas=200, seed=6, impl="ref", device="cuda")
-    assert des_step.LAUNCHES - race == launches
+    assert mj_chunk.LAUNCHES - fused == launches
+    assert des_step.LAUNCHES == race
     for i, (a, b) in enumerate(zip(kernel, plain)):
         _assert_points_equal(a, b, f"point {i}")
         assert float(np.max(a["conservation_err"])) == 0.0
@@ -502,10 +509,12 @@ def test_cuda_one_job_point_makes_no_race_launch():
                     systematic_failure_rate=0.01)
     spec = JobSpec(24, 2000.0, warm_standbys=2)
     race, chunks = des_step.LAUNCHES, ctmc_chunk.LAUNCHES
+    fused = mj_chunk.LAUNCHES
     out = tm.simulate_multijob_ctmc_sweep([(single, (spec,))],
                                           n_replicas=64, seed=13,
                                           device="cuda")[0]
     assert des_step.LAUNCHES == race and ctmc_chunk.LAUNCHES > chunks
+    assert mj_chunk.LAUNCHES == fused
     want = tv.simulate_ctmc_sweep([single.replace(warm_standbys=2)],
                                   n_replicas=64, seed=13, device="cuda")[0]
     for k in want:
