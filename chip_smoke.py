@@ -414,6 +414,9 @@ BULK_OPS = 4 * 36 + 20 + 20 + 3 * 41 + 20
 #: bytes of a row's scenario lanes in the state (deficit, schedule pointer,
 #: window flag, the three counters)
 SCEN_LANE_BYTES = 6 * 4
+#: phase 22: the means held between a float64-age run and its float32 twin
+AGE64_METRICS = ("total_time", "n_failures", "stall_time", "useful_work",
+                 "n_auto_repairs", "recovery_overhead")
 
 #: phase 20: examples/capacity_planning.py's multi-job what-if: three
 #: mixed-size jobs (job_size, job_length, warm_standbys) on one 200-server
@@ -978,7 +981,7 @@ def sweep_identity(final, final_ref):
 def chunk_bound_ms(live_rows, n_steps, R, n_edges, hist_adds, ring_writes,
                    kind="exponential", n_hazard_cols=0, n_uniforms=8,
                    n_slots=0, n_repair_cols=0, scen=None, struck_steps=0,
-                   param_rows=None):
+                   param_rows=None, age_bytes=4):
     """Least time for one chunk launch on these inputs: the uniforms the
     rows read (n_steps x R x n_uniforms x 4 B), each live row's state
     read and written, each parameter row the launch reads (``param_rows``:
@@ -995,13 +998,15 @@ def chunk_bound_ms(live_rows, n_steps, R, n_edges, hist_adds, ring_writes,
     SCEN_STEP_OPS and two a shock lane (the race's sum and cumsum), and
     BULK_OPS a struck row-step, at the float32 peak.  ``scen`` is the
     scenario key (D, codes); ``struck_steps`` the shock and kill
-    row-steps of the launch."""
+    row-steps of the launch.  ``age_bytes`` is 8 for a float64 twin, whose
+    age lane and slots' remaining times take 4 more bytes each."""
     n_dom, n_camp = (scen[0], len(scen[1])) if scen else (0, 0)
     scen_cols = 3 + 2 * n_dom + 3 * n_camp if scen else 0
     param_rows = live_rows if param_rows is None else param_rows
     nbytes = (n_steps * R * n_uniforms * 4
               + live_rows * (2 * ROW_STATE_BYTES + 2 * 12 * n_slots
-                             + (2 * SCEN_LANE_BYTES if scen else 0))
+                             + (2 * SCEN_LANE_BYTES if scen else 0)
+                             + 2 * (age_bytes - 4) * (1 + n_slots))
               + param_rows * (ROW_PARAM_BYTES
                               + 4 * (n_hazard_cols + n_repair_cols
                                      + scen_cols))
@@ -1053,7 +1058,8 @@ def save_counts(cc):
     """The chunk kernel's launch counters, to put back after launches made
     only to compare or time."""
     return (cc.LAUNCHES, cc.STEPS, dict(cc.LAUNCHES_BY_KIND),
-            dict(cc.LAUNCHES_BY_REPAIR), dict(cc.LAUNCHES_BY_SCEN))
+            dict(cc.LAUNCHES_BY_REPAIR), dict(cc.LAUNCHES_BY_SCEN),
+            dict(cc.LAUNCHES_BY_AGE))
 
 
 def restore_counts(cc, counts):
@@ -1061,21 +1067,22 @@ def restore_counts(cc, counts):
     cc.LAUNCHES_BY_KIND.update(counts[2])
     cc.LAUNCHES_BY_REPAIR.update(counts[3])
     cc.LAUNCHES_BY_SCEN.update(counts[4])
+    cc.LAUNCHES_BY_AGE.update(counts[5])
 
 
 def zero_counts(cc):
     """Every launch counter of the chunk kernel to 0."""
     cc.LAUNCHES = cc.STEPS = 0
     for counter in (cc.LAUNCHES_BY_KIND, cc.LAUNCHES_BY_REPAIR,
-                    cc.LAUNCHES_BY_SCEN):
+                    cc.LAUNCHES_BY_SCEN, cc.LAUNCHES_BY_AGE):
         counter.update(dict.fromkeys(counter, 0))
 
 
-def chunk_phase(cc, vectorized, call):
+def chunk_phase(cc, vectorized, call, time_plain=True):
     """Phases 5 and 14's kernel check: the chunk kernel against the plain
     step loop on a main path's first chunk (its initial state, parameters,
-    failure family and draw), every lane; then both one's times and the
-    kernel's bound."""
+    failure family and draw), every lane; then the kernel's times (and the
+    plain loop's, unless ``time_plain`` is false) and its bound."""
     import torch
     from repro_torch.core import hazards
     pv, seed, P, R, chunk = call[:5]
@@ -1126,12 +1133,14 @@ def chunk_phase(cc, vectorized, call):
         or None
     t["call_ms"] = event_ms(lambda: cc.ctmc_chunk_cuda(
         init, us, pv, R, P, channels, **fam), 50, warmup=5)
-    t["plain_ms"] = device_ms(lambda: vectorized._steps_ref(
-        init, us, pv, R, P, "ref", channels, kind, n_seg, rkind, n_rseg,
-        scen), 1)
-    t["plain_call_ms"] = event_ms(lambda: vectorized._steps_ref(
-        init, us, pv, R, P, "ref", channels, kind, n_seg, rkind, n_rseg,
-        scen), 1, warmup=1)
+    t["plain_ms"] = t["plain_call_ms"] = None
+    if time_plain:
+        t["plain_ms"] = device_ms(lambda: vectorized._steps_ref(
+            init, us, pv, R, P, "ref", channels, kind, n_seg, rkind, n_rseg,
+            scen), 1)
+        t["plain_call_ms"] = event_ms(lambda: vectorized._steps_ref(
+            init, us, pv, R, P, "ref", channels, kind, n_seg, rkind, n_rseg,
+            scen), 1, warmup=1)
     restore_counts(cc, counts)
     hist_adds = int((want["hist"] - init["hist"]).sum()) \
         if "hist" in want else 0
@@ -1151,7 +1160,7 @@ def chunk_phase(cc, vectorized, call):
         0 if kind == "exponential" else hazards.hazard_col_count(kind, n_seg),
         n_u, n_slots,
         hazards.repair_col_count(rkind, n_rseg) if n_slots else 0, scen,
-        struck, 1 if pv.ndim == 1 else live)
+        struck, 1 if pv.ndim == 1 else live, init["age"].element_size())
     t["struck_row_steps"] = struck
     t["n_slots"] = n_slots
     t["live_rows"] = live
@@ -1161,7 +1170,7 @@ def chunk_phase(cc, vectorized, call):
     print(f"  chunk kernel: device {t['ms']} ms a launch of {chunk} steps "
           f"({t['ms_per_step']} ms a step), host-clocked {t['call_ms']:.6f} "
           f"ms a call; plain step loop {t['plain_ms']} ms device, "
-          f"{t['plain_call_ms']:.6f} ms host-clocked; bound "
+          f"{t['plain_call_ms']} ms host-clocked; bound "
           f"{t['bound_ms']:.6f} ms ({t['bound_by']}; {hist_adds} bin adds, "
           f"{ring} ring writes)")
     return t
@@ -1404,9 +1413,9 @@ def event_engine_phase(core, cc):
     """Phase 10: the event engine on the host and the reference's routing:
     ``auto`` sends a retirement study to the event engine without a
     launch, sends a Weibull-failure study to the CTMC engine, runs a
-    Weibull-repair study on the CTMC engine through a slot instance,
-    refuses a float64-age study naming its ROADMAP item, and the engine
-    repeats itself for a seed."""
+    Weibull-repair study on the CTMC engine through a slot instance, runs
+    a float64-age study on the CTMC engine through float64 launches, and
+    the engine repeats itself for a seed."""
     small = core.Params(job_size=8, working_pool_size=12, spare_pool_size=4,
                         warm_standbys=1, job_length=0.5 * DAY,
                         random_failure_rate=1.0 / DAY, seed=2)
@@ -1457,16 +1466,19 @@ def event_engine_phase(core, cc):
         fail(f"engine='auto' ran a Weibull-repair study on {rep.engine} with "
              f"{slot_launches} slot-instance launches; the reference runs "
              "it on its CTMC engine")
-    try:
-        core.run_replications(small.replace(age_dtype="float64"), 4,
-                              engine="auto")
-    except ValueError as exc:
-        if "ROADMAP queue 1 item 8b" not in str(exc):
-            fail(f"the float64-age refusal does not name item 8b: {exc}")
-        print(f"  age_dtype='float64' under engine='auto': refused ({exc})")
-    else:
-        fail("engine='auto' ran a float64-age study, which the port's CTMC "
-             "engine does not run yet")
+    before = cc.LAUNCHES_BY_AGE["float64"]
+    rep = core.run_replications(
+        weibull.replace(age_dtype="float64"), 64, engine="auto")
+    age64_launches = cc.LAUNCHES_BY_AGE["float64"] - before
+    print(f"  age_dtype='float64' under engine='auto': engine {rep.engine}, "
+          f"{age64_launches} float64 launches, completed "
+          f"{rep.stats['completed'].mean:.4f}, n_failures "
+          f"{rep.stats['n_failures'].mean:.3f}")
+    if rep.engine != "ctmc" or age64_launches <= 0 \
+            or rep.stats["completed"].mean != 1.0:
+        fail(f"engine='auto' ran a float64-age study on {rep.engine} with "
+             f"{age64_launches} float64 launches; the reference runs it on "
+             "its CTMC engine")
     a = [r.to_dict() for r in core.simulate(small, 4, base_seed=11)]
     b = [r.to_dict() for r in core.simulate(small, 4, base_seed=11)]
     if a != b:
@@ -1622,13 +1634,16 @@ def family_launches(cc, hazards, p):
             else (cc.LAUNCHES_BY_KIND, hazards.hazard_kind(p)))
 
 
-def family_phase(core, cc, vectorized, name, overrides):
+def family_phase(core, cc, vectorized, name, overrides, twin=False):
     """Phase 14 for one failure family (phase 16 for one repair family):
     phase 5's sweep under ``overrides``, through ``OneWaySweep`` on the
     card, with the launch counts set to 0 just before and read just after;
     every replica must complete with servers conserved and no slot-lane
     overflow.  Then the kernel against the plain step loop on the sweep's
-    first chunk (chunk_phase) and the sweep again under torch.profiler."""
+    first chunk (chunk_phase) and the sweep again under torch.profiler.
+    A ``twin`` (phase 22's float32 twin, which only lends its final state
+    and its time a launch) skips the plain loop's timing and the traced
+    sweep."""
     import torch
 
     from repro_torch.core import hazards
@@ -1684,16 +1699,18 @@ def family_phase(core, cc, vectorized, name, overrides):
     if overflow:
         fail(f"{name}: {overflow:.0f} diagnosed failures found the "
              f"{n_slots}-slot repair lane full")
-    t = chunk_phase(cc, vectorized, run["calls"][0])
+    t = chunk_phase(cc, vectorized, run["calls"][0], time_plain=not twin)
     if t["bit_different"]:
         fail(f"{name}: the first chunk differs from the plain loop in "
              f"{t['bit_different']} float elements")
-    chunk_ms, traced = traced_chunk_ms(cc, sweep.run, counter, key)
-    t["sweep_ms_per_launch"] = chunk_ms / max(traced, 1)
-    print(f"  {name}: chunk kernel over the traced sweep {chunk_ms:.6f} ms "
-          f"in {traced} launches = {t['sweep_ms_per_launch']:.6f} ms a "
-          f"launch; bound {t['bound_ms']:.6f} ms on the first chunk "
-          f"({t['live_rows']} live rows)")
+    t["sweep_ms_per_launch"] = None
+    if not twin:
+        chunk_ms, traced = traced_chunk_ms(cc, sweep.run, counter, key)
+        t["sweep_ms_per_launch"] = chunk_ms / max(traced, 1)
+        print(f"  {name}: chunk kernel over the traced sweep {chunk_ms:.6f}"
+              f" ms in {traced} launches = {t['sweep_ms_per_launch']:.6f} ms"
+              f" a launch; bound {t['bound_ms']:.6f} ms on the first chunk "
+              f"({t['live_rows']} live rows)")
     return dict(t, kind=kind, rkind=rkind, launches=launches, steps=steps,
                 wall_s=wall, final=final, base=base, overflow=overflow)
 
@@ -1993,7 +2010,8 @@ def campaign_phase(core, cc, vectorized, name, overrides):
     print(f"  {name}: chunk kernel over the traced run {chunk_ms:.6f} ms in "
           f"{traced} launches = {t['sweep_ms_per_launch']:.6f} ms a launch; "
           f"bound {t['bound_ms']:.6f} ms on the first chunk")
-    out = dict(t, kind=kind, launches=launches, steps=steps, wall_s=wall)
+    out = dict(t, kind=kind, launches=launches, steps=steps, wall_s=wall,
+               final=final)
     if name == "lognormal":
         ref_run, restore = capture_final_states(vectorized)
         try:
@@ -2498,7 +2516,8 @@ def multijob_phase(core, cc, mjc, des_step, ref):
           f"{busy / wall * 100:.2f}%; seconds: "
           + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()))
     chunk.pop("race_args")
-    return {"launches": launches, "chunks": chunks, "steps": n_steps,
+    return {"call": rec["call"], "points": rec["points"],
+            "launches": launches, "chunks": chunks, "steps": n_steps,
             "race_launches": race_launches, "wall_s": wall,
             "ms_per_step": wall / n_steps * 1e3, "warm_wall_s": warm_wall,
             "engine_wall_s": engine_wall, "plain_wall_s": plain_wall,
@@ -2695,6 +2714,211 @@ def multijob_parity_phase(core, mjc, des_step, ref):
     return out
 
 
+def diverged_rows(a, b):
+    """Rows of two final states whose trajectories differ: any integer
+    metric, the phase or the run count."""
+    import torch
+    same = torch.ones_like(a["n_failures"], dtype=torch.bool)
+    for m in INT_METRICS + ("phase", "n_runs"):
+        same &= a[m] == b[m]
+    return int((~same).sum())
+
+
+def twin_z(a, b, metrics=AGE64_METRICS):
+    """Largest |z| of the means of ``metrics`` between two final states
+    over all their rows (pooled standard errors)."""
+    worst = 0.0
+    for m in metrics:
+        x, y = a[m].double(), b[m].double()
+        se = math.sqrt(float(x.var()) / x.numel() + float(y.var())
+                       / y.numel())
+        worst = max(worst, abs(float(x.mean() - y.mean())) / max(se, 1e-12))
+    return worst
+
+
+def age64_phase(core, cc, vectorized, families, campaigns):
+    """Phase 22: float64 age at full width.  Weibull failures with Weibull
+    repairs through phase 5's sweep in both age dtypes, phase 14's Weibull
+    sweep and phase 19's Weibull campaign with ``age_dtype="float64"``:
+    each run's launches all float64 launches of one instance, its first
+    chunk held bit for bit against the float64 plain loop (family_phase /
+    campaign_phase), its time a launch beside its float32 twin's (the same
+    config and draws in this call), and float64 against float32 statistics
+    on the same draws (|z| < 3.5) with the rows whose trajectories
+    diverged."""
+    import torch
+    t0 = time.perf_counter()
+    runs = {}
+    wbwb = dict(failure_distribution="weibull", repair_distribution="weibull",
+                distribution_kwargs={"k": 1.5})
+    t1 = time.perf_counter()
+    twin32 = family_phase(core, cc, vectorized, "weibull", wbwb, twin=True)
+    print(f"  float32 twin: {time.perf_counter() - t1:.3f} s")
+    for label, run, twin in (
+            ("weibull+slots:weibull", lambda: family_phase(
+                core, cc, vectorized, "weibull",
+                dict(wbwb, age_dtype="float64")), twin32),
+            ("weibull", lambda: family_phase(
+                core, cc, vectorized, "weibull",
+                dict(FAMILY_SWEEPS["weibull"], age_dtype="float64")),
+             families["weibull"]),
+            ("weibull+scenario", lambda: campaign_phase(
+                core, cc, vectorized, "weibull",
+                dict(FAMILY_SWEEPS["weibull"], age_dtype="float64")),
+             campaigns["weibull"])):
+        t1 = time.perf_counter()
+        rec = run()
+        # the run's zero_counts set it to 0; the comparison and timing
+        # launches after it were put back
+        age64 = cc.LAUNCHES_BY_AGE["float64"]
+        final, final32 = rec["final"], twin["final"]
+        if final["age"].dtype != torch.float64 \
+                or age64 != rec["launches"]:
+            fail(f"{label}: {age64} float64 launches of {rec['launches']}, "
+                 f"age lane {final['age'].dtype}")
+        z = twin_z(final, final32)
+        rows = diverged_rows(final, final32)
+        ms, ms32 = (r["ms"] if r["ms"] is not None else r["call_ms"]
+                    for r in (rec, twin))
+        print(f"  {label} float64: {rec['launches']} launches, "
+              f"{ms:.6f} ms a launch against the float32 twin's "
+              f"{ms32:.6f} ms ({ms / ms32:.3f}x); bound {rec['bound_ms']:.6f}"
+              f" ms ({rec['bound_by']}, 8-byte age lanes); first chunk "
+              f"{rec['bit_different']} bit-different; against float32 on "
+              f"the same draws: largest |z| {z:.3f}, {rows} of "
+              f"{final['phase'].numel()} rows diverged; "
+              f"{time.perf_counter() - t1:.3f} s")
+        if z >= 3.5:
+            fail(f"{label}: float64 and float32 means differ (|z| {z:.3f})")
+        rec.update(twin_ms=ms32, twin_launches=twin["launches"], z=z,
+                   diverged_rows=rows, rows=final["phase"].numel())
+        runs[label] = rec
+    secs = time.perf_counter() - t0
+    print(f"  phase 22: {secs:.3f} s")
+    return runs, secs
+
+
+def dict_bits(a, b):
+    """Elements whose bits differ between two result dicts of arrays."""
+    import numpy as np
+    if sorted(a) != sorted(b):
+        fail(f"result keys differ: {sorted(a)} vs {sorted(b)}")
+    n = 0
+    for k in a:
+        x, y = np.ascontiguousarray(a[k]), np.ascontiguousarray(b[k])
+        if x.shape != y.shape or x.dtype != y.dtype:
+            fail(f"{k}: {x.shape} {x.dtype} vs {y.shape} {y.dtype}")
+        n += int((x.view(f"u{x.itemsize}") != y.view(f"u{y.itemsize}"))
+                 .sum())
+    return n
+
+
+def sharding_phase(core, cc, mjc, vectorized, base, final5, multijob):
+    """Phase 23: replica sharding.  ``engine_shards=1`` on phase 5's sweep
+    and on phase 20's multi-job grid bit for bit their outputs; with two or
+    more cards a 2-shard sweep, each shard bit for bit its own run on
+    cuda:s, its wall beside the one-card wall; with one card, a 2-shard
+    request refused naming the card count."""
+    import torch
+    from repro_torch.parallel import shard_seeds
+    t0 = time.perf_counter()
+    vmj = core.vectorized_multijob
+    got, meshes = [], []
+    orig = vectorized._chunk_loop
+
+    def spy(*args, **kwargs):
+        meshes.append(kwargs.get("mesh"))
+        got.append(orig(*args, **kwargs))
+        return got[-1]
+
+    vectorized._chunk_loop = spy
+    try:
+        counts = save_counts(cc)
+        core.OneWaySweep("warm standbys", "warm_standbys", SWEEP_VALUES,
+                         n_replications=N_REPLICAS,
+                         base_params=base.replace(engine_shards=1),
+                         device="cuda").run()
+        torch.cuda.synchronize()
+        restore_counts(cc, counts)
+    finally:
+        vectorized._chunk_loop = orig
+    if len(got) != 1 or sorted(got[0]) != sorted(final5) \
+            or meshes[0] is None or len(meshes[0]) != 1:
+        fail(f"engine_shards=1 did not run phase 5's sweep as one batch on "
+             f"a one-device mesh (meshes {meshes})")
+    differ = [k for k in final5 if not torch.equal(got[0][k], final5[k])]
+    print(f"  engine_shards=1 on phase 5's sweep: {len(final5)} lanes, "
+          f"differing from phase 5's final state: {differ or 'none'}")
+    if differ:
+        fail(f"engine_shards=1 differs from phase 5 in {differ}")
+    args, kwargs = multijob["call"]
+    counts = save_mj_counts(mjc)
+    one = vmj.simulate_multijob_ctmc_sweep(*args, **dict(kwargs, shards=1))
+    restore_mj_counts(mjc, counts)
+    mj_diff, _, _ = bit_different(one, multijob["points"])
+    print(f"  engine_shards=1 on phase 20's grid: {len(one)} points, "
+          f"bit-different elements against phase 20's outputs {mj_diff}")
+    if mj_diff or len(one) != len(multijob["points"]):
+        fail(f"engine_shards=1 on phase 20's grid differs in {mj_diff}")
+    n_cards = torch.cuda.device_count()
+    out = {"mesh1_lanes_differing": len(differ),
+           "mesh1_multijob_bit_different": mj_diff, "cards": n_cards}
+    pts = [base.replace(warm_standbys=v) for v in SWEEP_VALUES]
+    if n_cards < 2:
+        try:
+            vectorized.simulate_ctmc_sweep(pts, N_REPLICAS, seed=base.seed,
+                                           shards=2, device="cuda")
+        except ValueError as exc:
+            if "only 1 " not in str(exc) or "needs 2" not in str(exc):
+                fail(f"the 2-shard refusal does not name the counts: {exc}")
+            print(f"  engine_shards=2 on one card: refused ({exc})")
+        else:
+            fail("a 2-shard sweep ran on one card")
+        print("  the 2-card case was not run: this host has 1 card")
+    else:
+        counts = save_counts(cc)
+
+        def sweep(n):
+            return vectorized.simulate_ctmc_sweep(
+                pts, N_REPLICAS, seed=base.seed, shards=n, device="cuda")
+
+        # the first 2-shard run also warms cuda:1 (its context, the
+        # kernel's module there, the allocator); then one card and two
+        # shards in turns
+        sharded = sweep(2)
+        walls = {0: [], 2: []}
+        for n in (0, 2, 2, 0):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            sweep(n)
+            for d in range(2):
+                torch.cuda.synchronize(d)
+            walls[n].append(time.perf_counter() - t1)
+        walls = {n: min(w) for n, w in walls.items()}
+        R_loc = N_REPLICAS // 2
+        bits = 0
+        for s, seed in enumerate(shard_seeds(base.seed, 2)):
+            alone = vectorized.simulate_ctmc_sweep(
+                pts, R_loc, seed=seed, device=f"cuda:{s}")
+            for a, b in zip(sharded, alone):
+                part = {k: (v[s * R_loc:(s + 1) * R_loc]
+                            if v.ndim and v.shape[0] == N_REPLICAS else v)
+                        for k, v in a.items()}
+                bits += dict_bits(part, b)
+        restore_counts(cc, counts)
+        print(f"  2 shards on cuda:0 and cuda:1: bit-different elements "
+              f"against the per-shard runs {bits}; wall {walls[2]:.6f} s "
+              f"against one card's {walls[0]:.6f} s (the faster of two "
+              "warm runs each)")
+        if bits:
+            fail(f"a 2-shard sweep differs from its shards' runs in {bits}")
+        out.update(two_card_bit_different=bits, wall_s=walls[2],
+                   one_card_wall_s=walls[0])
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 23: {out['seconds']:.3f} s")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2724,8 +2948,8 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"device: {kind} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.device_count()} visible)")
-    build_kernels([des_step.LIBRARY, cc.LIBRARY, mjc.LIBRARY, fa.LIBRARY,
-                   ms.LIBRARY])
+    build_kernels([des_step.LIBRARY, cc.LIBRARY, cc.LIBRARY64, mjc.LIBRARY,
+                   fa.LIBRARY, ms.LIBRARY])
 
     # ---- phase 2: kernel against plain version ----------------------------
     phase("phase 2: event_race kernel vs plain PyTorch version")
@@ -3095,6 +3319,22 @@ def main() -> int:
             "single_job_differing", "busy_share",
             "busy_share_untraced_wall", "kernels_per_step")}}
 
+    # ---- phases 22-23: float64 age and replica sharding -------------------
+    phase("phase 22: float64 age at Table-I width (Weibull failures with "
+          "Weibull repairs, phase 14's Weibull sweep, phase 19's Weibull "
+          "campaign), each against its float32 twin")
+    age64, secs22 = age64_phase(core, cc, vectorized, families, campaigns)
+    host_paths["age64"] = {"seconds": secs22, **{
+        label: {k: rec[k] for k in (
+            "launches", "steps", "wall_s", "ms", "call_ms", "twin_ms",
+            "twin_launches", "bound_ms", "bit_different", "z",
+            "diverged_rows", "rows", "sweep_ms_per_launch")}
+        for label, rec in age64.items()}}
+    phase("phase 23: replica sharding: engine_shards=1 on phases 5 and 20, "
+          "two shards on two cards or the one-card refusal")
+    host_paths["sharding"] = sharding_phase(core, cc, mjc, vectorized, base,
+                                            final, multijob)
+
     # the standalone race's record: its launches on the main paths, the
     # single-job (phase 5) and multi-job (phases 20, 20b, 21) ones, where
     # the chunk kernels replaced it (0: each phase fails on a race launch);
@@ -3209,6 +3449,21 @@ def main() -> int:
                               f"of {CHUNK_SCAN}",
             instance=f"{name} + fault domains", launches=rec["launches"]
             + more,
+            ms=rec["call_ms"] if rec["ms"] is None else rec["ms"],
+            library_ms=None))
+    for label, rec in age64.items():
+        kernels.append(dict(
+            {k: rec[k] for k in ("max_abs_err", "bit_different", "call_ms",
+                                 "plain_ms", "plain_call_ms", "bound_ms",
+                                 "bound_by", "ms_per_step",
+                                 "sweep_ms_per_launch", "steps", "twin_ms",
+                                 "z", "diverged_rows")},
+            name=f"ctmc_chunk_age64[{label}]", route="cuda",
+            source=CHUNK_SOURCE, replaces=TPU_KERNEL,
+            replaces_function="src/repro/kernels/des_step.py:"
+                              "_event_race_kernel and the lax.scan of "
+                              f"{CHUNK_SCAN}, under age_dtype='float64'",
+            instance=f"{label}, float64 age", launches=rec["launches"],
             ms=rec["call_ms"] if rec["ms"] is None else rec["ms"],
             library_ms=None))
     for name, source, replaces, launches_, t in (

@@ -2,6 +2,7 @@
 """Check the CTMC chunk kernel's arithmetic on the host, without a card.
 
     PYTHONPATH=src python scripts/torch_chunk_host_check.py [--kinds ...]
+        [--age64]
 
 Compiles ``src/repro_torch/csrc/ctmc_chunk.cu`` as host C++ (``g++
 -ffp-contract=off``, so no multiply-add is contracted, as ``nvcc
@@ -10,11 +11,13 @@ the CUDA keywords, runs its launch as a loop over rows through the same
 ``ChunkArgs`` as the card, and compares every lane with the plain chunk
 (``vectorized._steps_ref``) on CPU tensors, for each failure family, alone
 and through its scenario instance (fault domains, a campaign kill and a
-maintenance window).
+maintenance window).  ``--age64`` builds the float64 twins instead
+(``-DCTMC_AGE_T=double``, ``Params.age_dtype="float64"``).
 
 The plain chunk runs with ``torch.log``, ``torch.exp``, ``torch.pow`` and
 ``torch.special.log_ndtr`` swapped for the C library's ``logf``, ``expf``
-and ``powf`` and the kernel's own ``log_ndtr`` (the CPU's torch functions
+and ``powf`` (``pow`` on the float64 age lane) and the kernel's own
+``log_ndtr`` (the CPU's torch functions
 differ from those by an ulp on some inputs; on the card PyTorch calls
 ``logf``, ``expf`` and ``powf``).  So a difference here is a difference of
 operations or their order, not of a library's rounding.  Whether PyTorch's
@@ -92,46 +95,61 @@ extern "C" float host_log_ndtr(float x) { return log_ndtr(x); }
 """
 
 
-def build() -> Path:
-    """The host library of the current kernel source."""
+def build(age64: bool = False) -> Path:
+    """The host library of the current kernel source (its float64 twins
+    for ``age64``)."""
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / "cuda_runtime.h").write_text(STUB)
     for header in CSRC.glob("*.cuh"):
         (OUT / header.name).write_text(header.read_text())
     src = (CSRC / "ctmc_chunk.cu").read_text()
-    src, n = re.subn(r"ctmc_chunk_kernel<kKind>\s*<<<.*?>>>\(\*args\);",
-                     "host_launch(ctmc_chunk_kernel<kKind>, blocks, smem, "
-                     "*args);", src)
+    src, n = re.subn(
+        r"ctmc_chunk_kernel<kKind, AgeT>\s*<<<.*?>>>\(\*args\);",
+        "host_launch(ctmc_chunk_kernel<kKind, AgeT>, blocks, smem, *args);",
+        src)
     if n != 1:
         raise SystemExit("the kernel launch was not found in ctmc_chunk.cu")
     src = src.replace("extern __shared__ float s_edges[];",
                       "float* s_edges = host_smem.data();")
     (OUT / "ctmc_chunk_host.cpp").write_text(src + EXTRA)
-    lib = OUT / "ctmc_chunk_host.so"
+    lib = OUT / f"ctmc_chunk_host{'64' if age64 else ''}.so"
     subprocess.run(["g++", "-O2", "-std=c++17", "-ffp-contract=off",
-                    "-shared", "-fPIC", "-I", str(OUT), "-o", str(lib),
-                    str(OUT / "ctmc_chunk_host.cpp")], check=True)
+                    "-shared", "-fPIC", "-I", str(OUT)]
+                   + (["-DCTMC_AGE_T=double"] if age64 else [])
+                   + ["-o", str(lib), str(OUT / "ctmc_chunk_host.cpp")],
+                   check=True)
     return lib
 
 
-def _elementwise(fn, *args):
+def _elementwise(fn, *args, dtype="float32"):
     import numpy as np
     import torch
     arrays = torch.broadcast_tensors(*[torch.as_tensor(a) for a in args])
-    flat = [a.detach().numpy().astype(np.float32).ravel() for a in arrays]
-    out = np.array([fn(*vals) for vals in zip(*flat)], np.float32)
+    flat = [a.detach().numpy().astype(dtype).ravel() for a in arrays]
+    out = np.array([fn(*vals) for vals in zip(*flat)], dtype)
     return torch.from_numpy(out.reshape(arrays[0].shape))
 
 
 def _libm_patches(lib):
     import torch
+    from repro_torch.core import hazards
     libm = ctypes.CDLL("libm.so.6")
     for name, n in (("logf", 1), ("expf", 1), ("powf", 2)):
         getattr(libm, name).argtypes = [ctypes.c_float] * n
         getattr(libm, name).restype = ctypes.c_float
+    libm.pow.argtypes = [ctypes.c_double] * 2
+    libm.pow.restype = ctypes.c_double
     lib.host_log_ndtr.argtypes = [ctypes.c_float]
     lib.host_log_ndtr.restype = ctypes.c_float
+
+    def pow_(x, y):
+        # the hazards' pow in the age lane's dtype: powf, or pow on the
+        # float64 lane
+        if x.dtype == torch.float64:
+            return _elementwise(libm.pow, x, y, dtype="float64")
+        return _elementwise(libm.powf, x, y)
     return (
+        mock.patch.object(hazards, "_pow", pow_),
         mock.patch.object(torch, "log", lambda x: _elementwise(libm.logf, x)),
         mock.patch.object(torch, "exp", lambda x: _elementwise(libm.expf, x)),
         mock.patch.object(torch, "pow",
@@ -201,18 +219,20 @@ def cases():
     return out
 
 
-def run(kinds, n_chunks: int) -> int:
+def run(kinds, n_chunks: int, age64: bool = False) -> int:
     import numpy as np
     import torch
     from repro_torch.core import faultdomains, hazards
     from repro_torch.core import vectorized as tv
     from repro_torch.kernels import ctmc_chunk
     torch.set_num_threads(1)
-    lib = ctypes.CDLL(str(build()))
+    lib = ctypes.CDLL(str(build(age64)))
     ctmc_chunk._bind(lib)
     bad = 0
     for kind in kinds:
         for label, (pts, R) in cases()[kind].items():
+            if age64:
+                pts = [p.replace(age_dtype="float64") for p in pts]
             assert {hazards.hazard_kind(p) for p in pts} == {kind}
             P = len(pts)
             n_seg = hazards.hazard_segment_count(pts[0])
@@ -260,6 +280,7 @@ def run(kinds, n_chunks: int) -> int:
                                               ).sum())
                 for k, w in want.items():
                     g = got[k]
+                    assert g.dtype == w.dtype, (k, g.dtype, w.dtype)
                     if w.dtype.is_floating_point:
                         diff += int((g.view(torch.int32)
                                      != w.view(torch.int32)).sum())
@@ -287,9 +308,11 @@ def main() -> int:
                     default=["exponential", "weibull", "bathtub", "lognormal",
                              "empirical"])
     ap.add_argument("--chunks", type=int, default=3)
+    ap.add_argument("--age64", action="store_true",
+                    help="the float64 age instances")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT / "src"))
-    return run(args.kinds, args.chunks)
+    return run(args.kinds, args.chunks, args.age64)
 
 
 if __name__ == "__main__":

@@ -2,6 +2,7 @@
 """Check the chunk kernel's repair-slot instances on the host, without a card.
 
     PYTHONPATH=src python scripts/torch_slot_host_check.py [--cases ...]
+        [--age64]
 
 Compiles ``src/repro_torch/csrc/ctmc_chunk.cu`` as host C++ (``g++
 -ffp-contract=off``, as ``scripts/torch_chunk_host_check.py`` does) against
@@ -13,7 +14,9 @@ and every lane is compared with the plain chunk (``vectorized._steps_ref``)
 on CPU tensors, for each repair family and a slot instance of every
 failure family: alone, as a sweep with one parameter row a replica and
 checkpoints, with rows finishing, with the lane overflowing and at a
-width that is not a power of two.
+width that is not a power of two.  ``--age64`` checks the float64 twins
+(``-DCTMC_AGE_T=double``, ``Params.age_dtype="float64"``: the remaining
+times a double a slot).
 
 The plain chunk runs with ``torch.log``, ``exp``, ``pow``, ``log1p``,
 ``torch.special.log_ndtr`` and ``ndtri`` swapped for the C library's
@@ -72,6 +75,7 @@ inline float atomicAdd(float* p, float v) { float o = *p; *p = o + v;
                                              return o; }
 using std::isfinite;
 using std::isinf;
+using std::max;
 using std::min;
 typedef void* cudaStream_t;
 typedef int cudaError_t;
@@ -92,6 +96,7 @@ namespace host_sim {
 struct Coro { ucontext_t ctx; bool done = false; std::vector<char> stack; };
 struct WarpBuf {
   float f[2][32];
+  double d[2][32];
   int i[2][32];
   unsigned u[2][32];
   int gen[32];
@@ -146,6 +151,13 @@ inline float __shfl_xor_sync(unsigned, float v, int off) {
   host_sim::yield();
   return w.f[g][l ^ off];
 }
+inline double __shfl_xor_sync(unsigned, double v, int off) {
+  int l, g;
+  host_sim::WarpBuf& w = host_sim::warp(&l, &g);
+  w.d[g][l] = v;
+  host_sim::yield();
+  return w.d[g][l ^ off];
+}
 inline int __shfl_xor_sync(unsigned, int v, int off) {
   int l, g;
   host_sim::WarpBuf& w = host_sim::warp(&l, &g);
@@ -198,25 +210,29 @@ extern "C" float host_ndtri(float x) { return ndtri(x); }
 """
 
 
-def build() -> Path:
-    """The host library of the current kernel source."""
+def build(age64: bool = False) -> Path:
+    """The host library of the current kernel source (its float64 twins
+    for ``age64``)."""
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / "cuda_runtime.h").write_text(STUB)
     for header in CSRC.glob("*.cuh"):
         (OUT / header.name).write_text(header.read_text())
     src = (CSRC / "ctmc_chunk.cu").read_text()
-    src, n = re.subn(r"ctmc_chunk_kernel<kKind>\s*<<<.*?>>>\(\*args\);",
-                     "host_launch(ctmc_chunk_kernel<kKind>, blocks, kThreads, "
-                     "smem, *args);", src)
+    src, n = re.subn(
+        r"ctmc_chunk_kernel<kKind, AgeT>\s*<<<.*?>>>\(\*args\);",
+        "host_launch(ctmc_chunk_kernel<kKind, AgeT>, blocks, kThreads, "
+        "smem, *args);", src)
     if n != 1:
         raise SystemExit("the kernel launch was not found in ctmc_chunk.cu")
     src = src.replace("extern __shared__ float s_edges[];",
                       "float* s_edges = host_smem.data();")
     (OUT / "ctmc_chunk_host.cpp").write_text(src + EXTRA)
-    lib = OUT / "ctmc_chunk_host.so"
+    lib = OUT / f"ctmc_chunk_host{'64' if age64 else ''}.so"
     subprocess.run(["g++", "-O2", "-std=c++17", "-ffp-contract=off",
-                    "-shared", "-fPIC", "-I", str(OUT), "-o", str(lib),
-                    str(OUT / "ctmc_chunk_host.cpp")], check=True)
+                    "-shared", "-fPIC", "-I", str(OUT)]
+                   + (["-DCTMC_AGE_T=double"] if age64 else [])
+                   + ["-o", str(lib), str(OUT / "ctmc_chunk_host.cpp")],
+                   check=True)
     return lib
 
 
@@ -299,19 +315,21 @@ def cases():
     return out
 
 
-def run(names, n_chunks: int) -> int:
+def run(names, n_chunks: int, age64: bool = False) -> int:
     import numpy as np
     import torch
     from repro_torch.core import hazards
     from repro_torch.core import vectorized as tv
     from repro_torch.kernels import ctmc_chunk
     torch.set_num_threads(1)
-    lib = ctypes.CDLL(str(build()))
+    lib = ctypes.CDLL(str(build(age64)))
     ctmc_chunk._bind(lib)
     table = cases()
     bad = 0
     for name in names:
         pts, R, width = table[name]
+        if age64:
+            pts = [p.replace(age_dtype="float64") for p in pts]
         P = len(pts)
         fam = {(hazards.hazard_kind(p), hazards.hazard_segment_count(p),
                 hazards.repair_kind(p), hazards.repair_segment_count(p))
@@ -346,6 +364,7 @@ def run(names, n_chunks: int) -> int:
                                      kind, n_seg, rkind, n_rseg)
             for k, w in want.items():
                 g = got[k]
+                assert g.dtype == w.dtype, (k, g.dtype, w.dtype)
                 if w.dtype.is_floating_point:
                     diff += int((g.view(torch.int32)
                                  != w.view(torch.int32)).sum())
@@ -370,8 +389,10 @@ def main() -> int:
     ap.add_argument("--cases", nargs="+", default=None,
                     help="case names (default: all)")
     ap.add_argument("--chunks", type=int, default=3)
+    ap.add_argument("--age64", action="store_true",
+                    help="the float64 age instances")
     args = ap.parse_args()
-    return run(args.cases or list(cases()), args.chunks)
+    return run(args.cases or list(cases()), args.chunks, args.age64)
 
 
 if __name__ == "__main__":

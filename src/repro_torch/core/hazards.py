@@ -562,14 +562,21 @@ def _seq_cumsum(x: torch.Tensor) -> torch.Tensor:
 
 
 def _pow(x, y):
-    """``x ** y`` elementwise in float32.  On CUDA PyTorch calls ``powf``
+    """``x ** y`` elementwise in ``x``'s dtype (float32, or float64 for
+    the age lane's carve-out).  On CUDA PyTorch calls ``powf`` / ``pow``
     for each element, as the chunk kernel does.  PyTorch's CPU ``pow``
     rounds an element differently by where it falls in the tensor (a
-    vectorized body and a scalar tail), so on the CPU it runs in float64
-    and rounds once, which keeps a point's results the same alone and in
-    a bucketed batch."""
+    vectorized body and a scalar tail), so on the CPU float32 runs in
+    float64 and float64 in the C library's long double, each rounded
+    once, which keeps a point's results the same alone and in a bucketed
+    batch."""
     if x.device.type == "cuda":
         return torch.pow(x, y)
+    if x.dtype == torch.float64:
+        xb, yb = torch.broadcast_tensors(x, torch.as_tensor(y, dtype=x.dtype))
+        out = np.power(xb.numpy().astype(np.longdouble),
+                       yb.numpy().astype(np.longdouble))
+        return torch.from_numpy(np.asarray(out, np.float64))
     return torch.pow(x.double(), y.double()).float()
 
 
@@ -579,8 +586,13 @@ def weibull_conditional_ttf(age, C, k, exp_draw):
     ``C`` is the summed ``lam**-k`` over the active clocks, ``k`` the
     shared shape, ``exp_draw`` an Exp(1) variate; +inf where ``C <= 0``.
     Solves ``C * ((age + s)**k - age**k) = E`` for ``s`` in the age
-    lane's dtype (float32 here) and returns float32.
+    lane's dtype (``C`` and ``E`` cast to it, as the reference's
+    ``jnp.asarray(C, age.dtype)``; float64 under ``Params.age_dtype``
+    closes the large-age cancellation of ``(a**k + E/C)**(1/k) - a``) and
+    returns float32 for the race.
     """
+    C = C.to(age.dtype)
+    exp_draw = exp_draw.to(age.dtype)
     safe_c = C.clamp_min(1e-30)
     target = _pow(age, k) + exp_draw / safe_c
     s = _pow(target, 1.0 / k) - age

@@ -135,9 +135,10 @@ class Params:
     #: leaves the accumulator out of the CTMC scan entirely.
     histogram: Optional[HistogramSpec] = field(default_factory=HistogramSpec)
     #: dtype of the CTMC engine's hazard-age arithmetic ("float32" |
-    #: "float64").  "float64" serves the non-exponential hazard and
-    #: repair lanes in the reference; the port's engine refuses it
-    #: (ROADMAP queue 1 item 8b).
+    #: "float64").  "float64" keeps the failure-age and repair-slot lanes
+    #: in float64, as the reference does (its carve-out for the
+    #: cancellation of the Weibull inversion at large ages); on the card
+    #: it runs the float64 instances of the chunk kernel.
     age_dtype: str = "float32"
     #: repair-slot lane width of the CTMC engine under *non-exponential*
     #: repair distributions (each in-repair server occupies one slot
@@ -167,10 +168,9 @@ class Params:
     #: ``kill domain d at t`` and repair-shop maintenance windows,
     #: honored exactly by both engines.  ``None`` disables.
     campaign: Optional[Campaign] = None
-    #: shard the CTMC engine's replica axis over this many local devices.
-    #: 0 (default) = unsharded single-device dispatch.  Replica sharding
-    #: is not ported yet (ROADMAP queue 1 item 11): the port's engine
-    #: refuses any value above 0.
+    #: shard the CTMC engine's replica axis over this many local devices
+    #: (cuda:0 .. cuda:n-1 on the card; in turn on the CPU).  0 (default)
+    #: = unsharded single-device dispatch; 1 is bit for bit the same run.
     engine_shards: int = 0
     #: kernel dispatch of the CTMC engine: ``None`` (default) chooses by
     #: device — the CUDA chunk kernel (steps and event race fused) for

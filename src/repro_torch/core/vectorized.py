@@ -56,10 +56,20 @@ structural parameters enter as initial occupancies, and the point and
 replica counts round up to powers of two with inert rows (phase DONE from
 step 0) that extraction drops.
 
-Not ported yet, and refused by :func:`port_reasons` with the ROADMAP
-item that will bring it: ``age_dtype="float64"`` (queue 1 item 8b) and
-replica sharding (item 11).
-What the reference's CTMC engine refuses too (:func:`reference_reasons`)
+``Params.age_dtype="float64"`` keeps the failure-age lane ``age`` and the
+repair-slot lane ``repair_rem`` in float64, the reference's carve-out for
+the cancellation of the Weibull inversion at large ages; every other lane
+stays float32, and the hazards of the thinning families and the race read
+the float32 view, as in the reference.  Torch needs no flag for it.  Such
+a batch runs the float64 instance of the chunk kernel.
+
+``shards`` (default ``Params.engine_shards``; 0 unsharded) splits the
+replica axis of every batch over that many devices
+(:mod:`repro_torch.parallel.sharding`): each shard runs its own chunked
+scan on its ``(P, R / n)`` replicas with its own seed, the shards' chunks
+interleaved so that several cards overlap, and the replica axes are
+concatenated back.  One shard is the unsharded run bit for bit.
+What the reference's CTMC engine refuses (:func:`reference_reasons`)
 runs on the port's event engine (:mod:`repro_torch.core.simulation`)
 under ``engine="auto"``, as in the reference.
 """
@@ -75,6 +85,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import ctmc_chunk, ops
+from ..parallel import sharding as rsharding
 from . import faultdomains, hazards
 from .histograms import HIST_CHANNELS
 from .params import Params
@@ -108,9 +119,6 @@ def _n_uniforms(kind: str, rkind: str = "exponential") -> int:
     (9, 10)
     """
     return N_UNIFORMS + (kind != "exponential") + (rkind != "exponential")
-
-
-_NOT_PORTED = "not yet ported to the PyTorch engine"
 
 
 def reference_reasons(params: Params) -> list:
@@ -163,31 +171,22 @@ def port_reasons(params: Params) -> list:
     """What of the reference's CTMC envelope these params need and the
     port's CTMC engine does not run yet, each with its ROADMAP item.
 
-    Every failure and repair family of the reference's CTMC engine runs
-    here (a one-segment ``Empirical`` collapses to the exponential
-    program, as in the reference), and so do fault domains and campaigns.
+    Nothing: every failure and repair family of the reference's CTMC
+    engine runs here (a one-segment ``Empirical`` collapses to the
+    exponential program, as in the reference), and so do fault domains
+    and campaigns, float64 age and replica sharding.  Kept so that
+    :func:`unsupported_reasons` and ``backend.resolve_engine`` can name a
+    part that a later reference adds before the port has it.
 
     >>> from .faultdomains import FaultTopology
     >>> port_reasons(Params())
     []
-    >>> port_reasons(Params(repair_distribution="weibull"))
-    []
     >>> port_reasons(Params(fault_domains=FaultTopology(n_racks=8)))
     []
-    >>> port_reasons(Params(engine_shards=2))
-    ['replica sharding (engine_shards > 0) is not yet ported to the \
-PyTorch engine (ROADMAP queue 1 item 11)']
+    >>> port_reasons(Params(engine_shards=2, age_dtype="float64"))
+    []
     """
-    reasons = []
-    if params.engine_shards > 0:
-        reasons.append(
-            f"replica sharding (engine_shards > 0) is {_NOT_PORTED} "
-            "(ROADMAP queue 1 item 11)")
-    if params.age_dtype == "float64":
-        reasons.append(
-            f"age_dtype='float64' is {_NOT_PORTED} (ROADMAP queue 1 "
-            "item 8b)")
-    return reasons
+    return []
 
 
 def unsupported_reasons(params: Params) -> list:
@@ -213,8 +212,8 @@ def supports(params: Params) -> bool:
     True
     >>> supports(Params(repair_distribution="weibull"))
     True
-    >>> supports(Params(engine_shards=2))                     # not yet ported
-    False
+    >>> supports(Params(engine_shards=2, age_dtype="float64"))
+    True
     """
     return not unsupported_reasons(params)
 
@@ -258,6 +257,17 @@ def _initial_counts(p: Params):
     }
 
 
+def _age_dtype(p: Params) -> torch.dtype:
+    """Dtype of the failure-age and repair-slot lanes
+    (``Params.age_dtype``).  The reference needs JAX's x64 flag for
+    float64; torch needs none.
+
+    >>> _age_dtype(Params()), _age_dtype(Params(age_dtype="float64"))
+    (torch.float32, torch.float64)
+    """
+    return torch.float64 if p.age_dtype == "float64" else torch.float32
+
+
 def _initial_state_batch(pts: Sequence[Params], R: int, max_runs: int,
                          device, rkind: str = "exponential",
                          n_slots: int = 0,
@@ -273,12 +283,15 @@ def _initial_state_batch(pts: Sequence[Params], R: int, max_runs: int,
     ``(D, codes)`` of :func:`faultdomains.scenario_key`: it adds the
     replacement-deficit lane, the per-domain shock counts (D > 0), the
     schedule pointer (a non-empty schedule) and the maintenance flag (a
-    schedule with a window).  The keys are the reference's.
+    schedule with a window).  The keys are the reference's, and so are
+    the dtypes: ``age`` and ``repair_rem`` take the first point's
+    :func:`_age_dtype`.
     """
     P = len(pts)
     B = P * R
     counts = [_initial_counts(p) for p in pts]
     f32 = dict(dtype=torch.float32, device=device)
+    adt = dict(dtype=_age_dtype(pts[0]), device=device)
 
     def tile(key):
         arr = np.asarray([c[key] for c in counts], np.float32)   # (P, 4)
@@ -299,13 +312,13 @@ def _initial_state_batch(pts: Sequence[Params], R: int, max_runs: int,
                                 device=device)
     #: phase age: compute minutes since the job last (re)started (the
     #: hazard clock of the non-exponential families; inert here)
-    state["age"] = torch.zeros((B,), **f32)
+    state["age"] = torch.zeros((B,), **adt)
     if rkind != "exponential":
         # repair-slot lane: one (remaining, class, stage) triple per
         # server in the shop; remaining counts down in wall-clock time
         # and never resets with the job.  +inf marks a free slot.
         i32 = dict(dtype=torch.int32, device=device)
-        state["repair_rem"] = torch.full((B, n_slots), torch.inf, **f32)
+        state["repair_rem"] = torch.full((B, n_slots), torch.inf, **adt)
         state["repair_cls"] = torch.zeros((B, n_slots), **i32)
         state["repair_stage"] = torch.zeros((B, n_slots), **i32)
     state["cur_run"] = torch.zeros((B,), **f32)
@@ -594,6 +607,10 @@ def _step_u(s: Dict[str, torch.Tensor], u: torch.Tensor, pv: torch.Tensor,
     # ---- rates (B, 16) ------------------------------------------------
     run = s["run"]
     age = s["age"]
+    # the thinning families' hazards read the float32 view: the float64
+    # carve-out is for the Weibull inversion and the repair countdown, not
+    # for the well-conditioned hazard ratios (the reference's age32)
+    age32 = age.to(torch.float32)
     bad_mask, _ = _lane_consts(device)
     haz_resid = None
     if kind == "weibull":
@@ -618,37 +635,37 @@ def _step_u(s: Dict[str, torch.Tensor], u: torch.Tensor, pv: torch.Tensor,
         # probability g(age + dt) / g_bar
         b_win = hz[4]
         g_bar = hazards.FAILURE_SAMPLERS["bathtub"].majorant(
-            age, b_win, tuple(hz[:4]))
+            age32, b_win, tuple(hz[:4]))
         fail_rand = run * _c(r_rand) * g_bar[:, None] * computing[:, None]
         fail_sys = run * bad_mask[None, :] * _c(r_sys) * g_bar[:, None] \
             * computing[:, None]
-        haz_resid = torch.where(computing, b_win * torch.ones_like(age),
+        haz_resid = torch.where(computing, b_win * torch.ones_like(age32),
                                 torch.inf)
     elif kind == "lognormal":
         # thinning against the hazard at the mode clipped into the
         # window, one majorant and accept ratio per clock
         ln = hazards.FAILURE_SAMPLERS["lognormal"]
         l_sr, l_ss, l_sig, l_mode, l_win = hz
-        hbar_r = ln.majorant(age, l_win, (l_sr, l_sig, l_mode))
-        hbar_s = ln.majorant(age, l_win, (l_ss, l_sig, l_mode))
+        hbar_r = ln.majorant(age32, l_win, (l_sr, l_sig, l_mode))
+        hbar_s = ln.majorant(age32, l_win, (l_ss, l_sig, l_mode))
         fail_rand = run * hbar_r[:, None] * computing[:, None]
         fail_sys = run * bad_mask[None, :] * hbar_s[:, None] \
             * computing[:, None]
         # both clocks disabled => zero window; disarm the expiry timer
         win_eff = torch.where(l_win > 0, l_win, torch.inf)
-        haz_resid = torch.where(computing, win_eff * torch.ones_like(age),
+        haz_resid = torch.where(computing, win_eff * torch.ones_like(age32),
                                 torch.inf)
     elif kind == "empirical":
         # thinning with the exact majorant (the current segment rate)
         # over a window that runs to the next edge of either clock
         pe = hazards.FAILURE_SAMPLERS["empirical"]
-        hbar_r = pe.hazard(age, (e_re, e_rr))
-        hbar_s = pe.hazard(age, (e_se, e_sr))
+        hbar_r = pe.hazard(age32, (e_re, e_rr))
+        hbar_s = pe.hazard(age32, (e_se, e_sr))
         fail_rand = run * hbar_r[:, None] * computing[:, None]
         fail_sys = run * bad_mask[None, :] * hbar_s[:, None] \
             * computing[:, None]
-        win = torch.minimum(hazards.piecewise_next_edge(age, e_re),
-                            hazards.piecewise_next_edge(age, e_se))
+        win = torch.minimum(hazards.piecewise_next_edge(age32, e_re),
+                            hazards.piecewise_next_edge(age32, e_se))
         haz_resid = torch.where(computing, win, torch.inf)
     else:
         fail_rand = run * _c(r_rand) * computing[:, None]
@@ -702,7 +719,9 @@ def _step_u(s: Dict[str, torch.Tensor], u: torch.Tensor, pv: torch.Tensor,
     roff = 0
     if rkind != "exponential":
         rep_rem = s["repair_rem"]
-        resid_cols.append(torch.where(active, rep_rem.amin(-1), torch.inf))
+        # the minimum in the lane's dtype, raced in float32
+        resid_cols.append(torch.where(
+            active, rep_rem.amin(-1).to(torch.float32), torch.inf))
         roff = 1
     resid_cols += [torch.where(computing, s["work_left"], torch.inf),
                    torch.where(in_overhead, s["timer"], torch.inf)]
@@ -734,14 +753,14 @@ def _step_u(s: Dict[str, torch.Tensor], u: torch.Tensor, pv: torch.Tensor,
     elif kind == "bathtub":
         # accept/reject: a rejected candidate (and the window expiry) is
         # a phantom -- time and work advance, no transition fires
-        g_at = hazards.FAILURE_SAMPLERS["bathtub"].hazard(age + dt,
+        g_at = hazards.FAILURE_SAMPLERS["bathtub"].hazard(age32 + dt,
                                                          tuple(hz[:4]))
         accept = u_haz * g_bar < g_at
         is_fail = is_fail & accept
         is_sys = is_sys & accept
     elif kind == "lognormal":
-        h_r = ln.hazard(age + dt, (l_sr, l_sig))
-        h_s = ln.hazard(age + dt, (l_ss, l_sig))
+        h_r = ln.hazard(age32 + dt, (l_sr, l_sig))
+        h_s = ln.hazard(age32 + dt, (l_ss, l_sig))
         cand_sys = (ev >= 4) & (ev < 8)
         accept = u_haz * torch.where(cand_sys, hbar_s, hbar_r) \
             < torch.where(cand_sys, h_s, h_r)
@@ -751,8 +770,8 @@ def _step_u(s: Dict[str, torch.Tensor], u: torch.Tensor, pv: torch.Tensor,
         # inside the window the hazard equals the majorant, so this
         # accepts; it bites only where rounding lands age + dt across an
         # edge, where the new segment's rate keeps the process exact
-        h_r = pe.hazard(age + dt, (e_re, e_rr))
-        h_s = pe.hazard(age + dt, (e_se, e_sr))
+        h_r = pe.hazard(age32 + dt, (e_re, e_rr))
+        h_s = pe.hazard(age32 + dt, (e_se, e_sr))
         cand_sys = (ev >= 4) & (ev < 8)
         accept = u_haz * torch.where(cand_sys, hbar_s, hbar_r) \
             <= torch.where(cand_sys, h_s, h_r)
@@ -910,7 +929,8 @@ def _step_u(s: Dict[str, torch.Tensor], u: torch.Tensor, pv: torch.Tensor,
 
     # ---- phase age --------------------------------------------------------
     # a recovery/restart timer resets the failure clocks; a checkpoint
-    # write's does not
+    # write's does not (float64 under the carve-out: age + progress
+    # promotes)
     ns["age"] = torch.where(is_timer & ~in_ckpt_flag, 0.0, age + progress)
 
     # ---- failure handling ---------------------------------------------------
@@ -1066,7 +1086,9 @@ def _step_u(s: Dict[str, torch.Tensor], u: torch.Tensor, pv: torch.Tensor,
     # automated-stage draw.  Completion and entry never share a step, so
     # one duration draw and one write per slot array cover both.
     if rkind != "exponential":
-        rem = torch.where(active[:, None], rep_rem - dt[:, None], rep_rem)
+        adt = rep_rem.dtype
+        rem = torch.where(active[:, None],
+                          rep_rem - dt.to(adt)[:, None], rep_rem)
         free = torch.isinf(rem)
         any_free = free.any(-1)
         fslot = free.to(torch.int32).argmax(-1)      # first free slot
@@ -1080,6 +1102,8 @@ def _step_u(s: Dict[str, torch.Tensor], u: torch.Tensor, pv: torch.Tensor,
         else:
             q_dur = rsampler.quantile(
                 u_dur, torch.where(escalate, rz[1], rz[0]), rz[2])
+        # drawn in float32, kept in the lane's dtype
+        q_dur = q_dur.to(adt)
         idx = torch.where(is_rep, won_slot, fslot)
         cur_rem = rem[srows, idx]
         rem[srows, idx] = torch.where(
@@ -1228,24 +1252,20 @@ def _steps_ref(state: Dict[str, torch.Tensor], us: torch.Tensor,
     return state
 
 
-def _chunk_loop(pv: torch.Tensor, seed: int, P: int, R: int, chunk: int,
-                n_chunks: int, rem: int, impl: Optional[str],
-                early_exit: bool, hist_channels: tuple,
-                init_state: Dict[str, torch.Tensor],
-                kind: str = "exponential", n_seg: int = 0,
-                rkind: str = "exponential", n_rseg: int = 0, scen=None,
-                ) -> Dict[str, torch.Tensor]:
-    """Chunked scan with early exit; batch axis is B = P * R (point-major).
-
-    Runs ``n_chunks * chunk + rem`` steps, less the chunks early exit skips
-    once every replica is DONE (finished replicas are inert, so skipping them
-    changes nothing).  Each chunk draws its ``_n_uniforms(kind, rkind)``
-    uniforms a step in one call at the power-of-two width ``next_pow2(R)``;
-    row b of the batch reads replica ``b % R``'s.  A chunk is one launch of
-    the chunk kernel for ``impl=None`` or ``"cuda"`` on the card, and
+def _chunk_fn(pv: torch.Tensor, seed: int, P: int, R: int,
+              impl: Optional[str], hist_channels: tuple,
+              init_state: Dict[str, torch.Tensor],
+              kind: str = "exponential", n_seg: int = 0,
+              rkind: str = "exponential", n_rseg: int = 0, scen=None):
+    """``run_chunk(state, i, n_steps)`` of one batch: chunk ``i``'s draw of
+    ``_n_uniforms(kind, rkind)`` uniforms a step at the power-of-two width
+    ``next_pow2(R)`` from a generator seeded ``_chunk_seed(seed, i)`` on
+    the batch's device (row b reads replica ``b % R``'s), then one launch
+    of the chunk kernel for ``impl=None`` or ``"cuda"`` on the card, or
     :func:`_steps_ref` with the plain race for ``impl="ref"`` and on the
-    CPU (where ``impl="cuda"`` raises).  ``init_state`` is left as it was.
-    """
+    CPU (where ``impl="cuda"`` raises).  The first launch clones the lanes
+    it writes and later ones update those clones in place, so
+    ``init_state`` is left as it was."""
     device = init_state["phase"].device
     R_draw = _next_pow2(R)
     fused = ops._use_kernel("ctmc_chunk", impl, init_state["phase"])
@@ -1261,8 +1281,6 @@ def _chunk_loop(pv: torch.Tensor, seed: int, P: int, R: int, chunk: int,
         if not fused:
             return _steps_ref(state, us, pv, R, P, impl, hist_channels,
                               kind, n_seg, rkind, n_rseg, scen)
-        # the first launch clones the lanes it writes; later ones update
-        # those clones in place
         state = ctmc_chunk.ctmc_chunk_cuda(state, us, pv, R, P,
                                            hist_channels, kind=kind,
                                            n_seg=n_seg, rkind=rkind,
@@ -1271,19 +1289,172 @@ def _chunk_loop(pv: torch.Tensor, seed: int, P: int, R: int, chunk: int,
         owned = True
         return state
 
-    state = init_state
-    i = 0
-    while i < n_chunks and not (early_exit and not _any_active(state)):
-        state = run_chunk(state, i, chunk)
-        i += 1
-    if rem and not (early_exit and not _any_active(state)):
-        # partial final chunk so an explicit max_steps is honored exactly
-        state = run_chunk(state, n_chunks, rem)
+    return run_chunk
+
+
+def _drive(runs, n_chunks: int, chunk: int, rem: int,
+           early_exit: bool) -> list:
+    """Run ``n_chunks * chunk + rem`` steps of each ``(run_chunk, state)``
+    of ``runs`` (one a shard) and return the final states.
+
+    Chunk ``i`` is launched on every scan still running before any early-
+    exit read (a read syncs the host with that scan's device), so scans on
+    several cards overlap; each stops at the first chunk boundary where
+    all its replicas are DONE (finished replicas are inert, so skipping
+    them changes nothing).  A scan's steps depend only on its own state,
+    seed and chunk index, so the interleaving cannot change its bits.
+    The partial final chunk honours an explicit ``max_steps`` exactly.
+    """
+    states = [state for _, state in runs]
+    live = list(range(len(runs)))
+    for i, n_steps in enumerate([chunk] * n_chunks + ([rem] if rem else [])):
+        if early_exit:
+            live = [j for j in live if _any_active(states[j])]
+        if not live:
+            break
+        for j in live:
+            states[j] = runs[j][0](states[j], i, n_steps)
+    return states
+
+
+def _finish(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The completion flag, and the clock as the total time of a replica
+    the budget cut."""
     state = dict(state)
     done = state["phase"] == DONE
     state["completed"] = done.to(torch.float32)
     state["total_time"] = torch.where(done, state["total_time"], state["t"])
     return state
+
+
+def _chunk_loop(pv: torch.Tensor, seed: int, P: int, R: int, chunk: int,
+                n_chunks: int, rem: int, impl: Optional[str],
+                early_exit: bool, hist_channels: tuple,
+                init_state: Dict[str, torch.Tensor],
+                kind: str = "exponential", n_seg: int = 0,
+                rkind: str = "exponential", n_rseg: int = 0, scen=None,
+                *, mesh=None) -> Dict[str, torch.Tensor]:
+    """Chunked scan with early exit; batch axis is B = P * R (point-major).
+
+    Runs ``n_chunks * chunk + rem`` steps (:func:`_drive`) of
+    :func:`_chunk_fn`'s chunks, less the chunks early exit skips once
+    every replica is DONE, split over the devices of ``mesh``
+    (:func:`_shard_mesh`; default the batch's own device, one shard) as
+    :func:`_run_sharded` sets out.  ``init_state`` is left as it was.
+    """
+    def make_run(pv_s, seed_s, R_loc, state_s):
+        return _chunk_fn(pv_s, seed_s, P, R_loc, impl, hist_channels,
+                         state_s, kind, n_seg, rkind, n_rseg, scen)
+
+    return _run_sharded(pv, seed, P, R, init_state,
+                        mesh or [init_state["phase"].device], make_run,
+                        _finish, n_chunks, chunk, rem, early_exit)
+
+
+# ---------------------------------------------------------------------------
+# replica sharding
+# ---------------------------------------------------------------------------
+
+def _shard_rows(x: torch.Tensor, P: int, R: int, s: int, n: int,
+                device) -> torch.Tensor:
+    """Shard ``s`` of ``n``'s ``(P * R / n, ...)`` rows of a point-major
+    ``(P * R, ...)`` lane: replicas ``[s R / n, (s + 1) R / n)`` of every
+    point, on ``device``."""
+    R_loc = R // n
+    v = x.reshape((P, R) + x.shape[1:])[:, s * R_loc:(s + 1) * R_loc]
+    return v.reshape((P * R_loc,) + x.shape[1:]).to(device).contiguous()
+
+
+def _shard_state(state: Dict[str, torch.Tensor], P: int, R: int, s: int,
+                 mesh) -> Dict[str, torch.Tensor]:
+    """Shard ``s``'s state on ``mesh[s]``: its slice of every batched lane
+    (:func:`repro_torch.parallel.sharding.replica_state_specs`), the
+    shared lanes (the bin edges) whole."""
+    specs = rsharding.replica_state_specs(state, _UNBATCHED_STATE)
+    dev = mesh[s]
+    return {k: (_shard_rows(v, P, R, s, len(mesh), dev) if specs[k]
+                else v.to(dev)) for k, v in state.items()}
+
+
+def _gather_shards(parts, P: int, R_loc: int,
+                   device) -> Dict[str, torch.Tensor]:
+    """The shards' final states concatenated back along the replica axis
+    into the flat ``(P * R, ...)`` layout on ``device``; the merge is
+    exact, since every lane is a replica's own."""
+    if len(parts) == 1:
+        return {k: v.to(device) for k, v in parts[0].items()}
+    specs = rsharding.replica_state_specs(parts[0], _UNBATCHED_STATE)
+    out = {}
+    for k, v0 in parts[0].items():
+        if not specs[k]:
+            out[k] = v0.to(device)
+            continue
+        tail = v0.shape[1:]
+        out[k] = torch.cat([p[k].reshape((P, R_loc) + tail).to(device)
+                            for p in parts], dim=1) \
+            .reshape((P * R_loc * len(parts),) + tail)
+    return out
+
+
+def _run_sharded(pv: torch.Tensor, seed: int, P: int, R: int,
+                 init_state: Dict[str, torch.Tensor], mesh, make_run,
+                 finish, n_chunks: int, chunk: int, rem: int,
+                 early_exit: bool) -> Dict[str, torch.Tensor]:
+    """A chunked scan over the devices of ``mesh``, for the single-job and
+    the multi-job engines (:func:`_chunk_loop`, ``_mj_chunk_loop``).
+
+    Shard ``s`` takes the ``(P, R / n)`` slice of every batched lane, its
+    slice of a per-row parameter block (or the shared row), the seed
+    ``shard_seeds(seed, n)[s]`` and the device ``mesh[s]``, and runs
+    ``make_run(pv_s, seed_s, R / n, state_s)``'s chunks; the shards are
+    driven side by side (:func:`_drive`), each ``finish``-ed and then
+    concatenated back (:func:`_gather_shards`) on the batch's device.  So
+    shard ``s`` is bit for bit an unsharded run over its replicas seeded
+    ``seed_s``, and one shard the unsharded run.
+    """
+    n = len(mesh)
+    R_loc = R // n
+    seeds = rsharding.shard_seeds(seed, n)
+    runs = []
+    for s in range(n):
+        state_s = _shard_state(init_state, P, R, s, mesh)
+        pv_s = (_shard_rows(pv, P, R, s, n, mesh[s]) if pv.ndim == 2
+                else pv.to(mesh[s]))
+        runs.append((make_run(pv_s, seeds[s], R_loc, state_s), state_s))
+    finals = [finish(st) for st in _drive(runs, n_chunks, chunk, rem,
+                                          early_exit)]
+    return _gather_shards(finals, P, R_loc, init_state["phase"].device)
+
+
+def _resolve_shards(shards: Optional[int], pts) -> int:
+    """Effective shard count: the explicit argument, else the (single)
+    ``Params.engine_shards`` value of the batch; a mixed grid raises (the
+    batch axis shards as one unit, and de-sharding part of a grid is what
+    a sharded run never does)."""
+    if shards is not None:
+        return shards
+    vals = {p.engine_shards for p in pts}
+    if len(vals) > 1:
+        raise ValueError(
+            f"all points of a batched CTMC sweep must agree on "
+            f"Params.engine_shards (got {sorted(vals)}); the batch axis "
+            f"shards as one unit — split the grid or pass shards= "
+            f"explicitly")
+    return vals.pop()
+
+
+def _shard_mesh(n_shards: int, R: int, device) -> list:
+    """The devices of ``n_shards`` shards over R replicas on ``device``'s
+    kind; raises -- never de-shards -- when the shard count does not
+    divide the replica count or exceeds the visible cards."""
+    if R % n_shards:
+        raise ValueError(
+            f"engine_shards={n_shards} does not divide the replica "
+            f"count {R}: the batch axis shards by whole replica "
+            f"columns.  Choose a divisor; bucketed sweeps round R up to "
+            f"a power of two, so any power-of-two shard count <= R "
+            f"divides it (docs/scaling.md)")
+    return rsharding.replica_mesh(n_shards, device)
 
 
 #: non-_METRICS outputs worth returning: completion flag + the exact
@@ -1323,7 +1494,8 @@ def simulate_ctmc(params: Params, n_replicas: int = 1024, seed: int = 0,
                   chunk_steps: Optional[int] = None,
                   early_exit: bool = True,
                   max_runs: Optional[int] = None,
-                  device=None) -> Dict[str, np.ndarray]:
+                  device=None,
+                  shards: Optional[int] = None) -> Dict[str, np.ndarray]:
     """Vectorized replication study. Returns {metric: np.ndarray (R,)}.
 
     Runs on ``device`` (default the card; ``device="cpu"`` must be asked
@@ -1333,25 +1505,33 @@ def simulate_ctmc(params: Params, n_replicas: int = 1024, seed: int = 0,
     ``max_runs`` (default ``params.max_run_records``) sizes the per-run
     duration ring buffer; 0 leaves it out.  ``impl`` (default
     ``params.event_race_impl``) selects the chunk kernel (``None`` or
-    ``"cuda"``) or the plain step loop (``"ref"``).
+    ``"cuda"``) or the plain step loop (``"ref"``).  ``shards`` (default
+    ``params.engine_shards``; 0 unsharded) splits the replicas over that
+    many devices (:func:`_run_sharded`): bit for bit the
+    unsharded run at one shard, and shard ``s`` the unsharded run over
+    its replicas seeded ``shard_seeds(seed, shards)[s]``; a shard count
+    that does not divide ``n_replicas`` or exceeds the visible cards
+    raises.
     """
     dev = resolve_device(device)
     if not supports(params):
         raise _unsupported_error(params)
     params.validate()
     impl = params.event_race_impl if impl is None else impl
+    shards = _resolve_shards(shards, [params])
     max_steps = max_steps or default_max_steps(params)
     chunk = min(chunk_steps or DEFAULT_CHUNK_STEPS, max_steps)
     channels = _hist_channels([params])
     init_state = _initial_state(params, n_replicas, max_runs, dev)
     pv = torch.as_tensor(_params_vector(params), device=dev)
-    out = _chunk_loop(pv, seed, 1, n_replicas, chunk, max_steps // chunk,
-                      max_steps % chunk, impl, early_exit, channels,
-                      init_state, hazards.hazard_kind(params),
-                      hazards.hazard_segment_count(params),
-                      hazards.repair_kind(params),
-                      hazards.repair_segment_count(params),
-                      faultdomains.scenario_key(params))
+    args = (pv, seed, 1, n_replicas, chunk, max_steps // chunk,
+            max_steps % chunk, impl, early_exit, channels, init_state,
+            hazards.hazard_kind(params),
+            hazards.hazard_segment_count(params),
+            hazards.repair_kind(params),
+            hazards.repair_segment_count(params),
+            faultdomains.scenario_key(params))
+    out = _chunk_loop(*args, mesh=_shard_mesh(shards or 1, n_replicas, dev))
     return _extract(_host_outputs(out), channels=channels)
 
 
@@ -1363,7 +1543,8 @@ def simulate_ctmc_sweep(params_list, n_replicas: int = 1024, seed: int = 0,
                         padded: bool = True,
                         bucketed: bool = True,
                         max_runs: Optional[int] = None,
-                        device=None):
+                        device=None,
+                        shards: Optional[int] = None):
     """Batched sweep: the whole grid as one flat batch on one device.
 
     ``params_list`` is a sequence of :class:`Params`.  With ``padded=True``
@@ -1376,13 +1557,17 @@ def simulate_ctmc_sweep(params_list, n_replicas: int = 1024, seed: int = 0,
     honored exactly, and real rows are then bit-identical to
     ``bucketed=False``.  Uniforms are shared across points (common random
     numbers).  The failure and repair families and their empirical segment
-    counts change the step and the draw's width, and a scenario's key
-    (domain count and schedule codes) its race and lanes, so a grid mixing
-    them runs one batch per ``(failure family, repair family, scenario
-    key, segment counts)``; their parameters (shock rates, campaign times
-    included) are columns and never split a batch.  ``impl``
-    overrides every point's ``event_race_impl``; otherwise points split by
-    it.
+    counts change the step and the draw's width, a scenario's key (domain
+    count and schedule codes) its race and lanes, and ``age_dtype`` the
+    age lanes' dtype (and the kernel's instance), so a grid mixing them
+    runs one batch per ``(failure family, repair family, age dtype,
+    scenario key, segment counts)``; their parameters (shock rates,
+    campaign times included) are columns and never split a batch.
+    ``impl`` overrides every point's ``event_race_impl``; otherwise
+    points split by it.  ``shards`` (default the grid's one
+    ``Params.engine_shards``; a mixed grid raises) splits every batch's
+    replica axis over that many devices, as :func:`simulate_ctmc` does;
+    the count must divide the *run* replica count (after pow2 bucketing).
 
     Returns a list of ``{metric: np.ndarray (R,)}`` dicts in input order.
     """
@@ -1394,6 +1579,7 @@ def simulate_ctmc_sweep(params_list, n_replicas: int = 1024, seed: int = 0,
         p.validate()
     if not params_list:
         return []
+    shards = _resolve_shards(shards, params_list)
     if len({p.histogram for p in params_list}) > 1:
         raise ValueError(
             "all points of a batched CTMC sweep must share the same "
@@ -1402,7 +1588,7 @@ def simulate_ctmc_sweep(params_list, n_replicas: int = 1024, seed: int = 0,
 
     groups: Dict[tuple, list] = {}
     for i, p in enumerate(params_list):
-        gkey = (hazards.hazard_kind(p), hazards.repair_kind(p),
+        gkey = (hazards.hazard_kind(p), hazards.repair_kind(p), p.age_dtype,
                 faultdomains.scenario_key(p),
                 hazards.hazard_segment_count(p),
                 hazards.repair_segment_count(p),
@@ -1415,7 +1601,7 @@ def simulate_ctmc_sweep(params_list, n_replicas: int = 1024, seed: int = 0,
     bucket = padded and bucketed
     channels = _hist_channels(params_list)
     results: list = [None] * len(params_list)
-    for (kind, rkind, scen, n_seg, n_rseg, _skey, impl_eff), idxs in \
+    for (kind, rkind, _adt, scen, n_seg, n_rseg, _skey, impl_eff), idxs in \
             groups.items():
         pts = [params_list[i] for i in idxs]
         P, R = len(pts), n_replicas
@@ -1435,9 +1621,10 @@ def simulate_ctmc_sweep(params_list, n_replicas: int = 1024, seed: int = 0,
                                           scen)
         if (P_run, R_run) != (P, R):
             init_state = _bucket_pad_state(init_state, P, R, P_run, R_run)
-        out = _chunk_loop(pv_flat, seed, P_run, R_run, chunk, steps // chunk,
-                          steps % chunk, impl_eff, early_exit, channels,
-                          init_state, kind, n_seg, rkind, n_rseg, scen)
+        args = (pv_flat, seed, P_run, R_run, chunk, steps // chunk,
+                steps % chunk, impl_eff, early_exit, channels, init_state,
+                kind, n_seg, rkind, n_rseg, scen)
+        out = _chunk_loop(*args, mesh=_shard_mesh(shards or 1, R_run, dev))
         host = _host_outputs(out)
         for j, i in enumerate(idxs):
             results[i] = _extract(host, slice(j * R_run, j * R_run + R),

@@ -70,8 +70,8 @@ Carve-outs (the event engine :mod:`.multijob` remains the oracle):
 exponential failures AND repairs only, no fault domains / campaigns /
 checkpoint rollback / retirement / regeneration / failing standbys, and
 all jobs start at t=0 (:func:`reference_reasons_multijob`, the reference's
-reasons word for word).  Replica sharding is not ported yet
-(:func:`port_reasons_multijob`, ROADMAP queue 1 item 11).
+reasons word for word).  ``shards`` splits the replica axis over
+devices as the single-job engine does (:func:`_mj_chunk_loop`).
 """
 
 from __future__ import annotations
@@ -162,18 +162,15 @@ def reference_reasons_multijob(cluster: Params,
 def port_reasons_multijob(cluster: Params,
                           jobs: Sequence[JobSpec]) -> list:
     """What of the reference's multi-job CTMC envelope the port does not
-    run yet, with its ROADMAP item.
+    run yet, with its ROADMAP item: nothing (replica sharding runs here
+    too).  Kept so that :func:`unsupported_reasons_multijob` and
+    ``backend.resolve_engine_multijob`` can name a part that a later
+    reference adds before the port has it.
 
     >>> port_reasons_multijob(Params(engine_shards=2), [JobSpec(8, 100.0)])
-    ['replica sharding (engine_shards > 0) is not yet ported to the \
-PyTorch engine (ROADMAP queue 1 item 11)']
+    []
     """
-    reasons = []
-    if cluster.engine_shards > 0:
-        reasons.append(
-            f"replica sharding (engine_shards > 0) is {vz._NOT_PORTED} "
-            "(ROADMAP queue 1 item 11)")
-    return reasons
+    return []
 
 
 def unsupported_reasons_multijob(cluster: Params,
@@ -724,21 +721,17 @@ def _mj_steps(state: Dict[str, torch.Tensor], us: torch.Tensor,
     return state
 
 
-def _mj_chunk_loop(pv: torch.Tensor, seed: int, P: int, R: int, chunk: int,
-                   n_chunks: int, rem: int, J: int, impl: Optional[str],
-                   early_exit: bool, hist_channels: tuple,
-                   init_state: Dict[str, torch.Tensor],
-                   ) -> Dict[str, torch.Tensor]:
-    """Chunked scan with early exit -- the multi-job twin of the
-    single-job ``_chunk_loop`` (same chunking, bucketing, and
-    common-random-number conventions; see that docstring).  Each chunk
-    draws ``(chunk, next_pow2(R), 10)`` uniforms in one call; the
-    early-exit test reads the device once per chunk.  A chunk is one
-    launch of the multi-job chunk kernel for ``impl=None`` or ``"cuda"``
-    on the card (a J above ``mj_chunk.MAX_JOBS`` is refused, naming
-    ``impl="ref"``), and :func:`_mj_steps` with the plain race for
-    ``impl="ref"`` and on the CPU (where ``impl="cuda"`` raises).
-    ``init_state`` is left as it was."""
+def _mj_chunk_fn(pv: torch.Tensor, seed: int, P: int, R: int, J: int,
+                 impl: Optional[str], hist_channels: tuple,
+                 init_state: Dict[str, torch.Tensor]):
+    """``run_chunk(state, i, n_steps)`` of one batch -- the multi-job twin
+    of the single-job ``vectorized._chunk_fn``: chunk ``i`` draws
+    ``(n_steps, next_pow2(R), 10)`` uniforms seeded ``_chunk_seed(seed,
+    i)``, then runs one launch of the multi-job chunk kernel for
+    ``impl=None`` or ``"cuda"`` on the card (a J above
+    ``mj_chunk.MAX_JOBS`` is refused, naming ``impl="ref"``), and
+    :func:`_mj_steps` with the plain race for ``impl="ref"`` and on the
+    CPU (where ``impl="cuda"`` raises)."""
     device = init_state["phase"].device
     R_draw = _next_pow2(R)
     fused = ops._use_kernel("mj_chunk", impl, init_state["phase"])
@@ -760,20 +753,37 @@ def _mj_chunk_loop(pv: torch.Tensor, seed: int, P: int, R: int, chunk: int,
         owned = True
         return state
 
-    state = init_state
-    i = 0
-    while i < n_chunks and not (early_exit and not vz._any_active(state)):
-        state = run_chunk(state, i, chunk)
-        i += 1
-    if rem and not (early_exit and not vz._any_active(state)):
-        # partial final chunk so an explicit max_steps is honored exactly
-        state = run_chunk(state, n_chunks, rem)
+    return run_chunk
+
+
+def _mj_finish(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The completion flags, and the clock as the total time of a job the
+    budget cut."""
     state = dict(state)
     done = state["phase"] == DONE
     state["completed"] = done.to(torch.float32)
     state["total_time"] = torch.where(done, state["total_time"],
                                       state["t"][:, None])
     return state
+
+
+def _mj_chunk_loop(pv: torch.Tensor, seed: int, P: int, R: int, chunk: int,
+                   n_chunks: int, rem: int, J: int, impl: Optional[str],
+                   early_exit: bool, hist_channels: tuple,
+                   init_state: Dict[str, torch.Tensor], *, mesh=None,
+                   ) -> Dict[str, torch.Tensor]:
+    """Chunked scan with early exit -- the multi-job twin of the
+    single-job ``_chunk_loop`` (same chunking, bucketing, sharding over
+    ``mesh`` and common-random-number conventions; see that docstring)
+    over :func:`_mj_chunk_fn`'s chunks, and so the ``mj_chunk.cu``
+    instance of its J.  ``init_state`` is left as it was."""
+    def make_run(pv_s, seed_s, R_loc, state_s):
+        return _mj_chunk_fn(pv_s, seed_s, P, R_loc, J, impl, hist_channels,
+                            state_s)
+
+    return vz._run_sharded(pv, seed, P, R, init_state,
+                           mesh or [init_state["phase"].device], make_run,
+                           _mj_finish, n_chunks, chunk, rem, early_exit)
 
 
 def _unsupported_error(cluster: Params, jobs) -> ValueError:
@@ -851,7 +861,8 @@ def simulate_multijob_ctmc_sweep(
         early_exit: bool = True,
         bucketed: bool = True,
         max_runs: Optional[int] = None,
-        device=None) -> List[Dict[str, object]]:
+        device=None,
+        shards: Optional[int] = None) -> List[Dict[str, object]]:
     """Batched multi-job sweep: one batch per job-count group.
 
     ``points`` is a sequence of ``(cluster Params, [JobSpec, ...])``
@@ -862,7 +873,10 @@ def simulate_multijob_ctmc_sweep(
     and common random numbers exactly like the single-job sweep.
     ``impl`` overrides every point's ``event_race_impl`` (``None`` /
     ``"cuda"``: the multi-job chunk kernel on the card; ``"ref"``: the
-    plain step loop); otherwise points split by it.
+    plain step loop); otherwise points split by it.  ``shards`` (default
+    the grid's one ``Params.engine_shards``; a mixed grid raises) splits
+    every batch's replica axis over that many devices, as the single-job
+    sweep does (:func:`_mj_chunk_loop`).
 
     Returns one dict per point: ``per_job`` is a list of
     single-job-compatible array dicts (feed each to
@@ -902,6 +916,9 @@ def simulate_multijob_ctmc_sweep(
 
     results: List[Optional[Dict[str, object]]] = [None] * len(points)
     channels = _selected_channels(points[0][0].histogram)
+    # replica sharding resolves as in the single-job sweep: the explicit
+    # argument, else the grid's one Params value
+    shards = vz._resolve_shards(shards, [c for c, _ in points])
 
     # group: the single-job reduction, then one group per job count
     single_idx = [i for i, (c, js) in enumerate(points)
@@ -915,7 +932,7 @@ def simulate_multijob_ctmc_sweep(
         outs = vz.simulate_ctmc_sweep(
             sp, n_replicas=n_replicas, seed=seed, max_steps=max_steps,
             impl=impl, chunk_steps=chunk_steps, early_exit=early_exit,
-            bucketed=bucketed, max_runs=max_runs, device=dev)
+            bucketed=bucketed, max_runs=max_runs, device=dev, shards=shards)
         for i, arr in zip(single_idx, outs):
             results[i] = _wrap_single_job(arr)
 
@@ -946,9 +963,10 @@ def simulate_multijob_ctmc_sweep(
         if (P_run, R_run) != (P, R):
             init_state = vz._bucket_pad_state(init_state, P, R, P_run,
                                                 R_run)
-        out = _mj_chunk_loop(pv_flat, seed, P_run, R_run, chunk,
-                             steps // chunk, steps % chunk, J, impl_eff,
-                             early_exit, channels, init_state)
+        args = (pv_flat, seed, P_run, R_run, chunk, steps // chunk,
+                steps % chunk, J, impl_eff, early_exit, channels, init_state)
+        out = _mj_chunk_loop(*args,
+                             mesh=vz._shard_mesh(shards or 1, R_run, dev))
         host = vz.state_to_numpy({k: v for k, v in out.items()
                                   if k in _HOST_KEYS})
         for jg, i in enumerate(idxs):

@@ -61,6 +61,22 @@
 // block is back.  The scenario-free instances compile to their earlier
 // code: every scenario branch is behind `if constexpr`.
 //
+// Float64 age.  Under Params.age_dtype="float64" the failure-age lane and
+// the repair-slot lane's remaining times are float64, the reference's
+// carve-out for the cancellation of the Weibull inversion at large ages.
+// Every instance is a template on the age type AgeT as well: this source
+// builds the float instances by default and, with -DCTMC_AGE_T=double,
+// their double twins in a library of their own (kernels/ctmc_chunk.py's
+// LIBRARY64), so the float library's code is what it was.  The double
+// instances take the plain step's promotions and nothing more: the Weibull
+// inversion in double (pow, E and C cast up, the residual rounded to float
+// for the race), age + progress in double, the slot lane's minimum in
+// double rounded to float for the race, the decrement by dt cast up, and a
+// float quantile cast up on entry; the thinning families' hazards read the
+// float view of the age, as the reference's age32.  The H100 runs double at
+// half its float rate on the CUDA cores, and a row's chain has a handful
+// of double operations a step.
+//
 // Exactness.  Each operation is the plain step's, in its order, in
 // float32: the same products and sums (fail_sys = ((run*bad)*r_sys)*
 // computing; banked = progress - lost, then work_left - banked), the same
@@ -155,6 +171,12 @@
 #include "log_ndtr.cuh"
 #include "ndtri.cuh"
 
+// The type of the failure-age and repair-slot lanes of this library's
+// instances: float, or double for the float64 twins.
+#ifndef CTMC_AGE_T
+#define CTMC_AGE_T float
+#endif
+
 #if !defined(__CUDACC__) && !defined(__noinline__)
 #define __noinline__
 #endif
@@ -163,6 +185,7 @@
 // (scripts/torch_chunk_host_check.py) never launches a slot instance;
 // these stand-ins keep it compiling.
 inline float __shfl_xor_sync(unsigned, float v, int) { return v; }
+inline double __shfl_xor_sync(unsigned, double v, int) { return v; }
 inline int __shfl_xor_sync(unsigned, int v, int) { return v; }
 inline unsigned __ballot_sync(unsigned, int p) { return p ? 1u : 0u; }
 inline int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
@@ -221,7 +244,7 @@ enum Metric {
 // same struct with ctypes.  Every lane is a contiguous CUDA tensor.
 struct CtmcChunkArgs {
   float* comp[kNComp];      // (B, 4) pool compartments
-  float* lane[kNLane];      // (B,) float32 lanes
+  float* lane[kNLane];      // (B,) float32 lanes; lane[kAge] holds AgeT
   float* metric[kNMetric];  // (B,) float32 metrics the step writes
   int32_t* phase;           // (B,)
   int32_t* n_runs;          // (B,)
@@ -243,7 +266,8 @@ struct CtmcChunkArgs {
   int32_t n_seg;            // empirical segment count m, else 0
   // the repair-slot lane of a non-exponential repair family; null and 0
   // for exponential repairs
-  float* repair_rem;        // (B, n_slots) remaining time, +inf if free
+  float* repair_rem;        // (B, n_slots) remaining time (AgeT), +inf
+                            // if free
   int32_t* repair_cls;      // (B, n_slots)
   int32_t* repair_stage;    // (B, n_slots) 0 automated, 1 manual
   float* n_repair_overflow; // (B,)
@@ -269,6 +293,25 @@ struct CtmcChunkArgs {
 namespace {
 
 __device__ __forceinline__ float f(bool b) { return b ? 1.0f : 0.0f; }
+
+// max and pow in the age lane's type T (float or double), as PyTorch's
+// float and double kernels call them.
+template <typename T>
+__device__ __forceinline__ T age_max(T a, T b) {
+  if constexpr (sizeof(T) == sizeof(float)) {
+    return fmaxf(a, b);
+  } else {
+    return fmax(a, b);
+  }
+}
+template <typename T>
+__device__ __forceinline__ T age_pow(T a, T b) {
+  if constexpr (sizeof(T) == sizeof(float)) {
+    return powf(a, b);
+  } else {
+    return pow(a, b);
+  }
+}
 
 // torch.searchsorted(edges, v, right=True): the number of edges <= v, for
 // nondecreasing edges.  The log-spaced layout of HistogramSpec gives a
@@ -553,7 +596,7 @@ __device__ __noinline__ float repair_quantile(int rkind, float u, float scale,
   }
 }
 
-template <int kKind>
+template <int kKind, typename AgeT>
 __global__ void __launch_bounds__(kThreads)
     ctmc_chunk_kernel(const CtmcChunkArgs a) {
   // the failure family, and whether this is a slot or a scenario instance
@@ -593,17 +636,18 @@ __global__ void __launch_bounds__(kThreads)
   int32_t phase = a.phase[b];
   if (phase == kDone || a.n_steps == 0) return;   // inert: nothing changes
 
-  // the row's slots in shared memory, after the bin edges: remaining time,
-  // then cls | stage << 16
+  // the row's slots in shared memory, after the bin edges (padded to 16
+  // bytes): remaining time (AgeT), then cls | stage << 16
   const int n_slots = a.n_slots;
-  float* s_rem = nullptr;
+  AgeT* s_rem = nullptr;
   int32_t* s_meta = nullptr;
   float overflow = 0.0f;
+  AgeT* const repair_rem = reinterpret_cast<AgeT*>(a.repair_rem);
   if constexpr (kSlots) {
-    s_rem = s_edges + ((a.n_edges + 3) & ~3);
+    s_rem = reinterpret_cast<AgeT*>(s_edges + ((a.n_edges + 3) & ~3));
     s_meta = reinterpret_cast<int32_t*>(s_rem + n_slots);
     for (int j = lane; j < n_slots; j += 32) {
-      s_rem[j] = a.repair_rem[b * n_slots + j];
+      s_rem[j] = repair_rem[b * n_slots + j];
       s_meta[j] = a.repair_cls[b * n_slots + j]
                   | (a.repair_stage[b * n_slots + j] << 16);
     }
@@ -663,7 +707,9 @@ __global__ void __launch_bounds__(kThreads)
   load4(man, a.comp[kMan] + 4 * b);
   float t = a.lane[kT][b], work_left = a.lane[kWorkLeft][b];
   float timer = a.lane[kTimer][b], stall_start = a.lane[kStallStart][b];
-  float age = a.lane[kAge][b], cur_run = a.lane[kCurRun][b];
+  AgeT* const age_lane = reinterpret_cast<AgeT*>(a.lane[kAge]);
+  AgeT age = age_lane[b];
+  float cur_run = a.lane[kCurRun][b];
   float ckpt_work = a.lane[kCkptWork][b], in_ckpt = a.lane[kInCkpt][b];
   int32_t n_runs = a.n_runs[b];
   float m[kNMetric];
@@ -740,15 +786,17 @@ __global__ void __launch_bounds__(kThreads)
     const bool stalled = phase == kStall;
     const bool active = phase != kDone;
     const bool in_ckpt_flag = in_ckpt > 0.0f;
+    // the thinning families' hazards read the float view of the age
+    const float age32 = static_cast<float>(age);
 
     // ---- the slot lane's minimum and its first index --------------------
-    float slot_min = INFINITY;
+    AgeT slot_min = INFINITY;
     int slot_arg = 0;
     if constexpr (kSlots) {
-      float v = INFINITY;
+      AgeT v = INFINITY;
       int vi = 0x7fffffff;
       for (int j = lane; j < n_slots; j += 32) {
-        const float r = s_rem[j];
+        const AgeT r = s_rem[j];
         if (r < v) {
           v = r;
           vi = j;
@@ -756,7 +804,7 @@ __global__ void __launch_bounds__(kThreads)
       }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(kFullMask, v, off);
+        const AgeT ov = __shfl_xor_sync(kFullMask, v, off);
         const int oi = __shfl_xor_sync(kFullMask, vi, off);
         if (ov < v || (ov == v && oi < vi)) {
           v = ov;
@@ -784,27 +832,34 @@ __global__ void __launch_bounds__(kThreads)
       w_total = w8[0];
 #pragma unroll
       for (int j = 1; j < 8; ++j) w_total += w8[j];
+      // in the age lane's type: E and C cast up, the residual rounded to
+      // float for the race
       float s = INFINITY;
       if (w_total > 0.0f) {
-        const float target = powf(age, hz2)
-                             + (-logf(u_haz)) / fmaxf(w_total, kMinTotal);
-        s = fmaxf(powf(target, inv_k) - age, 0.0f);
+        const AgeT target =
+            age_pow(age, static_cast<AgeT>(hz2))
+            + static_cast<AgeT>(-logf(u_haz))
+                  / age_max(static_cast<AgeT>(w_total),
+                            static_cast<AgeT>(1e-30));
+        s = static_cast<float>(
+            age_max(age_pow(target, static_cast<AgeT>(inv_k)) - age,
+                    static_cast<AgeT>(0)));
       }
       resid[kRoff + 2] = s;
     } else if constexpr (kFamily == kBathtub) {
-      g_bar = fmaxf(bathtub_g(age, hz0, hz1, hz2, hz3),
-                    bathtub_g(age + hz4, hz0, hz1, hz2, hz3));
+      g_bar = fmaxf(bathtub_g(age32, hz0, hz1, hz2, hz3),
+                    bathtub_g(age32 + hz4, hz0, hz1, hz2, hz3));
       resid[kRoff + 2] = computing ? hz4 : INFINITY;
     } else if constexpr (kFamily == kLognormal) {
-      hbar_r = lognormal_bar(age, hz4, hz0, hz2, log_sigma, hz3);
-      hbar_s = lognormal_bar(age, hz4, hz1, hz2, log_sigma, hz3);
+      hbar_r = lognormal_bar(age32, hz4, hz0, hz2, log_sigma, hz3);
+      hbar_s = lognormal_bar(age32, hz4, hz1, hz2, log_sigma, hz3);
       resid[kRoff + 2] = computing ? (hz4 > 0.0f ? hz4 : INFINITY)
                                    : INFINITY;
     } else if constexpr (kFamily == kEmpirical) {
-      hbar_r = piecewise_h(age, e_re, e_rr, n_seg);
-      hbar_s = piecewise_h(age, e_se, e_sr, n_seg);
-      resid[kRoff + 2] = computing ? fminf(piecewise_gap(age, e_re, n_seg),
-                                           piecewise_gap(age, e_se, n_seg))
+      hbar_r = piecewise_h(age32, e_re, e_rr, n_seg);
+      hbar_s = piecewise_h(age32, e_se, e_sr, n_seg);
+      resid[kRoff + 2] = computing ? fminf(piecewise_gap(age32, e_re, n_seg),
+                                           piecewise_gap(age32, e_se, n_seg))
                                    : INFINITY;
     }
 #pragma unroll
@@ -834,7 +889,9 @@ __global__ void __launch_bounds__(kThreads)
         rates[12 + j] = q_man[j] * f(active);
       }
     }
-    if constexpr (kSlots) resid[0] = active ? slot_min : INFINITY;
+    if constexpr (kSlots) {
+      resid[0] = active ? static_cast<float>(slot_min) : INFINITY;
+    }
     // the campaign's next entry, raced first
     const bool camp_pending = kScen && active && camp_idx < n_camp;
     const int ci = min(max(camp_idx, 0), max(n_camp - 1, 0));
@@ -882,15 +939,15 @@ __global__ void __launch_bounds__(kThreads)
     } else if constexpr (kFamily == kBathtub) {
       if (is_fail) {
         const bool accept =
-            u_haz * g_bar < bathtub_g(age + dt, hz0, hz1, hz2, hz3);
+            u_haz * g_bar < bathtub_g(age32 + dt, hz0, hz1, hz2, hz3);
         is_fail = accept;
         is_sys = is_sys && accept;
       }
     } else if constexpr (kFamily == kLognormal) {
       if (is_fail) {
         const bool cand_sys = ev >= 4;
-        const float h_at = lognormal_h(age + dt, cand_sys ? hz1 : hz0, hz2,
-                                       log_sigma);
+        const float h_at = lognormal_h(age32 + dt, cand_sys ? hz1 : hz0,
+                                       hz2, log_sigma);
         const bool accept = u_haz * (cand_sys ? hbar_s : hbar_r) < h_at;
         is_fail = accept;
         is_sys = is_sys && accept;
@@ -898,8 +955,9 @@ __global__ void __launch_bounds__(kThreads)
     } else if constexpr (kFamily == kEmpirical) {
       if (is_fail) {
         const bool cand_sys = ev >= 4;
-        const float h_at = cand_sys ? piecewise_h(age + dt, e_se, e_sr, n_seg)
-                                    : piecewise_h(age + dt, e_re, e_rr, n_seg);
+        const float h_at =
+            cand_sys ? piecewise_h(age32 + dt, e_se, e_sr, n_seg)
+                     : piecewise_h(age32 + dt, e_re, e_rr, n_seg);
         const bool accept = u_haz * (cand_sys ? hbar_s : hbar_r) <= h_at;
         is_fail = accept;
         is_sys = is_sys && accept;
@@ -993,7 +1051,8 @@ __global__ void __launch_bounds__(kThreads)
     cur_run = record ? 0.0f : run_val;
 
     // ---- phase age ------------------------------------------------------
-    age = (is_timer && !in_ckpt_flag) ? 0.0f : age + progress;
+    age = (is_timer && !in_ckpt_flag) ? static_cast<AgeT>(0)
+                                      : age + static_cast<AgeT>(progress);
 
     // ---- failure handling ----------------------------------------------
     m[kNFailures] = m[kNFailures] + f(is_fail);
@@ -1205,7 +1264,8 @@ __global__ void __launch_bounds__(kThreads)
         const int j = base + lane;
         bool is_free = false;
         if (j < n_slots) {
-          const float r = active ? s_rem[j] - dt : s_rem[j];
+          const AgeT r =
+              active ? s_rem[j] - static_cast<AgeT>(dt) : s_rem[j];
           s_rem[j] = r;
           is_free = isinf(r);
         }
@@ -1228,8 +1288,10 @@ __global__ void __launch_bounds__(kThreads)
         const int32_t rm_cls = wrong ? p_run : cls;
         const int32_t cls_n = entered ? rm_cls : (meta & 0xffff);
         const int32_t stage_n = escalate ? 1 : (entered ? 0 : meta >> 16);
-        s_rem[idx] = finishes ? INFINITY
-                              : ((escalate || entered) ? q_dur : s_rem[idx]);
+        s_rem[idx] = finishes ? static_cast<AgeT>(INFINITY)
+                              : ((escalate || entered)
+                                     ? static_cast<AgeT>(q_dur)
+                                     : s_rem[idx]);
         s_meta[idx] = cls_n | (stage_n << 16);
       }
       overflow = overflow + f(diagnosed && !any_free);
@@ -1242,7 +1304,7 @@ __global__ void __launch_bounds__(kThreads)
 
   if constexpr (kSlots) {
     for (int j = lane; j < n_slots; j += 32) {
-      a.repair_rem[b * n_slots + j] = s_rem[j];
+      repair_rem[b * n_slots + j] = s_rem[j];
       a.repair_cls[b * n_slots + j] = s_meta[j] & 0xffff;
       a.repair_stage[b * n_slots + j] = s_meta[j] >> 16;
     }
@@ -1259,7 +1321,7 @@ __global__ void __launch_bounds__(kThreads)
   a.lane[kWorkLeft][b] = work_left;
   a.lane[kTimer][b] = timer;
   a.lane[kStallStart][b] = stall_start;
-  a.lane[kAge][b] = age;
+  age_lane[b] = age;
   a.lane[kCurRun][b] = cur_run;
   a.lane[kCkptWork][b] = ckpt_work;
   a.lane[kInCkpt][b] = in_ckpt;
@@ -1281,22 +1343,24 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int kKind>
 static int launch(const CtmcChunkArgs* args, cudaStream_t stream) {
+  using AgeT = CTMC_AGE_T;
   constexpr bool kSlots = (kKind & kSlotBit) != 0;
-  // a slot instance: a row a block, its slots (8 bytes each) after the
-  // bin edges
+  // a slot instance: a row a block, its slots (sizeof(AgeT) + 4 bytes
+  // each) after the bin edges padded to 16 bytes
   const int rows = kSlots ? 1 : kThreads;
   const size_t smem =
-      kSlots ? (static_cast<size_t>((args->n_edges + 3) & ~3)
-                + 2 * static_cast<size_t>(args->n_slots)) * sizeof(float)
+      kSlots ? static_cast<size_t>((args->n_edges + 3) & ~3) * sizeof(float)
+                   + static_cast<size_t>(args->n_slots)
+                         * (sizeof(AgeT) + sizeof(int32_t))
              : static_cast<size_t>(args->n_edges) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        ctmc_chunk_kernel<kKind>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        ctmc_chunk_kernel<kKind, AgeT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int64_t blocks = (args->n_rows + rows - 1) / rows;
-  ctmc_chunk_kernel<kKind>
+  ctmc_chunk_kernel<kKind, AgeT>
       <<<static_cast<unsigned int>(blocks), kThreads, smem, stream>>>(*args);
   return static_cast<int>(cudaGetLastError());
 }

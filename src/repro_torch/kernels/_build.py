@@ -44,6 +44,8 @@ def nvcc() -> str:
 class CudaLibrary:
     """One ``csrc/<name>.cu`` built into a shared library and loaded once.
 
+    ``source`` names another ``csrc/<source>.cu`` to build under ``name``
+    (with its own ``extra_flags``, a second library of one source).
     ``bind`` sets ``argtypes``/``restype`` of the library's entry points
     (``ctypes.c_void_p`` for every pointer and the stream, or ctypes cuts
     them to 32 bits).  ``extra_flags`` go to nvcc after
@@ -53,9 +55,10 @@ class CudaLibrary:
     """
 
     def __init__(self, name: str, bind: Callable[[ctypes.CDLL], None],
-                 extra_flags: Tuple[str, ...] = ()):
+                 extra_flags: Tuple[str, ...] = (),
+                 source: Optional[str] = None):
         self.name = name
-        self.source = CSRC / f"{name}.cu"
+        self.source = CSRC / f"{source or name}.cu"
         self.flags = NVCC_FLAGS + tuple(extra_flags)
         self._bind = bind
         self._lib: Optional[ctypes.CDLL] = None

@@ -9,7 +9,10 @@ repairs (a thread a row), one slot instance a failure family for the
 other repair families (a warp a row, the row's repair-slot lane in shared
 memory; :func:`slot_plan`), and one scenario instance a failure family for
 a fault-domain scenario with exponential repairs (a thread a row, D shock
-lanes after the 16 in the race, the campaign residual first).
+lanes after the 16 in the race, the campaign residual first).  Each of
+those fifteen instances has a float64 twin for ``Params.age_dtype=
+"float64"`` (the ``age`` lane, and ``repair_rem`` with it, in float64),
+built from the same source into a library of its own (:data:`LIBRARY64`).
 The kernel lives in ``repro_torch/csrc/ctmc_chunk.cu`` (what it computes,
 its bound and its design are noted there); :mod:`._build` builds it with
 ``nvcc -fmad=false`` on first use and binds it with ``ctypes``, and
@@ -22,8 +25,9 @@ engine adds cannot be dropped without notice.
 
 ``LAUNCHES`` counts kernel launches, ``LAUNCHES_BY_KIND`` the same by
 failure family, ``LAUNCHES_BY_REPAIR`` by repair family,
-``LAUNCHES_BY_SCEN`` the scenario instances' by failure family and
-``STEPS`` the steps they ran, so a run can show that its main path went
+``LAUNCHES_BY_SCEN`` the scenario instances' by failure family,
+``LAUNCHES_BY_AGE`` by the age lane's dtype and ``STEPS`` the steps they
+ran, so a run can show that its main path went
 through the kernel.
 """
 
@@ -55,12 +59,17 @@ LAUNCHES_BY_KIND = dict.fromkeys(KINDS, 0)
 LAUNCHES_BY_REPAIR = dict.fromkeys(REPAIR_KINDS, 0)
 #: the scenario instances' launches by failure family
 LAUNCHES_BY_SCEN = dict.fromkeys(KINDS, 0)
+#: the age lane's dtypes, in the order of the two libraries
+AGE_DTYPES = ("float32", "float64")
+#: the same launches by the age lane's dtype
+LAUNCHES_BY_AGE = dict.fromkeys(AGE_DTYPES, 0)
 #: steps those launches ran
 STEPS = 0
 
 #: (B, 4) pool compartments, in the kernel's slot order
 COMPARTMENTS = ("run", "sb", "fw", "fs", "auto", "man")
-#: (B,) float32 lanes, in the kernel's slot order
+#: (B,) lanes, in the kernel's slot order: float32, but for ``age``, which
+#: is float32 or float64 (the launch's age dtype)
 LANES = ("t", "work_left", "timer", "stall_start", "age", "cur_run",
          "ckpt_work", "in_ckpt")
 #: (B,) float32 metrics the step writes, in the kernel's slot order
@@ -85,7 +94,7 @@ WRITTEN = COMPARTMENTS + LANES + METRICS + INT_LANES + ("run_durations",
                                                        "hist")
 _KNOWN = frozenset(WRITTEN + CARRIED + ("hist_edges",))
 #: the repair-slot lane of a non-exponential repair family, (B, n_slots):
-#: remaining time float32, class and stage int32
+#: remaining time in the age lane's dtype, class and stage int32
 SLOT_LANES = ("repair_rem", "repair_cls", "repair_stage")
 #: what a slot instance writes besides WRITTEN
 SLOT_WRITTEN = SLOT_LANES + ("n_repair_overflow",)
@@ -145,30 +154,35 @@ def n_uniforms(kind: str, rkind: str = "exponential") -> int:
     return 8 + (kind != "exponential") + (rkind != "exponential")
 
 
-def slot_plan(n_slots: int, n_edges: int = 0) -> dict:
+def slot_plan(n_slots: int, n_edges: int = 0, age_bytes: int = 4) -> dict:
     """A slot instance's launch for a lane of ``n_slots`` slots a row and
     ``n_edges`` histogram edges: a block is one row, a warp (the register
     file, not shared memory, bounds how many rows an SM holds, and
     one-warp blocks fill it to that bound), with ``smem_bytes`` of
-    dynamic shared memory (the edges, padded to 16 bytes, then 8 bytes a
-    slot).  Raises ``ValueError`` for a lane whose block would not fit an
-    H100 block's shared memory, naming ``Params.repair_slots``.
+    dynamic shared memory (the edges, padded to 16 bytes, then a slot's
+    remaining time, ``age_bytes`` = 4 or 8 for the float64 twins, and its
+    4-byte class and stage).  Raises ``ValueError`` for a lane whose
+    block would not fit an H100 block's shared memory, naming
+    ``Params.repair_slots``.
 
     >>> slot_plan(128, 130)
     {'threads': 32, 'smem_bytes': 1552}
+    >>> slot_plan(128, 130, age_bytes=8)
+    {'threads': 32, 'smem_bytes': 2064}
     >>> slot_plan(4360, 130)["smem_bytes"]
     35408
     """
     if n_slots < 1:
         _fail(f"a slot lane of {n_slots} slots")
     edge_floats = -(-n_edges // 4) * 4
-    smem = 4 * (edge_floats + 2 * n_slots)
+    slot_bytes = age_bytes + 4
+    smem = 4 * edge_floats + slot_bytes * n_slots
     if smem > _MAX_SHARED:
         _fail(f"a repair-slot lane of {n_slots} slots a row needs {smem} "
               f"bytes of shared memory a block, over the {_MAX_SHARED} an "
               "H100 block takes; lower Params.repair_slots (or its "
               "auto-sized width) to at most "
-              f"{(_MAX_SHARED // 4 - edge_floats) // 2}")
+              f"{(_MAX_SHARED - 4 * edge_floats) // slot_bytes}")
     return {"threads": 32, "smem_bytes": smem}
 
 
@@ -208,6 +222,10 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 
 LIBRARY = CudaLibrary("ctmc_chunk", _bind, extra_flags=("-fmad=false",))
+#: the float64 twins of every instance, from the same source
+LIBRARY64 = CudaLibrary("ctmc_chunk_age64", _bind,
+                        extra_flags=("-fmad=false", "-DCTMC_AGE_T=double"),
+                        source="ctmc_chunk")
 
 
 def _fail(msg: str) -> None:
@@ -246,7 +264,9 @@ def chunk_layout(state: Dict[str, torch.Tensor], us: torch.Tensor,
     scenario launch runs the scenario instance, takes exponential repairs
     only, needs exactly the lanes :func:`scenario_lanes` names and the
     parameter row's ``2D + 3L`` trailing columns, and a launch without one
-    refuses those lanes.  Returns a dict: ``pointers`` (lane
+    refuses those lanes.  ``age`` is float32, or float64 for the float64
+    twins, and a slot lane's ``repair_rem`` takes ``age``'s dtype: a mixed
+    pair raises, naming ``repair_rem``.  Returns a dict: ``pointers`` (lane
     name -> data pointer), ``pv_stride`` (0 for a shared row), ``n_rows``,
     ``R``, ``P``, ``R_draw``, ``n_steps``, ``max_runs``, ``n_sel``,
     ``n_edges``, ``chan`` (the kernel's code of each carried channel, its
@@ -254,9 +274,10 @@ def chunk_layout(state: Dict[str, torch.Tensor], us: torch.Tensor,
     codes, their indices in :data:`KINDS` and :data:`REPAIR_KINDS`),
     ``n_seg``, ``n_rseg``, ``n_slots`` (0 for exponential repairs),
     ``plan`` (:func:`slot_plan`'s, or None), ``scen`` (whether the
-    scenario instance runs), ``n_dom``, ``n_camp`` and ``codes`` (the
-    schedule codes).  Raises ``ValueError`` on a family, segment count or
-    scenario the kernel does not run, a key it does not know or lacks, a
+    scenario instance runs), ``n_dom``, ``n_camp``, ``codes`` (the
+    schedule codes) and ``age64`` (whether the float64 twin runs).
+    Raises ``ValueError`` on a family, segment count or scenario the
+    kernel does not run, a key it does not know or lacks, a
     dtype, shape, device, stride or alignment it does not take, or a slot
     lane too wide for shared memory.  Works on tensors of any device.
     """
@@ -315,10 +336,14 @@ def chunk_layout(state: Dict[str, torch.Tensor], us: torch.Tensor,
     if B != P * R or R < 1:
         _fail(f"phase {tuple(phase.shape)} is not (P * R,) = ({P} * {R},)")
     f32 = torch.float32
+    age_dtype = state["age"].dtype
+    if age_dtype not in (torch.float32, torch.float64):
+        _fail(f"age has dtype {age_dtype}; the kernel's is torch.float32 "
+              "or torch.float64")
     for k in COMPARTMENTS:
         _check(k, state[k], (B, 4), f32, device)
     for k in LANES + METRICS + CARRIED:
-        _check(k, state[k], (B,), f32, device)
+        _check(k, state[k], (B,), age_dtype if k == "age" else f32, device)
     for k in INT_LANES:
         _check(k, state[k], (B,), torch.int32, device)
     for k in scen_keys:
@@ -329,7 +354,8 @@ def chunk_layout(state: Dict[str, torch.Tensor], us: torch.Tensor,
     if slotted:
         rem = state["repair_rem"]
         n_slots = rem.shape[1] if rem.ndim == 2 else -1
-        _check("repair_rem", rem, (B, n_slots), f32, device)
+        # the slot lane's remaining times take the age lane's dtype
+        _check("repair_rem", rem, (B, n_slots), age_dtype, device)
         for k in ("repair_cls", "repair_stage"):
             _check(k, state[k], (B, n_slots), torch.int32, device)
     ring = state["run_durations"]
@@ -353,7 +379,9 @@ def chunk_layout(state: Dict[str, torch.Tensor], us: torch.Tensor,
         _check("hist", state["hist"], (B, n_sel, n_edges + 1), f32, device)
         for i, c in enumerate(hist_channels):
             chan[i] = CHANNELS.index(c)
-    plan = slot_plan(n_slots, n_edges) if slotted else None
+    age64 = age_dtype == torch.float64
+    plan = slot_plan(n_slots, n_edges, 8 if age64 else 4) if slotted \
+        else None
     n_u = n_uniforms(kind, rkind)
     if us.ndim != 3 or us.shape[2] != n_u or us.shape[1] < R:
         _fail(f"uniforms {tuple(us.shape)} are not (n_steps, R_draw >= "
@@ -392,7 +420,8 @@ def chunk_layout(state: Dict[str, torch.Tensor], us: torch.Tensor,
             "chan": tuple(chan), "kind": KINDS.index(kind), "n_seg": n_seg,
             "rkind": REPAIR_KINDS.index(rkind), "n_rseg": n_rseg,
             "n_slots": n_slots, "plan": plan, "scen": scen is not None,
-            "n_dom": n_dom, "n_camp": len(codes), "codes": codes}
+            "n_dom": n_dom, "n_camp": len(codes), "codes": codes,
+            "age64": age64}
 
 
 def _args(layout: dict, codes=None) -> ChunkArgs:
@@ -447,7 +476,8 @@ def ctmc_chunk_cuda(state: Dict[str, torch.Tensor], us: torch.Tensor,
     ``kind`` / ``n_seg``, ``rkind`` / ``n_rseg`` and ``scen`` choose the
     instance (see :func:`chunk_layout`): the failure family's, its slot
     instance for a non-exponential repair family, or its scenario instance
-    for a fault-domain scenario.  Returns the new state dict.  By
+    for a fault-domain scenario; a float64 ``age`` lane takes its float64
+    twin (:data:`LIBRARY64`).  Returns the new state dict.  By
     default the lanes the kernel writes are cloned first, so ``state`` is
     left as it was (as ``_step_u`` leaves it); ``inplace=True`` writes
     into ``state``'s own tensors, for a caller that owns them.  Takes CUDA
@@ -468,7 +498,7 @@ def ctmc_chunk_cuda(state: Dict[str, torch.Tensor], us: torch.Tensor,
         return new
     args = _args(layout, schedule_codes(layout["codes"], device)
                  if layout["n_camp"] else None)
-    lib = LIBRARY.load()
+    lib = (LIBRARY64 if layout["age64"] else LIBRARY).load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.ctmc_chunk_launch(ctypes.byref(args), stream)
@@ -479,5 +509,6 @@ def ctmc_chunk_cuda(state: Dict[str, torch.Tensor], us: torch.Tensor,
     LAUNCHES_BY_REPAIR[rkind] += 1
     if scen is not None:
         LAUNCHES_BY_SCEN[kind] += 1
+    LAUNCHES_BY_AGE[AGE_DTYPES[layout["age64"]]] += 1
     STEPS += layout["n_steps"]
     return new

@@ -3,8 +3,9 @@
 Routing table: for each Params, where the reference's ``engine="auto"``
 answers ``event``, the port answers ``event`` too and runs the event
 engine; where the reference answers ``ctmc``, the port answers ``ctmc`` or
-raises, naming the ROADMAP item that will bring the missing part -- it
-never moves such a study onto the host.  ``load_experiment`` reads the
+would raise, naming the ROADMAP item that brings the missing part -- it
+never moves such a study onto the host.  Since float64 age and replica
+sharding were ported, no route raises.  ``load_experiment`` reads the
 reference's yaml experiment (and the same spec as json); with
 ``engine: event`` its rows equal the reference's exactly.
 """
@@ -83,17 +84,23 @@ ROUTES = {
     "one_segment_empirical_repairs": ({"repair_distribution": "empirical",
                                        "distribution_kwargs": {
                                            "rates": [2.0]}}, None),
-    "age_float64": ({"age_dtype": "float64"}, "item 8b"),
+    "age_float64": ({"age_dtype": "float64"}, None),
     "fault_domains": ({"fault_domains": jc.FaultTopology(
         n_racks=4, rack_shock_rate=1e-4)}, None),
     "campaign": ({"campaign": jc.Campaign(events=(jc.CampaignEvent(
         time=60.0, kind="maintenance", duration=30.0),))}, None),
-    "engine_shards": ({"engine_shards": 2}, "item 11"),
+    "engine_shards": ({"engine_shards": 2}, None),
 }
 
 
 @pytest.mark.parametrize("name", list(ROUTES))
 def test_auto_routes_as_the_reference(name):
+    """``engine="auto"`` picks the reference's engine and runs a 2-replica
+    study on it, or names the ROADMAP item where only the port is short.
+    ``[age_float64]`` and ``[engine_shards]`` pinned that refusal for
+    float64 age and replica sharding (items 8b and 11) until both were
+    ported: they now route to ``ctmc`` as the reference does and run, the
+    second on two shards."""
     kw, item = ROUTES[name]
     ref = JParams(**SMALL, **kw)
     port = TParams.from_dict(ref.to_dict())

@@ -153,8 +153,6 @@ def test_padding_rows_stay_inert():
 
 
 @pytest.mark.parametrize("kw", [
-    # fault domains and campaigns run on the port's CTMC engine; combined
-    # with what it does not run yet they are still refused
     {"fault_domains": FaultTopology(n_racks=8, rack_shock_rate=1e-5),
      "engine_shards": 2},
     {"campaign": Campaign(events=({"time": 10.0, "kind": "maintenance",
@@ -162,13 +160,19 @@ def test_padding_rows_stay_inert():
      "age_dtype": "float64"},
     {"engine_shards": 2}, {"age_dtype": "float64"}])
 def test_unported_params_refused(kw):
-    p = TParams(**kw)
-    assert not tv.supports(p)
-    assert any("not yet ported" in r for r in tv.unsupported_reasons(p))
-    with pytest.raises(ValueError, match="not yet ported"):
-        tv.simulate_ctmc(p, n_replicas=4, device="cpu")
-    with pytest.raises(ValueError, match="not yet ported"):
-        tb.resolve_engine(p, "auto")
+    """These Params pinned the port's refusals of replica sharding and
+    float64 age (ROADMAP items 11 and 8b), alone and with fault domains or
+    a campaign, until both were ported: the port's CTMC engine now takes
+    them, ``auto`` routes them to it, and a 4-replica CPU run completes,
+    with its age lane in the requested dtype."""
+    p = SMALL.replace(**kw)
+    assert tv.supports(p) and tv.unsupported_reasons(p) == []
+    assert tb.resolve_engine(p, "auto") == "ctmc"
+    out = tv.simulate_ctmc(p, n_replicas=4, device="cpu")
+    assert out["completed"].all() and out["n_failures"].sum() > 0
+    state = tv._initial_state(p, 4)
+    assert state["age"].dtype == tv._age_dtype(p) == (
+        torch.float64 if p.age_dtype == "float64" else torch.float32)
 
 
 def test_fault_domains_refused():

@@ -351,8 +351,20 @@ def test_wrapper_refuses_unknown_state_key(key):
                                        ("run", torch.float64),
                                        ("hist", torch.float64)])
 def test_wrapper_refuses_wrong_lane_dtype(key, dtype):
+    """Every lane but ``age`` refuses another dtype by name.  A float64
+    ``age`` was refused too until float64 age was ported (ROADMAP queue 1
+    item 8b): with exponential repairs it needs no ``repair_rem`` partner,
+    so the layout now takes it for the float64 twin, and on CPU tensors the
+    wrapper refuses only the device."""
     state, us, pv, R, P, channels = _valid()
     state[key] = state[key].to(dtype)
+    if key == "age":
+        lay = ctmc_chunk.chunk_layout(state, us, pv, R, P, channels)
+        assert lay["age64"] and lay["plan"] is None
+        assert lay["pointers"]["age"] == state["age"].data_ptr()
+        with pytest.raises(ValueError, match="not a CUDA device"):
+            ctmc_chunk.ctmc_chunk_cuda(state, us, pv, R, P, channels)
+        return
     with pytest.raises(ValueError, match=f"{key} has dtype"):
         ctmc_chunk.ctmc_chunk_cuda(state, us, pv, R, P, channels)
 

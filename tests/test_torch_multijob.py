@@ -164,15 +164,33 @@ def test_gates_and_refusals_are_the_references(ref, name):
 
 
 def test_sharding_is_refused_naming_its_item():
+    """Pinned the port's refusal of replica sharding (ROADMAP queue 1 item
+    11) until it was ported: the multi-job engine and ``auto`` now take
+    ``engine_shards=2``, and a 2-shard run equals, lane for lane, its two
+    per-shard runs (4 replicas each, seeded ``shard_seeds(5, 2)``)."""
+    from repro_torch.parallel import shard_seeds
     p = TWO_JOB_CLUSTER.replace(engine_shards=2)
     assert tm.reference_reasons_multijob(p, TWO_JOBS) == []
-    assert not tm.supports_multijob(p, TWO_JOBS)
+    assert tm.port_reasons_multijob(p, TWO_JOBS) == []
+    assert tm.supports_multijob(p, TWO_JOBS)
     for engine in ("auto", "ctmc"):
-        with pytest.raises(ValueError, match="ROADMAP queue 1 item 11"):
-            tb.resolve_engine_multijob(p, TWO_JOBS, engine)
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 11"):
-        tm.simulate_multijob_ctmc(p, TWO_JOBS, n_replicas=4, device="cpu")
+        assert tb.resolve_engine_multijob(p, TWO_JOBS, engine) == "ctmc"
     assert tb.resolve_engine_multijob(p, TWO_JOBS, "event") == "event"
+    kw = dict(max_steps=192, device="cpu")
+    sharded = tm.simulate_multijob_ctmc(p, TWO_JOBS, n_replicas=8, seed=5,
+                                        **kw)
+    for s, seed in enumerate(shard_seeds(5, 2)):
+        part = tm.simulate_multijob_ctmc(TWO_JOB_CLUSTER, TWO_JOBS,
+                                         n_replicas=4, seed=seed, **kw)
+        rows = slice(4 * s, 4 * s + 4)
+        for k, v in part.items():
+            if k != "per_job":
+                np.testing.assert_array_equal(sharded[k][rows], v, k)
+        for j, job in enumerate(part["per_job"]):
+            for k, v in job.items():
+                got = sharded["per_job"][j][k]
+                np.testing.assert_array_equal(
+                    got if k == "hist_edges" else got[rows], v, f"{j} {k}")
 
 
 @pytest.mark.parametrize("name", ["two", "four", "lock_four"])
