@@ -11,13 +11,17 @@ serving (prefill + greedy decode) of qwen2.5-3b and falcon-mamba-7b at
 their full published widths through ``repro_torch.models.build_model`` --
 and holds each hand-written kernel against its plain PyTorch version;
 then the event engine with the reference's routing, the optimizer and an
-experiment file, whose CTMC points run through the chunk kernel.
+experiment file, whose CTMC points run through the chunk kernel; and at
+the end the paper's own tables (Fig. 2a / 2b and the Table-I sensitivity
+grid) through ``repro_torch.studies.paper_tables`` and the trace-fitting
+CLI (``scripts/torch_fit_hazard.py``).
 Phases, each of which fails the run loudly:
 
-1. the card's name and power limit; build the five kernel libraries
+1. the card's name and power limit; build the six kernel libraries
    (``src/repro_torch/csrc/{event_race,ctmc_chunk,mj_chunk,
-   flash_attention,mamba_scan}.cu``) with nvcc, all at once, and print
-   nvcc's register, spill and shared-memory report;
+   flash_attention,mamba_scan}.cu``, and ``ctmc_chunk.cu`` again with
+   float64 age) with nvcc, all at once, and print nvcc's register, spill
+   and shared-memory report;
 2. the event-race kernel against ``event_race_ref`` on the card, at the
    main path's shape (4,096 x 16 x 3) and at odd shapes, with all-zero-rate
    rows and exact residual ties: events exact, dt within rtol 1e-6; then
@@ -77,9 +81,9 @@ Phases, each of which fails the run loudly:
     under ``engine="auto"`` runs on the event engine on the host with no
     chunk launch, a Weibull-failure study routes to the CTMC engine, a
     Weibull-repair study runs on the CTMC engine through a slot instance
-    of the chunk kernel, ``age_dtype="float64"`` is refused naming
-    ROADMAP item 8b, and ``simulate`` twice with one seed gives identical
-    ``RunResult``s;
+    of the chunk kernel, an ``age_dtype="float64"`` study runs on the CTMC
+    engine through float64 launches, and ``simulate`` twice with one seed
+    gives identical ``RunResult``s;
 11. run parity on tests/test_vectorized.py's three configs: the CTMC
     engine on the card (768 replicas, through the chunk kernel) against
     the event engine (48), every compared metric within |z| < 3.5;
@@ -168,7 +172,32 @@ Phases, each of which fails the run loudly:
     multi-job chunk launch a chunk, no race launch) against the port's
     event engine on the host (96 and 80), every pinned per-job and fleet
     mean within |z| < 3.5; each cluster's middle chunk (its J = 2 and J = 4
-    instances) held and timed as in phase 20.
+    instances) held and timed as in phase 20;
+22. float64 age at Table-I width: Weibull failures with Weibull repairs
+    through phase 5's sweep in both age dtypes, phase 14's Weibull sweep
+    and phase 19's Weibull campaign with ``age_dtype="float64"``, each
+    run's launches all of one float64 instance, its first chunk bit for
+    bit the float64 plain loop, its time a launch beside its float32
+    twin's, and float64 against float32 on the same draws (|z| < 3.5,
+    the rows whose trajectories diverged);
+23. replica sharding: ``engine_shards=1`` on phase 5's sweep and phase
+    20's grid bit for bit their outputs; with two or more cards two
+    shards, each bit for bit its own run on ``cuda:s``, timed against one
+    card; with one card the two-shard request refused naming the count;
+24. the paper's own evaluation at full size through
+    ``repro_torch.studies.paper_tables``: ``fig2a()``, ``fig2b()`` and
+    ``sensitivity()`` (4096 servers, 32 days, 256 / 256 / 128 replicas,
+    into a temporary folder), the chunk kernel's launches counted from 0
+    (every one the exponential instance's, one a chunk, no standalone
+    race), every replica complete; each of the 102 rows' mean total time
+    against tests/data/torch_paper_reference.json (the JAX package's
+    tables, from scripts/torch_paper_reference.py) at |z| < 4, the
+    largest |z| a table printed; tests/test_paper_claims.py's five claims
+    on these rows; fig2a's first chunk bit for bit the plain step loop,
+    with the kernel's time a launch at its 3,072 rows and its bound, and
+    a traced fig2a; then ``scripts/torch_fit_hazard.py --selftest`` on the
+    card as a subprocess (exit 0, ``ctmc`` routing) and its ``selftest``
+    in process, every chunk launch the empirical instance's.
 
 Prints a ``{"serving": ..., "host_paths": ...}`` line, a ``{"kernels":
 [...]}`` line and, as its last line, ``{"ok": true, "device": {...}}``.  Exits non-zero, with
@@ -2919,6 +2948,242 @@ def sharding_phase(core, cc, mjc, vectorized, base, final5, multijob):
     return out
 
 
+#: phase 24: the paper's own tables, held to the JAX package's means at
+#: |z| < PAPER_Z_LIMIT (a Bonferroni bound for ~100 rows; the two packages
+#: draw different bits, so this is statistical parity, not identity)
+PAPER_REFERENCE = os.path.join("tests", "data", "torch_paper_reference.json")
+PAPER_Z_LIMIT = 4.0
+PAPER_TABLE_ROWS = {"fig2a": 12, "fig2b": 12, "sensitivity": 78}
+FIT_CLI = os.path.join("scripts", "torch_fit_hazard.py")
+
+
+def paper_z(tables, ref_rows):
+    """|z| of each row's mean total time against the reference's row with
+    the same (table, param, value, pool), on both runs' standard errors:
+    the port's from its ci95 (1.96 standard errors, in hours), the
+    reference's from its std and count.  Returns {table: [|z|, ...]}."""
+    ref = {(r["table"], r["param"], r["value"], r["pool"]): r
+           for r in ref_rows}
+    zs = {}
+    for table, (param, rows) in tables.items():
+        for row in rows:
+            name = param or row["parameter"]
+            value = row[param] if param else row["value"]
+            want = ref.get((table, name, value, row["working_pool_size"]))
+            if want is None:
+                fail(f"phase 24: no reference row for {table} {name}="
+                     f"{value} pool {row['working_pool_size']}")
+            tt = want["total_time"]
+            se_ref = tt["std"] / math.sqrt(tt["n"])
+            se = row["total_time_ci95_hours"] * 60.0 / 1.96
+            z = (row["total_time_hours"] * 60.0 - tt["mean"]) \
+                / max(math.hypot(se, se_ref), 1e-9)
+            zs.setdefault(table, []).append(abs(z))
+    return zs
+
+
+def paper_claims(core, pt, fa, fb, sens):
+    """tests/test_paper_claims.py's five claims on the full-size rows
+    (32 days; 256 replicas, 128 in the sensitivity grid).  Returns the
+    numbers each claim compares."""
+    ta = {(r["recovery_time"], r["working_pool_size"]):
+          r["total_time_hours"] * 60.0 for r in fa}
+    tb = {(r["waiting_time"], r["working_pool_size"]):
+          r["total_time_hours"] * 60.0 for r in fb}
+    default = core.Params()
+    rec_lo, rec_mid, rec_hi = core.PAPER_TABLE1_RANGES["recovery_time"]
+    out = {}
+    # 1. Fig 2a is monotone at every pool
+    for pool in pt.POOL_SIZES:
+        times = [ta[(rt, pool)] for rt in (rec_lo, rec_mid, rec_hi)]
+        if not times[0] < times[1] < times[2]:
+            fail(f"claim 1: total time not increasing with recovery time at "
+                 f"pool {pool}: {times}")
+    # 2. the 10 -> 30 min delta within 35% of the renewal estimate
+    p = pt.paper_params()
+    expected = p.expected_failures_per_minute() * p.job_length \
+        * (rec_hi - rec_lo)
+    delta = ta[(rec_hi, 4160)] - ta[(rec_lo, 4160)]
+    out["renewal"] = {"delta_min": delta, "expected_min": expected,
+                      "ratio": delta / expected}
+    if abs(delta - expected) > 0.35 * expected:
+        fail(f"claim 2: the recovery delta {delta:.1f} min is not within 35% "
+             f"of the renewal estimate {expected:.1f} min")
+    # 3. the waiting-time effect is no larger at 4192 than at 4112 (+30 min)
+    wt_lo, _, wt_hi = core.PAPER_TABLE1_RANGES["waiting_time"]
+    tight = tb[(wt_hi, 4112)] - tb[(wt_lo, 4112)]
+    big = tb[(wt_hi, 4192)] - tb[(wt_lo, 4192)]
+    out["waiting"] = {"tight_min": tight, "big_min": big}
+    if tight < -1e-6 or big > tight + 30.0:
+        fail(f"claim 3: waiting-time effect {tight:.1f} min at 4112, "
+             f"{big:.1f} min at 4192")
+    # 4. +32 servers suffice: the default cells of Fig 2a
+    t128, t160, t192 = (ta[(default.recovery_time, pool)]
+                        for pool in (4128, 4160, 4192))
+    out["capacity"] = {"t4128": t128, "t4160": t160, "t4192": t192}
+    if abs(t192 - t160) / t160 >= 0.01 or t128 < t160 - 0.01 * t160:
+        fail(f"claim 4: pools 4128 / 4160 / 4192 give {t128:.1f} / "
+             f"{t160:.1f} / {t192:.1f} min")
+    # 5. the repair knobs are flat at pool 4160, against the grid's own
+    # default-value cell
+    flat = {}
+    for param in ("auto_repair_time", "manual_repair_failure_probability",
+                  "diagnosis_probability"):
+        cells = {r["value"]: r["total_time_hours"] for r in sens
+                 if r["parameter"] == param
+                 and r["working_pool_size"] == 4160}
+        base = cells[getattr(default, param)]
+        flat[param] = max(abs(t - base) / base for t in cells.values())
+        if flat[param] >= 0.05:
+            fail(f"claim 5: {param} moves total time by "
+                 f"{flat[param] * 100:.2f}% at pool 4160")
+    out["flat_max_rel"] = flat
+    return out
+
+
+def fit_selftest(cc):
+    """The trace-fitting CLI's selftest on the card: as a subprocess (exit
+    0, ``ctmc`` routing), then its ``selftest`` function in this process
+    with the chunk kernel's counts set to 0 (every launch the empirical
+    instance's, at least one)."""
+    import importlib.util
+    import torch
+    path = os.path.join(ROOT, FIT_CLI)
+    t0 = time.perf_counter()
+    done = subprocess.run([sys.executable, path, "--selftest"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    print(f"  {FIT_CLI} --selftest (subprocess, on the card): exit "
+          f"{done.returncode} in {secs:.2f} s: {done.stdout.strip()}")
+    if done.returncode != 0 or "selftest OK" not in done.stdout:
+        fail(f"{FIT_CLI} --selftest failed: {done.stderr[-2000:]}")
+    spec = importlib.util.spec_from_file_location("torch_fit_hazard", path)
+    cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cli)
+    zero_counts(cc)
+    if cli.selftest() != 0:
+        fail("the fit CLI's selftest returned non-zero in process")
+    torch.cuda.synchronize()
+    emp = cc.LAUNCHES_BY_KIND["empirical"]
+    print(f"  selftest in process: {emp} empirical-instance launches of "
+          f"{cc.LAUNCHES}")
+    if emp < 1 or emp != cc.LAUNCHES:
+        fail(f"the fit selftest made {emp} empirical launches of "
+             f"{cc.LAUNCHES}")
+    return {"subprocess_s": secs, "launches": emp}
+
+
+def paper_phase(core, cc, vectorized, des_step):
+    """Phase 24: the paper's own evaluation at full size through
+    ``repro_torch.studies.paper_tables``: ``fig2a()``, ``fig2b()`` and
+    ``sensitivity()`` (4096 servers, 32 days, 256 / 256 / 128 replicas,
+    into a temporary folder), the chunk kernel's launches counted from 0
+    (every launch the exponential instance's, one a chunk, no standalone
+    race), every replica complete; each row's mean total time against
+    tests/data/torch_paper_reference.json (the JAX package's tables) at
+    |z| < PAPER_Z_LIMIT; tests/test_paper_claims.py's five claims on these
+    rows; fig2a's first chunk bit for bit the plain step loop, with the
+    kernel's time a launch and its bound; a traced fig2a (the kernel's
+    device time a launch over the sweep); then the fit CLI's selftest."""
+    import tempfile
+    import torch
+    from repro_torch.studies import paper_tables as pt
+    t0 = time.perf_counter()
+    with open(os.path.join(ROOT, PAPER_REFERENCE)) as f:
+        ref_rows = json.load(f)["rows"]
+    run, restore = capture_final_states(vectorized)
+    walls = {}
+    try:
+        with tempfile.TemporaryDirectory() as td:
+            zero_counts(cc)
+            des_step.LAUNCHES = 0
+            torch.cuda.synchronize()
+            tables = {}
+            for table, fn, param in (("fig2a", pt.fig2a, "recovery_time"),
+                                     ("fig2b", pt.fig2b, "waiting_time"),
+                                     ("sensitivity", pt.sensitivity, None)):
+                t1 = time.perf_counter()
+                rows = fn(device="cuda", results_dir=td)
+                torch.cuda.synchronize()
+                walls[table] = time.perf_counter() - t1
+                tables[table] = (param, rows)
+            launches, exp_launches = cc.LAUNCHES, \
+                cc.LAUNCHES_BY_KIND["exponential"]
+            steps, race = cc.STEPS, des_step.LAUNCHES
+            written = sorted(os.listdir(td))
+    finally:
+        restore()
+    print("  tables: " + "; ".join(
+        f"{t} {len(tables[t][1])} rows in {walls[t]:.3f} s" for t in tables)
+        + f"; written {written}")
+    print(f"  chunk kernel: {launches} launches ({exp_launches} of the "
+          f"exponential instance), {steps} steps; chunks run {run['chunks']},"
+          f" steps run {run['steps']}, batches {len(run['states'])}; "
+          f"standalone race launches {race}")
+    if launches != run["chunks"] or exp_launches != launches \
+            or steps != run["steps"] or race:
+        fail(f"phase 24 ran {run['chunks']} chunks of {run['steps']} steps "
+             f"but counted {launches} launches ({exp_launches} exponential)"
+             f" of {steps} steps and {race} race launches")
+    for table, want in PAPER_TABLE_ROWS.items():
+        if len(tables[table][1]) != want:
+            fail(f"{table}: {len(tables[table][1])} rows, not {want}")
+    for i, st in enumerate(run["states"]):
+        if not bool((st["phase"] == vectorized.DONE).all()):
+            fail(f"phase 24 batch {i}: not every replica completed")
+    zs = paper_z(tables, ref_rows)
+    worst = {t: max(v) for t, v in zs.items()}
+    print("  |z| of the mean total time against the JAX package's tables: "
+          + "; ".join(f"{t} largest {w:.3f} over {len(zs[t])} rows"
+                      for t, w in worst.items()))
+    if sum(len(v) for v in zs.values()) != len(ref_rows):
+        fail(f"phase 24 compared {sum(len(v) for v in zs.values())} rows of "
+             f"the reference's {len(ref_rows)}")
+    bad = {t: w for t, w in worst.items() if w >= PAPER_Z_LIMIT}
+    if bad:
+        fail(f"the port's paper tables disagree with the reference's: {bad}")
+    fa, fb, sens = (tables[t][1] for t in ("fig2a", "fig2b", "sensitivity"))
+    claims = paper_claims(core, pt, fa, fb, sens)
+    print(f"  the five claims hold: renewal delta {claims['renewal']['ratio']:.3f}"
+          f" of the estimate; waiting effect {claims['waiting']['tight_min']:.1f}"
+          f" min at 4112, {claims['waiting']['big_min']:.1f} min at 4192; "
+          f"pools 4128 / 4160 / 4192 {claims['capacity']['t4128']:.1f} / "
+          f"{claims['capacity']['t4160']:.1f} / "
+          f"{claims['capacity']['t4192']:.1f} min; flat knobs "
+          + ", ".join(f"{k} {v * 100:.2f}%"
+                      for k, v in claims["flat_max_rel"].items()))
+    for table in ("fig2a", "fig2b"):
+        print(f"  {table} (hours, ci95): " + "; ".join(
+            f"{r[tables[table][0]]:g}/{r['working_pool_size']} "
+            f"{r['total_time_hours']:.2f} +- {r['total_time_ci95_hours']:.2f}"
+            for r in tables[table][1]))
+    effects = pt.effect_sizes(sens)
+    print("  sensitivity effect sizes: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in sorted(effects.items())))
+    # fig2a's first chunk (its 3,072 rows of 4,096 after pow2 bucketing)
+    chunk = chunk_phase(cc, vectorized, run["calls"][0])
+    if chunk["bit_different"]:
+        fail(f"fig2a's first chunk: {chunk['bit_different']} float elements "
+             "differ from the plain loop's")
+    with tempfile.TemporaryDirectory() as td:
+        sweep_ms, traced = traced_chunk_ms(
+            cc, lambda: pt.fig2a(device="cuda", results_dir=td),
+            cc.LAUNCHES_BY_KIND, "exponential")
+    chunk["sweep_ms_per_launch"] = sweep_ms / traced if traced else None
+    print(f"  traced fig2a: {traced} launches, {sweep_ms:.3f} ms of chunk "
+          f"kernel, {chunk['sweep_ms_per_launch']} ms a launch")
+    fit = fit_selftest(cc)
+    secs = time.perf_counter() - t0
+    print(f"  phase 24: {secs:.3f} s")
+    return {"seconds": secs, "walls_s": walls, "launches": launches,
+            "chunks": run["chunks"], "steps": steps, "race_launches": race,
+            "max_abs_z": worst, "claims": claims, "effect_sizes": effects,
+            "first_chunk": {k: chunk[k] for k in (
+                "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                "bit_different", "live_rows", "sweep_ms_per_launch")},
+            "fit_selftest": fit}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3335,6 +3600,13 @@ def main() -> int:
     host_paths["sharding"] = sharding_phase(core, cc, mjc, vectorized, base,
                                             final, multijob)
 
+    # ---- phase 24: the paper's own tables and the trace-fitting CLI -------
+    phase("phase 24: the paper's Fig. 2a / 2b and Table-I sensitivity grid "
+          "at full size against the JAX package's tables, the five paper "
+          "claims, and the trace-fitting CLI's selftest")
+    paper = paper_phase(core, cc, vectorized, des_step)
+    host_paths["paper_tables"] = paper
+
     # the standalone race's record: its launches on the main paths, the
     # single-job (phase 5) and multi-job (phases 20, 20b, 21) ones, where
     # the chunk kernels replaced it (0: each phase fails on a race launch);
@@ -3397,6 +3669,8 @@ def main() -> int:
                          for k, v in host_paths["parity"].items()
                          if k != "seconds"},
         experiment_launches=host_paths["experiment"]["launches"],
+        paper_tables_launches=paper["launches"],
+        paper_tables_first_chunk=paper["first_chunk"],
         ms=chunk["call_ms"] if chunk["ms"] is None else chunk["ms"],
         library_ms=None)
     kernels = [record, chunk_record] + mj_records
@@ -3412,6 +3686,8 @@ def main() -> int:
                               "_event_race_kernel (16 rates x 4 residuals) "
                               f"and the lax.scan of {CHUNK_SCAN}",
             instance=rec["kind"], launches=rec["launches"],
+            **({"fit_selftest_launches": paper["fit_selftest"]["launches"]}
+               if rec["kind"] == "empirical" else {}),
             ms=rec["call_ms"] if rec["ms"] is None else rec["ms"],
             library_ms=None))
     for name, rec in repairs.items():
