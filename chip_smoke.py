@@ -17,11 +17,12 @@ grid) through ``repro_torch.studies.paper_tables`` and the trace-fitting
 CLI (``scripts/torch_fit_hazard.py``).
 Phases, each of which fails the run loudly:
 
-1. the card's name and power limit; build the six kernel libraries
+1. the card's name and power limit; build the nine kernel libraries
    (``src/repro_torch/csrc/{event_race,ctmc_chunk,mj_chunk,
-   flash_attention,mamba_scan}.cu``, and ``ctmc_chunk.cu`` again with
-   float64 age) with nvcc, all at once, and print nvcc's register, spill
-   and shared-memory report;
+   flash_attention,mamba_scan}.cu``, ``ctmc_chunk.cu`` again with float64
+   age, its wide instances in both age dtypes, and ``mj_chunk.cu``'s
+   runtime-J instance) with nvcc, all at once, and print nvcc's register,
+   spill and shared-memory report;
 2. the event-race kernel against ``event_race_ref`` on the card, at the
    main path's shape (4,096 x 16 x 3) and at odd shapes, with all-zero-rate
    rows and exact residual ties: events exact, dt within rtol 1e-6; then
@@ -197,7 +198,33 @@ Phases, each of which fails the run loudly:
     with the kernel's time a launch at its 3,072 rows and its bound, and
     a traced fig2a; then ``scripts/torch_fit_hazard.py --selftest`` on the
     card as a subprocess (exit 0, ``ctmc`` routing) and its ``selftest``
-    in process, every chunk launch the empirical instance's.
+    in process, every chunk launch the empirical instance's;
+25. the shapes past the standard chunk instances' caps, each under the
+    default impl: 65 and 256 empirical failure segments, 65 empirical
+    repair segments, a 32,768-slot Weibull repair lane on a 33,280-server
+    cluster in float32 and float64 age and 65,536 histogram edges through
+    ``simulate_ctmc`` (every launch the wide instance's, -DCTMC_WIDE), and
+    nine and sixteen jobs through ``simulate_multijob_ctmc`` (every launch
+    the runtime-J instance's, -DMJ_RUNTIME_J); each first chunk bit for
+    bit the plain loop, its time a launch beside the standard instance's
+    on the nearest shape that one takes (64 segments, 16,384 slots,
+    32,768 edges, the eight-job template);
+26. ``ops.flash_attention`` and ``ops.selective_scan`` under autograd at
+    qwen2.5-3b's attention and falcon-mamba-7b's scan shapes, batch 2 x
+    512, bf16 and float32: output and the gradients of a fixed random
+    cotangent against ``impl="ref"``, one forward launch a call and none
+    in the backward;
+27. ``parallel.make_train_step`` at full width: qwen2.5-3b at its full
+    36 layers and falcon-mamba-7b at 4 of its 64 (its full depth's
+    weights and AdamW state, ~84 GB, exceed one card), bf16 parameters,
+    float32 AdamW state, batch 2 x 512, three steps: each step's wall,
+    loss and kernel launches (one a layer), the peak memory, and the
+    first step's loss and grad norm against ``impl="ref"``;
+28. ``train.loop.train`` at examples/torch_train_with_failures.py's 100m
+    preset and cluster, 40 steps with a failure at step 25 (checkpoints in
+    a temporary folder, removed), against the same run without
+    injection: the recovery stats, the Young/Daly cadence, the loss
+    falling, and the largest difference of the final parameters.
 
 Prints a ``{"serving": ..., "host_paths": ...}`` line, a ``{"kernels":
 [...]}`` line and, as its last line, ``{"ok": true, "device": {...}}``.  Exits non-zero, with
@@ -214,6 +241,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1088,7 +1116,7 @@ def save_counts(cc):
     only to compare or time."""
     return (cc.LAUNCHES, cc.STEPS, dict(cc.LAUNCHES_BY_KIND),
             dict(cc.LAUNCHES_BY_REPAIR), dict(cc.LAUNCHES_BY_SCEN),
-            dict(cc.LAUNCHES_BY_AGE))
+            dict(cc.LAUNCHES_BY_AGE), cc.LAUNCHES_WIDE)
 
 
 def restore_counts(cc, counts):
@@ -1097,21 +1125,23 @@ def restore_counts(cc, counts):
     cc.LAUNCHES_BY_REPAIR.update(counts[3])
     cc.LAUNCHES_BY_SCEN.update(counts[4])
     cc.LAUNCHES_BY_AGE.update(counts[5])
+    cc.LAUNCHES_WIDE = counts[6]
 
 
 def zero_counts(cc):
     """Every launch counter of the chunk kernel to 0."""
-    cc.LAUNCHES = cc.STEPS = 0
+    cc.LAUNCHES = cc.STEPS = cc.LAUNCHES_WIDE = 0
     for counter in (cc.LAUNCHES_BY_KIND, cc.LAUNCHES_BY_REPAIR,
                     cc.LAUNCHES_BY_SCEN, cc.LAUNCHES_BY_AGE):
         counter.update(dict.fromkeys(counter, 0))
 
 
-def chunk_phase(cc, vectorized, call, time_plain=True):
+def chunk_phase(cc, vectorized, call, time_plain=True, wide=False):
     """Phases 5 and 14's kernel check: the chunk kernel against the plain
     step loop on a main path's first chunk (its initial state, parameters,
     failure family and draw), every lane; then the kernel's times (and the
-    plain loop's, unless ``time_plain`` is false) and its bound."""
+    plain loop's, unless ``time_plain`` is false) and its bound.  ``wide``
+    launches the wide instance (phase 25)."""
     import torch
     from repro_torch.core import hazards
     pv, seed, P, R, chunk = call[:5]
@@ -1125,7 +1155,8 @@ def chunk_phase(cc, vectorized, call, time_plain=True):
     us = torch.rand((chunk, vectorized._next_pow2(R), n_u),
                     generator=gen, device="cuda").clamp_min_(1e-12)
     counts = save_counts(cc)
-    got = cc.ctmc_chunk_cuda(init, us, pv, R, P, channels, **fam)
+    launch_kw = dict(fam, wide=wide)
+    got = cc.ctmc_chunk_cuda(init, us, pv, R, P, channels, **launch_kw)
     want = vectorized._steps_ref(init, us, pv, R, P, "ref", channels, kind,
                                  n_seg, rkind, n_rseg, scen)
     torch.cuda.synchronize()
@@ -1157,11 +1188,11 @@ def chunk_phase(cc, vectorized, call, time_plain=True):
              "histogram elements)")
     t = {"max_abs_err": err, "bit_different": bits}
     split = device_kernels_ms(lambda: cc.ctmc_chunk_cuda(
-        init, us, pv, R, P, channels, **fam), 20)
+        init, us, pv, R, P, channels, **launch_kw), 20)
     t["ms"] = sum(ms for name, ms in split if "ctmc_chunk_kernel" in name) \
         or None
     t["call_ms"] = event_ms(lambda: cc.ctmc_chunk_cuda(
-        init, us, pv, R, P, channels, **fam), 50, warmup=5)
+        init, us, pv, R, P, channels, **launch_kw), 50, warmup=5)
     t["plain_ms"] = t["plain_call_ms"] = None
     if time_plain:
         t["plain_ms"] = device_ms(lambda: vectorized._steps_ref(
@@ -2123,17 +2154,18 @@ def bit_different(a, b):
 def save_mj_counts(mjc):
     """The multi-job chunk kernel's launch counters, to put back after
     launches made only to compare or time."""
-    return mjc.LAUNCHES, mjc.STEPS, dict(mjc.LAUNCHES_BY_J)
+    return mjc.LAUNCHES, mjc.STEPS, dict(mjc.LAUNCHES_BY_J), mjc.LAUNCHES_RT
 
 
 def restore_mj_counts(mjc, counts):
     mjc.LAUNCHES, mjc.STEPS = counts[:2]
     mjc.LAUNCHES_BY_J.update(counts[2])
+    mjc.LAUNCHES_RT = counts[3]
 
 
 def zero_mj_counts(mjc):
     """Every launch counter of the multi-job chunk kernel to 0."""
-    restore_mj_counts(mjc, (0, 0, dict.fromkeys(mjc.LAUNCHES_BY_J, 0)))
+    restore_mj_counts(mjc, (0, 0, dict.fromkeys(mjc.LAUNCHES_BY_J, 0), 0))
 
 
 def capture_mj_chunks(vmj, vectorized, mjc, keep=None):
@@ -2232,7 +2264,8 @@ def mj_chunk_check(mjc, vmj, ref, kept, label):
     state, us, pv, R, P, J, ch = kept
     n_steps = us.shape[0]
     counts = save_mj_counts(mjc)
-    got = mjc.mj_chunk_cuda(state, us, pv, R, P, J, ch)
+    runtime = mjc.runtime_for(J)
+    got = mjc.mj_chunk_cuda(state, us, pv, R, P, J, ch, runtime=runtime)
     # the plain loop a step at a time, counting the live rows each step and
     # keeping the plain race's inputs at the middle step
     orig_race = ref.event_race_ref
@@ -2265,14 +2298,16 @@ def mj_chunk_check(mjc, vmj, ref, kept, label):
              f"loop in {bits} elements")
 
     def launch():
-        return mjc.mj_chunk_cuda(state, us, pv, R, P, J, ch)
+        return mjc.mj_chunk_cuda(state, us, pv, R, P, J, ch, runtime=runtime)
 
     split = device_kernels_ms(launch, 20)
     n_edges = state["hist_edges"].numel() if "hist_edges" in state else 0
     t = {"bit_different": bits, "max_abs_err": err,
          "race_args": sample.get("args"), "race_step": sample.get("step"),
          "ms": sum(ms for name, ms in split if "mj_chunk_kernel" in name)
-         or None, "rows_per_block": mjc.rows_per_block(J, n_edges)}
+         or None, "rows_per_block": (mjc.rt_plan(J, n_edges)["rows"]
+                                     if runtime
+                                     else mjc.rows_per_block(J, n_edges))}
     t["call_ms"] = event_ms(launch, 50, warmup=5)
     t["plain_ms"] = device_ms(lambda: vmj._mj_steps(
         state, us, pv, R, P, J, "ref", ch), 1)
@@ -3184,6 +3219,507 @@ def paper_phase(core, cc, vectorized, des_step):
             "fit_selftest": fit}
 
 
+
+#: phase 25: shapes past the standard chunk instances' caps (ROADMAP faults
+#: F1-F2), each under the default impl: name -> (Params overrides of the
+#: Table-I cluster, replicas, the nearest shape a standard instance takes)
+
+
+def wide_fit(n_seg: int) -> dict:
+    """An empirical fit of ``n_seg`` segments a clock (days and rate
+    multipliers), as ``scripts/torch_fit_hazard.py --bins n_seg`` gives
+    one: rising edges, rates that wander over a decade."""
+    return {"edges": [0.05 * (i + 1) for i in range(n_seg - 1)],
+            "rates": [0.3 + 1.2 * ((7 * i) % 11) / 10.0
+                      for i in range(n_seg)]}
+
+
+#: a cluster of over 32,768 servers whose Weibull repair lane is 32,768
+#: slots wide (the standard slot instances take 28,990 in float32 and
+#: 19,326 in float64)
+WIDE_SLOT_CLUSTER = dict(job_size=32768, working_pool_size=33024,
+                         spare_pool_size=256, warm_standbys=16,
+                         repair_distribution="weibull",
+                         distribution_kwargs={"k": 0.7})
+WIDE_CASES = {
+    "empirical_65_segments": (
+        dict(failure_distribution="empirical",
+             distribution_kwargs=wide_fit(65)), 1024,
+        dict(failure_distribution="empirical",
+             distribution_kwargs=wide_fit(64))),
+    "empirical_256_segments": (
+        dict(failure_distribution="empirical",
+             distribution_kwargs=wide_fit(256)), 1024,
+        dict(failure_distribution="empirical",
+             distribution_kwargs=wide_fit(64))),
+    "empirical_repair_65_segments": (
+        dict(repair_distribution="empirical",
+             distribution_kwargs=wide_fit(65)), 1024,
+        dict(repair_distribution="empirical",
+             distribution_kwargs=wide_fit(64))),
+    "weibull_slots_32768": (
+        dict(WIDE_SLOT_CLUSTER, repair_slots=32768), 256,
+        dict(WIDE_SLOT_CLUSTER, repair_slots=16384)),
+    "weibull_slots_32768_age64": (
+        dict(WIDE_SLOT_CLUSTER, repair_slots=32768, age_dtype="float64"), 256,
+        dict(WIDE_SLOT_CLUSTER, repair_slots=16384, age_dtype="float64")),
+    "hist_65536_edges": (
+        dict(histogram_bins=65535), 256, dict(histogram_bins=32767)),
+}
+#: the nine- and sixteen-job clusters (tests/test_torch_mj_chunk.py's LOCK
+#: cluster), and the eight-job one whose template instance they stand
+#: beside
+MJ_WIDE_LOCK = dict(spare_pool_size=4, job_size=16, job_length=400.0,
+                    random_failure_rate=0.004, systematic_failure_rate=0.01,
+                    auto_repair_time=150.0, manual_repair_time=400.0,
+                    repair_servers=3, diagnosis_uncertainty=0.2)
+MJ_WIDE_CASES = {
+    9: (60, [(4, 100.0 + 30.0 * j, j % 2) for j in range(9)]),
+    16: (80, [(3, 150.0 + 20.0 * j, j % 3) for j in range(16)]),
+    8: (70, [(6, 200.0 + 40.0 * j, j % 2) for j in range(8)]),
+}
+MJ_WIDE_REPLICAS = 1024
+
+
+def wide_params(core, overrides):
+    """The Table-I cluster at JOB_DAYS with ``overrides``
+    (``histogram_bins`` sets a log-spaced histogram of that many bins)."""
+    from repro_torch.core.histograms import HistogramSpec
+    kw = dict(overrides)
+    bins = kw.pop("histogram_bins", None)
+    if bins is not None:
+        kw["histogram"] = HistogramSpec(low=1e-2, high=1e7, n_bins=bins)
+    return core.Params(job_length=JOB_DAYS * DAY, **kw)
+
+
+def wide_first_chunk(core, cc, vectorized, p, R, wide):
+    """Two chunks of ``p`` through ``simulate_ctmc`` under the default impl
+    (their launches counted), then, for a wide run, chunk_phase on the
+    first chunk; for a standard run (a time to stand beside) only the
+    launch's device time on that chunk."""
+    import torch
+    run, restore = capture_final_states(vectorized)
+    try:
+        zero_counts(cc)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vectorized.simulate_ctmc(p, R, seed=0, max_steps=128,
+                                 early_exit=False, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, n_wide = cc.LAUNCHES, cc.LAUNCHES_WIDE
+    finally:
+        restore()
+    if launches != run["chunks"] or n_wide != (launches if wide else 0):
+        fail(f"{run['chunks']} chunks ran {launches} launches, {n_wide} of "
+             f"them wide (the route wants {'all' if wide else 'none'})")
+    if not wide:
+        pv, seed, P, R_, chunk = run["calls"][0][:5]
+        channels, init = run["calls"][0][9], run["calls"][0][10]
+        kind, n_seg, rkind, n_rseg = run["calls"][0][11:15]
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(vectorized._chunk_seed(seed, 0))
+        us = torch.rand((chunk, vectorized._next_pow2(R_),
+                         vectorized._n_uniforms(kind, rkind)),
+                        generator=gen, device="cuda").clamp_min_(1e-12)
+        counts = save_counts(cc)
+        split = device_kernels_ms(lambda: cc.ctmc_chunk_cuda(
+            init, us, pv, R_, P, channels, kind=kind, n_seg=n_seg,
+            rkind=rkind, n_rseg=n_rseg), 20)
+        restore_counts(cc, counts)
+        return {"ms": sum(ms for name, ms in split
+                          if "ctmc_chunk_kernel" in name)}
+    rec = chunk_phase(cc, vectorized, run["calls"][0], wide=True)
+    if rec["bit_different"]:
+        fail(f"first chunk: {rec['bit_different']} float elements differ "
+             "from the plain loop's")
+    rec.update(launches=launches, wide_launches=n_wide, wall_s=wall,
+               chunks=run["chunks"])
+    return rec
+
+
+def shape_caps_phase(core, cc, mjc, vectorized, vmj, ref):
+    """Phase 25: each shape past a standard instance's cap runs its wide
+    or runtime-J instance under the default impl, a launch a chunk; its
+    first chunk bit for bit the plain loop; its time a launch beside the
+    standard instance's on the nearest shape that one takes."""
+    t0 = time.perf_counter()
+    out = {}
+    for name, (over, R, near) in WIDE_CASES.items():
+        t1 = time.perf_counter()
+        rec = wide_first_chunk(core, cc, vectorized, wide_params(core, over),
+                               R, True)
+        std = wide_first_chunk(core, cc, vectorized, wide_params(core, near),
+                               R, False)
+        rec["standard_ms"] = std["ms"]
+        ms_ = rec["ms"] if rec["ms"] is not None else rec["call_ms"]
+        print(f"  {name}: {rec['wide_launches']} wide launches of "
+              f"{rec['chunks']} chunks, first chunk 0 bit-different, "
+              f"{ms_:.6f} ms a launch against the standard instance's "
+              f"{rec['standard_ms']:.6f} ms on its nearest shape; "
+              f"{time.perf_counter() - t1:.3f} s")
+        out[name] = rec
+    for J, (pool, jobs) in MJ_WIDE_CASES.items():
+        t1 = time.perf_counter()
+        cluster = core.Params(working_pool_size=pool, **MJ_WIDE_LOCK)
+        specs = [core.JobSpec(*j) for j in jobs]
+        run, restore = capture_mj_chunks(vmj, vectorized, mjc, keep=0)
+        try:
+            zero_mj_counts(mjc)
+            vmj.simulate_multijob_ctmc(cluster, specs,
+                                       n_replicas=MJ_WIDE_REPLICAS,
+                                       max_steps=128, early_exit=False,
+                                       device="cuda")
+            launches, rt = mjc.LAUNCHES, mjc.LAUNCHES_RT
+        finally:
+            restore()
+        want_rt = launches if mjc.runtime_for(J) else 0
+        if launches != run["chunks"] or rt != want_rt:
+            fail(f"{J} jobs: {run['chunks']} chunks ran {launches} launches,"
+                 f" {rt} of them runtime-J")
+        if not want_rt:   # the template instance: its time alone
+            state, us, pv, R, P, J_, ch = run["kept"]
+            counts = save_mj_counts(mjc)
+            split = device_kernels_ms(lambda: mjc.mj_chunk_cuda(
+                state, us, pv, R, P, J_, ch), 20)
+            restore_mj_counts(mjc, counts)
+            out[f"J{J}"] = {"ms": sum(ms for name, ms in split
+                                      if "mj_chunk_kernel" in name)}
+            continue
+        rec = mj_chunk_check(mjc, vmj, ref, run["kept"], f"{J} jobs")
+        rec.update(J=J, launches=launches, runtime_launches=rt,
+                   chunks=run["chunks"])
+        print(f"  {J} jobs: {rt} runtime-J launches of {launches}; "
+              f"{time.perf_counter() - t1:.3f} s")
+        out[f"J{J}"] = rec
+    for J in (9, 16):
+        rec, std = out[f"J{J}"], out["J8"]
+        rec["standard_ms"] = std["ms"]
+        ms_ = rec["ms"] if rec["ms"] is not None else rec["call_ms"]
+        print(f"  runtime-J at J={J}: {ms_:.6f} ms a launch, "
+              f"{ms_ / J:.6f} ms a job, against the J = 8 template's "
+              f"{rec['standard_ms']:.6f} ms ({rec['standard_ms'] / 8:.6f} "
+              "ms a job)")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 25: {out['seconds']:.3f} s")
+    return out
+
+
+#: phase 26: the training shapes of the attention and scan kernels under
+#: autograd: qwen2.5-3b's attention and falcon-mamba-7b's scan at batch
+#: 2 x 512; tolerances of the outputs against impl="ref", relative to the
+#: reference's largest magnitude (the gradients are the plain version's
+#: on both paths, so equal)
+TRAIN_B, TRAIN_S = 2, 512
+TRAIN_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+
+
+def train_kernels_phase(fa, ms, ops):
+    """Phase 26: ops.flash_attention / ops.selective_scan at the training
+    shapes, bf16 and float32: the output and the gradients of a fixed
+    random cotangent with the kernel (impl="cuda") against impl="ref";
+    one forward launch a call, none in the backward."""
+    import torch
+    t0 = time.perf_counter()
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        gen = seeded(26)
+        q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dtype)
+                   .requires_grad_() for s in (
+                       (TRAIN_B, TRAIN_S, 16, 128), (TRAIN_B, TRAIN_S, 2, 128),
+                       (TRAIN_B, TRAIN_S, 2, 128)))
+        di, N = 8192, 16
+        x, dt = (torch.randn((TRAIN_B, TRAIN_S, di), generator=gen,
+                             device="cuda").to(dtype) for _ in range(2))
+        dt = torch.nn.functional.softplus(dt.float() - 4.0).to(dtype)
+        A = -torch.exp(torch.randn((di, N), generator=gen, device="cuda")
+                       * 0.5)
+        BC = torch.randn((TRAIN_B, TRAIN_S, 2 * N), generator=gen,
+                         device="cuda").to(dtype)
+        scan_leaves = [x.requires_grad_(), dt.requires_grad_(),
+                       A.requires_grad_(), BC.requires_grad_()]
+        for name, leaves, call, counter in (
+                ("flash_attention", [q, k, v],
+                 lambda impl: (ops.flash_attention(q, k, v, impl=impl),),
+                 fa),
+                ("selective_scan", scan_leaves,
+                 lambda impl: ops.selective_scan(
+                     x, dt, A, BC[..., :N], BC[..., N:], impl=impl)[:1],
+                 ms)):
+            before = counter.LAUNCHES
+            (got,) = call("cuda")
+            fwd = counter.LAUNCHES - before
+            g = torch.randn(got.shape, generator=gen, device="cuda").to(
+                got.dtype)
+            grads = torch.autograd.grad(got, leaves, g)
+            bwd = counter.LAUNCHES - before - fwd
+            (want,) = call("ref")
+            want_grads = torch.autograd.grad(want, leaves, g)
+            counter.LAUNCHES = before
+            scale = float(want.float().abs().max())
+            err = float((got.float() - want.float()).abs().max()) / scale
+            g_err = max(float((a.float() - b.float()).abs().max())
+                        / max(float(b.float().abs().max()), 1e-30)
+                        for a, b in zip(grads, want_grads))
+            print(f"  {name} {dname}: forward launches {fwd}, backward "
+                  f"launches {bwd}; output max rel err {err:.3e}, gradients "
+                  f"max rel err {g_err:.3e} (tolerance "
+                  f"{TRAIN_TOL[dname]})")
+            if fwd != 1 or bwd != 0:
+                fail(f"{name} {dname}: {fwd} forward and {bwd} backward "
+                     "launches, not 1 and 0")
+            if err > TRAIN_TOL[dname] or g_err > TRAIN_TOL[dname]:
+                fail(f"{name} {dname}: the kernel under autograd differs from"
+                     " impl='ref'")
+            out[f"{name}_{dname}"] = {"max_rel_err": err,
+                                      "grad_max_rel_err": g_err,
+                                      "forward_launches": fwd,
+                                      "backward_launches": bwd}
+        del q, k, v, x, dt, A, BC, scan_leaves
+        release()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 26: {out['seconds']:.3f} s")
+    return out
+
+
+#: phase 27: a few train steps at full width: arch -> (depth override, the
+#: kernel whose launches a step are counted)
+TRAIN_ARCHS = {"qwen2.5-3b": ({}, "flash_attention"),
+               # 4 of its 64 layers: the full depth's weights and AdamW
+               # state (~84 GB) exceed one card
+               "falcon-mamba-7b": ({"n_layers": 4}, "selective_scan")}
+TRAIN_STEPS = 3
+
+
+def first_step_grads(bundle, params, batch, impl, tail):
+    """The loss of one step from ``params`` (no update), its gradients'
+    norm and the norm over the parameters named in ``tail`` (the final
+    norm and the last layer's after its attention), each summed in
+    float64.  The reference's
+    init draws q and k projections of std 1/sqrt(heads) (its fan-in is the
+    head axis), so attention at random weights is nearly one-hot and the
+    gradient grows several-fold a layer back from the loss: at full depth
+    its float32 sum of squares (the step's grad_norm metric, as the
+    reference takes it) overflows, and a bf16 rounding in any forward
+    moves the early layers' gradients wholesale.  The tail's gradient
+    passes through no attention backward: measured 5.4% apart with the
+    last layer's attention in it, 77% for the whole norm."""
+    import torch
+    leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
+    loss, _ = bundle.loss(leaves, batch, impl=impl)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    sq = {k: float(g.double().square().sum()) for k, g in zip(leaves, grads)}
+    return (float(loss.detach()), math.sqrt(sum(sq.values())),
+            math.sqrt(sum(v for k, v in sq.items() if tail(k))))
+
+
+def train_step_phase(fa, ms, card_line):
+    """Phase 27: make_train_step at full width (bf16 parameters, float32
+    AdamW state, batch 2 x 512): the first step's loss and gradient norm
+    through the kernels against impl="ref" (no update), then TRAIN_STEPS
+    kernel steps, each's wall, loss, grad_norm metric and its kernel's
+    launches; peak memory."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.parallel import make_train_step
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    out = {}
+    shape = ShapeSpec("train", TRAIN_S, TRAIN_B, "train")
+    opt_cfg = OptimizerConfig(learning_rate=1e-4, warmup_steps=1,
+                              total_steps=TRAIN_STEPS)
+    for arch, (over, kernel) in TRAIN_ARCHS.items():
+        t0 = time.perf_counter()
+        cfg = get_config(arch).replace(**over)
+        torch.cuda.reset_peak_memory_stats()
+        bundle = build_model(cfg)
+        params = {k: p.detach()
+                  for k, p in bundle.init(SEED).state_dict().items()}
+        state = {"params": params, "opt": init_opt_state(params, opt_cfg)}
+        pipe = SyntheticTokenPipeline(DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=TRAIN_S + 1,
+            global_batch=TRAIN_B, seed=SEED))
+        batches = [{k: torch.as_tensor(v[:, :TRAIN_S]).cuda()
+                    for k, v in pipe.batch_at(i).items()}
+                   for i in range(TRAIN_STEPS)]
+        last = f"stack.{cfg.n_layers - 1}."
+
+        def tail(name):
+            return name.startswith("final_norm") or (
+                name.startswith(last) and ".attn." not in name
+                and ".norm1." not in name)
+        loss_ref, norm_ref, tail_ref = first_step_grads(
+            bundle, params, batches[0], "ref", tail)
+        counter = fa if kernel == "flash_attention" else ms
+        before = counter.LAUNCHES
+        loss_k, norm_k, tail_k = first_step_grads(bundle, params, batches[0],
+                                                  None, tail)
+        counter.LAUNCHES = before
+        built = make_train_step(bundle, make_host_mesh(), shape, opt_cfg)
+        steps = []
+        with make_host_mesh():
+            for i, batch in enumerate(batches):
+                before = counter.LAUNCHES
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                state, metrics = built.fn(state, batch)
+                loss = float(metrics["loss"])
+                torch.cuda.synchronize()
+                steps.append({"wall_s": time.perf_counter() - t1,
+                              "loss": loss,
+                              "grad_norm": float(metrics["grad_norm"]),
+                              "launches": counter.LAUNCHES - before})
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        first = steps[0]
+        loss_err = abs(loss_k - loss_ref) / abs(loss_ref)
+        norm_err = abs(norm_k - norm_ref) / norm_ref
+        tail_err = abs(tail_k - tail_ref) / tail_ref
+        if first["loss"] != loss_k:
+            fail(f"{arch}: the step's loss {first['loss']} is not its "
+                 f"forward's {loss_k}")
+        print(f"  {arch} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+              f"{cfg.dtype} parameters, float32 AdamW state, batch "
+              f"{TRAIN_B} x {TRAIN_S}; {card_line}): peak "
+              f"{peak:.2f} GiB allocated")
+        for i, st in enumerate(steps):
+            print(f"    step {i}: wall {st['wall_s'] * 1e3:.1f} ms, loss "
+                  f"{st['loss']:.5f}, grad_norm {st['grad_norm']:.4f}, "
+                  f"{kernel} launches {st['launches']}")
+        print(f"    first step through the kernels against impl='ref': loss "
+              f"{loss_k:.5f} / {loss_ref:.5f} (rel err {loss_err:.3e}), "
+              f"gradient norm (float64 sum) {norm_k:.6e} / {norm_ref:.6e} "
+              f"(rel err {norm_err:.3e}, printed only), the final norm's "
+              f"and the last layer's after its attention {tail_k:.6e} / "
+              f"{tail_ref:.6e} (rel err {tail_err:.3e})")
+        if not all(math.isfinite(st["loss"]) for st in steps):
+            fail(f"{arch}: a training loss is not finite")
+        if any(st["launches"] != cfg.n_layers for st in steps):
+            fail(f"{arch}: {kernel} launched {[st['launches'] for st in steps]}"
+                 f" times in the steps, not {cfg.n_layers} a step")
+        if loss_err > 2e-2 or tail_err > 5e-2:
+            fail(f"{arch}: the first step's loss or its last layer's "
+                 "gradient norm is off impl='ref' by more than the bf16 "
+                 "tolerance")
+        out[arch] = {"n_layers": cfg.n_layers, "steps": steps,
+                     "peak_gib": peak, "loss_ref": loss_ref,
+                     "grad_norm_ref": norm_ref, "grad_norm_kernel": norm_k,
+                     "tail_grad_norm_ref": tail_ref,
+                     "tail_grad_norm_kernel": tail_k,
+                     "tail_grad_norm_rel_err": tail_err,
+                     "loss_rel_err": loss_err,
+                     "grad_norm_rel_err": norm_err,
+                     "seconds": time.perf_counter() - t0}
+        del state, built, bundle, params, batches
+        release()
+    return out
+
+
+#: phase 28: examples/torch_train_with_failures.py's 100m preset and
+#: cluster, TRAIN_LOOP_STEPS steps, one deterministic failure
+TRAIN_LOOP_STEPS = 40
+TRAIN_LOOP_FAILURE = 25
+#: no clipping: the random init's gradient explodes through the layers
+#: (its norm is printed), and a unit clip scales every gradient below
+#: AdamW's eps, so nothing would learn in 40 steps
+TRAIN_LOOP_CLIP = float("inf")
+
+
+def train_loop_phase(core):
+    """Phase 28: the fault-tolerant loop at the example's 100m preset,
+    with the example's cluster and a failure injected at step
+    TRAIN_LOOP_FAILURE (checkpoints in a temporary directory), then the
+    same run without injection: recovery stats, cadence, the two runs'
+    final parameters, and the loss falling on a held-out batch (each
+    step's loss is on its own random batch, whose spread over 40 steps
+    is as large as the fall)."""
+    import shutil
+    import torch
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.train.checkpoint import restore_checkpoint
+    from repro_torch.train.loop import TrainLoopConfig, train
+    from repro_torch.train.optimizer import OptimizerConfig
+    t0 = time.perf_counter()
+    cfg = ModelConfig(name="lm-100m", family="dense", n_layers=12,
+                      d_model=768, n_heads=12, n_kv_heads=4, d_ff=3072,
+                      vocab_size=32768, dtype="float32")
+    shape = ShapeSpec("train", 512, 8, "train")
+    steps = TRAIN_LOOP_STEPS
+    cluster = core.Params(job_size=64, working_pool_size=72, spare_pool_size=8,
+                          warm_standbys=4,
+                          random_failure_rate=1.0 / core.MINUTES_PER_DAY,
+                          systematic_failure_rate=5.0 / core.MINUTES_PER_DAY,
+                          job_length=steps * 1.0)
+    bundle, mesh = build_model(cfg), make_host_mesh()
+    runs, finals = {}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        for label, inject in (("failure", True), ("clean", False)):
+            ckdir = os.path.join(tmp, label)
+            t1 = time.perf_counter()
+            runs[label] = train(
+                bundle, mesh, shape,
+                TrainLoopConfig(total_steps=steps, log_every=5,
+                                checkpoint_dir=ckdir,
+                                checkpoint_cost_minutes=0.5,
+                                step_minutes=1.0, inject_failures=inject,
+                                deterministic_failure_steps=[
+                                    TRAIN_LOOP_FAILURE],
+                                cluster=cluster, seed=0),
+                OptimizerConfig(learning_rate=3e-3,
+                                warmup_steps=max(steps // 10, 1),
+                                total_steps=steps, min_lr_fraction=0.5,
+                                clip_norm=TRAIN_LOOP_CLIP))
+            runs[label]["run_s"] = time.perf_counter() - t1
+            finals[label] = restore_checkpoint(ckdir)[1]["params"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    run = runs["failure"]
+    hist = run["history"]
+    for h in hist:
+        print(f"    step {h['step']:3d}: loss {h['loss']:.4f}, grad_norm "
+              f"{h['grad_norm']:.4e}, {h['step_time_s'] * 1e3:.1f} ms")
+    diff = max(float((finals["failure"][k] - t).abs().max())
+               for k, t in finals["clean"].items())
+    # the loop's initial parameters (bundle.init(seed 0) on the card) and
+    # its final ones on a batch no step read
+    pipe = SyntheticTokenPipeline(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=shape.seq_len + 1,
+        global_batch=shape.global_batch, seed=0))
+    held = {k: torch.as_tensor(v[:, :shape.seq_len]).cuda()
+            for k, v in pipe.batch_at(10 ** 6).items()}
+    with torch.no_grad():
+        first = float(bundle.loss(bundle.init(0).state_dict(), held)[0])
+        last = float(bundle.loss({k: t.cuda() for k, t in
+                                  finals["failure"].items()}, held)[0])
+    print(f"  {cfg.name}, {steps} steps of {shape.global_batch} x "
+          f"{shape.seq_len}: recovery {run['recovery']}, Young/Daly cadence "
+          f"every {run['checkpoint_cadence']} steps, held-out loss "
+          f"{first:.4f} -> {last:.4f}; walls {runs['failure']['run_s']:.2f} s / "
+          f"{runs['clean']['run_s']:.2f} s (failure / clean); largest "
+          f"difference of the final parameters from the clean run {diff:.3e}")
+    if run["recovery"]["n_restores"] < 1:
+        fail("the loop did not restore from a checkpoint")
+    if not last < first - 0.01:
+        fail(f"the loss did not fall ({first:.4f} -> {last:.4f})")
+    out = {"recovery": run["recovery"],
+           "checkpoint_cadence": run["checkpoint_cadence"],
+           "first_loss": first, "last_loss": last,
+           "clean_recovery": runs["clean"]["recovery"],
+           "final_param_max_abs_diff": diff,
+           "walls_s": {k: r["run_s"] for k, r in runs.items()},
+           "seconds": time.perf_counter() - t0}
+    print(f"  phase 28: {out['seconds']:.3f} s")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3214,7 +3750,8 @@ def main() -> int:
     print(f"device: {kind} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.device_count()} visible)")
     build_kernels([des_step.LIBRARY, cc.LIBRARY, cc.LIBRARY64, mjc.LIBRARY,
-                   fa.LIBRARY, ms.LIBRARY])
+                   fa.LIBRARY, ms.LIBRARY, cc.LIBRARY_WIDE,
+                   cc.LIBRARY_WIDE64, mjc.LIBRARY_RT])
 
     # ---- phase 2: kernel against plain version ----------------------------
     phase("phase 2: event_race kernel vs plain PyTorch version")
@@ -3607,6 +4144,37 @@ def main() -> int:
     paper = paper_phase(core, cc, vectorized, des_step)
     host_paths["paper_tables"] = paper
 
+    # ---- phases 25-28: the shape caps, then training -----------------------
+    from repro_torch.core import vectorized_multijob as vmj
+    from repro_torch.kernels import ops
+    phase("phase 25: shapes past the standard chunk instances' caps under "
+          "the default impl (65 and 256 empirical failure segments, 65 "
+          "empirical repair segments, a 32,768-slot Weibull repair lane in "
+          "float32 and float64 age, 65,536 histogram edges; nine and sixteen"
+          " jobs)")
+    caps = shape_caps_phase(core, cc, mjc, vectorized, vmj, ref)
+    host_paths["shape_caps"] = {
+        k: v if k in ("seconds", "J8") else {f: v.get(f) for f in (
+            "launches", "wide_launches", "runtime_launches", "chunks", "ms",
+            "call_ms", "plain_ms", "standard_ms", "bound_ms", "bound_by",
+            "bit_different", "live_rows", "rows_per_block")}
+        for k, v in caps.items()}
+    phase("phase 26: the attention and scan kernels under autograd at the "
+          "training shapes (qwen2.5-3b attention, falcon-mamba-7b scan, "
+          f"batch {TRAIN_B} x {TRAIN_S}), bf16 and float32")
+    host_paths["train_kernels"] = train_kernels_phase(fa, ms, ops)
+    phase("phase 27: make_train_step at full width: qwen2.5-3b (36 layers) "
+          "and falcon-mamba-7b (4 of 64 layers), bf16 parameters, float32 "
+          f"AdamW state, batch {TRAIN_B} x {TRAIN_S}, {TRAIN_STEPS} steps")
+    t27 = time.perf_counter()
+    train_steps = train_step_phase(fa, ms, card_line)
+    host_paths["train_step"] = train_steps
+    print(f"  phase 27: {time.perf_counter() - t27:.3f} s")
+    phase("phase 28: the fault-tolerant loop, examples/torch_train_with_"
+          f"failures.py's 100m preset, {TRAIN_LOOP_STEPS} steps, a failure "
+          f"at step {TRAIN_LOOP_FAILURE}, against a run without it")
+    host_paths["train_loop"] = train_loop_phase(core)
+
     # the standalone race's record: its launches on the main paths, the
     # single-job (phase 5) and multi-job (phases 20, 20b, 21) ones, where
     # the chunk kernels replaced it (0: each phase fails on a race launch);
@@ -3742,13 +4310,37 @@ def main() -> int:
             instance=f"{label}, float64 age", launches=rec["launches"],
             ms=rec["call_ms"] if rec["ms"] is None else rec["ms"],
             library_ms=None))
-    for name, source, replaces, launches_, t in (
+    for name, rec in caps.items():
+        if name in ("seconds", "J8"):
+            continue
+        runtime = name.startswith("J")
+        kernels.append(dict(
+            {k: rec[k] for k in ("max_abs_err", "bit_different", "call_ms",
+                                 "plain_ms", "plain_call_ms", "bound_ms",
+                                 "bound_by", "ms_per_step", "standard_ms",
+                                 "live_rows")},
+            name=(f"mj_chunk_rt[J={rec['J']}]" if runtime
+                  else f"ctmc_chunk_wide[{name}]"),
+            route="cuda", source=MJ_SOURCE if runtime else CHUNK_SOURCE,
+            replaces=TPU_KERNEL,
+            replaces_function="src/repro/kernels/des_step.py:"
+                              "_event_race_kernel and the lax.scan of "
+                              + (MJ_SCAN if runtime else CHUNK_SCAN),
+            instance=("runtime-J, -DMJ_RUNTIME_J" if runtime
+                      else "wide, -DCTMC_WIDE"),
+            launches=rec["runtime_launches" if runtime else "wide_launches"],
+            ms=rec["call_ms"] if rec["ms"] is None else rec["ms"],
+            library_ms=None))
+    train_launches = {arch: [st["launches"] for st in rec["steps"]]
+                      for arch, rec in train_steps.items()}
+    for name, source, replaces, launches_, t, arch in (
             ("flash_attention", ATTN_SOURCE, ATTN_TPU_KERNEL,
-             serve_launches["qwen2.5-3b"][0], attn),
+             serve_launches["qwen2.5-3b"][0], attn, "qwen2.5-3b"),
             ("selective_scan", SCAN_SOURCE, SCAN_TPU_KERNEL,
-             serve_launches["falcon-mamba-7b"][1], scan)):
+             serve_launches["falcon-mamba-7b"][1], scan, "falcon-mamba-7b")):
         kernels.append(dict(t, name=name, route="cuda", source=source,
                             replaces=replaces, launches=launches_,
+                            train_launches_per_step=train_launches[arch],
                             ms=t["call_ms"] if t["ms"] is None else t["ms"]))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, builds "
           "included")

@@ -2,7 +2,7 @@
 """Check the CTMC chunk kernel's arithmetic on the host, without a card.
 
     PYTHONPATH=src python scripts/torch_chunk_host_check.py [--kinds ...]
-        [--age64]
+        [--age64] [--wide]
 
 Compiles ``src/repro_torch/csrc/ctmc_chunk.cu`` as host C++ (``g++
 -ffp-contract=off``, so no multiply-add is contracted, as ``nvcc
@@ -12,7 +12,10 @@ the CUDA keywords, runs its launch as a loop over rows through the same
 (``vectorized._steps_ref``) on CPU tensors, for each failure family, alone
 and through its scenario instance (fault domains, a campaign kill and a
 maintenance window).  ``--age64`` builds the float64 twins instead
-(``-DCTMC_AGE_T=double``, ``Params.age_dtype="float64"``).
+(``-DCTMC_AGE_T=double``, ``Params.age_dtype="float64"``); ``--wide``
+the wide twins (``-DCTMC_WIDE``: the edges read where they lie, any
+segment count), on the same cases and on an empirical fit of 70 segments a
+clock.
 
 The plain chunk runs with ``torch.log``, ``torch.exp``, ``torch.pow`` and
 ``torch.special.log_ndtr`` swapped for the C library's ``logf``, ``expf``
@@ -95,9 +98,9 @@ extern "C" float host_log_ndtr(float x) { return log_ndtr(x); }
 """
 
 
-def build(age64: bool = False) -> Path:
+def build(age64: bool = False, wide: bool = False) -> Path:
     """The host library of the current kernel source (its float64 twins
-    for ``age64``)."""
+    for ``age64``, its wide twins for ``wide``)."""
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / "cuda_runtime.h").write_text(STUB)
     for header in CSRC.glob("*.cuh"):
@@ -112,10 +115,12 @@ def build(age64: bool = False) -> Path:
     src = src.replace("extern __shared__ float s_edges[];",
                       "float* s_edges = host_smem.data();")
     (OUT / "ctmc_chunk_host.cpp").write_text(src + EXTRA)
-    lib = OUT / f"ctmc_chunk_host{'64' if age64 else ''}.so"
+    lib = OUT / (f"ctmc_chunk_host{'64' if age64 else ''}"
+                 f"{'_wide' if wide else ''}.so")
     subprocess.run(["g++", "-O2", "-std=c++17", "-ffp-contract=off",
                     "-shared", "-fPIC", "-I", str(OUT)]
                    + (["-DCTMC_AGE_T=double"] if age64 else [])
+                   + (["-DCTMC_WIDE"] if wide else [])
                    + ["-o", str(lib), str(OUT / "ctmc_chunk_host.cpp")],
                    check=True)
     return lib
@@ -158,7 +163,14 @@ def _libm_patches(lib):
                           lambda x: _elementwise(lib.host_log_ndtr, x)))
 
 
-def cases():
+def _wide_edges(n_seg: int):
+    """An empirical fit's (edges, rates) of ``n_seg`` segments a clock."""
+    edges = [0.05 * (i + 1) for i in range(n_seg - 1)]
+    rates = [0.3 + 1.2 * ((7 * i) % 11) / 10.0 for i in range(n_seg)]
+    return {"edges": edges, "rates": rates}
+
+
+def cases(wide: bool = False):
     """family -> case -> (Params grid, replicas a point): each family at
     the sizes of tests/test_nonexp.py, alone, as a sweep with one
     parameter row a replica, and with a job short enough to finish; then
@@ -216,21 +228,27 @@ def cases():
                 n_racks=3, racks_per_pod=3, pod_shock_rate=2e-3),
                 job_length=0.1 * DAY)], 32),
         })
+    if wide:
+        p = base.replace(failure_distribution="empirical",
+                         distribution_kwargs=_wide_edges(70))
+        out["empirical"]["wide_seg"] = ([p, p.replace(
+            checkpoint_interval=60.0, checkpoint_cost=2.0)], 20)
     return out
 
 
-def run(kinds, n_chunks: int, age64: bool = False) -> int:
+def run(kinds, n_chunks: int, age64: bool = False,
+        wide: bool = False) -> int:
     import numpy as np
     import torch
     from repro_torch.core import faultdomains, hazards
     from repro_torch.core import vectorized as tv
     from repro_torch.kernels import ctmc_chunk
     torch.set_num_threads(1)
-    lib = ctypes.CDLL(str(build(age64)))
+    lib = ctypes.CDLL(str(build(age64, wide)))
     ctmc_chunk._bind(lib)
     bad = 0
     for kind in kinds:
-        for label, (pts, R) in cases()[kind].items():
+        for label, (pts, R) in cases(wide)[kind].items():
             if age64:
                 pts = [p.replace(age_dtype="float64") for p in pts]
             assert {hazards.hazard_kind(p) for p in pts} == {kind}
@@ -253,7 +271,7 @@ def run(kinds, n_chunks: int, age64: bool = False) -> int:
                                 generator=gen).clamp_min_(1e-12)
                 layout = ctmc_chunk.chunk_layout(got, us, pv, R, P, channels,
                                                  kind=kind, n_seg=n_seg,
-                                                 scen=scen)
+                                                 scen=scen, wide=wide)
                 err = lib.ctmc_chunk_launch(ctypes.byref(
                     ctmc_chunk._args(layout, codes)), None)
                 if err:
@@ -310,9 +328,11 @@ def main() -> int:
     ap.add_argument("--chunks", type=int, default=3)
     ap.add_argument("--age64", action="store_true",
                     help="the float64 age instances")
+    ap.add_argument("--wide", action="store_true",
+                    help="the wide instances (-DCTMC_WIDE)")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT / "src"))
-    return run(args.kinds, args.chunks, args.age64)
+    return run(args.kinds, args.chunks, args.age64, args.wide)
 
 
 if __name__ == "__main__":

@@ -2,6 +2,7 @@
 """Check the multi-job chunk kernel's arithmetic on the host, without a card.
 
     PYTHONPATH=src python scripts/torch_mj_chunk_host_check.py [--chunks 3]
+        [--runtime]
 
 Compiles ``src/repro_torch/csrc/mj_chunk.cu`` as host C++ (``g++
 -ffp-contract=off``, so no multiply-add is contracted, as ``nvcc
@@ -13,7 +14,9 @@ thread a row), runs its launch as a loop over rows through the same
 one, two, three, four and eight jobs, finite and unbounded repair shops,
 histograms on and off, a run-duration ring that wraps, one parameter row
 shared by the batch and a grid of rows, and two jobs stalled at the same
-instant.
+instant.  ``--runtime`` checks the runtime-J instance instead
+(``-DMJ_RUNTIME_J``) on the same cases and at nine and sixteen jobs, each
+case twice: a row's words in shared memory, then in global memory.
 
 The plain chunk runs with ``torch.log`` swapped for the C library's
 ``logf`` (the CPU's torch function differs from it by an ulp on some
@@ -46,8 +49,9 @@ struct alignas(8) float2 { float x, y; };
 """
 
 
-def build() -> Path:
-    """The host library of the current kernel source."""
+def build(runtime: bool = False) -> Path:
+    """The host library of the current kernel source (its runtime-J
+    instance for ``runtime``)."""
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / "cuda_runtime.h").write_text(STUB)
     for header in CSRC.glob("*.cuh"):
@@ -56,19 +60,25 @@ def build() -> Path:
     src, n = re.subn(r"mj_chunk_kernel<J>\s*<<<.*?>>>\(\*args\);",
                      "host_launch(mj_chunk_kernel<J>, blocks, smem, *args);",
                      src, flags=re.S)
-    if n != 1:
+    src, n_rt = re.subn(
+        r"mj_chunk_kernel_rt<<<.*?>>>\(\s*\*args, rates, words\);",
+        "host_launch([&](const MjChunkArgs& x) { mj_chunk_kernel_rt(x, "
+        "rates, words); }, blocks, smem, *args);", src, flags=re.S)
+    if n != 1 or n_rt != 1:
         raise SystemExit("the kernel launch was not found in mj_chunk.cu")
     src = src.replace("extern __shared__ float smem[];",
                       "float* smem = host_smem.data();")
     (OUT / "mj_chunk_host.cpp").write_text(src)
-    lib = OUT / "mj_chunk_host.so"
+    lib = OUT / f"mj_chunk_host{'_rt' if runtime else ''}.so"
     subprocess.run(["g++", "-O2", "-std=c++17", "-ffp-contract=off",
-                    "-shared", "-fPIC", "-I", str(OUT), "-o", str(lib),
-                    str(OUT / "mj_chunk_host.cpp")], check=True)
+                    "-shared", "-fPIC", "-I", str(OUT)]
+                   + (["-DMJ_RUNTIME_J"] if runtime else [])
+                   + ["-o", str(lib), str(OUT / "mj_chunk_host.cpp")],
+                   check=True)
     return lib
 
 
-def cases():
+def cases(runtime: bool = False):
     """case -> (points, replicas a point, ring records): the stall-tie
     states of tests/test_torch_multijob.py (a repaired server, then a
     completing job's release, goes to the lower of two jobs stalled at
@@ -103,7 +113,7 @@ def cases():
                  histogram=None)
     tie_jobs = (JobSpec(1, 10.0, 0), JobSpec(2, 100.0, 0),
                 JobSpec(2, 100.0, 0))
-    return {
+    out = {
         "ties_handoff": ([(tie, tie_jobs)], 8, 4),
         "ties_release": ([(tie, tie_jobs)], 8, 4),
         "J2_shop3": ([(lock, two)], 48, 4),
@@ -118,6 +128,16 @@ def cases():
         "J8_shop4": ([(lock.replace(working_pool_size=70, repair_servers=4),
                        eight)], 24, 4),
     }
+    if runtime:
+        nine = tuple(JobSpec(4, 100.0 + 30.0 * j, j % 2) for j in range(9))
+        sixteen = tuple(JobSpec(3, 150.0 + 20.0 * j, j % 3)
+                        for j in range(16))
+        out["J9_shop3"] = ([(lock.replace(working_pool_size=60), nine)], 24,
+                           4)
+        out["J16_unbounded"] = ([(lock.replace(working_pool_size=60,
+                                               repair_servers=0), sixteen)],
+                                16, 3)
+    return out
 
 
 def tie_state(state, handoff: bool):
@@ -138,22 +158,25 @@ def tie_state(state, handoff: bool):
     return state
 
 
-def run(n_chunks: int) -> int:
+def run(n_chunks: int, runtime: bool = False) -> int:
     import numpy as np
     import torch
     from repro_torch.core import vectorized as tv
     from repro_torch.core import vectorized_multijob as tm
     from repro_torch.kernels import mj_chunk
     torch.set_num_threads(1)
-    lib = ctypes.CDLL(str(build()))
-    mj_chunk._bind(lib)
+    lib = ctypes.CDLL(str(build(runtime)))
+    (mj_chunk._bind_rt if runtime else mj_chunk._bind)(lib)
     libm = ctypes.CDLL("libm.so.6")
     libm.logf.argtypes = [ctypes.c_float]
     libm.logf.restype = ctypes.c_float
     log_patch = mock.patch.object(
         torch, "log", lambda x: base._elementwise(libm.logf, x))
     bad = 0
-    for label, (pts, R, max_runs) in cases().items():
+    todo = [(label, case, global_words)
+            for label, case in cases(runtime).items()
+            for global_words in ((False, True) if runtime else (False,))]
+    for label, (pts, R, max_runs), global_words in todo:
         P, J = len(pts), len(pts[0][1])
         rows = np.stack([tm._mj_params_vector(c, js) for c, js in pts])
         pv = (torch.as_tensor(rows[0]) if P == 1 else
@@ -169,9 +192,18 @@ def run(n_chunks: int) -> int:
             us = torch.rand((64, tv._next_pow2(R), tm._N_UNIFORMS),
                             generator=gen).clamp_min_(1e-12)
             layout = mj_chunk.mj_chunk_layout(got, us, pv, R, P, J,
-                                              channels)
-            err = lib.mj_chunk_launch(ctypes.byref(mj_chunk._args(layout)),
-                                      None)
+                                              channels, runtime=runtime)
+            args = ctypes.byref(mj_chunk._args(layout))
+            if runtime:
+                B = layout["n_rows"]
+                rates = torch.empty(B * mj_chunk.RT_RATE_WORDS * J)
+                words = (torch.empty(B * mj_chunk._WORDS_A_JOB * J)
+                         if global_words else None)
+                err = lib.mj_chunk_rt_launch(
+                    args, rates.data_ptr(),
+                    None if words is None else words.data_ptr(), None)
+            else:
+                err = lib.mj_chunk_launch(args, None)
             if err:
                 raise SystemExit(f"{label}: host launch returned {err}")
             with log_patch:
@@ -184,7 +216,9 @@ def run(n_chunks: int) -> int:
                 else:
                     diff += int((g != w).sum())
         done = float((want["phase"] == tv.DONE).all(-1).float().mean())
-        print(f"{label:15s}: {P} x {R} rows, J={J}, {n_chunks} x 64 steps, "
+        where = " (words global)" if global_words else ""
+        print(f"{label + where:29s}: {P} x {R} rows, J={J}, {n_chunks} x 64 "
+              "steps, "
               f"{float(want['n_failures'].sum()):.0f} failures, "
               f"{float(want['stall_handoffs'].sum()):.0f} hand-offs, "
               f"{float(want['n_shop_queued'].sum()):.0f} queued, "
@@ -199,9 +233,11 @@ def run(n_chunks: int) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--chunks", type=int, default=3)
+    ap.add_argument("--runtime", action="store_true",
+                    help="the runtime-J instance (-DMJ_RUNTIME_J)")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT / "src"))
-    return run(args.chunks)
+    return run(args.chunks, args.runtime)
 
 
 if __name__ == "__main__":

@@ -2,7 +2,7 @@
 """Check the chunk kernel's repair-slot instances on the host, without a card.
 
     PYTHONPATH=src python scripts/torch_slot_host_check.py [--cases ...]
-        [--age64]
+        [--age64] [--wide]
 
 Compiles ``src/repro_torch/csrc/ctmc_chunk.cu`` as host C++ (``g++
 -ffp-contract=off``, as ``scripts/torch_chunk_host_check.py`` does) against
@@ -16,7 +16,9 @@ failure family: alone, as a sweep with one parameter row a replica and
 checkpoints, with rows finishing, with the lane overflowing and at a
 width that is not a power of two.  ``--age64`` checks the float64 twins
 (``-DCTMC_AGE_T=double``, ``Params.age_dtype="float64"``: the remaining
-times a double a slot).
+times a double a slot).  ``--wide`` checks the wide twins (``-DCTMC_WIDE``:
+the slot lane worked in place in the state tensors, any segment count) on
+the same cases and on an empirical repair of 70 segments a stage.
 
 The plain chunk runs with ``torch.log``, ``exp``, ``pow``, ``log1p``,
 ``torch.special.log_ndtr`` and ``ndtri`` swapped for the C library's
@@ -210,9 +212,9 @@ extern "C" float host_ndtri(float x) { return ndtri(x); }
 """
 
 
-def build(age64: bool = False) -> Path:
+def build(age64: bool = False, wide: bool = False) -> Path:
     """The host library of the current kernel source (its float64 twins
-    for ``age64``)."""
+    for ``age64``, its wide twins for ``wide``)."""
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / "cuda_runtime.h").write_text(STUB)
     for header in CSRC.glob("*.cuh"):
@@ -227,10 +229,12 @@ def build(age64: bool = False) -> Path:
     src = src.replace("extern __shared__ float s_edges[];",
                       "float* s_edges = host_smem.data();")
     (OUT / "ctmc_chunk_host.cpp").write_text(src + EXTRA)
-    lib = OUT / f"ctmc_chunk_host{'64' if age64 else ''}.so"
+    lib = OUT / (f"ctmc_chunk_host{'64' if age64 else ''}"
+                 f"{'_wide' if wide else ''}.so")
     subprocess.run(["g++", "-O2", "-std=c++17", "-ffp-contract=off",
                     "-shared", "-fPIC", "-I", str(OUT)]
                    + (["-DCTMC_AGE_T=double"] if age64 else [])
+                   + (["-DCTMC_WIDE"] if wide else [])
                    + ["-o", str(lib), str(OUT / "ctmc_chunk_host.cpp")],
                    check=True)
     return lib
@@ -312,17 +316,24 @@ def cases():
         if kind == "empirical":
             args["repair_distribution"] = "empirical"
         out[f"{kind}_failures"] = ([base.replace(**args)], 16, None)
+    # an empirical repair of 70 segments a stage (the wide instances only)
+    out["empirical_70_segments"] = ([base.replace(
+        repair_distribution="empirical", distribution_kwargs={
+            "edges": [0.02 * (i + 1) for i in range(69)],
+            "rates": [0.1 + 0.3 * ((5 * i) % 13) for i in range(70)]})],
+        16, None)
     return out
 
 
-def run(names, n_chunks: int, age64: bool = False) -> int:
+def run(names, n_chunks: int, age64: bool = False,
+        wide: bool = False) -> int:
     import numpy as np
     import torch
     from repro_torch.core import hazards
     from repro_torch.core import vectorized as tv
     from repro_torch.kernels import ctmc_chunk
     torch.set_num_threads(1)
-    lib = ctypes.CDLL(str(build(age64)))
+    lib = ctypes.CDLL(str(build(age64, wide)))
     ctmc_chunk._bind(lib)
     table = cases()
     bad = 0
@@ -352,7 +363,8 @@ def run(names, n_chunks: int, age64: bool = False) -> int:
                             generator=gen).clamp_min_(1e-12)
             layout = ctmc_chunk.chunk_layout(got, us, pv, R, P, channels,
                                              kind=kind, n_seg=n_seg,
-                                             rkind=rkind, n_rseg=n_rseg)
+                                             rkind=rkind, n_rseg=n_rseg,
+                                             wide=wide)
             err = lib.ctmc_chunk_launch(ctypes.byref(
                 ctmc_chunk._args(layout)), None)
             if err:
@@ -391,8 +403,12 @@ def main() -> int:
     ap.add_argument("--chunks", type=int, default=3)
     ap.add_argument("--age64", action="store_true",
                     help="the float64 age instances")
+    ap.add_argument("--wide", action="store_true",
+                    help="the wide instances (-DCTMC_WIDE)")
     args = ap.parse_args()
-    return run(args.cases or list(cases()), args.chunks, args.age64)
+    names = args.cases or [n for n in cases()
+                           if args.wide or n != "empirical_70_segments"]
+    return run(names, args.chunks, args.age64, args.wide)
 
 
 if __name__ == "__main__":

@@ -44,9 +44,10 @@ class Params:
     >>> round(p.bad_failure_rate / p.random_failure_rate, 1)  # random + sys
     6.0
 
-    Non-exponential failure and repair families keep their fields here,
-    but the port's engine refuses them until they are ported (ROADMAP
-    queue 1 items 7-8).
+    The non-exponential failure families (Weibull, bathtub, lognormal,
+    empirical) and repair families (Weibull, lognormal, deterministic,
+    empirical) keep their fields here, and the port's CTMC and event
+    engines run them as the reference's do.
 
     Round trips for experiment files:
 

@@ -1263,12 +1263,17 @@ def _chunk_fn(pv: torch.Tensor, seed: int, P: int, R: int,
     the batch's device (row b reads replica ``b % R``'s), then one launch
     of the chunk kernel for ``impl=None`` or ``"cuda"`` on the card, or
     :func:`_steps_ref` with the plain race for ``impl="ref"`` and on the
-    CPU (where ``impl="cuda"`` raises).  The first launch clones the lanes
-    it writes and later ones update those clones in place, so
-    ``init_state`` is left as it was."""
+    CPU (where ``impl="cuda"`` raises).  The instance is chosen from the
+    batch's shape before the first launch: the standard one, or its wide
+    twin where the standard ones' caps refuse the shape
+    (``ctmc_chunk.wide_for``: over 64 empirical segments, or histogram
+    edges or a slot lane past one block's shared memory).  The first
+    launch clones the lanes it writes and later ones update those clones
+    in place, so ``init_state`` is left as it was."""
     device = init_state["phase"].device
     R_draw = _next_pow2(R)
     fused = ops._use_kernel("ctmc_chunk", impl, init_state["phase"])
+    wide = fused and ctmc_chunk.wide_for(init_state, n_seg, n_rseg)
     owned = False
 
     def run_chunk(state, i, n_steps):
@@ -1285,7 +1290,7 @@ def _chunk_fn(pv: torch.Tensor, seed: int, P: int, R: int,
                                            hist_channels, kind=kind,
                                            n_seg=n_seg, rkind=rkind,
                                            n_rseg=n_rseg, scen=scen,
-                                           inplace=owned)
+                                           wide=wide, inplace=owned)
         owned = True
         return state
 

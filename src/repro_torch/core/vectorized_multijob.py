@@ -728,13 +728,15 @@ def _mj_chunk_fn(pv: torch.Tensor, seed: int, P: int, R: int, J: int,
     of the single-job ``vectorized._chunk_fn``: chunk ``i`` draws
     ``(n_steps, next_pow2(R), 10)`` uniforms seeded ``_chunk_seed(seed,
     i)``, then runs one launch of the multi-job chunk kernel for
-    ``impl=None`` or ``"cuda"`` on the card (a J above
-    ``mj_chunk.MAX_JOBS`` is refused, naming ``impl="ref"``), and
+    ``impl=None`` or ``"cuda"`` on the card -- the template instance of
+    its J, or above ``mj_chunk.MAX_JOBS`` the runtime-J instance, chosen
+    before the first launch (``mj_chunk.runtime_for``) -- and
     :func:`_mj_steps` with the plain race for ``impl="ref"`` and on the
     CPU (where ``impl="cuda"`` raises)."""
     device = init_state["phase"].device
     R_draw = _next_pow2(R)
     fused = ops._use_kernel("mj_chunk", impl, init_state["phase"])
+    runtime = fused and mj_chunk.runtime_for(J)
     owned = False
 
     def run_chunk(state, i, n_steps):
@@ -749,7 +751,8 @@ def _mj_chunk_fn(pv: torch.Tensor, seed: int, P: int, R: int, J: int,
         # the first launch clones the lanes it writes; later ones update
         # those clones in place
         state = mj_chunk.mj_chunk_cuda(state, us, pv, R, P, J,
-                                       hist_channels, inplace=owned)
+                                       hist_channels, runtime=runtime,
+                                       inplace=owned)
         owned = True
         return state
 

@@ -162,6 +162,26 @@
 // one-warp blocks fill it to that bound.  So the sweep's 4,096 rows run in
 // about 2.6 rounds of 64 dependent steps; on an H100 a launch took
 // 0.37-0.55 ms (PERF.md), some 80x its bound.
+//
+// The wide instances.  Three shapes do not fit the standard instances'
+// staging: an empirical failure or repair hazard of more than kMaxSegments
+// segments (the standard launch checks the count), a histogram of more
+// edges than one block's shared memory holds, and a slot lane wider than
+// it (the wrapper's slot_plan).  The reference's engine takes all three.
+// Each instance has a wide twin (its code | kWideBit), built from this
+// source with -DCTMC_WIDE into a library of its own (kernels/
+// ctmc_chunk.py's LIBRARY_WIDE, and LIBRARY_WIDE64 for float64 age); every
+// difference is behind CTMC_WIDE, so the standard libraries compile the
+// very tokens they did.  A wide instance takes any segment count from 2
+// (the segment loops already run over a runtime m and read the parameter
+// row), reads the bin edges where they lie in global memory with the same
+// guess and search, and works a slot lane in place in the state's own
+// tensors, slot j by lane j % 32 as in shared memory, every operation in
+// the same order, so its bits are the standard instance's (and the plain
+// step's) on any shape both take.  It stages nothing in shared memory, so
+// nothing bounds a row's slots or edges but the tensors.  Its cost is the
+// slot lane's traffic: each step reads and writes every slot through the
+// L1 and L2 caches instead of shared memory.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -205,12 +225,14 @@ enum RepairKind { kRepExponential, kRepWeibull, kRepLognormal,
                   kRepDeterministic, kRepEmpirical };
 // An instance's template code: the failure family, plus kSlotBit for the
 // slot instance of a non-exponential repair family or kScenBit for the
-// scenario instance of a fault-domain scenario (never both).
+// scenario instance of a fault-domain scenario (never both), plus kWideBit
+// in the wide library (-DCTMC_WIDE), which holds the wide twins only.
 constexpr int kSlotBit = 8;
 constexpr int kScenBit = 16;
+constexpr int kWideBit = 32;
 constexpr unsigned kFullMask = 0xffffffffu;
-// Empirical segments a clock the kernel takes (kernels/ctmc_chunk.py's
-// MAX_SEGMENTS).
+// Empirical segments a clock the standard instances take (kernels/
+// ctmc_chunk.py's MAX_SEGMENTS); the wide ones take any count from 2.
 constexpr int kMaxSegments = 64;
 // PyTorch casts a Python float scalar to the tensor's float32; these
 // literals round to the same float32 values (1e-9 and 1e-30 both).
@@ -596,11 +618,21 @@ __device__ __noinline__ float repair_quantile(int rkind, float u, float scale,
   }
 }
 
+// The bin edges, and slot idx's cls | stage << 16: staged in shared
+// memory, or read where they lie by a wide instance.
+#ifdef CTMC_WIDE
+#define CTMC_EDGES a.hist_edges
+#define CTMC_META_AT(idx) (g_cls[idx] | (g_stage[idx] << 16))
+#else
+#define CTMC_EDGES s_edges
+#define CTMC_META_AT(idx) s_meta[idx]
+#endif
+
 template <int kKind, typename AgeT>
 __global__ void __launch_bounds__(kThreads)
     ctmc_chunk_kernel(const CtmcChunkArgs a) {
   // the failure family, and whether this is a slot or a scenario instance
-  constexpr int kFamily = kKind & ~(kSlotBit | kScenBit);
+  constexpr int kFamily = kKind & ~(kSlotBit | kScenBit | kWideBit);
   constexpr bool kSlots = (kKind & kSlotBit) != 0;
   constexpr bool kScen = (kKind & kScenBit) != 0;
   static_assert(!(kSlots && kScen), "a scenario runs exponential repairs");
@@ -613,14 +645,16 @@ __global__ void __launch_bounds__(kThreads)
   // for a slot instance
   constexpr int kNU = 8 + (kExpOnly ? 0 : 1) + (kSlots ? 1 : 0);
   extern __shared__ float s_edges[];
+#ifndef CTMC_WIDE
   for (int i = threadIdx.x; i < a.n_edges; i += blockDim.x) {
     s_edges[i] = a.hist_edges[i];
   }
   __syncthreads();
+#endif
   // the bin guess's scale (only a guess: bin_index checks it)
-  const float lg0 = a.n_edges > 0 ? __log2f(s_edges[0]) : 0.0f;
+  const float lg0 = a.n_edges > 0 ? __log2f(CTMC_EDGES[0]) : 0.0f;
   const float lg_span =
-      a.n_edges > 1 ? __log2f(s_edges[a.n_edges - 1]) - lg0 : 0.0f;
+      a.n_edges > 1 ? __log2f(CTMC_EDGES[a.n_edges - 1]) - lg0 : 0.0f;
   const float inv_step = a.n_edges > 1 ? (a.n_edges - 1) / lg_span : 0.0f;
 
   // a slot instance's block is one row, a warp; the others' a row a thread
@@ -640,9 +674,23 @@ __global__ void __launch_bounds__(kThreads)
   // bytes): remaining time (AgeT), then cls | stage << 16
   const int n_slots = a.n_slots;
   AgeT* s_rem = nullptr;
+#ifndef CTMC_WIDE
   int32_t* s_meta = nullptr;
+#endif
   float overflow = 0.0f;
   AgeT* const repair_rem = reinterpret_cast<AgeT*>(a.repair_rem);
+#ifdef CTMC_WIDE
+  // a wide instance works them in place in the state tensors, slot j by
+  // lane j % 32 as in shared memory
+  int32_t* g_cls = nullptr;
+  int32_t* g_stage = nullptr;
+  if constexpr (kSlots) {
+    s_rem = repair_rem + b * n_slots;
+    g_cls = a.repair_cls + b * n_slots;
+    g_stage = a.repair_stage + b * n_slots;
+    overflow = a.n_repair_overflow[b];
+  }
+#else
   if constexpr (kSlots) {
     s_rem = reinterpret_cast<AgeT*>(s_edges + ((a.n_edges + 3) & ~3));
     s_meta = reinterpret_cast<int32_t*>(s_rem + n_slots);
@@ -654,6 +702,7 @@ __global__ void __launch_bounds__(kThreads)
     overflow = a.n_repair_overflow[b];
     __syncwarp();
   }
+#endif
 
   // ---- parameters ------------------------------------------------------
   const float* p = a.pv + b * a.pv_stride;
@@ -966,7 +1015,13 @@ __global__ void __launch_bounds__(kThreads)
     // a slot's repair completed: its class and stage decide the completion
     const bool is_rep = kSlots && active && ev == kx;
     int32_t won_meta = 0;
+#ifdef CTMC_WIDE
+    if constexpr (kSlots) {
+      won_meta = g_cls[slot_arg] | (g_stage[slot_arg] << 16);
+    }
+#else
     if constexpr (kSlots) won_meta = s_meta[slot_arg];
+#endif
     if (is_rep) cls = won_meta & 0xffff;
     const bool is_auto = kSlots ? is_rep && (won_meta >> 16) == 0
                                 : active && ev >= 8 && ev < 12;
@@ -1210,7 +1265,7 @@ __global__ void __launch_bounds__(kThreads)
           mask = is_complete;
         }
         if (mask && (!kSlots || lane == 0)) {
-          const int idx = bin_index(s_edges, a.n_edges, v, lg0, inv_step);
+          const int idx = bin_index(CTMC_EDGES, a.n_edges, v, lg0, inv_step);
           atomicAdd(a.hist + (b * a.n_sel + c) * (a.n_edges + 1) + idx,
                     1.0f);
         }
@@ -1284,7 +1339,7 @@ __global__ void __launch_bounds__(kThreads)
                                 rp[2], e_r, e_r + (m_r - 1), m_r);
       }
       if ((idx & 31) == lane) {
-        const int32_t meta = s_meta[idx];
+        const int32_t meta = CTMC_META_AT(idx);
         const int32_t rm_cls = wrong ? p_run : cls;
         const int32_t cls_n = entered ? rm_cls : (meta & 0xffff);
         const int32_t stage_n = escalate ? 1 : (entered ? 0 : meta >> 16);
@@ -1292,7 +1347,12 @@ __global__ void __launch_bounds__(kThreads)
                               : ((escalate || entered)
                                      ? static_cast<AgeT>(q_dur)
                                      : s_rem[idx]);
+#ifdef CTMC_WIDE
+        g_cls[idx] = cls_n;
+        g_stage[idx] = stage_n;
+#else
         s_meta[idx] = cls_n | (stage_n << 16);
+#endif
       }
       overflow = overflow + f(diagnosed && !any_free);
       __syncwarp();
@@ -1303,11 +1363,13 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   if constexpr (kSlots) {
+#ifndef CTMC_WIDE
     for (int j = lane; j < n_slots; j += 32) {
       repair_rem[b * n_slots + j] = s_rem[j];
       a.repair_cls[b * n_slots + j] = s_meta[j] & 0xffff;
       a.repair_stage[b * n_slots + j] = s_meta[j] >> 16;
     }
+#endif
     if (lane != 0) return;
     a.n_repair_overflow[b] = overflow;
   }
@@ -1345,14 +1407,16 @@ template <int kKind>
 static int launch(const CtmcChunkArgs* args, cudaStream_t stream) {
   using AgeT = CTMC_AGE_T;
   constexpr bool kSlots = (kKind & kSlotBit) != 0;
+  constexpr bool kWide = (kKind & kWideBit) != 0;
   // a slot instance: a row a block, its slots (sizeof(AgeT) + 4 bytes
-  // each) after the bin edges padded to 16 bytes
+  // each) after the bin edges padded to 16 bytes; a wide one stages nothing
   const int rows = kSlots ? 1 : kThreads;
   const size_t smem =
-      kSlots ? static_cast<size_t>((args->n_edges + 3) & ~3) * sizeof(float)
-                   + static_cast<size_t>(args->n_slots)
-                         * (sizeof(AgeT) + sizeof(int32_t))
-             : static_cast<size_t>(args->n_edges) * sizeof(float);
+      kWide ? 0
+      : kSlots ? static_cast<size_t>((args->n_edges + 3) & ~3) * sizeof(float)
+                     + static_cast<size_t>(args->n_slots)
+                           * (sizeof(AgeT) + sizeof(int32_t))
+               : static_cast<size_t>(args->n_edges) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         ctmc_chunk_kernel<kKind, AgeT>,
@@ -1370,16 +1434,25 @@ static int launch(const CtmcChunkArgs* args, cudaStream_t stream) {
 // the first CUDA error of the shared-memory attribute or the launch (0 on
 // success), or cudaErrorInvalidValue for a family, segment count, slot
 // lane or scenario the kernel does not take; the caller raises on anything
-// else.
+// else.  The wide library (-DCTMC_WIDE) launches the wide twins (kLibBit)
+// and takes any segment count from 2.
+#ifdef CTMC_WIDE
+constexpr int kLibBit = kWideBit;
+constexpr int kLibMaxSegments = 0x7fffffff;
+#else
+constexpr int kLibBit = 0;
+constexpr int kLibMaxSegments = kMaxSegments;
+#endif
 extern "C" int ctmc_chunk_launch(const CtmcChunkArgs* args, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool seg_ok = args->kind == kEmpirical
-                          ? args->n_seg >= 2 && args->n_seg <= kMaxSegments
+                          ? args->n_seg >= 2 && args->n_seg <= kLibMaxSegments
                           : args->n_seg == 0;
   const bool slots = args->rkind != kRepExponential;
-  const bool rseg_ok = args->rkind == kRepEmpirical
-                           ? args->n_rseg >= 2 && args->n_rseg <= kMaxSegments
-                           : args->n_rseg == 0;
+  const bool rseg_ok =
+      args->rkind == kRepEmpirical
+          ? args->n_rseg >= 2 && args->n_rseg <= kLibMaxSegments
+          : args->n_rseg == 0;
   const bool slots_ok =
       slots ? args->rkind <= kRepEmpirical && args->n_slots >= 1
             : args->rkind == kRepExponential && args->n_slots == 0;
@@ -1397,21 +1470,36 @@ extern "C" int ctmc_chunk_launch(const CtmcChunkArgs* args, void* stream) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   switch (args->kind | (slots ? kSlotBit : 0) | (scen ? kScenBit : 0)) {
-    case kExponential: return launch<kExponential>(args, s);
-    case kWeibull: return launch<kWeibull>(args, s);
-    case kBathtub: return launch<kBathtub>(args, s);
-    case kLognormal: return launch<kLognormal>(args, s);
-    case kEmpirical: return launch<kEmpirical>(args, s);
-    case kExponential | kSlotBit: return launch<kExponential | kSlotBit>(args, s);
-    case kWeibull | kSlotBit: return launch<kWeibull | kSlotBit>(args, s);
-    case kBathtub | kSlotBit: return launch<kBathtub | kSlotBit>(args, s);
-    case kLognormal | kSlotBit: return launch<kLognormal | kSlotBit>(args, s);
-    case kEmpirical | kSlotBit: return launch<kEmpirical | kSlotBit>(args, s);
-    case kExponential | kScenBit: return launch<kExponential | kScenBit>(args, s);
-    case kWeibull | kScenBit: return launch<kWeibull | kScenBit>(args, s);
-    case kBathtub | kScenBit: return launch<kBathtub | kScenBit>(args, s);
-    case kLognormal | kScenBit: return launch<kLognormal | kScenBit>(args, s);
-    case kEmpirical | kScenBit: return launch<kEmpirical | kScenBit>(args, s);
+    case kExponential:
+      return launch<kExponential | kLibBit>(args, s);
+    case kWeibull:
+      return launch<kWeibull | kLibBit>(args, s);
+    case kBathtub:
+      return launch<kBathtub | kLibBit>(args, s);
+    case kLognormal:
+      return launch<kLognormal | kLibBit>(args, s);
+    case kEmpirical:
+      return launch<kEmpirical | kLibBit>(args, s);
+    case kExponential | kSlotBit:
+      return launch<kExponential | kSlotBit | kLibBit>(args, s);
+    case kWeibull | kSlotBit:
+      return launch<kWeibull | kSlotBit | kLibBit>(args, s);
+    case kBathtub | kSlotBit:
+      return launch<kBathtub | kSlotBit | kLibBit>(args, s);
+    case kLognormal | kSlotBit:
+      return launch<kLognormal | kSlotBit | kLibBit>(args, s);
+    case kEmpirical | kSlotBit:
+      return launch<kEmpirical | kSlotBit | kLibBit>(args, s);
+    case kExponential | kScenBit:
+      return launch<kExponential | kScenBit | kLibBit>(args, s);
+    case kWeibull | kScenBit:
+      return launch<kWeibull | kScenBit | kLibBit>(args, s);
+    case kBathtub | kScenBit:
+      return launch<kBathtub | kScenBit | kLibBit>(args, s);
+    case kLognormal | kScenBit:
+      return launch<kLognormal | kScenBit | kLibBit>(args, s);
+    case kEmpirical | kScenBit:
+      return launch<kEmpirical | kScenBit | kLibBit>(args, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

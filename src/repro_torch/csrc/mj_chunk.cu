@@ -223,10 +223,36 @@ struct Layout {
   static constexpr int kInts = 2 * J;
 };
 
-template <int J>
-__global__ void __launch_bounds__(kMaxThreads)
-    mj_chunk_kernel(const MjChunkArgs a) {
-  using L = Layout<J>;
+#ifdef MJ_RUNTIME_J
+// The runtime-J instance (the library built with -DMJ_RUNTIME_J): the
+// same words, their offsets computed from the launch's J.
+struct LayoutRt {
+  int kBlock, kQAut, kQMan, kLane, kMetric, kFloats, kInts;
+  __device__ explicit LayoutRt(int J)
+      : kBlock(4 * J), kQAut(kNBlock * 4 * J), kQMan(kQAut + 4 * J),
+        kLane(kQMan + 4 * J), kMetric(kLane + kNJobLane * J),
+        kFloats(kMetric + kNJobMetric * J), kInts(2 * J) {}
+};
+#define MJ_KERNEL_HEAD                                                   \
+  __global__ void __launch_bounds__(kMaxThreads) mj_chunk_kernel_rt(     \
+      const MjChunkArgs a, float* const rates_g, float* const words_g) { \
+    const int J = a.n_jobs;                                              \
+    const LayoutRt L(J);
+#define MJ_L(x) L.x
+#define MJ_NONE_STALLED !any_stalled_now
+#define MJ_STALLED(j) (phase(j) == kStall && (j) != cj)
+#else
+#define MJ_KERNEL_HEAD                                                   \
+  template <int J>                                                       \
+  __global__ void __launch_bounds__(kMaxThreads)                         \
+      mj_chunk_kernel(const MjChunkArgs a) {                             \
+    using L = Layout<J>;
+#define MJ_L(x) L::x
+#define MJ_NONE_STALLED stalled_now == 0
+#define MJ_STALLED(j) (stalled_now >> j) & 1u
+#endif
+
+MJ_KERNEL_HEAD
   extern __shared__ float smem[];
   const int n_pad = (a.n_edges + 3) & ~3;
   float* s_edges = smem;
@@ -244,9 +270,22 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int tid = static_cast<int>(threadIdx.x);
   const int64_t b = static_cast<int64_t>(blockIdx.x) * nt + tid;
   if (b >= a.n_rows) return;
+#ifdef MJ_RUNTIME_J
+  // the row's words in shared memory as the template's, or in global
+  // memory (words_g: a row's words contiguous) where a block's rows do not
+  // fit; its rates and residuals in global memory (rates_g), 18J a row
+  const int w_stride = words_g != nullptr ? 1 : nt;
+  float* const w_base = words_g != nullptr
+                            ? words_g + b * (L.kFloats + L.kInts)
+                            : smem + n_pad + tid;
+  const Slots<float> s{w_base, w_stride};
+  const Slots<int32_t> si{
+      reinterpret_cast<int32_t*>(w_base + L.kFloats * w_stride), w_stride};
+#else
   const Slots<float> s{smem + n_pad + tid, nt};
   const Slots<int32_t> si{
-      reinterpret_cast<int32_t*>(smem + n_pad + L::kFloats * nt) + tid, nt};
+      reinterpret_cast<int32_t*>(smem + n_pad + MJ_L(kFloats) * nt) + tid, nt};
+#endif
 
   // ---- the row's state ---------------------------------------------------
   bool live = false;
@@ -277,28 +316,28 @@ __global__ void __launch_bounds__(kMaxThreads)
     for (int j = 0; j < J; ++j) {
       const float4 v =
           *reinterpret_cast<const float4*>(a.block[k] + (b * J + j) * 4);
-      s[k * L::kBlock + 4 * j] = v.x;
-      s[k * L::kBlock + 4 * j + 1] = v.y;
-      s[k * L::kBlock + 4 * j + 2] = v.z;
-      s[k * L::kBlock + 4 * j + 3] = v.w;
+      s[k * MJ_L(kBlock) + 4 * j] = v.x;
+      s[k * MJ_L(kBlock) + 4 * j + 1] = v.y;
+      s[k * MJ_L(kBlock) + 4 * j + 2] = v.z;
+      s[k * MJ_L(kBlock) + 4 * j + 3] = v.w;
     }
   }
   // the repair rates aut / auto_div and man / man_div, kept divided: a
   // step changes at most a few classes, and only those are divided again
 #pragma unroll
-  for (int i = 0; i < L::kBlock; ++i) {
-    s[L::kQAut + i] = s[kAut * L::kBlock + i] / auto_div;
-    s[L::kQMan + i] = s[kMan * L::kBlock + i] / man_div;
+  for (int i = 0; i < MJ_L(kBlock); ++i) {
+    s[MJ_L(kQAut) + i] = s[kAut * MJ_L(kBlock) + i] / auto_div;
+    s[MJ_L(kQMan) + i] = s[kMan * MJ_L(kBlock) + i] / man_div;
   }
 #pragma unroll
   for (int j = 0; j < J; ++j) {
 #pragma unroll
     for (int k = 0; k < kNJobLane; ++k) {
-      s[L::kLane + k * J + j] = a.job_lane[k][b * J + j];
+      s[MJ_L(kLane) + k * J + j] = a.job_lane[k][b * J + j];
     }
 #pragma unroll
     for (int m = 0; m < kNJobMetric; ++m) {
-      s[L::kMetric + m * J + j] = a.job_metric[m][b * J + j];
+      s[MJ_L(kMetric) + m * J + j] = a.job_metric[m][b * J + j];
     }
   }
   float fw[4], fs[4];
@@ -316,12 +355,20 @@ __global__ void __launch_bounds__(kMaxThreads)
 
   // accessors: block k of job j, class c; job lane k; job metric m
   auto blk = [&](int k, int j, int c) -> float& {
-    return s[k * L::kBlock + 4 * j + c];
+    return s[k * MJ_L(kBlock) + 4 * j + c];
   };
-  auto qaut = [&](int j, int c) -> float& { return s[L::kQAut + 4 * j + c]; };
-  auto qman = [&](int j, int c) -> float& { return s[L::kQMan + 4 * j + c]; };
-  auto lane = [&](int k, int j) -> float& { return s[L::kLane + k * J + j]; };
-  auto met = [&](int m, int j) -> float& { return s[L::kMetric + m * J + j]; };
+  auto qaut = [&](int j, int c) -> float& {
+    return s[MJ_L(kQAut) + 4 * j + c];
+  };
+  auto qman = [&](int j, int c) -> float& {
+    return s[MJ_L(kQMan) + 4 * j + c];
+  };
+  auto lane = [&](int k, int j) -> float& {
+    return s[MJ_L(kLane) + k * J + j];
+  };
+  auto met = [&](int m, int j) -> float& {
+    return s[MJ_L(kMetric) + m * J + j];
+  };
   auto phase = [&](int j) -> int32_t& { return si[j]; };
   auto n_runs = [&](int j) -> int32_t& { return si[J + j]; };
   // a row's histogram bin for job j's channel `code`, if carried
@@ -358,8 +405,13 @@ __global__ void __launch_bounds__(kMaxThreads)
     const float u_adm = u[8], u_rel = u[9];
 
     // ---- rates (16J) and residuals (2J); the stalled jobs --------------
+#ifdef MJ_RUNTIME_J
+    float* const rates = rates_g + b * 18 * J;
+    float* const resid = rates + 16 * J;
+#else
     float rates[16 * J];
     float resid[2 * J];
+#endif
     int k_star = 0;                 // argmin of the stall starts, first
     float k_star_start = INFINITY;
     bool any_stalled = false;
@@ -463,8 +515,9 @@ __global__ void __launch_bounds__(kMaxThreads)
         // full shop parks the server in the queue lane (by owner)
         float shop_active = 0.0f;
 #pragma unroll
-        for (int i = 0; i < L::kBlock; ++i) {
-          shop_active += s[kAut * L::kBlock + i] + s[kMan * L::kBlock + i];
+        for (int i = 0; i < MJ_L(kBlock); ++i) {
+          shop_active +=
+              s[kAut * MJ_L(kBlock) + i] + s[kMan * MJ_L(kBlock) + i];
         }
         if (shop_active < cap_eff) {
           blk(kAut, ej, rm) = blk(kAut, ej, rm) + 1.0f;
@@ -576,17 +629,18 @@ __global__ void __launch_bounds__(kMaxThreads)
         // proportionally over the queued (job, class) counts
         float q_tot = 0.0f;
 #pragma unroll
-        for (int i = 0; i < L::kBlock; ++i) q_tot += s[kQ * L::kBlock + i];
+        for (int i = 0; i < MJ_L(kBlock); ++i)
+          q_tot += s[kQ * MJ_L(kBlock) + i];
         if (q_tot > 0.0f) {
           const float total = fmaxf(q_tot, kMinTotal);
           float cum = 0.0f;
           int pk = 0;
 #pragma unroll
-          for (int i = 0; i < L::kBlock; ++i) {
-            cum += s[kQ * L::kBlock + i];
+          for (int i = 0; i < MJ_L(kBlock); ++i) {
+            cum += s[kQ * MJ_L(kBlock) + i];
             pk += ge_quot(u_adm, cum, total) ? 1 : 0;
           }
-          pk = min(pk, L::kBlock - 1);
+          pk = min(pk, MJ_L(kBlock) - 1);
           const int qj = pk / 4, qc = pk % 4;
           blk(kQ, qj, qc) = blk(kQ, qj, qc) - 1.0f;
           blk(kAut, qj, qc) = blk(kAut, qj, qc) + 1.0f;
@@ -606,20 +660,30 @@ __global__ void __launch_bounds__(kMaxThreads)
       }
       // released servers go to starving jobs first, earliest stall first,
       // one each, with the host-selection surcharge
+#ifdef MJ_RUNTIME_J
+      // any J: a job is still to be served while its phase is STALL, which
+      // the loop below ends for each job it serves (the bits of the
+      // template's mask, read from the phases)
+      bool any_stalled_now = false;
+      for (int j = 0; j < J; ++j) {
+        any_stalled_now = any_stalled_now || (phase(j) == kStall && j != cj);
+      }
+#else
       unsigned stalled_now = 0;
 #pragma unroll
       for (int j = 0; j < J; ++j) {
         if (phase(j) == kStall && j != cj) stalled_now |= 1u << j;
       }
+#endif
 #pragma unroll
       for (int r = 0; r < J - 1; ++r) {
         const float rel_tot = ((rel[0] + rel[1]) + rel[2]) + rel[3];
-        if (stalled_now == 0 || !(rel_tot > 0.0f)) break;
+        if (MJ_NONE_STALLED || !(rel_tot > 0.0f)) break;
         int k_r = 0;
         float best = INFINITY;
 #pragma unroll
         for (int j = 0; j < J; ++j) {
-          const float ss = (stalled_now >> j) & 1u ? lane(kStallStart, j)
+          const float ss = MJ_STALLED(j) ? lane(kStallStart, j)
                                                    : INFINITY;
           if (ss < best) {
             best = ss;
@@ -642,7 +706,15 @@ __global__ void __launch_bounds__(kMaxThreads)
         met(kRecoveryOverhead, k_r) = met(kRecoveryOverhead, k_r) + recovery;
         hist_add(k_r, kRecovery, rel_wait + rel_timer);
         hist_add(k_r, kWaiting, (rel_wait + rel_timer) - recovery);
+#ifdef MJ_RUNTIME_J
+        any_stalled_now = false;
+        for (int j = 0; j < J; ++j) {
+          any_stalled_now = any_stalled_now
+                            || (phase(j) == kStall && j != cj);
+        }
+#else
         stalled_now &= ~(1u << k_r);
+#endif
       }
       // the remainder lands in the origin pools
 #pragma unroll
@@ -655,7 +727,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     // ---- conservation invariant ----------------------------------------
     float tot = 0.0f;
 #pragma unroll
-    for (int i = 0; i < kNBlock * L::kBlock; ++i) tot += s[i];
+    for (int i = 0; i < kNBlock * MJ_L(kBlock); ++i) tot += s[i];
     tot += (((fw[0] + fw[1]) + fw[2]) + fw[3])
            + (((fs[0] + fs[1]) + fs[2]) + fs[3]);
     cm[kConservationErr] = fmaxf(cm[kConservationErr],
@@ -709,6 +781,36 @@ static size_t smem_bytes(const MjChunkArgs* args, int floats, int ints) {
          * sizeof(float);
 }
 
+#ifdef MJ_RUNTIME_J
+// Plain-C entry point of the runtime-J instance, for ctypes: any J >= 1.
+// `rates` is the launch's (B, 18 J) float scratch for each row's rates
+// and residuals; `words` is null for a row's words in shared memory (then
+// rows_per_block rows must fit a block) or a (B, 46 J) float scratch for
+// them in global memory.  Returns as mj_chunk_launch.
+extern "C" int mj_chunk_rt_launch(const MjChunkArgs* args, float* rates,
+                                  float* words, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rows = args->rows_per_block;
+  const int J = args->n_jobs;
+  if (rows < 32 || rows > kMaxThreads || rows % 32 != 0
+      || args->n_sel < 0 || args->n_sel > 3 || J < 1 || rates == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int floats = words != nullptr ? 0 : 44 * J;
+  const int ints = words != nullptr ? 0 : 2 * J;
+  const size_t smem = smem_bytes(args, floats, ints);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        mj_chunk_kernel_rt, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int64_t blocks = (args->n_rows + rows - 1) / rows;
+  mj_chunk_kernel_rt<<<static_cast<unsigned int>(blocks), rows, smem, s>>>(
+      *args, rates, words);
+  return static_cast<int>(cudaGetLastError());
+}
+#else
 template <int J>
 static int launch(const MjChunkArgs* args, cudaStream_t stream) {
   using L = Layout<J>;
@@ -751,3 +853,4 @@ extern "C" int mj_chunk_launch(const MjChunkArgs* args, void* stream) {
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+#endif

@@ -13,6 +13,11 @@ lanes after the 16 in the race, the campaign residual first).  Each of
 those fifteen instances has a float64 twin for ``Params.age_dtype=
 "float64"`` (the ``age`` lane, and ``repair_rem`` with it, in float64),
 built from the same source into a library of its own (:data:`LIBRARY64`).
+Each instance also has a wide twin (:data:`LIBRARY_WIDE`,
+:data:`LIBRARY_WIDE64`) for the shapes past the standard instances' caps:
+more than :data:`MAX_SEGMENTS` empirical segments, histogram edges or a
+slot lane that one block's shared memory cannot hold (:func:`wide_for`
+says which a state needs; the engine routes by it before launch).
 The kernel lives in ``repro_torch/csrc/ctmc_chunk.cu`` (what it computes,
 its bound and its design are noted there); :mod:`._build` builds it with
 ``nvcc -fmad=false`` on first use and binds it with ``ctypes``, and
@@ -26,9 +31,9 @@ engine adds cannot be dropped without notice.
 ``LAUNCHES`` counts kernel launches, ``LAUNCHES_BY_KIND`` the same by
 failure family, ``LAUNCHES_BY_REPAIR`` by repair family,
 ``LAUNCHES_BY_SCEN`` the scenario instances' by failure family,
-``LAUNCHES_BY_AGE`` by the age lane's dtype and ``STEPS`` the steps they
-ran, so a run can show that its main path went
-through the kernel.
+``LAUNCHES_BY_AGE`` by the age lane's dtype, ``LAUNCHES_WIDE`` the wide
+instances' among them and ``STEPS`` the steps they ran, so a run can show
+that its main path went through the kernel.
 """
 
 from __future__ import annotations
@@ -48,7 +53,8 @@ KINDS = ("exponential", "weibull", "bathtub", "lognormal", "empirical")
 #: (``core.hazards.REPAIR_KINDS``); all but the first run a slot instance
 REPAIR_KINDS = ("exponential", "weibull", "lognormal", "deterministic",
                 "empirical")
-#: empirical segments a clock the kernel takes (``kMaxSegments``)
+#: empirical segments a clock the standard instances take
+#: (``kMaxSegments``); the wide instances take any count from 2
 MAX_SEGMENTS = 64
 
 #: launches of the chunk kernel since import (or the last reset)
@@ -63,6 +69,8 @@ LAUNCHES_BY_SCEN = dict.fromkeys(KINDS, 0)
 AGE_DTYPES = ("float32", "float64")
 #: the same launches by the age lane's dtype
 LAUNCHES_BY_AGE = dict.fromkeys(AGE_DTYPES, 0)
+#: the wide instances' launches among them
+LAUNCHES_WIDE = 0
 #: steps those launches ran
 STEPS = 0
 
@@ -176,7 +184,7 @@ def slot_plan(n_slots: int, n_edges: int = 0, age_bytes: int = 4) -> dict:
         _fail(f"a slot lane of {n_slots} slots")
     edge_floats = -(-n_edges // 4) * 4
     slot_bytes = age_bytes + 4
-    smem = 4 * edge_floats + slot_bytes * n_slots
+    smem = _slot_smem(n_slots, n_edges, age_bytes)
     if smem > _MAX_SHARED:
         _fail(f"a repair-slot lane of {n_slots} slots a row needs {smem} "
               f"bytes of shared memory a block, over the {_MAX_SHARED} an "
@@ -184,6 +192,38 @@ def slot_plan(n_slots: int, n_edges: int = 0, age_bytes: int = 4) -> dict:
               "auto-sized width) to at most "
               f"{(_MAX_SHARED - 4 * edge_floats) // slot_bytes}")
     return {"threads": 32, "smem_bytes": smem}
+
+
+def _slot_smem(n_slots: int, n_edges: int, age_bytes: int) -> int:
+    return 4 * (-(-n_edges // 4) * 4) + (age_bytes + 4) * n_slots
+
+
+def wide_for(state: Dict[str, torch.Tensor], n_seg: int = 0,
+             n_rseg: int = 0) -> bool:
+    """Whether a chunk of ``state`` runs a wide instance: True where the
+    standard instances refuse its shape and the wide ones take it -- more
+    than :data:`MAX_SEGMENTS` empirical failure (``n_seg``) or repair
+    (``n_rseg``) segments, more histogram edges than one block's shared
+    memory holds, or a repair-slot lane :func:`slot_plan` refuses.  Reads
+    shapes only, so the engine decides before it launches.
+
+    >>> z = torch.zeros(2)
+    >>> wide_for({"age": z}, 64), wide_for({"age": z}, 65)
+    (False, True)
+    >>> rem = torch.zeros((2, 32768))
+    >>> wide_for({"age": z, "repair_rem": rem})
+    True
+    >>> wide_for({"age": z, "hist": z, "hist_edges": torch.zeros(65536)})
+    True
+    """
+    if n_seg > MAX_SEGMENTS or n_rseg > MAX_SEGMENTS:
+        return True
+    n_edges = state["hist_edges"].shape[0] if "hist" in state else 0
+    if n_edges * 4 > _MAX_SHARED:
+        return True
+    rem = state.get("repair_rem")
+    return rem is not None and _slot_smem(
+        rem.shape[-1], n_edges, state["age"].element_size()) > _MAX_SHARED
 
 
 class ChunkArgs(ctypes.Structure):
@@ -226,6 +266,15 @@ LIBRARY = CudaLibrary("ctmc_chunk", _bind, extra_flags=("-fmad=false",))
 LIBRARY64 = CudaLibrary("ctmc_chunk_age64", _bind,
                         extra_flags=("-fmad=false", "-DCTMC_AGE_T=double"),
                         source="ctmc_chunk")
+#: the wide twins of every instance (``kWideBit``), float32 and float64 age
+LIBRARY_WIDE = CudaLibrary("ctmc_chunk_wide", _bind,
+                           extra_flags=("-fmad=false", "-DCTMC_WIDE"),
+                           source="ctmc_chunk")
+LIBRARY_WIDE64 = CudaLibrary("ctmc_chunk_wide64", _bind,
+                             extra_flags=("-fmad=false",
+                                          "-DCTMC_AGE_T=double",
+                                          "-DCTMC_WIDE"),
+                             source="ctmc_chunk")
 
 
 def _fail(msg: str) -> None:
@@ -248,7 +297,7 @@ def chunk_layout(state: Dict[str, torch.Tensor], us: torch.Tensor,
                  pv: torch.Tensor, R: int, P: int,
                  hist_channels: Sequence[str], *, kind: str = "exponential",
                  n_seg: int = 0, rkind: str = "exponential",
-                 n_rseg: int = 0, scen=None) -> dict:
+                 n_rseg: int = 0, scen=None, wide: bool = False) -> dict:
     """The launch's layout, after every check the kernel needs.
 
     ``state`` is the engine's state dict over ``B = P * R`` rows, ``us``
@@ -275,7 +324,10 @@ def chunk_layout(state: Dict[str, torch.Tensor], us: torch.Tensor,
     ``n_seg``, ``n_rseg``, ``n_slots`` (0 for exponential repairs),
     ``plan`` (:func:`slot_plan`'s, or None), ``scen`` (whether the
     scenario instance runs), ``n_dom``, ``n_camp``, ``codes`` (the
-    schedule codes) and ``age64`` (whether the float64 twin runs).
+    schedule codes), ``age64`` (whether the float64 twin runs) and ``wide``.
+    ``wide=True`` lays out a wide instance's launch: it takes any segment
+    count from 2 and any number of edges and slots, and stages nothing in
+    shared memory (its ``plan`` has ``smem_bytes`` 0).
     Raises ``ValueError`` on a family, segment count or scenario the
     kernel does not run, a key it does not know or lacks, a
     dtype, shape, device, stride or alignment it does not take, or a slot
@@ -283,7 +335,8 @@ def chunk_layout(state: Dict[str, torch.Tensor], us: torch.Tensor,
     """
     if kind not in KINDS:
         _fail(f"failure family {kind!r} is not one of {KINDS}")
-    if kind == "empirical" and not 2 <= n_seg <= MAX_SEGMENTS:
+    max_seg = 2 ** 31 - 1 if wide else MAX_SEGMENTS
+    if kind == "empirical" and not 2 <= n_seg <= max_seg:
         _fail(f"{n_seg} empirical segments; the kernel takes 2.."
               f"{MAX_SEGMENTS} a clock")
     if kind != "empirical" and n_seg != 0:
@@ -291,7 +344,7 @@ def chunk_layout(state: Dict[str, torch.Tensor], us: torch.Tensor,
               "empirical family's)")
     if rkind not in REPAIR_KINDS:
         _fail(f"repair family {rkind!r} is not one of {REPAIR_KINDS}")
-    if rkind == "empirical" and not 2 <= n_rseg <= MAX_SEGMENTS:
+    if rkind == "empirical" and not 2 <= n_rseg <= max_seg:
         _fail(f"{n_rseg} empirical repair segments; the kernel takes 2.."
               f"{MAX_SEGMENTS} a stage")
     if rkind != "empirical" and n_rseg != 0:
@@ -367,7 +420,7 @@ def chunk_layout(state: Dict[str, torch.Tensor], us: torch.Tensor,
         edges = state["hist_edges"]
         n_edges = edges.shape[0] if edges.ndim == 1 else 0
         _check("hist_edges", edges, (n_edges,), f32, device)
-        if n_edges < 1 or n_edges * 4 > _MAX_SHARED:
+        if n_edges < 1 or (n_edges * 4 > _MAX_SHARED and not wide):
             _fail(f"{n_edges} histogram edges; the kernel stages 1.."
                   f"{_MAX_SHARED // 4} in shared memory")
         hist_channels = tuple(hist_channels)
@@ -380,8 +433,12 @@ def chunk_layout(state: Dict[str, torch.Tensor], us: torch.Tensor,
         for i, c in enumerate(hist_channels):
             chan[i] = CHANNELS.index(c)
     age64 = age_dtype == torch.float64
-    plan = slot_plan(n_slots, n_edges, 8 if age64 else 4) if slotted \
-        else None
+    if not slotted:
+        plan = None
+    elif wide:
+        plan = {"threads": 32, "smem_bytes": 0}
+    else:
+        plan = slot_plan(n_slots, n_edges, 8 if age64 else 4)
     n_u = n_uniforms(kind, rkind)
     if us.ndim != 3 or us.shape[2] != n_u or us.shape[1] < R:
         _fail(f"uniforms {tuple(us.shape)} are not (n_steps, R_draw >= "
@@ -421,7 +478,7 @@ def chunk_layout(state: Dict[str, torch.Tensor], us: torch.Tensor,
             "rkind": REPAIR_KINDS.index(rkind), "n_rseg": n_rseg,
             "n_slots": n_slots, "plan": plan, "scen": scen is not None,
             "n_dom": n_dom, "n_camp": len(codes), "codes": codes,
-            "age64": age64}
+            "age64": age64, "wide": wide}
 
 
 def _args(layout: dict, codes=None) -> ChunkArgs:
@@ -469,7 +526,7 @@ def ctmc_chunk_cuda(state: Dict[str, torch.Tensor], us: torch.Tensor,
                     hist_channels: Sequence[str], *,
                     kind: str = "exponential", n_seg: int = 0,
                     rkind: str = "exponential", n_rseg: int = 0,
-                    scen=None,
+                    scen=None, wide: bool = False,
                     inplace: bool = False) -> Dict[str, torch.Tensor]:
     """Launch the kernel: ``us.shape[0]`` steps for every row at once.
 
@@ -477,20 +534,23 @@ def ctmc_chunk_cuda(state: Dict[str, torch.Tensor], us: torch.Tensor,
     instance (see :func:`chunk_layout`): the failure family's, its slot
     instance for a non-exponential repair family, or its scenario instance
     for a fault-domain scenario; a float64 ``age`` lane takes its float64
-    twin (:data:`LIBRARY64`).  Returns the new state dict.  By
+    twin (:data:`LIBRARY64`); ``wide=True`` the wide twin of that
+    instance (:data:`LIBRARY_WIDE` / :data:`LIBRARY_WIDE64`; the engine
+    passes :func:`wide_for`).  Returns the new state dict.  By
     default the lanes the kernel writes are cloned first, so ``state`` is
     left as it was (as ``_step_u`` leaves it); ``inplace=True`` writes
     into ``state``'s own tensors, for a caller that owns them.  Takes CUDA
     tensors only and raises on anything :func:`chunk_layout` refuses;
     nothing synchronises.
     """
-    global LAUNCHES, STEPS
+    global LAUNCHES, LAUNCHES_WIDE, STEPS
     written = WRITTEN + (SLOT_WRITTEN if rkind != "exponential" else ()) \
         + (SCEN_LANES + SCEN_METRICS if scen is not None else ())
     new = dict(state) if inplace else {
         k: v.clone() if k in written else v for k, v in state.items()}
     layout = chunk_layout(new, us, pv, R, P, hist_channels, kind=kind,
-                          n_seg=n_seg, rkind=rkind, n_rseg=n_rseg, scen=scen)
+                          n_seg=n_seg, rkind=rkind, n_rseg=n_rseg, scen=scen,
+                          wide=wide)
     device = new["phase"].device
     if device.type != "cuda":
         _fail(f"the state is on {device}, not a CUDA device")
@@ -498,13 +558,15 @@ def ctmc_chunk_cuda(state: Dict[str, torch.Tensor], us: torch.Tensor,
         return new
     args = _args(layout, schedule_codes(layout["codes"], device)
                  if layout["n_camp"] else None)
-    lib = (LIBRARY64 if layout["age64"] else LIBRARY).load()
+    lib = ((LIBRARY_WIDE64 if layout["age64"] else LIBRARY_WIDE) if wide
+           else (LIBRARY64 if layout["age64"] else LIBRARY)).load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.ctmc_chunk_launch(ctypes.byref(args), stream)
-    check_launch(err, f"ctmc_chunk (B={layout['n_rows']}, "
-                      f"steps={layout['n_steps']})")
+    check_launch(err, f"ctmc_chunk{' wide' if wide else ''} "
+                      f"(B={layout['n_rows']}, steps={layout['n_steps']})")
     LAUNCHES += 1
+    LAUNCHES_WIDE += wide
     LAUNCHES_BY_KIND[kind] += 1
     LAUNCHES_BY_REPAIR[rkind] += 1
     if scen is not None:

@@ -5,7 +5,11 @@ Counterpart, on the multi-job path, of the Pallas TPU kernel
 ``lax.scan`` of ``src/repro/core/vectorized_multijob.py::_mj_chunk_loop``
 around it: one launch runs a chunk of ``core.vectorized_multijob.
 _mj_step_u`` steps for every row of a ``(P * R,)`` batch of J-job clusters
-(an instance a job count, J from 1 to :data:`MAX_JOBS`).  The kernel lives
+(an instance a job count, J from 1 to :data:`MAX_JOBS`, and above that
+the runtime-J instance, :data:`LIBRARY_RT`: one kernel whose loops run
+over the launch's J, its rates and residuals in global scratch, a row's
+words in shared memory where a block's rows fit and in global memory
+where they do not).  The kernel lives
 in ``repro_torch/csrc/mj_chunk.cu`` (what it computes, its bound and its
 design are noted there); :mod:`._build` builds it with ``nvcc -fmad=false``
 on first use and binds it with ``ctypes``, and :func:`mj_chunk_cuda`
@@ -16,9 +20,10 @@ exactly the lanes of the multi-job step: :func:`mj_chunk_layout` refuses
 any other key and any lane dtype or shape but that path's, so a lane that
 a later engine adds cannot be dropped without notice.
 
-``LAUNCHES`` counts kernel launches, ``LAUNCHES_BY_J`` the same by job
-count and ``STEPS`` the steps they ran, so a run can show that its main
-path went through the kernel.
+``LAUNCHES`` counts kernel launches, ``LAUNCHES_BY_J`` the template
+instances' by job count, ``LAUNCHES_RT`` the runtime-J instance's and
+``STEPS`` the steps they ran, so a run can show that its main path went
+through the kernel.
 """
 
 from __future__ import annotations
@@ -30,13 +35,16 @@ import torch
 
 from ._build import CudaLibrary, check_launch
 
-#: jobs a cluster the kernel takes (``kMaxJobs`` of ``csrc/mj_chunk.cu``)
+#: jobs a cluster the template instances take (``kMaxJobs`` of
+#: ``csrc/mj_chunk.cu``); the runtime-J instance takes any J
 MAX_JOBS = 8
 
 #: launches of the kernel since import (or the last reset)
 LAUNCHES = 0
 #: the same launches by job count
 LAUNCHES_BY_J = dict.fromkeys(range(1, MAX_JOBS + 1), 0)
+#: the runtime-J instance's launches among them
+LAUNCHES_RT = 0
 #: steps those launches ran
 STEPS = 0
 
@@ -100,7 +108,21 @@ def _bind(lib: ctypes.CDLL) -> None:
     fn.restype = ctypes.c_int
 
 
+def _bind_rt(lib: ctypes.CDLL) -> None:
+    fn = lib.mj_chunk_rt_launch
+    fn.argtypes = [ctypes.POINTER(MjChunkArgs), ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+
 LIBRARY = CudaLibrary("mj_chunk", _bind, extra_flags=("-fmad=false",))
+#: the runtime-J instance, from the same source (``-DMJ_RUNTIME_J``)
+LIBRARY_RT = CudaLibrary("mj_chunk_rt", _bind_rt,
+                         extra_flags=("-fmad=false", "-DMJ_RUNTIME_J"),
+                         source="mj_chunk")
+#: float words of a row's rates and residuals in the runtime-J
+#: instance's scratch, a job
+RT_RATE_WORDS = 18
 
 
 def _fail(msg: str) -> None:
@@ -145,9 +167,31 @@ def rows_per_block(J: int, n_edges: int = 0, widest: int = 128) -> int:
     return rows
 
 
+def rt_plan(J: int, n_edges: int = 0) -> dict:
+    """The runtime-J instance's launch: ``rows`` a block and whether a
+    row's words go to global memory (``global_words``, where even 32 rows
+    of J jobs do not fit a block's shared memory beside the edges).
+
+    >>> rt_plan(9, 130), rt_plan(40, 130)
+    ({'rows': 128, 'global_words': False}, {'rows': 128, 'global_words': True})
+    """
+    try:
+        return {"rows": rows_per_block(J, n_edges), "global_words": False}
+    except ValueError:
+        rows_per_block(0, n_edges)   # the edges alone must fit
+        return {"rows": 128, "global_words": True}
+
+
+def runtime_for(J: int) -> bool:
+    """Whether a J-job chunk runs the runtime-J instance (J above
+    :data:`MAX_JOBS`) rather than its template instance."""
+    return J > MAX_JOBS
+
+
 def mj_chunk_layout(state: Dict[str, torch.Tensor], us: torch.Tensor,
                     pv: torch.Tensor, R: int, P: int, J: int,
-                    hist_channels: Sequence[str]) -> dict:
+                    hist_channels: Sequence[str], *,
+                    runtime: bool = False) -> dict:
     """The launch's layout, after every check the kernel needs.
 
     ``state`` is the multi-job engine's state dict over ``B = P * R`` rows
@@ -158,13 +202,16 @@ def mj_chunk_layout(state: Dict[str, torch.Tensor], us: torch.Tensor,
     (lane name -> data pointer), ``pv_stride`` (0 for a shared row),
     ``n_rows``, ``R``, ``P``, ``J``, ``R_draw``, ``n_steps``,
     ``max_runs``, ``n_sel``, ``n_edges``, ``chan`` (the kernel's code of
-    each carried channel, its index in :data:`CHANNELS`) and ``rows`` (rows
-    a block).  Raises ``ValueError`` on a job count above
-    :data:`MAX_JOBS`, a key the kernel does not know or lacks, or a dtype,
-    shape, device, stride or alignment it does not take.  Works on tensors
-    of any device.
+    each carried channel, its index in :data:`CHANNELS`), ``rows`` (rows
+    a block), ``runtime`` and ``global_words`` (the runtime-J instance's
+    words in global memory).  Raises ``ValueError`` on a job count above
+    :data:`MAX_JOBS` (any J >= 1 for ``runtime=True``, the runtime-J
+    instance), a key the kernel does not know or lacks, or a dtype, shape,
+    device, stride or alignment it does not take.  Works on tensors of any
+    device.
     """
-    if not isinstance(J, int) or not 1 <= J <= MAX_JOBS:
+    if not isinstance(J, int) or not 1 <= J <= (2 ** 31 - 1 if runtime
+                                                else MAX_JOBS):
         _fail(f"{J} jobs; the kernel takes 1..{MAX_JOBS} jobs a cluster "
               f"(run a larger cluster through the plain step loop, "
               f"impl=\"ref\")")
@@ -247,11 +294,13 @@ def mj_chunk_layout(state: Dict[str, torch.Tensor], us: torch.Tensor,
     if pointers["us"] % 8:
         _fail("uniforms are not 8-byte aligned (the kernel loads them as "
               "float2)")
+    plan = rt_plan(J, n_edges) if runtime else {
+        "rows": rows_per_block(J, n_edges), "global_words": False}
     return {"pointers": pointers, "pv_stride": pv_stride, "n_rows": B,
             "R": R, "P": P, "J": J, "R_draw": us.shape[1],
             "n_steps": us.shape[0], "max_runs": max_runs, "n_sel": n_sel,
-            "n_edges": n_edges, "chan": tuple(chan),
-            "rows": rows_per_block(J, n_edges)}
+            "n_edges": n_edges, "chan": tuple(chan), "runtime": runtime,
+            **plan}
 
 
 def _args(layout: dict) -> MjChunkArgs:
@@ -279,9 +328,14 @@ def _args(layout: dict) -> MjChunkArgs:
 
 def mj_chunk_cuda(state: Dict[str, torch.Tensor], us: torch.Tensor,
                   pv: torch.Tensor, R: int, P: int, J: int,
-                  hist_channels: Sequence[str], *,
+                  hist_channels: Sequence[str], *, runtime: bool = False,
                   inplace: bool = False) -> Dict[str, torch.Tensor]:
     """Launch the kernel: ``us.shape[0]`` multi-job steps for every row.
+
+    ``runtime=True`` launches the runtime-J instance (:data:`LIBRARY_RT`;
+    the engine passes :func:`runtime_for`), which takes any J and gets its
+    scratch (``(B, 18 J)`` rates and residuals, and ``(B, 46 J)`` words
+    where :func:`rt_plan` puts them in global memory) from the wrapper.
 
     Returns the new state dict.  By default the lanes the kernel writes
     are cloned first, so ``state`` is left as it was (as ``_mj_step_u``
@@ -289,23 +343,38 @@ def mj_chunk_cuda(state: Dict[str, torch.Tensor], us: torch.Tensor,
     caller that owns them.  Takes CUDA tensors only and raises on
     anything :func:`mj_chunk_layout` refuses; nothing synchronises.
     """
-    global LAUNCHES, STEPS
+    global LAUNCHES, LAUNCHES_RT, STEPS
     new = dict(state) if inplace else {
         k: v.clone() if k in WRITTEN else v for k, v in state.items()}
-    layout = mj_chunk_layout(new, us, pv, R, P, J, hist_channels)
+    layout = mj_chunk_layout(new, us, pv, R, P, J, hist_channels,
+                             runtime=runtime)
     device = new["phase"].device
     if device.type != "cuda":
         _fail(f"the state is on {device}, not a CUDA device")
     if layout["n_rows"] == 0 or layout["n_steps"] == 0:
         return new
     args = _args(layout)
-    lib = LIBRARY.load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.mj_chunk_launch(ctypes.byref(args), stream)
-    check_launch(err, f"mj_chunk (B={layout['n_rows']}, J={J}, "
+        if runtime:
+            B = layout["n_rows"]
+            rates = torch.empty((B, RT_RATE_WORDS * J), dtype=torch.float32,
+                                device=device)
+            words = torch.empty((B, _WORDS_A_JOB * J), dtype=torch.float32,
+                                device=device) \
+                if layout["global_words"] else None
+            err = LIBRARY_RT.load().mj_chunk_rt_launch(
+                ctypes.byref(args), rates.data_ptr(),
+                None if words is None else words.data_ptr(), stream)
+        else:
+            err = LIBRARY.load().mj_chunk_launch(ctypes.byref(args), stream)
+    check_launch(err, f"mj_chunk{' runtime-J' if runtime else ''} "
+                      f"(B={layout['n_rows']}, J={J}, "
                       f"steps={layout['n_steps']})")
     LAUNCHES += 1
-    LAUNCHES_BY_J[J] += 1
+    if runtime:
+        LAUNCHES_RT += 1
+    else:
+        LAUNCHES_BY_J[J] += 1
     STEPS += layout["n_steps"]
     return new

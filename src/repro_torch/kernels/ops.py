@@ -8,7 +8,15 @@ kernel and raises for CPU tensors.  On a CUDA tensor the kernel launches
 or raises: no shape, offset or length gives way to the plain version
 (the JAX ``ops`` fell back to its reference for traced offsets and
 shapes that did not divide its blocks; these kernels take runtime
-offsets and any shape).  The kernels are forward only.
+offsets and any shape).
+
+Gradients: where the kernel is taken, :func:`flash_attention` and
+:func:`selective_scan` are ``torch.autograd.Function``s, as the JAX
+``ops`` wraps its Pallas calls in ``jax.custom_vjp``: the forward is the
+CUDA kernel (one launch a call), and the backward recomputes the plain
+version (:mod:`.ref`) on the saved inputs under ``torch.enable_grad()``
+and takes ``torch.autograd.grad`` through it, launching no kernel.  The
+plain path is plain autograd.
 """
 
 from __future__ import annotations
@@ -67,6 +75,49 @@ def event_race(rates: torch.Tensor, residuals: torch.Tensor,
     return des_step.event_race_cuda(rates, residuals, u_time, u_pick)
 
 
+class _AttentionFn(torch.autograd.Function):
+    """The attention kernel forward, the plain version's gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, kv_len):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, q_offset, kv_len)
+        # the kernel reads a contiguous head dim and, in bfloat16, rows on
+        # 16 bytes: a projection's view may be neither
+        return _attn.flash_attention_cuda(
+            q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+            q_offset=q_offset, kv_len=kv_len)
+
+    @staticmethod
+    def backward(ctx, g):
+        causal, q_offset, kv_len = ctx.args
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = ref.attention_ref(*inputs, causal=causal,
+                                    q_offset=q_offset, kv_len=kv_len)
+        grads = torch.autograd.grad(out, inputs, g)
+        return (*grads, None, None, None)
+
+
+class _ScanFn(torch.autograd.Function):
+    """The scan kernel forward, the plain version's gradient (all six
+    inputs, ``h0`` included)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bmat, Cmat, h0):
+        ctx.save_for_backward(x, dt, A, Bmat, Cmat, h0)
+        return _scan.selective_scan_cuda(x, dt, A, Bmat, Cmat, h0)
+
+    @staticmethod
+    def backward(ctx, g_y, g_h):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            outs = ref.selective_scan_ref(*inputs)
+        pairs = [(o, g) for o, g in zip(outs, (g_y, g_h)) if g is not None]
+        return torch.autograd.grad([o for o, _ in pairs], inputs,
+                                   [g for _, g in pairs])
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_offset: int = 0,
                     kv_len: Optional[int] = None,
@@ -76,7 +127,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     See ``csrc/flash_attention.cu`` for what it computes.  ``q_offset``
     and ``kv_len`` are host integers; ``kv_len < 1`` and a negative
     ``q_offset`` are refused on every path (no query row may be left
-    without a key).
+    without a key).  Differentiable on both paths: the kernel path's
+    backward is the plain version's, recomputed from q, k and v.
     """
     use_kernel = _use_kernel("flash_attention", impl, q)
     q_offset = int(q_offset)
@@ -89,8 +141,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not use_kernel:
         return ref.attention_ref(q, k, v, causal=causal, q_offset=q_offset,
                                  kv_len=kv_len)
-    return _attn.flash_attention_cuda(q, k, v, causal=causal,
-                                      q_offset=q_offset, kv_len=kv_len)
+    return _AttentionFn.apply(q, k, v, causal, q_offset, kv_len)
 
 
 def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -101,11 +152,16 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """Mamba scan. x/dt (B,S,di), A (di,N), B/C (B,S,N), h0 (B,di,N).
 
     Returns ``(y (B, S, di) in x's dtype, h_final (B, di, N) float32)``;
-    see ``csrc/mamba_scan.cu`` for what it computes.
+    see ``csrc/mamba_scan.cu`` for what it computes.  Differentiable on
+    both paths: the kernel path's backward is the plain version's,
+    recomputed from the six inputs (``h0`` as zeros when None).
     """
     if not _use_kernel("selective_scan", impl, x):
         return ref.selective_scan_ref(x, dt, A, Bmat, Cmat, h0)
-    return _scan.selective_scan_cuda(x, dt, A, Bmat, Cmat, h0)
+    if h0 is None:
+        h0 = torch.zeros((x.shape[0], x.shape[2], A.shape[-1]),
+                         dtype=torch.float32, device=x.device)
+    return _ScanFn.apply(x, dt, A, Bmat, Cmat, h0)
 
 
 def selective_scan_step(x_t: torch.Tensor, dt_t: torch.Tensor,

@@ -1,8 +1,11 @@
-"""Model zoo of the port: the serving path of decoder-only LMs in PyTorch."""
+"""Model zoo of the port: decoder-only LMs in PyTorch, for serving and
+training."""
 
 from .config import ModelConfig
 from .model_zoo import (LM, ModelBundle, build_model, decode_step,
-                        params_from_jax, prefill)
+                        forward_train, loss_fn, opt_state_from_jax,
+                        params_from_jax, prefill, train_state_from_jax)
 
 __all__ = ["LM", "ModelBundle", "ModelConfig", "build_model", "decode_step",
-           "params_from_jax", "prefill"]
+           "forward_train", "loss_fn", "opt_state_from_jax",
+           "params_from_jax", "prefill", "train_state_from_jax"]

@@ -104,16 +104,18 @@ class Attention(nn.Module):
                 for b in (self.bq, self.bk, self.bv):
                     b.zero_()
 
-    def forward(self, x: torch.Tensor, *, cache: Cache, pos: int = 0,
-                causal: bool = True, impl: Optional[str] = None,
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, cache: Optional[Cache],
+                pos: int = 0, causal: bool = True,
+                impl: Optional[str] = None) -> torch.Tensor:
         """x: (B, S, D) -> out (B, S, D).
 
         cache: {"k", "v"}: (B, S_max, Hkv, hd); ``pos`` (a host integer)
         is the absolute position of x[0].  The new keys and values are
         written into the cache **in place** at ``pos`` (slice
         assignment).  Prefill (S > 1) attends over the fresh keys; decode
-        (S == 1) over the cache with ``kv_len = pos + 1``.
+        (S == 1) over the cache with ``kv_len = pos + 1``.  ``cache=None``
+        is the training forward: no cache, the fresh keys only, under
+        autograd.
         """
         S = x.shape[1]
         q = torch.einsum("bsd,dhk->bshk", x, self.wq)
@@ -124,6 +126,10 @@ class Attention(nn.Module):
         positions = pos + torch.arange(S, device=x.device)
         q = apply_rope(q, positions, self.cfg.rope_theta)
         k = apply_rope(k, positions, self.cfg.rope_theta)
+        if cache is None:
+            out = ops.flash_attention(q, k, v, causal=causal, q_offset=pos,
+                                      impl=impl)
+            return torch.einsum("bshk,hkd->bsd", out.to(x.dtype), self.wo)
 
         s_max = cache["k"].shape[1]
         if pos < 0 or pos + S > s_max:

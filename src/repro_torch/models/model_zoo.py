@@ -1,22 +1,29 @@
-"""Model construction for serving: config -> (init, prefill, decode, cache).
+"""Model construction: config -> (init, loss, forward, prefill, decode).
 
-Counterpart of the serving half of ``src/repro/models/model_zoo.py``, for
-decoder-only LMs whose layers are attention, Mamba and dense MLPs (the
-dense and SSM families, and hybrids of the two).  MoE layers and the
-cross-attention of encoder-decoder and VLM models are refused, naming the
-ROADMAP item that ports them; training (``forward_train``, ``loss_fn``)
-comes with the training slice.
+Counterpart of ``src/repro/models/model_zoo.py``, for decoder-only LMs
+whose layers are attention, Mamba and dense MLPs (the dense and SSM
+families, and hybrids of the two).  MoE layers and the cross-attention of
+encoder-decoder and VLM models are refused, naming the ROADMAP item that
+ports them.
 
-Two entry points per model, as in the reference:
+Entry points per model, as in the reference:
+  * forward_train(params, cfg, batch)    -> logits, aux
+  * loss_fn(params, cfg, batch)          -> loss, metrics (chunked fp32 CE)
   * prefill(model, batch, cache)         -> last-position logits, cache
   * decode_step(model, token, cache, pos) -> logits, cache
 
-The cache is updated in place and returned.  :func:`params_from_jax`
-carries a JAX parameter tree (as numpy) across, for parity tests.
+Training takes the parameters as the port's parameter dict (name ->
+tensor, ``LM.state_dict()``'s names) and runs the model's modules on them
+(``torch.func.functional_call``), under autograd; serving runs an
+:class:`LM` and updates its cache in place.  :func:`params_from_jax` and
+:func:`train_state_from_jax` carry a JAX parameter tree and train state
+(as numpy) across, for parity tests and for a checkpoint the JAX package
+wrote.
 """
 
 from __future__ import annotations
 
+import functools
 import re
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
@@ -24,6 +31,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .config import ModelConfig
@@ -77,6 +85,16 @@ class LM(nn.Module):
             if m is not self and hasattr(m, "reset_parameters"):
                 m.reset_parameters(gen)
 
+    def forward(self, tokens: torch.Tensor,
+                impl: Optional[str] = None) -> torch.Tensor:
+        """The training forward: final-norm activations (B, S, D) of the
+        whole sequence, causal, with no cache and under autograd
+        (:func:`forward_train` and :func:`loss_fn` run it on a parameter
+        dict)."""
+        x = embed(self.embed, tokens)
+        x = self.stack(x, caches=None, pos=0, causal=True, impl=impl)
+        return self.final_norm(x)
+
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         head = self.embed.T if self.cfg.tie_embeddings else self.head
         return x @ head
@@ -103,6 +121,92 @@ class LM(nn.Module):
                        impl=impl)
         x = self.final_norm(x)
         return self._logits(x), cache
+
+
+# ---------------------------------------------------------------------------
+# forward / loss (training)
+# ---------------------------------------------------------------------------
+
+MOE_LB_WEIGHT = 0.01
+MOE_Z_WEIGHT = 1e-3
+CE_CHUNK = 512
+
+
+@functools.lru_cache(maxsize=None)
+def _skeleton(cfg: ModelConfig) -> LM:
+    """The module structure of ``cfg`` with no storage, which
+    ``functional_call`` runs on a parameter dict."""
+    return LM(cfg, device="meta")
+
+
+def _hidden(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
+            batch: Mapping[str, torch.Tensor],
+            impl: Optional[str]) -> torch.Tensor:
+    """The final-norm activations (B, S, D) of ``batch["tokens"]``, the
+    model's modules run on ``params``."""
+    extra = set(batch) - {"tokens", "labels"}
+    if extra:
+        raise NotImplementedError(
+            f"inputs {sorted(extra)} feed cross-attention, not ported yet: "
+            f"{CROSS_ITEM}")
+    return torch.func.functional_call(_skeleton(cfg), dict(params),
+                                      (batch["tokens"],), {"impl": impl},
+                                      strict=True)
+
+
+def _head(params: Mapping[str, torch.Tensor], cfg: ModelConfig):
+    return params["embed"].T if cfg.tie_embeddings else params["head"]
+
+
+def forward_train(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
+                  batch: Mapping[str, torch.Tensor],
+                  impl: Optional[str] = None,
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Logits (B, S, V) of the whole sequence, causal, no cache; and the
+    layers' aux losses (none without MoE layers)."""
+    _refuse_unported(cfg)
+    return _hidden(params, cfg, batch, impl) @ _head(params, cfg), {}
+
+
+def _ce_chunk(head: torch.Tensor, xc: torch.Tensor, yc: torch.Tensor,
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    logits = (xc @ head).float()                        # (B, c, V)
+    lse = torch.logsumexp(logits, dim=-1)
+    lab = torch.gather(logits, -1, yc.clamp_min(0)[..., None])[..., 0]
+    mask = (yc >= 0).float()
+    return torch.sum((lse - lab) * mask), torch.sum(mask)
+
+
+def _chunked_ce(head: torch.Tensor, x: torch.Tensor, labels: torch.Tensor,
+                chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """sum CE and token count over S in chunks of ``chunk``, each chunk's
+    fp32 logits recomputed in the backward (``torch.utils.checkpoint``,
+    where the reference's scan body is ``jax.checkpoint``ed), so the fp32
+    logit tensor never fully materializes."""
+    S = x.shape[1]
+    chunk = min(chunk, S)
+    if S % chunk:
+        chunk = S  # fall back to single chunk for odd lengths
+    ce_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    n_tok = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, S, chunk):
+        s, n = checkpoint(_ce_chunk, head, x[:, i:i + chunk],
+                          labels[:, i:i + chunk], use_reentrant=False)
+        ce_sum, n_tok = ce_sum + s, n_tok + n
+    return ce_sum, n_tok
+
+
+def loss_fn(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
+            batch: Mapping[str, torch.Tensor], impl: Optional[str] = None,
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean next-token cross-entropy over the labels >= 0, in fp32, and
+    the metrics ``{"ce_loss", "loss"}``."""
+    _refuse_unported(cfg)
+    x = _hidden(params, cfg, batch, impl)
+    ce_sum, n_tok = _chunked_ce(_head(params, cfg), x, batch["labels"],
+                                CE_CHUNK)
+    loss = ce_sum / torch.clamp(n_tok, min=1.0)
+    return loss, {"ce_loss": loss, "loss": loss}
 
 
 def prefill(model: LM, batch: Mapping[str, torch.Tensor],
@@ -134,6 +238,8 @@ class ModelBundle:
     cfg: ModelConfig
     device: torch.device
     init: Callable[[int], LM]
+    loss: Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+    forward: Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
     prefill: Callable[..., Tuple[torch.Tensor, List[LayerCache]]]
     decode: Callable[..., Tuple[torch.Tensor, List[LayerCache]]]
     make_cache: Callable[[int, int], List[LayerCache]]
@@ -146,7 +252,9 @@ def build_model(cfg: ModelConfig, device=None,
     raises without one; pass ``device="cpu"`` for the CPU).  ``dtype``
     overrides ``cfg.dtype`` for weights and KV caches (SSM state stays
     fp32).  ``init(seed)`` returns an :class:`LM` with random weights made
-    on the device from ``seed``."""
+    on the device from ``seed``; ``loss(params, batch, impl=None)`` and
+    ``forward(params, batch, impl=None)`` are :func:`loss_fn` and
+    :func:`forward_train` on a parameter dict."""
     _refuse_unported(cfg)
     dev = resolve_device(device)
     dt = getattr(torch, cfg.dtype) if dtype is None else dtype
@@ -160,6 +268,10 @@ def build_model(cfg: ModelConfig, device=None,
 
     return ModelBundle(
         cfg=cfg, device=dev, init=init,
+        loss=functools.partial(
+            lambda p, b, c=cfg, **kw: loss_fn(p, c, b, **kw)),
+        forward=functools.partial(
+            lambda p, b, c=cfg, **kw: forward_train(p, c, b, **kw)),
         prefill=prefill, decode=decode_step,
         make_cache=lambda batch, s_max: init_cache(cfg, batch, s_max, dt,
                                                    dev),
@@ -174,7 +286,9 @@ def build_model(cfg: ModelConfig, device=None,
 _STACK_PATH = re.compile(r"stack/layer(\d+)/(.+)")
 
 
-def _to_tensor(a: np.ndarray) -> torch.Tensor:
+def _to_tensor(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):              # a restored checkpoint's
+        return a.clone()
     a = np.ascontiguousarray(a)
     if a.dtype.name == "bfloat16":               # ml_dtypes' numpy bf16
         return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
@@ -184,7 +298,8 @@ def _to_tensor(a: np.ndarray) -> torch.Tensor:
 def params_from_jax(cfg: ModelConfig,
                     tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """A JAX parameter tree as numpy (``jax.tree.map(np.asarray, params)``)
-    -> the port's state dict (CPU tensors, the tree's dtypes).
+    or as CPU tensors (a restored checkpoint's) -> the port's state dict
+    (CPU tensors, the tree's dtypes).
 
     The leading superblock axis of ``stack/layer{j}/...`` is unstacked
     into layers ``sb * superblock_size + j``.  A tree whose paths or leaf
@@ -197,7 +312,8 @@ def params_from_jax(cfg: ModelConfig,
     size = cfg.superblock_size
     out: Dict[str, torch.Tensor] = {}
     for path, leaf in tree_paths(tree):
-        leaf = np.asarray(leaf)
+        if not isinstance(leaf, torch.Tensor):
+            leaf = np.asarray(leaf)
         m = _STACK_PATH.fullmatch(path)
         if m is None:
             out[path.replace("/", ".")] = _to_tensor(leaf)
@@ -219,3 +335,44 @@ def params_from_jax(cfg: ModelConfig,
             raise ValueError(f"params_from_jax: {k} has shape "
                              f"{tuple(t.shape)}, {cfg.name} needs {want[k]}")
     return out
+
+
+def decayed_names(params: Mapping[str, torch.Tensor]) -> List[str]:
+    """The parameters AdamW decays as the reference does: its optimizer
+    decays the leaves of two or more dimensions of its tree, which stacks
+    every layer's parameter over the superblocks, so a layer's vector
+    (norm scale, bias, ``D``) is decayed there and the final norm is not.
+
+    >>> decayed_names({"stack.0.norm1.scale": torch.ones(4),
+    ...                "final_norm.scale": torch.ones(4),
+    ...                "embed": torch.ones(2, 4)})
+    ['stack.0.norm1.scale', 'embed']
+    """
+    return [k for k, p in params.items()
+            if p.ndim >= 2 or _STACK_NAME.match(k)]
+
+
+_STACK_NAME = re.compile(r"stack\.\d+\.")
+
+
+def opt_state_from_jax(cfg: ModelConfig, opt: Mapping[str, Any],
+                       ) -> Dict[str, Any]:
+    """The JAX optimizer state ``{"m", "v", "step"}`` (as numpy; ``m``
+    and ``v`` mirror the parameter tree) -> the port's: the moments under
+    the port's parameter names (CPU tensors, their dtypes), the step an
+    int32 scalar."""
+    step = np.asarray(opt["step"]).reshape(-1)[0]
+    return {"m": params_from_jax(cfg, opt["m"]),
+            "v": params_from_jax(cfg, opt["v"]),
+            "step": torch.tensor(int(step), dtype=torch.int32)}
+
+
+def train_state_from_jax(cfg: ModelConfig, state: Mapping[str, Any],
+                         ) -> Dict[str, Any]:
+    """A JAX train state ``{"params", "opt"}`` -> the port's, for
+    ``parallel.make_train_step``'s step and ``train.loop.train``.  Takes
+    it as numpy (``jax.tree.map(np.asarray, state)``) or as
+    ``train.checkpoint.restore_checkpoint`` reads a directory that the
+    JAX package wrote."""
+    return {"params": params_from_jax(cfg, state["params"]),
+            "opt": opt_state_from_jax(cfg, state["opt"])}

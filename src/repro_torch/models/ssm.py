@@ -97,14 +97,16 @@ class Mamba(nn.Module):
             self.A_log.copy_(torch.log(n).expand(cfg.d_inner, -1))
             self.D.fill_(1.0)
 
-    def forward(self, u: torch.Tensor, *, cache: Cache,
+    def forward(self, u: torch.Tensor, *, cache: Optional[Cache],
                 impl: Optional[str] = None) -> torch.Tensor:
         """u: (B, S, D) -> out (B, S, D).
 
         cache: {"conv": (B, W-1, di), "ssm": (B, di, N)}, both fp32,
         overwritten **in place** with the state after the last token.  S > 1
         is a prefill from the cached state, S == 1 a decode step.  The
-        conv window holds the pre-conv x.
+        conv window holds the pre-conv x.  ``cache=None`` is the training
+        forward: the conv causal over the sequence from a zero window, the
+        scan from a zero state, nothing written, under autograd.
 
         The elementwise chains between two products (conv + silu, the dt
         softplus, the D skip and the z gate) run in fp32 and round to the
@@ -115,7 +117,19 @@ class Mamba(nn.Module):
         x, z = xz.chunk(2, dim=-1)                         # (B, S, di)
         A = -torch.exp(self.A_log)                         # (di, N) fp32
 
-        if u.shape[1] == 1:
+        if cache is None:
+            W = self.cfg.ssm_conv
+            window = torch.zeros((u.shape[0], W - 1, x.shape[-1]),
+                                 dtype=x.dtype, device=x.device)
+            xc, _ = _causal_conv(x, self.conv_w, self.conv_b, window)
+            xc = F.silu(xc).to(u.dtype)
+            dbc = torch.einsum("bsd,de->bse", xc, self.x_proj)
+            dt_low, Bm, Cm = torch.split(dbc, [R, N, N], dim=-1)
+            dt = softplus(torch.einsum("bsr,rd->bsd", dt_low,
+                                       self.dt_w).float()
+                          + self.dt_b.float()).to(u.dtype)
+            y, _ = ops.selective_scan(xc, dt, A, Bm, Cm, None, impl=impl)
+        elif u.shape[1] == 1:
             # ---- decode step: conv from the cached window, one scan step
             window = torch.cat([cache["conv"], x.to(cache["conv"].dtype)],
                                dim=1)                      # (B, W, di)

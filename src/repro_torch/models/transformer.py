@@ -55,15 +55,17 @@ class Layer(nn.Module):
             self.norm2 = RMSNorm(cfg.d_model, cfg.norm_eps, device, dtype)
             self.mlp = MLP(cfg, cfg.d_ff, device, dtype)
 
-    def forward(self, x: torch.Tensor, *, cache: LayerCache, pos: int,
-                causal: bool, impl: Optional[str]) -> torch.Tensor:
-        """One layer; the layer's cache is updated in place."""
+    def forward(self, x: torch.Tensor, *, cache: Optional[LayerCache],
+                pos: int, causal: bool, impl: Optional[str]) -> torch.Tensor:
+        """One layer; the layer's cache is updated in place (``None``: the
+        training forward, no cache)."""
         h = self.norm1(x)
         if self.kind == "attn":
-            h = self.attn(h, cache=cache["self"], pos=pos, causal=causal,
-                          impl=impl)
+            h = self.attn(h, cache=None if cache is None else cache["self"],
+                          pos=pos, causal=causal, impl=impl)
         else:
-            h = self.ssm(h, cache=cache["ssm"], impl=impl)
+            h = self.ssm(h, cache=None if cache is None else cache["ssm"],
+                         impl=impl)
         x = x + h
         if self.has_mlp:
             x = x + self.mlp(self.norm2(x))
@@ -82,11 +84,13 @@ class Stack(nn.ModuleList):
             Layer(cfg, pattern[i % len(pattern)], device, dtype)
             for i in range(cfg.n_layers))
 
-    def forward(self, x: torch.Tensor, *, caches: List[LayerCache],
-                pos: int = 0, causal: bool = True,
+    def forward(self, x: torch.Tensor, *,
+                caches: Optional[List[LayerCache]], pos: int = 0,
+                causal: bool = True,
                 impl: Optional[str] = None) -> torch.Tensor:
-        """All layers; each layer's cache is updated in place."""
-        for layer, cache in zip(self, caches):
+        """All layers; each layer's cache is updated in place (``caches=
+        None``: the training forward, no cache)."""
+        for layer, cache in zip(self, caches or [None] * len(self)):
             x = layer(x, cache=cache, pos=pos, causal=causal, impl=impl)
         return x
 

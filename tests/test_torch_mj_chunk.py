@@ -20,7 +20,7 @@ completion whose release feeds J - 1 stalled jobs, histograms on and off, a
 run-duration ring that wraps, J = 1 with a finite shop, J = 2, 3, 4 and
 the cap -- over a first launch that leaves its input as it was, a second
 in place and a partial final chunk; and the sweep's route: a launch a
-chunk, no standalone race, a J above the cap refused.
+chunk, no standalone race, a J above the cap on the runtime-J instance.
 """
 
 import functools
@@ -448,13 +448,30 @@ def test_cuda_sweep_launches_the_kernel_a_chunk(monkeypatch):
 
 @pytest.mark.gpu
 def test_cuda_jobs_above_the_cap_are_refused():
+    """Above the template instances' cap the layout still refuses (pinned
+    on the CPU), and the engine routes the chunk to the runtime-J
+    instance instead: nine jobs under the default ``impl`` run a launch a
+    chunk of it, bit for bit ``impl="ref"``."""
     _needs_cuda()
     jobs = tuple(JobSpec(4, 100.0, 0) for _ in range(mj_chunk.MAX_JOBS + 1))
     cluster = LOCK.replace(working_pool_size=60)
-    with pytest.raises(ValueError, match=rf"takes 1..{mj_chunk.MAX_JOBS} "
-                       r'jobs a cluster .*impl="ref"'):
-        tm.simulate_multijob_ctmc(cluster, jobs, n_replicas=4, max_steps=8,
-                                  device="cuda")
-    out = tm.simulate_multijob_ctmc(cluster, jobs, n_replicas=4,
-                                    max_steps=8, impl="ref", device="cuda")
+    launches, rt = mj_chunk.LAUNCHES, mj_chunk.LAUNCHES_RT
+    by_j = dict(mj_chunk.LAUNCHES_BY_J)
+    got = tm.simulate_multijob_ctmc(cluster, jobs, n_replicas=64,
+                                    max_steps=200, early_exit=False,
+                                    device="cuda")
+    assert mj_chunk.LAUNCHES_RT - rt == 4                # 3 x 64 + 8
+    assert mj_chunk.LAUNCHES - launches == 4
+    assert mj_chunk.LAUNCHES_BY_J == by_j
+    out = tm.simulate_multijob_ctmc(cluster, jobs, n_replicas=64,
+                                    max_steps=200, early_exit=False,
+                                    impl="ref", device="cuda")
+    assert mj_chunk.LAUNCHES - launches == 4
     assert len(out["per_job"]) == mj_chunk.MAX_JOBS + 1
+    for k in out:
+        if k == "per_job":
+            for da, db in zip(got[k], out[k]):
+                for m in db:
+                    np.testing.assert_array_equal(da[m], db[m], err_msg=m)
+        else:
+            np.testing.assert_array_equal(got[k], out[k], err_msg=k)
