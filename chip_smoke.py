@@ -224,7 +224,23 @@ Phases, each of which fails the run loudly:
     preset and cluster, 40 steps with a failure at step 25 (checkpoints in
     a temporary folder, removed), against the same run without
     injection: the recovery stats, the Young/Daly cadence, the loss
-    falling, and the largest difference of the final parameters.
+    falling, and the largest difference of the final parameters;
+29. the MoE layers: (a) kimi-k2-1t-a32b at 1 of its 61 layers and
+    arctic-480b at 2 of its 35, at full width (384 experts top-8 and a
+    shared expert; 128 experts top-2 and a dense residual MLP), served as
+    in phase 8 (bf16, 4 x 512 prompt tokens, 32 greedy tokens, the
+    parameter count, one attention launch a layer a token), with the
+    attention kernel against its plain version at their head shapes, the
+    peak memory, the first MoE layer's drop fraction on the prefill's
+    input and a traced prefill and decode step's expert GEMMs against
+    their bound (every expert's weights read once a step, as the
+    reference's dense expert einsum reads them); (b) jamba's smoke config
+    (attention + Mamba + MoE) in float32: 1 attention and 7 scan launches
+    in the prefill, and layer by layer against ``impl="ref"`` as phase 9;
+    (c) the MoE dispatch (``_dispatch_one_group``) on the card bit for bit
+    the CPU's at kimi-k2's full prefill shape; (d) ``make_train_step`` on
+    the three MoE smoke configs on the card against the CPU (loss, aux
+    metrics, gradient norm, launches).
 
 Prints a ``{"serving": ..., "host_paths": ...}`` line, a ``{"kernels":
 [...]}`` line and, as its last line, ``{"ok": true, "device": {...}}``.  Exits non-zero, with
@@ -1281,14 +1297,18 @@ def prompts_for(cfg):
     return torch.as_tensor(ids, device="cuda")
 
 
-def serving_phase(arch, fa, ms):
-    """Phase 8 for one model: the serving main path in bf16."""
+def serving_phase(arch, fa, ms, n_layers=None, extra=None):
+    """Phase 8 for one model: the serving main path in bf16.  Phase 29
+    cuts the depth to ``n_layers`` and calls ``extra(bundle, model,
+    prompts, rec)`` before the model is released."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.models.module import tree_param_count, tree_size_bytes
     cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
     kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
     n_attn, n_ssm = kinds.count("attn"), kinds.count("ssm")
     bundle = build_model(cfg, device="cuda")
@@ -1374,6 +1394,9 @@ def serving_phase(arch, fa, ms):
     print(f"  traced prefill alone: device {pre_s * 1e3:.3f} ms; "
           + "; ".join(f"{k} kernels {v * 1e3:.3f} ms = "
                       f"{v / pre_s * 100:.2f}%" for k, v in own_s.items()))
+    if extra is not None:
+        extra(bundle, model, prompts, rec)
+        fa.LAUNCHES, ms.LAUNCHES = launches
     del model, sd
     release()
     return rec
@@ -3720,6 +3743,298 @@ def train_loop_phase(core):
     return out
 
 
+#: phase 29: the MoE configs at full width, cut in depth to fit one card
+#: (kimi-k2: 38.9 GB a layer of its 61 in bf16; arctic: 27.7 GB a layer of
+#: its 35); jamba's smallest stack, one superblock of 8 layers, is 90.5 GB
+#: at full width, so it runs at smoke width (float32 A/B)
+MOE_SERVE = (("kimi-k2-1t-a32b", 1), ("arctic-480b", 2))
+MOE_AB_ARCH = "jamba-1.5-large-398b"
+#: phase 29d: the card's float32 train step against the CPU's, relative
+#: difference of each metric (2.5e-6 to 7.5e-6 measured on an H100)
+MOE_TRAIN_REL = 1e-4
+
+
+def moe_expert_ms(prof, n_moe, bound_ms, label):
+    """Device time of the expert GEMMs in a profile of one forward: the
+    kernels of the ``torch.bmm`` calls ``MoE.forward`` makes itself, three
+    a MoE layer (attention's projections reach ``aten::bmm`` under
+    ``aten::einsum``; the MLPs and the head ``aten::mm`` under
+    ``aten::matmul``).  Fails where the profile shows another count,
+    attributes no kernel, or a time under ``bound_ms`` (more than 5%
+    under it: the bound or the attribution would be wrong)."""
+    gemms = [e for e in prof.events()
+             if e.name == "aten::bmm" and e.cpu_parent is None]
+    total = sum(e.device_time_total for e in gemms) / 1e3
+    if len(gemms) != 3 * n_moe or not total > 0:
+        fail(f"{label}: expert GEMMs not measured: {len(gemms)} top-level "
+             f"bmm calls (want {3 * n_moe}), {total} ms of kernels")
+    if bound_ms > 1.05 * total:
+        fail(f"{label}: expert GEMMs {total:.3f} ms, under their bound "
+             f"{bound_ms:.3f} ms")
+    return total
+
+
+def moe_expert_bound_ms(cfg, rows):
+    """Least time of the expert GEMMs of one forward with ``rows`` = B*C
+    slots an expert: every MoE layer's expert weights read once, its slot
+    buffer read and its output written once (bf16); 6 E rows D F
+    operations a layer at the bf16 peak."""
+    n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.n_layers))
+    E, D, F_ = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
+    weight_bytes = n_moe * 3 * E * D * F_ * 2
+    nbytes = weight_bytes + n_moe * 2 * E * rows * D * 2
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_moe * 6 * E * rows * D * F_ / BF16_OPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms
+            else "operations", weight_bytes / HBM_BYTES_PER_S * 1e3)
+
+
+def moe_serving_extra(fa):
+    """Phase 29a's checks on a served MoE model, before it is released:
+    the attention kernel against its plain version at the model's head
+    shapes; the first MoE layer's drop fraction on the prefill's input;
+    a traced prefill and a traced decode step, the expert GEMMs' device
+    time against their bound; the peak memory."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ref
+    from repro_torch.models.moe import moe_capacity
+
+    def extra(bundle, model, prompts, rec):
+        cfg = bundle.cfg
+        B, S = prompts.shape
+        n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.n_layers))
+        bf16 = torch.bfloat16
+        errs = []
+        for shape, kw in (
+                ((B, S, S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim),
+                 dict(causal=True)),
+                ((B, 1, S_MAX, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim),
+                 dict(causal=False, kv_len=S_MAX))):
+            q, k, v = attn_inputs(*shape, bf16, seed=29)
+            err, within = close_err(fa.flash_attention_cuda(q, k, v, **kw),
+                                    ref.attention_ref(q, k, v, **kw), 2e-2)
+            if not within:
+                fail(f"{cfg.name}: attention kernel disagrees with "
+                     f"attention_ref at {shape} (max abs err {err:.3e})")
+            errs.append(err)
+        print(f"  attention kernel at {cfg.n_heads}/{cfg.n_kv_heads} heads, "
+              f"d {cfg.head_dim}, bf16: prefill max abs err {errs[0]:.3e}, "
+              f"decode (kv_len {S_MAX}) {errs[1]:.3e}")
+
+        first = next(layer.moe for layer in model.stack if layer.has_moe)
+        seen = []
+        hook = first.register_forward_hook(
+            lambda mod, inp, out: seen.append(out[1]["moe_drop_fraction"]))
+        C_pre, C_dec = moe_capacity(cfg, S), moe_capacity(cfg, 1)
+        pre_bound, pre_by, _ = moe_expert_bound_ms(cfg, B * C_pre)
+        dec_bound, dec_by, weights_ms = moe_expert_bound_ms(cfg, B * C_dec)
+        try:
+            cache = bundle.make_cache(B, S_MAX)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                logits, cache = bundle.prefill(model, {"tokens": prompts},
+                                               cache)
+                torch.cuda.synchronize()
+            pre_ms = moe_expert_ms(prof, n_moe, pre_bound,
+                                   f"{cfg.name} prefill")
+            t0 = time.perf_counter()                      # warm, untraced
+            logits, cache = bundle.prefill(model, {"tokens": prompts}, cache)
+            torch.cuda.synchronize()
+            warm_pre_ms = (time.perf_counter() - t0) * 1e3
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            bundle.decode(model, tok, cache, S)           # warm
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                bundle.decode(model, tok, cache, S + 1)
+                torch.cuda.synchronize()
+            dec_ms = moe_expert_ms(prof, n_moe, dec_bound,
+                                   f"{cfg.name} decode")
+            dec_busy = device_seconds(prof) * 1e3
+        finally:
+            hook.remove()
+        drop = float(seen[0])
+        step_ms = rec["decode_ms_per_step"]
+        peak = torch.cuda.max_memory_allocated()
+        rec.update(
+            n_layers=cfg.n_layers, peak_bytes=peak, first_moe_drop=drop,
+            warm_prefill_ms=warm_pre_ms,
+            attention_max_abs_err=errs[0],
+            attention_decode_max_abs_err=errs[1],
+            prefill_expert_ms=pre_ms, prefill_expert_bound_ms=pre_bound,
+            prefill_expert_bound_by=pre_by, decode_expert_ms=dec_ms,
+            decode_expert_bound_ms=dec_bound, decode_expert_bound_by=dec_by,
+            decode_weights_bound_ms=weights_ms,
+            traced_decode_device_ms=dec_busy,
+            decode_step_over_bound=step_ms / dec_bound)
+        print(f"  {cfg.name} at {cfg.n_layers} layer(s): peak "
+              f"{peak / 2 ** 30:.2f} GiB allocated; the first MoE layer "
+              f"drops {drop * 100:.3f}% of the prefill's {B * S * cfg.top_k}"
+              f" assignments (capacity {C_pre} a group)")
+        print(f"  expert GEMMs, traced: prefill {pre_ms:.3f} ms (bound "
+              f"{pre_bound:.3f} ms, {pre_by}, "
+              f"{pre_bound / pre_ms * 100:.2f}% of it); decode step "
+              f"{dec_ms:.3f} ms of {dec_busy:.3f} ms device (bound "
+              f"{dec_bound:.3f} ms, {dec_by}, {dec_bound / dec_ms * 100:.2f}%"
+              f" of it; the expert weights alone {weights_ms:.3f} ms)")
+        print(f"  decode {step_ms:.3f} ms a step = "
+              f"{step_ms / dec_bound:.3f}x the expert bound; a warm prefill "
+              f"(its shapes seen once) {warm_pre_ms:.3f} ms")
+        if not (math.isfinite(drop) and 0.0 <= drop < 1.0):
+            fail(f"{cfg.name}: drop fraction {drop}")
+    return extra
+
+
+def moe_ab_phase(fa, ms):
+    """Phase 29b: jamba's smoke config (attention + Mamba + MoE) on the
+    card in float32: the launches of a served prompt, then each layer
+    through the kernels and through the plain versions."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(MOE_AB_ARCH, smoke=True)
+    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+    n_attn, n_ssm = kinds.count("attn"), kinds.count("ssm")
+    n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.n_layers))
+    bundle = build_model(cfg, device="cuda", dtype=torch.float32)
+    model = bundle.init(SEED)
+    prompts = prompts_for(cfg)
+    generate(bundle, model, prompts[:, :16], None, fa, ms, n_new=3)
+    fa.LAUNCHES = ms.LAUNCHES = 0            # the main path's run
+    out = generate(bundle, model, prompts, None, fa, ms)
+    want = ((n_attn, n_ssm), (n_attn * GEN_TOKENS, n_ssm))
+    got = (out["after_prefill"], out["after_decode"])
+    print(f"  {cfg.name} smoke ({cfg.n_layers} layers: {n_attn} attention, "
+          f"{n_ssm} Mamba, {n_moe} MoE with {cfg.n_experts} experts top-"
+          f"{cfg.top_k}) float32: launches (attention, scan) {got[0]} after "
+          f"the prefill, {got[1]} in all; prefill "
+          f"{out['prefill_s'] * 1e3:.3f} ms, decode "
+          f"{out['decode_s'] * 1e3 / (GEN_TOKENS - 1):.3f} ms a step")
+    if got != want or not out["finite"]:
+        fail(f"{cfg.name} smoke: launches {got}, want {want}; finite "
+             f"logits {out['finite']}")
+    launches = got[1]
+    share, rel, rows_off = layerwise_ab(bundle, model, prompts)
+    print(f"  layer by layer on the same input (prefill + 1 decode step, "
+          f"the MoE layers included): worst share of elements within "
+          f"{AB_ELEM_TOL} of the scale {share * 100:.4f}%, largest relative "
+          f"difference {rel:.3e}, rows beyond it {rows_off}")
+    if share < AB_ELEM_SHARE:
+        fail(f"{cfg.name} smoke float32: a layer through the kernels "
+             f"disagrees with the plain one on {(1 - share) * 100:.4f}% of "
+             f"its elements")
+    fa.LAUNCHES, ms.LAUNCHES = launches
+    del model
+    release()
+    return {"arch": f"{cfg.name} (smoke)", "dtype": "float32",
+            "attention_launches": launches[0], "scan_launches": launches[1],
+            "layer_share_within": share, "layer_max_rel_err": rel,
+            "layer_rows_beyond": rows_off, "prefill_s": out["prefill_s"],
+            "decode_s": out["decode_s"]}
+
+
+def moe_train_phase(fa, ms):
+    """Phase 29d: ``make_train_step`` on the three MoE smoke configs in
+    float32, on the card (the default device), one step each against the
+    same step on the CPU from the same weights and batch: the loss, the
+    aux metrics and the gradient norm, and the kernels' launches (one a
+    kernel layer on the card, none on the CPU)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.parallel import make_train_step
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    shape = ShapeSpec("moe_train", 64, 4, "train")
+    opt_cfg = OptimizerConfig()
+    out = {}
+    for arch in (*(a for a, _ in MOE_SERVE), MOE_AB_ARCH):
+        cfg = get_config(arch, smoke=True).replace(dtype="float32")
+        kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+        pipe = SyntheticTokenPipeline(DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=shape.seq_len + 1,
+            global_batch=shape.global_batch, seed=SEED))
+        batch = {k: torch.as_tensor(v[:, :shape.seq_len])
+                 for k, v in pipe.batch_at(0).items()}
+        card = build_model(cfg)
+        weights = card.init(SEED).state_dict()
+        runs = {}
+        for dev, bundle in (("cuda", card),
+                            ("cpu", build_model(cfg, device="cpu"))):
+            params = {k: t.detach().clone().to(dev)
+                      for k, t in weights.items()}
+            state = {"params": params, "opt": init_opt_state(params,
+                                                              opt_cfg)}
+            mesh = make_host_mesh(device=dev)
+            built = make_train_step(bundle, mesh, shape, opt_cfg)
+            before = (fa.LAUNCHES, ms.LAUNCHES)
+            with mesh:
+                _, metrics = built.fn(state, {k: v.to(dev)
+                                              for k, v in batch.items()})
+            runs[dev] = ({k: float(v) for k, v in metrics.items()},
+                         (fa.LAUNCHES - before[0], ms.LAUNCHES - before[1]))
+            fa.LAUNCHES, ms.LAUNCHES = before
+        got, want = runs["cuda"][0], runs["cpu"][0]
+        rel = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-6)
+               for k in want}
+        launches = {d: r[1] for d, r in runs.items()}
+        print(f"  {cfg.name} smoke: loss {got['loss']:.6f} (cpu "
+              f"{want['loss']:.6f}), load balance "
+              f"{got['moe_load_balance']:.6f}, z {got['moe_z_loss']:.6f}, "
+              f"drops {got['moe_drop_fraction']:.6f}; largest relative "
+              f"difference card against CPU {max(rel.values()):.3e} "
+              f"({max(rel, key=rel.get)}); launches {launches}")
+        want_launches = {"cuda": (kinds.count("attn"), kinds.count("ssm")),
+                         "cpu": (0, 0)}
+        if (sorted(got) != sorted(want) or "moe_z_loss" not in got
+                or max(rel.values()) > MOE_TRAIN_REL
+                or launches != want_launches):
+            fail(f"{cfg.name} smoke: the card's train step against the "
+                 f"CPU's: {rel}, launches {launches}, want {want_launches}")
+        out[cfg.name] = {"metrics": got, "cpu_metrics": want,
+                         "max_rel_diff": max(rel.values()),
+                         "launches": launches["cuda"]}
+    return out
+
+
+def moe_dispatch_phase():
+    """Phase 29c: ``_dispatch_one_group`` on the card bit for bit the
+    CPU's at kimi-k2's full prefill shape (a non-stable sort or a scatter
+    race would show), and its time on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import _dispatch_one_group, moe_capacity
+    cfg = get_config(MOE_SERVE[0][0])
+    B, S, E, k, D = (SERVE_BATCH, PROMPT_LEN, cfg.n_experts, cfg.top_k,
+                     cfg.d_model)
+    C = moe_capacity(cfg, S)
+    rng = np.random.default_rng(SEED)
+    probs = torch.softmax(torch.as_tensor(
+        rng.standard_normal((B, S, E), dtype=np.float32)), -1)
+    top_w, top_idx = torch.topk(probs, k, dim=-1)
+    top_w = top_w / top_w.sum(-1, keepdim=True)
+    x = torch.as_tensor(rng.standard_normal((B, S, D), dtype=np.float32)
+                        ).to(torch.bfloat16)
+    host = _dispatch_one_group(x, top_idx, top_w, E, C)
+    args = [t.cuda() for t in (x, top_idx, top_w)]
+    card = _dispatch_one_group(*args, E, C)
+    torch.cuda.synchronize()
+    same = {name: bool(torch.equal(a.cpu(), b)) for name, a, b in zip(
+        ("buffer", "tok_slot", "w_slot"), card, host)}
+    routed = int((host[1] < S).sum())
+    t = device_ms(lambda: _dispatch_one_group(*args, E, C), 20)
+    print(f"  B {B}, S {S}, E {E}, k {k}, C {C}, D {D} (bf16): identical "
+          f"to the CPU's {same}; {routed} of {B * S * k} assignments routed;"
+          f" device {t} ms a call")
+    if not all(same.values()):
+        fail(f"the card's dispatch differs from the CPU's: {same}")
+    return {"shape": [B, S, E, k, C, D], "identical": same,
+            "routed": routed, "assignments": B * S * k, "ms": t}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4175,6 +4490,33 @@ def main() -> int:
           f"at step {TRAIN_LOOP_FAILURE}, against a run without it")
     host_paths["train_loop"] = train_loop_phase(core)
 
+    # ---- phase 29: the MoE layers ------------------------------------------
+    from repro_torch.configs import get_config
+    t29 = time.perf_counter()
+    moe_launches = {}
+    for arch, n_layers in MOE_SERVE:
+        phase(f"phase 29a: serving {arch} at full width, {n_layers} of "
+              f"{get_config(arch).n_layers} layers (bf16, random weights from "
+              f"seed {SEED}): {SERVE_BATCH} prompts x {PROMPT_LEN} tokens, "
+              f"{GEN_TOKENS} new tokens each, greedy")
+        torch.cuda.reset_peak_memory_stats()
+        rec = serving_phase(arch, fa, ms, n_layers=n_layers,
+                            extra=moe_serving_extra(fa))
+        serving.append(rec)
+        moe_launches[arch] = rec["attention_launches"]
+    phase(f"phase 29b: {MOE_AB_ARCH}'s smoke config (attention + Mamba + "
+          "MoE) in float32, impl='cuda' against impl='ref'")
+    moe_ab = moe_ab_phase(fa, ms)
+    ab.append(moe_ab)
+    phase("phase 29c: the MoE dispatch on the card against the CPU's at "
+          f"{MOE_SERVE[0][0]}'s prefill shape")
+    host_paths["moe_dispatch"] = moe_dispatch_phase()
+    phase("phase 29d: make_train_step on the MoE smoke configs on the card "
+          "against the CPU")
+    host_paths["moe_train"] = moe_train_phase(fa, ms)
+    host_paths["moe_seconds"] = time.perf_counter() - t29
+    print(f"  phase 29: {host_paths['moe_seconds']:.3f} s")
+
     # the standalone race's record: its launches on the main paths, the
     # single-job (phase 5) and multi-job (phases 20, 20b, 21) ones, where
     # the chunk kernels replaced it (0: each phase fails on a race launch);
@@ -4338,9 +4680,13 @@ def main() -> int:
              serve_launches["qwen2.5-3b"][0], attn, "qwen2.5-3b"),
             ("selective_scan", SCAN_SOURCE, SCAN_TPU_KERNEL,
              serve_launches["falcon-mamba-7b"][1], scan, "falcon-mamba-7b")):
+        moe_paths = ({**moe_launches, f"{MOE_AB_ARCH} (smoke)":
+                      moe_ab["attention_launches"]} if name == "flash_attention"
+                     else {f"{MOE_AB_ARCH} (smoke)": moe_ab["scan_launches"]})
         kernels.append(dict(t, name=name, route="cuda", source=source,
                             replaces=replaces, launches=launches_,
                             train_launches_per_step=train_launches[arch],
+                            moe_serving_launches=moe_paths,
                             ms=t["call_ms"] if t["ms"] is None else t["ms"]))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, builds "
           "included")

@@ -1,10 +1,10 @@
 """Model construction: config -> (init, loss, forward, prefill, decode).
 
 Counterpart of ``src/repro/models/model_zoo.py``, for decoder-only LMs
-whose layers are attention, Mamba and dense MLPs (the dense and SSM
-families, and hybrids of the two).  MoE layers and the cross-attention of
-encoder-decoder and VLM models are refused, naming the ROADMAP item that
-ports them.
+whose layers are attention, Mamba, dense MLPs and MoE layers (the dense,
+SSM and MoE families, and hybrids of them).  The cross-attention of
+encoder-decoder and VLM models is refused, naming the ROADMAP item that
+ports it.
 
 Entry points per model, as in the reference:
   * forward_train(params, cfg, batch)    -> logits, aux
@@ -37,15 +37,13 @@ from ..device import resolve_device
 from .config import ModelConfig
 from .layers import RMSNorm, embed
 from .module import dense_init_, embed_init_, empty_param, tree_paths
-from .transformer import (CROSS_ITEM, MOE_ITEM, LayerCache, Stack,
-                          init_cache, stack_cache_spec)
+from .moe import Aux
+from .transformer import (CROSS_ITEM, LayerCache, Stack, init_cache,
+                          stack_cache_spec)
 
 
 def unported_reason(cfg: ModelConfig) -> Optional[str]:
     """Why the port cannot run ``cfg`` yet (None when it can)."""
-    if cfg.n_experts > 0:
-        return (f"{cfg.name} has MoE layers (n_experts={cfg.n_experts}), "
-                f"not ported yet: {MOE_ITEM}")
     if cfg.is_encdec or cfg.cross_attn_period > 0:
         return (f"{cfg.name} needs cross-attention (family {cfg.family!r}), "
                 f"not ported yet: {CROSS_ITEM}")
@@ -85,15 +83,15 @@ class LM(nn.Module):
             if m is not self and hasattr(m, "reset_parameters"):
                 m.reset_parameters(gen)
 
-    def forward(self, tokens: torch.Tensor,
-                impl: Optional[str] = None) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, impl: Optional[str] = None,
+                ) -> Tuple[torch.Tensor, Aux]:
         """The training forward: final-norm activations (B, S, D) of the
-        whole sequence, causal, with no cache and under autograd
-        (:func:`forward_train` and :func:`loss_fn` run it on a parameter
-        dict)."""
+        whole sequence, causal, with no cache and under autograd, and the
+        MoE layers' aux losses (:func:`forward_train` and :func:`loss_fn`
+        run it on a parameter dict)."""
         x = embed(self.embed, tokens)
-        x = self.stack(x, caches=None, pos=0, causal=True, impl=impl)
-        return self.final_norm(x)
+        x, aux = self.stack(x, caches=None, pos=0, causal=True, impl=impl)
+        return self.final_norm(x), aux
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         head = self.embed.T if self.cfg.tie_embeddings else self.head
@@ -106,7 +104,7 @@ class LM(nn.Module):
         """Process the prompt, filling the caches. Returns last-position
         logits (B, 1, V) and the cache."""
         x = embed(self.embed, tokens)
-        x = self.stack(x, caches=cache, pos=0, causal=True, impl=impl)
+        x, _ = self.stack(x, caches=cache, pos=0, causal=True, impl=impl)
         x = self.final_norm(x[:, -1:, :])
         return self._logits(x), cache
 
@@ -117,8 +115,8 @@ class LM(nn.Module):
         """One decode step. token: (B, 1) integer ids; pos: host integer,
         the position of ``token``."""
         x = embed(self.embed, token)
-        x = self.stack(x, caches=cache, pos=int(pos), causal=True,
-                       impl=impl)
+        x, _ = self.stack(x, caches=cache, pos=int(pos), causal=True,
+                          impl=impl)
         x = self.final_norm(x)
         return self._logits(x), cache
 
@@ -141,9 +139,9 @@ def _skeleton(cfg: ModelConfig) -> LM:
 
 def _hidden(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
             batch: Mapping[str, torch.Tensor],
-            impl: Optional[str]) -> torch.Tensor:
-    """The final-norm activations (B, S, D) of ``batch["tokens"]``, the
-    model's modules run on ``params``."""
+            impl: Optional[str]) -> Tuple[torch.Tensor, Aux]:
+    """The final-norm activations (B, S, D) of ``batch["tokens"]`` and
+    the MoE layers' aux losses, the model's modules run on ``params``."""
     extra = set(batch) - {"tokens", "labels"}
     if extra:
         raise NotImplementedError(
@@ -165,7 +163,8 @@ def forward_train(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
     """Logits (B, S, V) of the whole sequence, causal, no cache; and the
     layers' aux losses (none without MoE layers)."""
     _refuse_unported(cfg)
-    return _hidden(params, cfg, batch, impl) @ _head(params, cfg), {}
+    x, aux = _hidden(params, cfg, batch, impl)
+    return x @ _head(params, cfg), aux
 
 
 def _ce_chunk(head: torch.Tensor, xc: torch.Tensor, yc: torch.Tensor,
@@ -199,14 +198,22 @@ def _chunked_ce(head: torch.Tensor, x: torch.Tensor, labels: torch.Tensor,
 def loss_fn(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
             batch: Mapping[str, torch.Tensor], impl: Optional[str] = None,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Mean next-token cross-entropy over the labels >= 0, in fp32, and
-    the metrics ``{"ce_loss", "loss"}``."""
+    """Mean next-token cross-entropy over the labels >= 0, in fp32, plus
+    the MoE aux losses (``MOE_LB_WEIGHT`` x load balance + ``MOE_Z_WEIGHT``
+    x z-loss) where the model has MoE layers; the metrics ``{"ce_loss",
+    "loss"}`` and the aux losses ``moe_load_balance``, ``moe_z_loss`` and
+    ``moe_drop_fraction``."""
     _refuse_unported(cfg)
-    x = _hidden(params, cfg, batch, impl)
+    x, aux = _hidden(params, cfg, batch, impl)
     ce_sum, n_tok = _chunked_ce(_head(params, cfg), x, batch["labels"],
                                 CE_CHUNK)
     loss = ce_sum / torch.clamp(n_tok, min=1.0)
-    return loss, {"ce_loss": loss, "loss": loss}
+    metrics = {"ce_loss": loss, **aux}
+    if "moe_load_balance" in aux:
+        loss = (loss + MOE_LB_WEIGHT * aux["moe_load_balance"]
+                + MOE_Z_WEIGHT * aux["moe_z_loss"])
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def prefill(model: LM, batch: Mapping[str, torch.Tensor],

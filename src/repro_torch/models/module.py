@@ -37,7 +37,7 @@ def dense_init_(t: torch.Tensor, gen: torch.Generator,
     draw = torch.empty(t.shape, dtype=torch.float32, device=t.device)
     torch.nn.init.trunc_normal_(draw, 0.0, 1.0, -3.0, 3.0, generator=gen)
     with torch.no_grad():
-        return t.copy_(draw * std)
+        return t.copy_(draw.mul_(std))
 
 
 def embed_init_(t: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
@@ -45,7 +45,7 @@ def embed_init_(t: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
     draw = torch.empty(t.shape, dtype=torch.float32, device=t.device)
     torch.nn.init.normal_(draw, 0.0, 1.0, generator=gen)
     with torch.no_grad():
-        return t.copy_(draw * 0.02)
+        return t.copy_(draw.mul_(0.02))
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,7 @@ out.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -20,10 +20,10 @@ from torch import nn
 from .config import ModelConfig
 from .layers import MLP, Attention, RMSNorm, attn_cache_spec
 from .module import TensorSpec
+from .moe import Aux, MoE
 from .ssm import Mamba, mamba_cache_spec
 
-#: where the ROADMAP queues the families this slice refuses
-MOE_ITEM = "ROADMAP.md queue 1, item 12b (MoE layers)"
+#: where the ROADMAP queues the layers the port refuses
 CROSS_ITEM = ("ROADMAP.md queue 1, item 12c (cross-attention: "
               "encoder-decoder and VLM)")
 
@@ -32,14 +32,12 @@ LayerCache = Dict[str, Dict[str, torch.Tensor]]
 
 class Layer(nn.Module):
     """Pre-norm residual layer: norm1 -> attention or Mamba, then
-    norm2 -> MLP where the pattern has one (falcon-mamba has none)."""
+    norm2 -> MoE or MLP where the pattern has one (falcon-mamba has
+    none)."""
 
     def __init__(self, cfg: ModelConfig, spec: Dict[str, Any], device=None,
                  dtype=None):
         super().__init__()
-        if spec["moe"]:
-            raise NotImplementedError(
-                f"{cfg.name}: MoE layers are not ported yet ({MOE_ITEM})")
         if spec["cross_attn"]:
             raise NotImplementedError(
                 f"{cfg.name}: cross-attention layers are not ported yet "
@@ -50,15 +48,20 @@ class Layer(nn.Module):
             self.attn = Attention(cfg, device, dtype)
         else:
             self.ssm = Mamba(cfg, device, dtype)
-        self.has_mlp = spec["mlp"]
-        if self.has_mlp:
+        self.has_moe, self.has_mlp = spec["moe"], spec["mlp"]
+        if self.has_moe or self.has_mlp:
             self.norm2 = RMSNorm(cfg.d_model, cfg.norm_eps, device, dtype)
+        if self.has_moe:
+            self.moe = MoE(cfg, device, dtype)
+        elif self.has_mlp:
             self.mlp = MLP(cfg, cfg.d_ff, device, dtype)
 
     def forward(self, x: torch.Tensor, *, cache: Optional[LayerCache],
-                pos: int, causal: bool, impl: Optional[str]) -> torch.Tensor:
+                pos: int, causal: bool, impl: Optional[str],
+                aux: Optional[Aux] = None) -> torch.Tensor:
         """One layer; the layer's cache is updated in place (``None``: the
-        training forward, no cache)."""
+        training forward, no cache).  A MoE layer adds its aux losses
+        into ``aux`` (``None``: they are dropped)."""
         h = self.norm1(x)
         if self.kind == "attn":
             h = self.attn(h, cache=None if cache is None else cache["self"],
@@ -67,7 +70,13 @@ class Layer(nn.Module):
             h = self.ssm(h, cache=None if cache is None else cache["ssm"],
                          impl=impl)
         x = x + h
-        if self.has_mlp:
+        if self.has_moe:
+            h, layer_aux = self.moe(self.norm2(x))
+            x = x + h
+            if aux is not None:
+                for k, v in layer_aux.items():
+                    aux[k] = aux[k] + v if k in aux else v
+        elif self.has_mlp:
             x = x + self.mlp(self.norm2(x))
         return x
 
@@ -86,13 +95,18 @@ class Stack(nn.ModuleList):
 
     def forward(self, x: torch.Tensor, *,
                 caches: Optional[List[LayerCache]], pos: int = 0,
-                causal: bool = True,
-                impl: Optional[str] = None) -> torch.Tensor:
+                causal: bool = True, impl: Optional[str] = None,
+                ) -> Tuple[torch.Tensor, Aux]:
         """All layers; each layer's cache is updated in place (``caches=
-        None``: the training forward, no cache)."""
+        None``: the training forward, no cache).  Returns the output and
+        the MoE layers' aux losses, summed and divided by ``n_layers`` --
+        every layer, not the MoE layers alone, as the reference's
+        ``apply_stack`` divides ({} without MoE layers)."""
+        aux: Aux = {}
         for layer, cache in zip(self, caches or [None] * len(self)):
-            x = layer(x, cache=cache, pos=pos, causal=causal, impl=impl)
-        return x
+            x = layer(x, cache=cache, pos=pos, causal=causal, impl=impl,
+                      aux=aux)
+        return x, {k: v / len(self) for k, v in aux.items()}
 
 
 # ---------------------------------------------------------------------------

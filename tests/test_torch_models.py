@@ -5,8 +5,11 @@ JAX parameters of the smoke configs go through
 a seed) goes through JAX's ``bundle.prefill`` / ``bundle.decode``
 (``impl="ref"``) and the port's, with the JAX run's greedy tokens fed to
 both.  Models: qwen2.5-3b (dense GQA, QKV bias, tied head), falcon-mamba-7b
-(pure Mamba) and jamba's pattern with the MoE switched off and two
-superblocks (attention + Mamba, mixed caches, superblock unstacking).
+(pure Mamba), jamba's pattern with the MoE switched off and two
+superblocks (attention + Mamba, mixed caches, superblock unstacking), and
+the three MoE configs: kimi-k2 (8 experts top-2 and a shared expert, two
+superblocks of one layer), arctic (4 experts top-2 and a dense residual
+MLP) and jamba with its MoE (attention + Mamba + MoE in one superblock).
 
 Tolerances, relative to the largest magnitude of the reference tensor:
 - float32: 1e-4 (another summation order in every product), end to end.
@@ -51,12 +54,23 @@ MODELS = {
     "qwen2.5-3b": {},
     "falcon-mamba-7b": {},
     "jamba-1.5-large-398b": {"n_experts": 0, "n_layers": 16},
+    "kimi-k2-1t-a32b": {},
+    "arctic-480b": {},
+    "jamba-1.5-large-398b-moe": {},
 }
+#: the config a MODELS key names, where the key is not an arch id
+ARCH = {"jamba-1.5-large-398b-moe": "jamba-1.5-large-398b"}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+#: the archs the port refused before its MoE layers were ported: those
+#: it refuses now, and the MoE ones (the ids of
+#: test_unported_families_refused)
+UNPORTED_BEFORE_MOE = [a for a in ARCH_IDS
+                       if unported_reason(get_config(a))
+                       or get_config(a).n_experts > 0]
 
 
-def _cfgs(arch, dtype):
-    kw = dict(MODELS[arch], dtype=dtype)
+def _cfgs(key, dtype):
+    arch, kw = ARCH.get(key, key), dict(MODELS[key], dtype=dtype)
     return (jax_get_config(arch, smoke=True).replace(**kw),
             get_config(arch, smoke=True).replace(**kw))
 
@@ -228,12 +242,23 @@ def test_configs_equal_jax(arch):
                 dataclasses.asdict(jax_get_config(arch, smoke)))
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS
-                                  if unported_reason(get_config(a))])
+@pytest.mark.parametrize("arch", UNPORTED_BEFORE_MOE)
 def test_unported_families_refused(arch):
-    """MoE, encoder-decoder and VLM configs are refused, naming the
-    ROADMAP item that ports them."""
+    """Encoder-decoder and VLM configs are refused, naming the ROADMAP
+    item that ports them; the MoE configs, refused before their layers
+    were ported, build on the CPU and their prefill gives finite
+    logits."""
     cfg = get_config(arch, smoke=True)
+    if cfg.n_experts > 0:
+        assert unported_reason(cfg) is None
+        bundle = build_model(cfg, device="cpu")
+        logits, _ = bundle.prefill(
+            bundle.init(0), {"tokens": torch.as_tensor(_tokens(
+                cfg.vocab_size)[:, :S])}, bundle.make_cache(B, S_MAX))
+        assert logits.shape == (B, 1, cfg.vocab_size)
+        assert torch.isfinite(logits).all()
+        return
+    assert "item 12c" in unported_reason(cfg)
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1"):
         build_model(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1"):
@@ -243,7 +268,8 @@ def test_unported_families_refused(arch):
 def test_served_architectures():
     served = [a for a in ARCH_IDS if unported_reason(get_config(a)) is None]
     assert served == ["falcon-mamba-7b", "qwen2.5-3b", "granite-34b",
-                      "yi-9b", "minicpm-2b"]
+                      "yi-9b", "minicpm-2b", "jamba-1.5-large-398b",
+                      "kimi-k2-1t-a32b", "arctic-480b"]
 
 
 def test_params_from_jax_refuses_wrong_shapes():
