@@ -14,7 +14,8 @@ then the event engine with the reference's routing, the optimizer and an
 experiment file, whose CTMC points run through the chunk kernel; and at
 the end the paper's own tables (Fig. 2a / 2b and the Table-I sensitivity
 grid) through ``repro_torch.studies.paper_tables`` and the trace-fitting
-CLI (``scripts/torch_fit_hazard.py``).
+CLI (``scripts/torch_fit_hazard.py``); training; the MoE models; and the
+cross-attention models whisper-base and llama-3.2-vision-90b.
 Phases, each of which fails the run loudly:
 
 1. the card's name and power limit; build the nine kernel libraries
@@ -221,8 +222,9 @@ Phases, each of which fails the run loudly:
     loss and kernel launches (one a layer), the peak memory, and the
     first step's loss and grad norm against ``impl="ref"``;
 28. ``train.loop.train`` at examples/torch_train_with_failures.py's 100m
-    preset and cluster, 40 steps with a failure at step 25 (checkpoints in
-    a temporary folder, removed), against the same run without
+    preset and cluster, 20 steps with a failure at step 13 (checkpoints in
+    a temporary folder, removed; 40 steps and step 25 before phase 30
+    took its time), against the same run without
     injection: the recovery stats, the Young/Daly cadence, the loss
     falling, and the largest difference of the final parameters;
 29. the MoE layers: (a) kimi-k2-1t-a32b at 1 of its 61 layers and
@@ -240,7 +242,27 @@ Phases, each of which fails the run loudly:
     (c) the MoE dispatch (``_dispatch_one_group``) on the card bit for bit
     the CPU's at kimi-k2's full prefill shape; (d) ``make_train_step`` on
     the three MoE smoke configs on the card against the CPU (loss, aux
-    metrics, gradient norm, launches).
+    metrics, gradient norm, launches);
+30. cross-attention: (a) whisper-base at full size (6 encoder and 6
+    decoder layers) and (b) llama-3.2-vision-90b at full width cut to 2 of
+    its 20 superblocks (10 of 100 layers, 2 cross layers), served as in
+    phase 8 over bf16 frames (4 x 1,500) or image embeddings (4 x 1,600 x
+    1,280, through ``img_proj``), 64 and 512 prompt tokens: the parameter
+    count, the attention launches (the encoder's, self and cross in the
+    prefill; self and cross a decode step), finite logits, the encoder's
+    or projection's share of a traced prefill, the decode step beside its
+    bytes bound, the peak memory; (c) whisper-base and llama-vision's
+    smoke config in float32, encoder then decoder layers through the
+    kernels against ``impl="ref"`` as phase 9; (d) the attention kernel
+    alone at each shape of (a) and (b) (non-causal 1,500 x 1,500 in bf16
+    and float32, Sq != Sk, split-KV decode over a cross cache, 64 rows a
+    KV head on the decode kernel) against ``attention_ref``, timed beside
+    its bound, the plain version and ``scaled_dot_product_attention``
+    (run right after phase 3: short traces late in the run have dropped
+    kernels);
+    (e) ``make_train_step`` on the two smoke configs on the card against
+    the CPU on the pipeline's float32 frames and image embeddings, then
+    three steps of whisper-base at full size (launches a step).
 
 Prints a ``{"serving": ..., "host_paths": ...}`` line, a ``{"kernels":
 [...]}`` line and, as its last line, ``{"ok": true, "device": {...}}``.  Exits non-zero, with
@@ -585,6 +607,19 @@ def device_kernels_ms(fn, iters: int):
     return [(e.key, getattr(e, "self_device_time_total", 0.0) / iters / 1e3)
             for e in prof.key_averages()
             if str(e.device_type).endswith("CUDA")]
+
+
+def profiled_ms(fn, iters: int, tries: int = 3):
+    """``(ms, source)``: ``device_ms`` of ``fn``, traced again up to
+    ``tries`` times where a trace shows no device event (late in a long
+    run a short trace has shown none, at random), else ``event_ms`` --
+    host-clocked, so for a kernel shorter than its launch it is the
+    launch's time."""
+    for _ in range(tries):
+        ms = device_ms(fn, iters)
+        if ms is not None:
+            return ms, "profiler"
+    return event_ms(fn, iters), "cuda events"
 
 
 def event_ms(fn, iters: int, warmup: int = 20) -> float:
@@ -1252,18 +1287,20 @@ def chunk_phase(cc, vectorized, call, time_plain=True, wide=False):
     return t
 
 
-def generate(bundle, model, prompts, impl, fa, ms, n_new=None):
-    """Prefill ``prompts``, then greedy-decode until ``n_new`` new tokens:
-    times (host clock around work that ends in a synchronize), the last
-    prefill logits, the new ids and the kernels' launches."""
+def generate(bundle, model, prompts, impl, fa, ms, n_new=None, cross=None):
+    """Prefill ``prompts`` (with ``cross``, the batch's frames or image
+    embeddings, for a cross-attention model), then greedy-decode until
+    ``n_new`` new tokens: times (host clock around work that ends in a
+    synchronize), the last prefill logits, the new ids and the kernels'
+    launches."""
     import torch
     n_new = GEN_TOKENS if n_new is None else n_new
     B, S = prompts.shape
     cache = bundle.make_cache(B, S + n_new)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = bundle.prefill(model, {"tokens": prompts}, cache,
-                                   impl=impl)
+    logits, cache = bundle.prefill(model, {"tokens": prompts, **(cross or {})},
+                                   cache, impl=impl)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     after_prefill = (fa.LAUNCHES, ms.LAUNCHES)
@@ -1289,18 +1326,48 @@ def release() -> None:
     torch.cuda.empty_cache()
 
 
-def prompts_for(cfg):
+def prompts_for(cfg, prompt_len=PROMPT_LEN):
     import numpy as np
     import torch
     rng = np.random.default_rng(SEED)
-    ids = rng.integers(0, cfg.vocab_size, (SERVE_BATCH, PROMPT_LEN))
+    ids = rng.integers(0, cfg.vocab_size, (SERVE_BATCH, prompt_len))
     return torch.as_tensor(ids, device="cuda")
 
 
-def serving_phase(arch, fa, ms, n_layers=None, extra=None):
-    """Phase 8 for one model: the serving main path in bf16.  Phase 29
-    cuts the depth to ``n_layers`` and calls ``extra(bundle, model,
-    prompts, rec)`` before the model is released."""
+def cross_inputs_for(cfg, dtype):
+    """A cross-attention model's batch input on the card, from SEED:
+    frames (B, encoder_seq, D) or image embeddings (B, n_image_tokens,
+    d_image), scaled by 0.1 as ``with_frontend_stubs`` scales them; {}
+    for a model without cross-attention."""
+    import torch
+    from repro_torch.models.model_zoo import cross_input_key
+    key = cross_input_key(cfg)
+    if key is None:
+        return {}
+    shape = ((SERVE_BATCH, cfg.encoder_seq, cfg.d_model) if cfg.is_encdec
+             else (SERVE_BATCH, cfg.n_image_tokens, cfg.d_image))
+    return {key: (torch.randn(shape, generator=seeded(SEED), device="cuda")
+                  * 0.1).to(dtype)}
+
+
+def attention_launches(cfg):
+    """Attention launches of a prefill and of a decode step: the encoder's
+    layers and the decoder's self- and cross-attention layers in the
+    prefill, the decoder's in a decode step (which reads the cross
+    caches)."""
+    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+    n_cross = sum(cfg.layer_has_cross_attn(i) for i in range(cfg.n_layers))
+    step = kinds.count("attn") + n_cross
+    return cfg.encoder_layers + step, step
+
+
+def serving_phase(arch, fa, ms, n_layers=None, extra=None,
+                  prompt_len=PROMPT_LEN):
+    """Phase 8 for one model: the serving main path in bf16.  Phases 29
+    and 30 cut the depth to ``n_layers`` and call ``extra(bundle, model,
+    prompts, rec, cross)`` before the model is released; phase 30 serves
+    ``prompt_len``-token prompts with the frames or image embeddings its
+    models' cross-attention reads."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
@@ -1310,7 +1377,8 @@ def serving_phase(arch, fa, ms, n_layers=None, extra=None):
     if n_layers is not None:
         cfg = cfg.replace(n_layers=n_layers)
     kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
-    n_attn, n_ssm = kinds.count("attn"), kinds.count("ssm")
+    n_ssm = kinds.count("ssm")
+    attn_prefill, attn_step = attention_launches(cfg)
     bundle = build_model(cfg, device="cuda")
     t0 = time.perf_counter()
     model = bundle.init(SEED)
@@ -1321,12 +1389,14 @@ def serving_phase(arch, fa, ms, n_layers=None, extra=None):
     if n_params != cfg.param_count():
         fail(f"{arch}: {n_params} parameters, the config counts "
              f"{cfg.param_count()}")
-    prompts = prompts_for(cfg)
-    generate(bundle, model, prompts[:, :16], None, fa, ms, n_new=3)
+    prompts = prompts_for(cfg, prompt_len)
+    cross = cross_inputs_for(cfg, torch.bfloat16)
+    generate(bundle, model, prompts[:, :16], None, fa, ms, n_new=3,
+             cross=cross)
     fa.LAUNCHES = ms.LAUNCHES = 0            # the main path's run
-    out = generate(bundle, model, prompts, None, fa, ms)
-    want_prefill = (n_attn, n_ssm)
-    want_total = (n_attn * GEN_TOKENS, n_ssm)
+    out = generate(bundle, model, prompts, None, fa, ms, cross=cross)
+    want_prefill = (attn_prefill, n_ssm)
+    want_total = (attn_prefill + attn_step * (GEN_TOKENS - 1), n_ssm)
     if out["after_prefill"] != want_prefill \
             or out["after_decode"] != want_total:
         fail(f"{arch}: kernel launches (attention, scan) "
@@ -1341,7 +1411,7 @@ def serving_phase(arch, fa, ms, n_layers=None, extra=None):
     rec = {"arch": arch, "dtype": "bfloat16", "params": n_params,
            "bytes": n_bytes, "init_s": init_s,
            "prefill_s": out["prefill_s"],
-           "prefill_tokens_per_s": SERVE_BATCH * PROMPT_LEN
+           "prefill_tokens_per_s": SERVE_BATCH * prompt_len
            / out["prefill_s"],
            "decode_ms_per_step": out["decode_s"] / steps * 1e3,
            "decode_tokens_per_s": SERVE_BATCH * steps / out["decode_s"],
@@ -1349,7 +1419,7 @@ def serving_phase(arch, fa, ms, n_layers=None, extra=None):
            "scan_launches": out["after_decode"][1]}
     print(f"  {arch}: {n_params:,} parameters, {n_bytes / 1e9:.3f} GB; "
           f"init {init_s:.3f} s")
-    print(f"  prefill {SERVE_BATCH} x {PROMPT_LEN} tokens: "
+    print(f"  prefill {SERVE_BATCH} x {prompt_len} tokens: "
           f"{out['prefill_s'] * 1e3:.3f} ms ({rec['prefill_tokens_per_s']:.1f}"
           f" tokens/s)")
     print(f"  decode {steps} steps x {SERVE_BATCH} requests: "
@@ -1364,7 +1434,8 @@ def serving_phase(arch, fa, ms, n_layers=None, extra=None):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        generate(bundle, model, prompts, None, fa, ms, n_new=4)
+        generate(bundle, model, prompts, None, fa, ms, n_new=4,
+                 cross=cross)
         traced_wall = time.perf_counter() - t0
     fa.LAUNCHES, ms.LAUNCHES = launches
     busy = device_seconds(prof)
@@ -1381,7 +1452,7 @@ def serving_phase(arch, fa, ms, n_layers=None, extra=None):
                   f"{getattr(e, 'self_device_time_total', 0.0) / 1e3:.3f} ms")
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        generate(bundle, model, prompts, None, fa, ms, n_new=1)
+        generate(bundle, model, prompts, None, fa, ms, n_new=1, cross=cross)
     fa.LAUNCHES, ms.LAUNCHES = launches
     pre_s = device_seconds(prof)
     own = {"attention": "attn_", "scan": "selective_scan"}
@@ -1395,20 +1466,21 @@ def serving_phase(arch, fa, ms, n_layers=None, extra=None):
           + "; ".join(f"{k} kernels {v * 1e3:.3f} ms = "
                       f"{v / pre_s * 100:.2f}%" for k, v in own_s.items()))
     if extra is not None:
-        extra(bundle, model, prompts, rec)
+        extra(bundle, model, prompts, rec, cross)
         fa.LAUNCHES, ms.LAUNCHES = launches
     del model, sd
     release()
     return rec
 
 
-def layerwise_ab(bundle, model, prompts):
+def layerwise_ab(bundle, model, prompts, cross_src=None):
     """Each layer through the kernels and through the plain versions on
     the same input -- the plain path's hidden state -- for the prefill and
-    one decode step.  Returns the worst share of a layer's output elements
-    within AB_ELEM_TOL of its largest magnitude, the largest relative
-    difference, and the (request, position, layer) rows with an element
-    beyond that tolerance."""
+    one decode step (the cross-attention layers over ``cross_src`` in the
+    prefill and their caches in the decode step).  Returns the worst share
+    of a layer's output elements within AB_ELEM_TOL of its largest
+    magnitude, the largest relative difference, and the (request,
+    position, layer) rows with an element beyond that tolerance."""
     import torch
     from repro_torch.models.layers import embed
     impls = ("ref", "cuda")
@@ -1419,22 +1491,32 @@ def layerwise_ab(bundle, model, prompts):
     with torch.no_grad():
         for _ in range(2):                   # the prefill, one decode step
             x = embed(model.embed, tokens)
+            src = cross_src if pos == 0 else None
             for i, layer in enumerate(model.stack):
                 out = {impl: layer(x, cache=caches[impl][i], pos=pos,
-                                   causal=True, impl=impl)
+                                   causal=True, impl=impl, cross_src=src)
                        for impl in impls}
-                diff = (out["cuda"] - out["ref"]).abs()
-                scale = out["ref"].abs().max()
-                off = diff > AB_ELEM_TOL * scale
-                worst_share = min(worst_share,
-                                  1.0 - float(off.float().mean()))
-                worst_rel = max(worst_rel, float(diff.max() / scale))
-                rows_off += int(off.any(-1).sum())
+                share, rel, off = ab_stats(out)
+                worst_share = min(worst_share, share)
+                worst_rel = max(worst_rel, rel)
+                rows_off += off
                 x = out["ref"]
             logits = model._logits(model.final_norm(x[:, -1:]))
             pos += tokens.shape[1]
             tokens = logits[:, -1].argmax(-1, keepdim=True)
     return worst_share, worst_rel, rows_off
+
+
+def ab_stats(out):
+    """One layer's outputs through the kernels and the plain versions:
+    the share of elements within AB_ELEM_TOL of the plain output's
+    largest magnitude, the largest relative difference, the rows with an
+    element beyond it."""
+    diff = (out["cuda"] - out["ref"]).abs()
+    scale = out["ref"].abs().max()
+    off = diff > AB_ELEM_TOL * scale
+    return (1.0 - float(off.float().mean()), float(diff.max() / scale),
+            int(off.any(-1).sum()))
 
 
 def ab_phase(arch, fa, ms):
@@ -3643,11 +3725,11 @@ def train_step_phase(fa, ms, card_line):
 
 #: phase 28: examples/torch_train_with_failures.py's 100m preset and
 #: cluster, TRAIN_LOOP_STEPS steps, one deterministic failure
-TRAIN_LOOP_STEPS = 40
-TRAIN_LOOP_FAILURE = 25
+TRAIN_LOOP_STEPS = 20
+TRAIN_LOOP_FAILURE = 13
 #: no clipping: the random init's gradient explodes through the layers
 #: (its norm is printed), and a unit clip scales every gradient below
-#: AdamW's eps, so nothing would learn in 40 steps
+#: AdamW's eps, so nothing would learn in these steps
 TRAIN_LOOP_CLIP = float("inf")
 
 
@@ -3657,8 +3739,8 @@ def train_loop_phase(core):
     TRAIN_LOOP_FAILURE (checkpoints in a temporary directory), then the
     same run without injection: recovery stats, cadence, the two runs'
     final parameters, and the loss falling on a held-out batch (each
-    step's loss is on its own random batch, whose spread over 40 steps
-    is as large as the fall)."""
+    step's loss is on its own random batch, whose spread over the run's
+    steps is as large as the fall)."""
     import shutil
     import torch
     from repro_torch.configs.shapes import ShapeSpec
@@ -3800,7 +3882,7 @@ def moe_serving_extra(fa):
     from repro_torch.kernels import ref
     from repro_torch.models.moe import moe_capacity
 
-    def extra(bundle, model, prompts, rec):
+    def extra(bundle, model, prompts, rec, cross):
         cfg = bundle.cfg
         B, S = prompts.shape
         n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.n_layers))
@@ -4035,6 +4117,337 @@ def moe_dispatch_phase():
             "routed": routed, "assignments": B * S * k, "ms": t}
 
 
+#: phase 30: the cross-attention models.  whisper-base at full size (6
+#: encoder and 6 decoder layers): 4 requests of 1,500 frames each (30 s of
+#: audio after the stubbed conv frontend), a 64-token prompt and 32 new
+#: tokens, inside its 448-token decoder context.  llama-3.2-vision-90b at
+#: full width cut to 2 of its 20 superblocks (10 of 100 layers, 2 of them
+#: cross layers; 10.97 B parameters, 21.9 GB in bf16): 4 x 512 prompt
+#: tokens over 1,600 image tokens, as phase 29a serves.  (arch, layers or
+#: None for all, prompt tokens)
+CROSS_SERVE = (("whisper-base", None, 64),
+               ("llama-3.2-vision-90b", 10, PROMPT_LEN))
+#: phase 30c: the float32 A/B: (arch, smoke config, prompt tokens)
+CROSS_AB = (("whisper-base", False, 64),
+            ("llama-3.2-vision-90b", True, PROMPT_LEN))
+#: phase 30d: the attention kernel alone at the shapes phase 30's serving
+#: runs give it: (label, (B, Sq, Sk, Hq, Hkv, d), keywords, dtype)
+CROSS_REGIMES = (
+    ("whisper encoder", (4, 1500, 1500, 8, 8, 64), {"causal": False},
+     "bfloat16"),
+    ("whisper encoder, float32 frames", (4, 1500, 1500, 8, 8, 64),
+     {"causal": False}, "float32"),
+    ("whisper self prefill", (4, 64, 64, 8, 8, 64), {"causal": True},
+     "bfloat16"),
+    ("whisper self decode", (4, 1, 96, 8, 8, 64),
+     {"causal": False, "kv_len": 80}, "bfloat16"),
+    ("whisper cross prefill", (4, 64, 1500, 8, 8, 64), {"causal": False},
+     "bfloat16"),
+    ("whisper cross decode", (4, 1, 1500, 8, 8, 64), {"causal": False},
+     "bfloat16"),
+    ("vision self prefill", (4, 512, 512, 64, 8, 128), {"causal": True},
+     "bfloat16"),
+    ("vision cross prefill", (4, 512, 1600, 64, 8, 128), {"causal": False},
+     "bfloat16"),
+    ("vision cross decode", (4, 1, 1600, 64, 8, 128), {"causal": False},
+     "bfloat16"),
+)
+#: phase 30e: whisper-base's training batch is TRAIN_B x its decoder's
+#: 448-token context, over 1,500 frames
+CROSS_TRAIN_S = 448
+#: phase 30e: the card's float32 train step against the CPU's on the two
+#: smoke configs: the loss within MOE_TRAIN_REL, the gradient norm within
+#: this.  Their gradient norms are ill-conditioned at the reference's
+#: random weights (near one-hot attention): on the CPU a 1e-7 relative
+#: perturbation of the weights moves them 9.6e-5 (whisper) and 3.1e-4
+#: (llama-vision), and float32 against float64 differs by 1.7e-4 and
+#: 6.5e-4, where the dense and MoE smoke configs move 6e-6.
+CROSS_GRAD_NORM_REL = 1e-3
+
+
+def decode_bound_ms(cfg, model, batch, kv_len):
+    """Least time of one bf16 decode step at the card's memory rate, and
+    that of its weights alone: every weight the step reads once (not the
+    encoder or ``img_proj``, which decode does not run; of the embedding
+    table its ``batch`` rows unless it is the tied head), the self caches
+    up to ``kv_len`` and the cross caches whole."""
+    sd = model.state_dict()
+    wbytes = sum(t.numel() * t.element_size() for k, t in sd.items()
+                 if k not in ("embed", "img_proj")
+                 and not k.startswith("encoder."))
+    emb = sd["embed"]
+    wbytes += (emb.numel() if cfg.tie_embeddings
+               else batch * cfg.d_model) * emb.element_size()
+    n_cross = sum(cfg.layer_has_cross_attn(i) for i in range(cfg.n_layers))
+    n_self = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+    from repro_torch.models.model_zoo import cross_len
+    kv_bytes = (2 * batch * cfg.n_kv_heads * cfg.head_dim * 2
+                * (n_self * kv_len + n_cross * cross_len(cfg)))
+    return ((wbytes + kv_bytes) / HBM_BYTES_PER_S * 1e3,
+            wbytes / HBM_BYTES_PER_S * 1e3)
+
+
+#: phase 30a/b: calls of the cross source a trace averages over
+CROSS_SOURCE_ITERS = 5
+
+
+def cross_serving_extra(bundle, model, prompts, rec, cross):
+    """Phase 30a/b's checks on a served cross-attention model, before it
+    is released: the cross source alone traced (the encoder's or the
+    image projection's device time a call and its share of the traced
+    prefill's, and the attention kernels' time in it), the decode step
+    against its bytes bound, the peak memory."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    cfg = bundle.cfg
+    (key, x), = cross.items()
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(CROSS_SOURCE_ITERS):
+            model.cross_source(x)
+        torch.cuda.synchronize()
+    # printed only: the launch counts already show the encoder's attention
+    # launches, and a trace may show no device event (profiled_ms)
+    src_s = device_seconds(prof) / CROSS_SOURCE_ITERS
+    attn_s = sum(getattr(e, "self_device_time_total", 0.0)
+                 for e in prof.key_averages()
+                 if str(e.device_type).endswith("CUDA")
+                 and "attn_" in e.key) / 1e6 / CROSS_SOURCE_ITERS
+    step_ms = rec["decode_ms_per_step"]
+    kv = prompts.shape[1] + GEN_TOKENS // 2
+    bound, weights = decode_bound_ms(cfg, model, prompts.shape[0], kv)
+    peak = torch.cuda.max_memory_allocated()
+    what = "encoder" if cfg.is_encdec else "img_proj"
+    rec.update(n_layers=cfg.n_layers, peak_bytes=peak, cross_input=key,
+               traced_cross_source_device_s=src_s,
+               traced_cross_source_attention_s=attn_s,
+               decode_bound_ms=bound, decode_weights_bound_ms=weights,
+               decode_step_over_bound=step_ms / bound)
+    print(f"  traced {what} alone ({key} {tuple(x.shape)}, "
+          f"{CROSS_SOURCE_ITERS} calls): device {src_s * 1e3:.3f} ms a call = "
+          f"{src_s / (rec['traced_prefill_device_s'] or math.nan) * 100:.2f}"
+          "% of the "
+          f"traced prefill's, attention kernels {attn_s * 1e3:.3f} ms of it")
+    print(f"  decode {step_ms:.3f} ms a step = {step_ms / bound:.3f}x its "
+          f"bytes bound {bound:.3f} ms (the weights alone {weights:.3f} ms, "
+          f"3.35 TB/s); peak {peak / 2 ** 30:.2f} GiB allocated")
+
+
+def cross_regimes_phase(fa, ref):
+    """Phase 30d: the attention kernel alone at each shape phase 30's
+    serving runs give it, against ``attention_ref`` (phase 3's
+    tolerances), timed beside its bound, the plain version and
+    ``scaled_dot_product_attention`` (a yardstick the port never
+    calls)."""
+    import torch
+    import torch.nn.functional as F
+    tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+    out = []
+    launches = fa.LAUNCHES
+    for i, (label, shape, kw, dname) in enumerate(CROSS_REGIMES):
+        dtype = getattr(torch, dname)
+        q, k, v = attn_inputs(*shape, dtype, seed=300 + i)
+        route = ("decode" if fa.takes_decode(q, k) else
+                 "tile" if dtype == torch.bfloat16 else "float32 SIMT")
+        err, within = close_err(fa.flash_attention_cuda(q, k, v, **kw),
+                                ref.attention_ref(q, k, v, **kw), tol[dtype])
+        if not within:
+            fail(f"attention kernel disagrees with attention_ref at {label} "
+                 f"{shape} {dname} (max abs err {err:.3e}, tolerance "
+                 f"{tol[dtype]})")
+        n = kw.get("kv_len", shape[2])
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k[:, :n], v[:, :n]))
+        rec = {"label": label, "shape": list(shape), "dtype": dname,
+               "route": route, **kw, "max_abs_err": err}
+        for key, fn, iters in (
+                ("ms", lambda: fa.flash_attention_cuda(q, k, v, **kw), 20),
+                ("plain_ms", lambda: ref.attention_ref(q, k, v, **kw), 5),
+                ("library_ms", lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=kw["causal"], enable_gqa=True),
+                 20)):
+            rec[key], rec[f"{key}_source"] = profiled_ms(fn, iters)
+        rec["bound_ms"], rec["bound_by"] = attn_bound_ms(
+            q, k, kw["causal"], kv_len=kw.get("kv_len"))
+        print(f"  {label} {shape} {dname} ({route} kernel): max abs err "
+              f"{err:.3e}; " + ", ".join(
+                  f"{what} {rec[key]:.6f} ms ({rec[key + '_source']})"
+                  for what, key in (("device", "ms"), ("plain", "plain_ms"),
+                                    ("scaled_dot_product_attention",
+                                     "library_ms")))
+              + f"; bound {rec['bound_ms']:.6f} ms ({rec['bound_by']})")
+        out.append(rec)
+        del q, k, v, qt, kt, vt
+    fa.LAUNCHES = launches
+    release()
+    return out
+
+
+def cross_ab_phase(fa, ms):
+    """Phase 30c: float32 weights through the kernels and through the
+    plain versions, a layer at a time on the plain path's input: the
+    encoder's layers, then the decoder's over the plain path's cross
+    source, held to phase 9's rule."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    out = []
+    for arch, smoke, prompt_len in CROSS_AB:
+        cfg = get_config(arch, smoke=smoke)
+        bundle = build_model(cfg, device="cuda", dtype=torch.float32)
+        model = bundle.init(SEED)
+        prompts = prompts_for(cfg, prompt_len)
+        (key, x), = cross_inputs_for(cfg, torch.float32).items()
+        enc_share, enc_rel, enc_rows = 1.0, 0.0, 0
+        with torch.no_grad():
+            if cfg.is_encdec:
+                h = x
+                for layer in model.encoder.stack:
+                    o = {impl: layer(h, cache=None, pos=0, causal=False,
+                                     impl=impl) for impl in ("ref", "cuda")}
+                    share, rel, rows = ab_stats(o)
+                    enc_share = min(enc_share, share)
+                    enc_rel, enc_rows = max(enc_rel, rel), enc_rows + rows
+                    h = o["ref"]
+                src = model.encoder.final_norm(h)
+            else:
+                src = model.cross_source(x, impl="ref")
+        share, rel, rows = layerwise_ab(bundle, model, prompts, cross_src=src)
+        label = f"{arch}{' (smoke)' if smoke else ''}"
+        print(f"  {label} float32, layer by layer on the same input: "
+              + (f"encoder worst share within {AB_ELEM_TOL} of the scale "
+                 f"{enc_share * 100:.4f}%, largest relative difference "
+                 f"{enc_rel:.3e}, rows beyond it {enc_rows}; "
+                 if cfg.is_encdec else "")
+              + f"decoder (prefill over {key}, 1 decode step over the cross "
+              f"caches) {share * 100:.4f}%, {rel:.3e}, {rows}")
+        if min(share, enc_share) < AB_ELEM_SHARE:
+            fail(f"{label} float32: a layer through the kernels disagrees "
+                 f"with the plain one on more than "
+                 f"{(1 - AB_ELEM_SHARE) * 100:.4f}% of its elements")
+        out.append({"arch": label, "dtype": "float32",
+                    "encoder_share_within": enc_share,
+                    "encoder_max_rel_err": enc_rel,
+                    "encoder_rows_beyond": enc_rows,
+                    "layer_share_within": share, "layer_max_rel_err": rel,
+                    "layer_rows_beyond": rows})
+        del model, src
+        release()
+    return out
+
+
+def cross_train_phase(fa, ms, card_line):
+    """Phase 30e: ``make_train_step`` on the two smoke configs in float32,
+    on the card against the CPU from the same weights and the pipeline's
+    stubbed batch (float32 frames or image embeddings): the loss within
+    MOE_TRAIN_REL, the gradient norm within CROSS_GRAD_NORM_REL, and the
+    attention launches; then three steps of whisper-base at full size
+    (bf16 parameters, float32 AdamW state, the encoder in float32 on the
+    float32 frames): finite losses and the attention launches a step."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.parallel import make_train_step
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+
+    def batches(cfg, shape, n):
+        pipe = SyntheticTokenPipeline(DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=shape.seq_len + 1,
+            global_batch=shape.global_batch, seed=SEED))
+        out = []
+        for _ in range(n):
+            b = {k: v[:, :shape.seq_len] for k, v in next(pipe).items()}
+            out.append({k: torch.as_tensor(v) for k, v in
+                        pipe.with_frontend_stubs(b, cfg).items()})
+        return out
+
+    shape = ShapeSpec("cross_train", 64, 4, "train")
+    opt_cfg = OptimizerConfig()
+    out = {}
+    for arch, _, _ in CROSS_AB:
+        cfg = get_config(arch, smoke=True).replace(dtype="float32")
+        (batch,) = batches(cfg, shape, 1)
+        card = build_model(cfg)
+        weights = card.init(SEED).state_dict()
+        runs = {}
+        for dev, bundle in (("cuda", card),
+                            ("cpu", build_model(cfg, device="cpu"))):
+            params = {k: t.detach().clone().to(dev)
+                      for k, t in weights.items()}
+            state = {"params": params, "opt": init_opt_state(params,
+                                                              opt_cfg)}
+            mesh = make_host_mesh(device=dev)
+            built = make_train_step(bundle, mesh, shape, opt_cfg)
+            before = fa.LAUNCHES
+            with mesh:
+                _, metrics = built.fn(state, {k: v.to(dev)
+                                              for k, v in batch.items()})
+            runs[dev] = ({k: float(v) for k, v in metrics.items()},
+                         fa.LAUNCHES - before)
+            fa.LAUNCHES = before
+        got, want = runs["cuda"][0], runs["cpu"][0]
+        rel = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-6)
+               for k in want}
+        launches = {d: r[1] for d, r in runs.items()}
+        want_launches = {"cuda": attention_launches(cfg)[0], "cpu": 0}
+        print(f"  {cfg.name} smoke: loss {got['loss']:.6f} (cpu "
+              f"{want['loss']:.6f}), grad_norm {got['grad_norm']:.6f} (cpu "
+              f"{want['grad_norm']:.6f}); relative difference card against "
+              f"CPU {rel}; attention launches {launches}")
+        if (sorted(got) != sorted(want)
+                or max(v for k, v in rel.items() if k != "grad_norm")
+                > MOE_TRAIN_REL or rel["grad_norm"] > CROSS_GRAD_NORM_REL
+                or launches != want_launches):
+            fail(f"{cfg.name} smoke: the card's train step against the "
+                 f"CPU's: {rel}, launches {launches}, want {want_launches}")
+        out[cfg.name] = {"metrics": got, "cpu_metrics": want,
+                         "rel_diff": rel, "launches": launches["cuda"]}
+
+    cfg = get_config("whisper-base")
+    shape = ShapeSpec("train", CROSS_TRAIN_S, TRAIN_B, "train")
+    opt_cfg = OptimizerConfig(learning_rate=1e-4, warmup_steps=1,
+                              total_steps=TRAIN_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    bundle = build_model(cfg)
+    params = {k: p.detach() for k, p in bundle.init(SEED).state_dict().items()}
+    state = {"params": params, "opt": init_opt_state(params, opt_cfg)}
+    built = make_train_step(bundle, make_host_mesh(), shape, opt_cfg)
+    steps = []
+    with make_host_mesh():
+        for batch in batches(cfg, shape, TRAIN_STEPS):
+            before = fa.LAUNCHES
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, metrics = built.fn(state, {k: v.cuda()
+                                              for k, v in batch.items()})
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            steps.append({"wall_s": time.perf_counter() - t1, "loss": loss,
+                          "grad_norm": float(metrics["grad_norm"]),
+                          "launches": fa.LAUNCHES - before})
+            fa.LAUNCHES = before
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  {cfg.name} at full size ({cfg.encoder_layers} + {cfg.n_layers} "
+          f"layers, bf16 parameters, float32 AdamW state, batch {TRAIN_B} x "
+          f"{CROSS_TRAIN_S} tokens over {cfg.encoder_seq} float32 frames; "
+          f"{card_line}): peak {peak:.2f} GiB allocated")
+    for i, st in enumerate(steps):
+        print(f"    step {i}: wall {st['wall_s'] * 1e3:.1f} ms, loss "
+              f"{st['loss']:.5f}, grad_norm {st['grad_norm']:.4f}, "
+              f"attention launches {st['launches']}")
+    want = attention_launches(cfg)[0]
+    if not all(math.isfinite(st["loss"]) for st in steps) or any(
+            st["launches"] != want for st in steps):
+        fail(f"{cfg.name}: losses {[st['loss'] for st in steps]}, attention"
+             f" launches {[st['launches'] for st in steps]}, want {want} a "
+             "step")
+    out[cfg.name] = {"steps": steps, "peak_gib": peak}
+    del state, built, bundle, params
+    release()
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4104,6 +4517,13 @@ def main() -> int:
     # ---- phases 3-4: the serving kernels against their plain versions -----
     phase("phase 3: flash_attention kernel vs plain PyTorch version")
     attn = attention_phase(fa, ref)
+    # phase 30's kernel-alone timings run here: short traces taken late
+    # in the run have shown no kernel, or only some of a call's kernels
+    phase("phase 30d: the attention kernel alone at phase 30's shapes "
+          "(run beside phase 3)")
+    t30d = time.perf_counter()
+    cross_regimes = cross_regimes_phase(fa, ref)
+    t30d = time.perf_counter() - t30d
     phase("phase 4: selective_scan kernel vs plain PyTorch version")
     scan = scan_phase(ms, ref)
 
@@ -4517,6 +4937,36 @@ def main() -> int:
     host_paths["moe_seconds"] = time.perf_counter() - t29
     print(f"  phase 29: {host_paths['moe_seconds']:.3f} s")
 
+    # ---- phase 30: cross-attention -----------------------------------------
+    t30 = time.perf_counter()
+    cross_launches = {}
+    for sub, (arch, n_layers, prompt_len) in zip("ab", CROSS_SERVE):
+        cfg = get_config(arch)
+        depth = (f"all {cfg.encoder_layers} encoder and {cfg.n_layers} "
+                 "decoder layers" if n_layers is None else
+                 f"{n_layers} of {cfg.n_layers} layers "
+                 f"({n_layers // cfg.superblock_size} of its "
+                 f"{cfg.n_superblocks} superblocks)")
+        phase(f"phase 30{sub}: serving {arch} at full width, {depth} (bf16, "
+              f"random weights from seed {SEED}): {SERVE_BATCH} prompts x "
+              f"{prompt_len} tokens over their "
+              f"{'frames' if cfg.is_encdec else 'image tokens'}, "
+              f"{GEN_TOKENS} new tokens each, greedy")
+        torch.cuda.reset_peak_memory_stats()
+        rec = serving_phase(arch, fa, ms, n_layers=n_layers,
+                            extra=cross_serving_extra, prompt_len=prompt_len)
+        serving.append(rec)
+        cross_launches[arch] = rec["attention_launches"]
+    phase("phase 30c: whisper-base and llama-3.2-vision-90b's smoke config in "
+          "float32, impl='cuda' against impl='ref', layer by layer")
+    ab.extend(cross_ab_phase(fa, ms))
+    phase("phase 30e: make_train_step on the cross-attention smoke configs on "
+          "the card against the CPU, then whisper-base at full size")
+    host_paths["cross_train"] = cross_train_phase(fa, ms, card_line)
+    host_paths["cross_seconds"] = time.perf_counter() - t30 + t30d
+    print(f"  phase 30: {host_paths['cross_seconds']:.3f} s ({t30d:.3f} s "
+          "of it phase 30d, beside phase 3)")
+
     # the standalone race's record: its launches on the main paths, the
     # single-job (phase 5) and multi-job (phases 20, 20b, 21) ones, where
     # the chunk kernels replaced it (0: each phase fails on a race launch);
@@ -4683,10 +5133,16 @@ def main() -> int:
         moe_paths = ({**moe_launches, f"{MOE_AB_ARCH} (smoke)":
                       moe_ab["attention_launches"]} if name == "flash_attention"
                      else {f"{MOE_AB_ARCH} (smoke)": moe_ab["scan_launches"]})
+        cross = ({"cross_serving_launches": cross_launches,
+                  "cross_train_launches_per_step": [
+                      st["launches"] for st in
+                      host_paths["cross_train"]["whisper-base"]["steps"]],
+                  "cross_regimes": cross_regimes}
+                 if name == "flash_attention" else {})
         kernels.append(dict(t, name=name, route="cuda", source=source,
                             replaces=replaces, launches=launches_,
                             train_launches_per_step=train_launches[arch],
-                            moe_serving_launches=moe_paths,
+                            moe_serving_launches=moe_paths, **cross,
                             ms=t["call_ms"] if t["ms"] is None else t["ms"]))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, builds "
           "included")

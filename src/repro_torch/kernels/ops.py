@@ -129,6 +129,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``q_offset`` are refused on every path (no query row may be left
     without a key).  Differentiable on both paths: the kernel path's
     backward is the plain version's, recomputed from q, k and v.
+
+    q, k and v may differ in dtype (a training cross-attention's bf16
+    queries over float32 encoder states): the math runs in their
+    promoted type and the output is in q's, as in the plain version (the
+    kernel takes one dtype, so its inputs are cast first).
     """
     use_kernel = _use_kernel("flash_attention", impl, q)
     q_offset = int(q_offset)
@@ -141,7 +146,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not use_kernel:
         return ref.attention_ref(q, k, v, causal=causal, q_offset=q_offset,
                                  kv_len=kv_len)
-    return _AttentionFn.apply(q, k, v, causal, q_offset, kv_len)
+    dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
+    out = _AttentionFn.apply(q.to(dt), k.to(dt), v.to(dt), causal, q_offset,
+                             kv_len)
+    return out.to(q.dtype)
 
 
 def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

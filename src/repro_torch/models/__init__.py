@@ -1,5 +1,5 @@
-"""Model zoo of the port: decoder-only LMs in PyTorch, for serving and
-training."""
+"""Model zoo of the port: decoder-only, encoder-decoder and VLM LMs in
+PyTorch, for serving and training."""
 
 from .config import ModelConfig
 from .model_zoo import (LM, ModelBundle, build_model, decode_step,

@@ -1,10 +1,14 @@
 """Model construction: config -> (init, loss, forward, prefill, decode).
 
-Counterpart of ``src/repro/models/model_zoo.py``, for decoder-only LMs
-whose layers are attention, Mamba, dense MLPs and MoE layers (the dense,
-SSM and MoE families, and hybrids of them).  The cross-attention of
-encoder-decoder and VLM models is refused, naming the ROADMAP item that
-ports it.
+Counterpart of ``src/repro/models/model_zoo.py``, for every family the
+reference builds:
+  * decoder-only LMs (dense / MoE / SSM / hybrid) -- tokens in, logits out;
+  * encoder-decoder (whisper backbone) -- the audio conv frontend is a
+    STUB, as in the reference: ``frames`` arrive as precomputed
+    (B, encoder_seq, d_model) embeddings and run through the encoder;
+  * VLM (llama-3.2-vision backbone) -- the patch frontend is a STUB:
+    ``image_embeds`` arrive as (B, n_image_tokens, d_image) and are
+    projected into d_model for the cross-attention layers.
 
 Entry points per model, as in the reference:
   * forward_train(params, cfg, batch)    -> logits, aux
@@ -12,8 +16,11 @@ Entry points per model, as in the reference:
   * prefill(model, batch, cache)         -> last-position logits, cache
   * decode_step(model, token, cache, pos) -> logits, cache
 
-Training takes the parameters as the port's parameter dict (name ->
-tensor, ``LM.state_dict()``'s names) and runs the model's modules on them
+A batch holds ``tokens`` (and ``labels`` for the loss) and, for the
+cross-attention families, the cross input :func:`cross_input_key` names;
+decode reads the cross caches that prefill filled.  Training takes the
+parameters as the port's parameter dict (name -> tensor,
+``LM.state_dict()``'s names) and runs the model's modules on them
 (``torch.func.functional_call``), under autograd; serving runs an
 :class:`LM` and updates its cache in place.  :func:`params_from_jax` and
 :func:`train_state_from_jax` carry a JAX parameter tree and train state
@@ -35,37 +42,78 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .config import ModelConfig
-from .layers import RMSNorm, embed
+from .layers import RMSNorm, embed, promoted_einsum
 from .module import dense_init_, embed_init_, empty_param, tree_paths
 from .moe import Aux
-from .transformer import (CROSS_ITEM, LayerCache, Stack, init_cache,
-                          stack_cache_spec)
+from .transformer import LayerCache, Stack, init_cache, stack_cache_spec
 
 
 def unported_reason(cfg: ModelConfig) -> Optional[str]:
-    """Why the port cannot run ``cfg`` yet (None when it can)."""
-    if cfg.is_encdec or cfg.cross_attn_period > 0:
-        return (f"{cfg.name} needs cross-attention (family {cfg.family!r}), "
-                f"not ported yet: {CROSS_ITEM}")
-    if cfg.act != "silu":
-        return (f"{cfg.name} uses a {cfg.act!r} MLP; the port's MLP is "
-                "SwiGLU (the reference's other MLP serves only "
-                f"encoder-decoder models: {CROSS_ITEM})")
+    """Why the port cannot run ``cfg`` (None: it runs every family the
+    reference builds, so this is None for every config)."""
     return None
 
 
-def _refuse_unported(cfg: ModelConfig) -> None:
-    reason = unported_reason(cfg)
-    if reason is not None:
-        raise NotImplementedError(reason)
+def encoder_config(cfg: ModelConfig) -> ModelConfig:
+    """Whisper encoder: uniform bidirectional attention + dense MLP."""
+    return cfg.replace(n_layers=cfg.encoder_layers, encoder_layers=0,
+                       cross_attn_period=0, ssm_state=0, attn_period=1,
+                       n_experts=0, top_k=0)
 
 
-class LM(nn.Module):
-    """Decoder-only LM: embed -> stack -> final norm -> (tied) head."""
+def cross_input_key(cfg: ModelConfig) -> Optional[str]:
+    """The batch key that feeds ``cfg``'s cross-attention: ``"frames"``
+    for an encoder-decoder, ``"image_embeds"`` for a VLM, None for a
+    decoder-only model."""
+    if cfg.is_encdec:
+        return "frames"
+    return "image_embeds" if cfg.cross_attn_period > 0 else None
+
+
+def cross_len(cfg: ModelConfig) -> int:
+    """Positions of the cross caches: the encoder's frames, the image
+    tokens, or 0 without cross-attention."""
+    return (cfg.encoder_seq if cfg.is_encdec
+            else cfg.n_image_tokens if cfg.cross_attn_period else 0)
+
+
+def _cross_input(cfg: ModelConfig, batch: Mapping[str, torch.Tensor],
+                 known: Tuple[str, ...]) -> Optional[torch.Tensor]:
+    """``batch``'s cross input for ``cfg`` (None where it has none);
+    refuses keys other than ``known`` and that input's."""
+    key = cross_input_key(cfg)
+    extra = set(batch) - set(known) - {key}
+    if extra:
+        raise ValueError(
+            f"{cfg.name}: inputs {sorted(extra)} are not used "
+            + (f"(its cross-attention reads {key!r})" if key else
+               "(it has no cross-attention layers)"))
+    return batch.get(key)
+
+
+class Encoder(nn.Module):
+    """An encoder-decoder's encoder: a :class:`Stack` of
+    :func:`encoder_config` run bidirectionally with no cache, then its own
+    final norm."""
 
     def __init__(self, cfg: ModelConfig, device=None, dtype=None):
         super().__init__()
-        _refuse_unported(cfg)
+        self.stack = Stack(encoder_config(cfg), device, dtype)
+        self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, device, dtype)
+
+    def forward(self, frames: torch.Tensor,
+                impl: Optional[str] = None) -> torch.Tensor:
+        h, _ = self.stack(frames, caches=None, causal=False, impl=impl)
+        return self.final_norm(h)
+
+
+class LM(nn.Module):
+    """LM: embed -> stack -> final norm -> (tied) head; an encoder-decoder
+    also holds its :class:`Encoder` (``encoder``), a VLM whose image width
+    is not ``d_model`` its patch projection ``img_proj`` (d_image, D)."""
+
+    def __init__(self, cfg: ModelConfig, device=None, dtype=None):
+        super().__init__()
         self.cfg = cfg
         V, D = cfg.vocab_size, cfg.d_model
         self.embed = empty_param((V, D), device, dtype)
@@ -73,24 +121,53 @@ class LM(nn.Module):
         self.final_norm = RMSNorm(D, cfg.norm_eps, device, dtype)
         if not cfg.tie_embeddings:
             self.head = empty_param((D, V), device, dtype)
+        if cfg.is_encdec:
+            self.encoder = Encoder(cfg, device, dtype)
+        if cfg.cross_attn_period > 0 and cfg.d_image not in (0, D):
+            self.img_proj = empty_param((cfg.d_image, D), device, dtype)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         """Random weights from ``gen``, with the reference's distributions."""
         embed_init_(self.embed, gen)
         if not self.cfg.tie_embeddings:
             dense_init_(self.head, gen)
+        if hasattr(self, "img_proj"):
+            dense_init_(self.img_proj, gen)
         for m in self.modules():
             if m is not self and hasattr(m, "reset_parameters"):
                 m.reset_parameters(gen)
 
+    def cross_source(self, cross_input: Optional[torch.Tensor],
+                     impl: Optional[str] = None,
+                     ) -> Optional[torch.Tensor]:
+        """The states the cross-attention layers attend over: the encoder's
+        output on ``frames`` (in the frames' and weights' promoted type,
+        as JAX promotes them), or ``image_embeds`` through ``img_proj``
+        and cast to the model's dtype; None without cross-attention."""
+        key = cross_input_key(self.cfg)
+        if key is None:
+            return None
+        if cross_input is None:
+            raise ValueError(f"{self.cfg.name}: the batch needs {key!r}, "
+                             "the input of its cross-attention layers")
+        if self.cfg.is_encdec:
+            return self.encoder(cross_input, impl)
+        img = cross_input
+        if hasattr(self, "img_proj"):
+            img = promoted_einsum("bnd,de->bne", img, self.img_proj)
+        return img.to(self.embed.dtype)
+
     def forward(self, tokens: torch.Tensor, impl: Optional[str] = None,
+                cross_input: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, Aux]:
         """The training forward: final-norm activations (B, S, D) of the
         whole sequence, causal, with no cache and under autograd, and the
         MoE layers' aux losses (:func:`forward_train` and :func:`loss_fn`
-        run it on a parameter dict)."""
+        run it on a parameter dict).  ``cross_input``: the batch's
+        ``frames`` or ``image_embeds``."""
         x = embed(self.embed, tokens)
-        x, aux = self.stack(x, caches=None, pos=0, causal=True, impl=impl)
+        x, aux = self.stack(x, caches=None, pos=0, causal=True, impl=impl,
+                            cross_src=self.cross_source(cross_input, impl))
         return self.final_norm(x), aux
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
@@ -100,11 +177,14 @@ class LM(nn.Module):
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, cache: List[LayerCache],
                 impl: Optional[str] = None,
+                cross_input: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, List[LayerCache]]:
-        """Process the prompt, filling the caches. Returns last-position
-        logits (B, 1, V) and the cache."""
+        """Process the prompt, filling the caches (the cross caches from
+        ``cross_input``, through the encoder for an encoder-decoder).
+        Returns last-position logits (B, 1, V) and the cache."""
         x = embed(self.embed, tokens)
-        x, _ = self.stack(x, caches=cache, pos=0, causal=True, impl=impl)
+        x, _ = self.stack(x, caches=cache, pos=0, causal=True, impl=impl,
+                          cross_src=self.cross_source(cross_input, impl))
         x = self.final_norm(x[:, -1:, :])
         return self._logits(x), cache
 
@@ -113,7 +193,7 @@ class LM(nn.Module):
                     pos: int, impl: Optional[str] = None,
                     ) -> Tuple[torch.Tensor, List[LayerCache]]:
         """One decode step. token: (B, 1) integer ids; pos: host integer,
-        the position of ``token``."""
+        the position of ``token``.  Cross-attention reads its caches."""
         x = embed(self.embed, token)
         x, _ = self.stack(x, caches=cache, pos=int(pos), causal=True,
                           impl=impl)
@@ -141,15 +221,13 @@ def _hidden(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
             batch: Mapping[str, torch.Tensor],
             impl: Optional[str]) -> Tuple[torch.Tensor, Aux]:
     """The final-norm activations (B, S, D) of ``batch["tokens"]`` and
-    the MoE layers' aux losses, the model's modules run on ``params``."""
-    extra = set(batch) - {"tokens", "labels"}
-    if extra:
-        raise NotImplementedError(
-            f"inputs {sorted(extra)} feed cross-attention, not ported yet: "
-            f"{CROSS_ITEM}")
-    return torch.func.functional_call(_skeleton(cfg), dict(params),
-                                      (batch["tokens"],), {"impl": impl},
-                                      strict=True)
+    the MoE layers' aux losses, the model's modules run on ``params``
+    (the cross input, where ``cfg`` has one, through its encoder or
+    projection)."""
+    cross = _cross_input(cfg, batch, ("tokens", "labels"))
+    return torch.func.functional_call(
+        _skeleton(cfg), dict(params), (batch["tokens"],),
+        {"impl": impl, "cross_input": cross}, strict=True)
 
 
 def _head(params: Mapping[str, torch.Tensor], cfg: ModelConfig):
@@ -162,7 +240,6 @@ def forward_train(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Logits (B, S, V) of the whole sequence, causal, no cache; and the
     layers' aux losses (none without MoE layers)."""
-    _refuse_unported(cfg)
     x, aux = _hidden(params, cfg, batch, impl)
     return x @ _head(params, cfg), aux
 
@@ -203,7 +280,6 @@ def loss_fn(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
     x z-loss) where the model has MoE layers; the metrics ``{"ce_loss",
     "loss"}`` and the aux losses ``moe_load_balance``, ``moe_z_loss`` and
     ``moe_drop_fraction``."""
-    _refuse_unported(cfg)
     x, aux = _hidden(params, cfg, batch, impl)
     ce_sum, n_tok = _chunked_ce(_head(params, cfg), x, batch["labels"],
                                 CE_CHUNK)
@@ -219,20 +295,19 @@ def loss_fn(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
 def prefill(model: LM, batch: Mapping[str, torch.Tensor],
             cache: List[LayerCache], impl: Optional[str] = None,
             ) -> Tuple[torch.Tensor, List[LayerCache]]:
-    """Process the prompt ``batch["tokens"]`` (B, S), writing the caches.
+    """Process the prompt ``batch["tokens"]`` (B, S), writing the caches
+    (the cross caches from the batch's ``frames`` or ``image_embeds``).
     Returns last-position logits (B, 1, V) and the cache."""
-    extra = set(batch) - {"tokens"}
-    if extra:
-        raise NotImplementedError(
-            f"prefill: inputs {sorted(extra)} feed cross-attention, not "
-            f"ported yet: {CROSS_ITEM}")
-    return model.prefill(batch["tokens"], cache, impl=impl)
+    cross = _cross_input(model.cfg, batch, ("tokens",))
+    return model.prefill(batch["tokens"], cache, impl=impl,
+                         cross_input=cross)
 
 
 def decode_step(model: LM, token: torch.Tensor, cache: List[LayerCache],
                 pos: int, impl: Optional[str] = None,
                 ) -> Tuple[torch.Tensor, List[LayerCache]]:
-    """One decode step. token: (B, 1) integer ids; pos: host integer."""
+    """One decode step. token: (B, 1) integer ids; pos: host integer.
+    The cross-attention layers read the cross caches that prefill wrote."""
     return model.decode_step(token, cache, pos, impl=impl)
 
 
@@ -261,9 +336,12 @@ def build_model(cfg: ModelConfig, device=None,
     fp32).  ``init(seed)`` returns an :class:`LM` with random weights made
     on the device from ``seed``; ``loss(params, batch, impl=None)`` and
     ``forward(params, batch, impl=None)`` are :func:`loss_fn` and
-    :func:`forward_train` on a parameter dict."""
-    _refuse_unported(cfg)
+    :func:`forward_train` on a parameter dict.  The caches'
+    cross-attention entries have the reference's ``cross_len``:
+    ``encoder_seq`` for an encoder-decoder, ``n_image_tokens`` for a
+    VLM."""
     dev = resolve_device(device)
+    n_cross = cross_len(cfg)
     dt = getattr(torch, cfg.dtype) if dtype is None else dtype
 
     def init(seed: int) -> LM:
@@ -281,16 +359,16 @@ def build_model(cfg: ModelConfig, device=None,
             lambda p, b, c=cfg, **kw: forward_train(p, c, b, **kw)),
         prefill=prefill, decode=decode_step,
         make_cache=lambda batch, s_max: init_cache(cfg, batch, s_max, dt,
-                                                   dev),
+                                                   dev, n_cross),
         cache_spec=lambda batch, s_max: stack_cache_spec(cfg, batch, s_max,
-                                                         dt))
+                                                         dt, n_cross))
 
 
 # ---------------------------------------------------------------------------
 # JAX parameters -> the port's state dict
 # ---------------------------------------------------------------------------
 
-_STACK_PATH = re.compile(r"stack/layer(\d+)/(.+)")
+_STACK_PATH = re.compile(r"(encoder/)?stack/layer(\d+)/(.+)")
 
 
 def _to_tensor(a) -> torch.Tensor:
@@ -309,14 +387,14 @@ def params_from_jax(cfg: ModelConfig,
     (CPU tensors, the tree's dtypes).
 
     The leading superblock axis of ``stack/layer{j}/...`` is unstacked
-    into layers ``sb * superblock_size + j``.  A tree whose paths or leaf
-    shapes do not match ``cfg`` is refused.  Load the result with
+    into layers ``sb * superblock_size + j``, and so is an encoder's
+    ``encoder/stack/layer{j}/...`` over the superblocks of
+    :func:`encoder_config`.  A tree whose paths or leaf shapes do not
+    match ``cfg`` is refused.  Load the result with
     ``model.load_state_dict(sd)``.
     """
-    _refuse_unported(cfg)
     want = {k: tuple(v.shape)
             for k, v in LM(cfg, device="meta").state_dict().items()}
-    size = cfg.superblock_size
     out: Dict[str, torch.Tensor] = {}
     for path, leaf in tree_paths(tree):
         if not isinstance(leaf, torch.Tensor):
@@ -325,13 +403,16 @@ def params_from_jax(cfg: ModelConfig,
         if m is None:
             out[path.replace("/", ".")] = _to_tensor(leaf)
             continue
-        j, rest = int(m.group(1)), m.group(2).replace("/", ".")
-        if leaf.ndim == 0 or leaf.shape[0] != cfg.n_superblocks:
+        enc, j, rest = m.group(1), int(m.group(2)), m.group(3)
+        stack_cfg = encoder_config(cfg) if enc else cfg
+        n_sb, size = stack_cfg.n_superblocks, stack_cfg.superblock_size
+        if leaf.ndim == 0 or leaf.shape[0] != n_sb:
             raise ValueError(f"params_from_jax: {path} has shape "
-                             f"{leaf.shape}, not {cfg.n_superblocks} "
-                             "stacked superblocks")
-        for sb in range(leaf.shape[0]):
-            out[f"stack.{sb * size + j}.{rest}"] = _to_tensor(leaf[sb])
+                             f"{leaf.shape}, not {n_sb} stacked superblocks")
+        prefix = "encoder.stack" if enc else "stack"
+        for sb in range(n_sb):
+            out[f"{prefix}.{sb * size + j}.{rest.replace('/', '.')}"] = \
+                _to_tensor(leaf[sb])
     if set(out) != set(want):
         raise ValueError(
             f"params_from_jax: the tree does not match {cfg.name}: "
@@ -347,19 +428,22 @@ def params_from_jax(cfg: ModelConfig,
 def decayed_names(params: Mapping[str, torch.Tensor]) -> List[str]:
     """The parameters AdamW decays as the reference does: its optimizer
     decays the leaves of two or more dimensions of its tree, which stacks
-    every layer's parameter over the superblocks, so a layer's vector
-    (norm scale, bias, ``D``) is decayed there and the final norm is not.
+    every layer's parameter over the superblocks (an encoder's too), so a
+    layer's vector (norm scale, bias, ``D``) is decayed there and the
+    final norms are not.
 
     >>> decayed_names({"stack.0.norm1.scale": torch.ones(4),
+    ...                "encoder.stack.1.norm2.scale": torch.ones(4),
+    ...                "encoder.final_norm.scale": torch.ones(4),
     ...                "final_norm.scale": torch.ones(4),
     ...                "embed": torch.ones(2, 4)})
-    ['stack.0.norm1.scale', 'embed']
+    ['stack.0.norm1.scale', 'encoder.stack.1.norm2.scale', 'embed']
     """
     return [k for k, p in params.items()
             if p.ndim >= 2 or _STACK_NAME.match(k)]
 
 
-_STACK_NAME = re.compile(r"stack\.\d+\.")
+_STACK_NAME = re.compile(r"(encoder\.)?stack\.\d+\.")
 
 
 def opt_state_from_jax(cfg: ModelConfig, opt: Mapping[str, Any],

@@ -7,7 +7,9 @@ of ``n_layers`` layers in pattern order (layer ``i`` follows
 ``pattern[i % superblock_size]``), run by a Python loop, and the cache is
 a list with one dict per layer.  The reference's sharding constraint on
 the activations between superblocks is a no-op off a mesh and is left
-out.
+out.  The same :class:`Stack` runs an encoder-decoder's encoder (its
+``encoder_config``: attention and MLP layers, ``causal=False``, no
+cache).
 """
 
 from __future__ import annotations
@@ -23,31 +25,28 @@ from .module import TensorSpec
 from .moe import Aux, MoE
 from .ssm import Mamba, mamba_cache_spec
 
-#: where the ROADMAP queues the layers the port refuses
-CROSS_ITEM = ("ROADMAP.md queue 1, item 12c (cross-attention: "
-              "encoder-decoder and VLM)")
-
 LayerCache = Dict[str, Dict[str, torch.Tensor]]
 
 
 class Layer(nn.Module):
     """Pre-norm residual layer: norm1 -> attention or Mamba, then
-    norm2 -> MoE or MLP where the pattern has one (falcon-mamba has
-    none)."""
+    norm_x -> cross-attention where the pattern has it (whisper's decoder,
+    llama-vision's every fifth layer), then norm2 -> MoE or MLP where the
+    pattern has one (falcon-mamba has none)."""
 
     def __init__(self, cfg: ModelConfig, spec: Dict[str, Any], device=None,
                  dtype=None):
         super().__init__()
-        if spec["cross_attn"]:
-            raise NotImplementedError(
-                f"{cfg.name}: cross-attention layers are not ported yet "
-                f"({CROSS_ITEM})")
         self.kind = spec["kind"]
         self.norm1 = RMSNorm(cfg.d_model, cfg.norm_eps, device, dtype)
         if self.kind == "attn":
             self.attn = Attention(cfg, device, dtype)
         else:
             self.ssm = Mamba(cfg, device, dtype)
+        self.has_cross = spec["cross_attn"]
+        if self.has_cross:
+            self.norm_x = RMSNorm(cfg.d_model, cfg.norm_eps, device, dtype)
+            self.cross = Attention(cfg, device, dtype, cross=True)
         self.has_moe, self.has_mlp = spec["moe"], spec["mlp"]
         if self.has_moe or self.has_mlp:
             self.norm2 = RMSNorm(cfg.d_model, cfg.norm_eps, device, dtype)
@@ -58,10 +57,13 @@ class Layer(nn.Module):
 
     def forward(self, x: torch.Tensor, *, cache: Optional[LayerCache],
                 pos: int, causal: bool, impl: Optional[str],
-                aux: Optional[Aux] = None) -> torch.Tensor:
+                aux: Optional[Aux] = None,
+                cross_src: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One layer; the layer's cache is updated in place (``None``: the
         training forward, no cache).  A MoE layer adds its aux losses
-        into ``aux`` (``None``: they are dropped)."""
+        into ``aux`` (``None``: they are dropped).  A cross-attention
+        layer attends over ``cross_src`` (B, L, D), or over its cross
+        cache where that is ``None`` (decode)."""
         h = self.norm1(x)
         if self.kind == "attn":
             h = self.attn(h, cache=None if cache is None else cache["self"],
@@ -70,6 +72,10 @@ class Layer(nn.Module):
             h = self.ssm(h, cache=None if cache is None else cache["ssm"],
                          impl=impl)
         x = x + h
+        if self.has_cross:
+            x = x + self.cross(
+                self.norm_x(x), cache=None if cache is None
+                else cache["cross"], impl=impl, kv_src=cross_src)
         if self.has_moe:
             h, layer_aux = self.moe(self.norm2(x))
             x = x + h
@@ -96,16 +102,19 @@ class Stack(nn.ModuleList):
     def forward(self, x: torch.Tensor, *,
                 caches: Optional[List[LayerCache]], pos: int = 0,
                 causal: bool = True, impl: Optional[str] = None,
+                cross_src: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, Aux]:
         """All layers; each layer's cache is updated in place (``caches=
-        None``: the training forward, no cache).  Returns the output and
-        the MoE layers' aux losses, summed and divided by ``n_layers`` --
-        every layer, not the MoE layers alone, as the reference's
-        ``apply_stack`` divides ({} without MoE layers)."""
+        None``: the training forward, no cache); the cross-attention
+        layers attend over ``cross_src`` (``None``: their caches).
+        Returns the output and the MoE layers' aux losses, summed and
+        divided by ``n_layers`` -- every layer, not the MoE layers alone,
+        as the reference's ``apply_stack`` divides ({} without MoE
+        layers)."""
         aux: Aux = {}
         for layer, cache in zip(self, caches or [None] * len(self)):
             x = layer(x, cache=cache, pos=pos, causal=causal, impl=impl,
-                      aux=aux)
+                      aux=aux, cross_src=cross_src)
         return x, {k: v / len(self) for k, v in aux.items()}
 
 
@@ -114,24 +123,31 @@ class Stack(nn.ModuleList):
 # ---------------------------------------------------------------------------
 
 def stack_cache_spec(cfg: ModelConfig, batch: int, s_max: int,
-                     dtype: torch.dtype) -> List[Dict[str, Dict[str,
-                                                              TensorSpec]]]:
+                     dtype: torch.dtype, cross_len: int = 0,
+                     ) -> List[Dict[str, Dict[str, TensorSpec]]]:
     """One dict a layer: ``{"self": {"k", "v"}}`` for attention (in the
-    model's dtype), ``{"ssm": {"conv", "ssm"}}`` for Mamba (fp32)."""
+    model's dtype), ``{"ssm": {"conv", "ssm"}}`` for Mamba (fp32), and
+    beside either ``{"cross": {"k", "v"}}`` of ``cross_len`` positions
+    for a cross-attention layer (in the model's dtype)."""
     pattern = cfg.superblock_pattern()
     out = []
     for i in range(cfg.n_layers):
-        if pattern[i % len(pattern)]["kind"] == "attn":
-            out.append({"self": attn_cache_spec(cfg, batch, s_max, dtype)})
+        spec = pattern[i % len(pattern)]
+        if spec["kind"] == "attn":
+            layer = {"self": attn_cache_spec(cfg, batch, s_max, dtype)}
         else:
-            out.append({"ssm": mamba_cache_spec(cfg, batch)})
+            layer = {"ssm": mamba_cache_spec(cfg, batch)}
+        if spec["cross_attn"]:
+            layer["cross"] = attn_cache_spec(cfg, batch, cross_len, dtype)
+        out.append(layer)
     return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype: torch.dtype,
-               device) -> List[LayerCache]:
+               device, cross_len: int = 0) -> List[LayerCache]:
     return [{kind: {name: torch.zeros(spec.shape, dtype=spec.dtype,
                                       device=device)
                     for name, spec in entries.items()}
              for kind, entries in layer.items()}
-            for layer in stack_cache_spec(cfg, batch, s_max, dtype)]
+            for layer in stack_cache_spec(cfg, batch, s_max, dtype,
+                                          cross_len)]

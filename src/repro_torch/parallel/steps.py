@@ -33,10 +33,13 @@ def make_train_step(bundle, mesh, shape: ShapeSpec,
                     impl: Optional[str] = None) -> BuiltStep:
     """``fn(state, batch)`` for ``state = {"params": {name: tensor},
     "opt": init_opt_state(...)}`` and a batch ``{"tokens", "labels"}`` of
-    ``(global_batch, seq_len)`` integer tensors on the mesh's device:
-    returns the updated state (its tensors updated in place) and the
-    reference's metrics ``loss``, ``ce_loss``, ``grad_norm`` and ``lr``
-    (0-dim tensors).  Weight decay falls where the reference's falls on
+    ``(global_batch, seq_len)`` integer tensors on the mesh's device, with
+    an encoder-decoder's ``frames`` or a VLM's ``image_embeds`` beside
+    them (``SyntheticTokenPipeline.with_frontend_stubs``'s, float32),
+    which the loss feeds to the cross-attention layers: returns the
+    updated state (its tensors updated in place) and the reference's
+    metrics ``loss``, ``ce_loss``, ``grad_norm`` and ``lr`` (0-dim
+    tensors).  Weight decay falls where the reference's falls on
     its stacked tree (``decayed_names``)."""
     if shape.kind != "train":
         raise ValueError(f"make_train_step: shape {shape.name!r} is a "

@@ -61,12 +61,12 @@ MODELS = {
 #: the config a MODELS key names, where the key is not an arch id
 ARCH = {"jamba-1.5-large-398b-moe": "jamba-1.5-large-398b"}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-#: the archs the port refused before its MoE layers were ported: those
-#: it refuses now, and the MoE ones (the ids of
-#: test_unported_families_refused)
+#: the archs the port refused before its MoE and cross-attention layers
+#: were ported (the ids of test_unported_families_refused)
 UNPORTED_BEFORE_MOE = [a for a in ARCH_IDS
-                       if unported_reason(get_config(a))
-                       or get_config(a).n_experts > 0]
+                       if get_config(a).n_experts > 0
+                       or get_config(a).is_encdec
+                       or get_config(a).cross_attn_period > 0]
 
 
 def _cfgs(key, dtype):
@@ -225,11 +225,20 @@ def test_init_tree_matches_jax(arch, dtype):
 
 
 def test_non_swiglu_mlp_refused():
-    """The port's MLP is SwiGLU; the reference's GELU MLP serves only the
-    encoder-decoder family, which is refused."""
-    cfg = get_config("qwen2.5-3b", smoke=True).replace(act="gelu")
-    with pytest.raises(NotImplementedError, match="SwiGLU"):
-        build_model(cfg, device="cpu")
+    """The reference's GELU MLP, once refused, now builds in a
+    decoder-only config too, and its MLP gives the reference's output."""
+    from repro.models.layers import mlp as jax_mlp
+    jcfg, tcfg = _cfgs("qwen2.5-3b", "float32")
+    jcfg, tcfg = jcfg.replace(act="gelu"), tcfg.replace(act="gelu")
+    params = jax_build_model(jcfg).init(jax.random.PRNGKey(0))
+    _, model = _port_model(tcfg, params)
+    x = np.random.default_rng(1).standard_normal(
+        (B, S, tcfg.d_model)).astype(np.float32)
+    want = jax_mlp(jax.tree.map(lambda a: a[0], params["stack"]["layer0"])
+                   ["mlp"], jcfg, jnp.asarray(x))
+    with torch.no_grad():
+        got = model.stack[0].mlp(torch.as_tensor(x))
+    _close(got, want, TOL["float32"], "gelu MLP")
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
@@ -244,32 +253,28 @@ def test_configs_equal_jax(arch):
 
 @pytest.mark.parametrize("arch", UNPORTED_BEFORE_MOE)
 def test_unported_families_refused(arch):
-    """Encoder-decoder and VLM configs are refused, naming the ROADMAP
-    item that ports them; the MoE configs, refused before their layers
-    were ported, build on the CPU and their prefill gives finite
+    """The MoE, encoder-decoder and VLM configs, refused before their
+    layers were ported, build on the CPU and their prefill (given the
+    frames or image embeddings their cross-attention reads) gives finite
     logits."""
     cfg = get_config(arch, smoke=True)
-    if cfg.n_experts > 0:
-        assert unported_reason(cfg) is None
-        bundle = build_model(cfg, device="cpu")
-        logits, _ = bundle.prefill(
-            bundle.init(0), {"tokens": torch.as_tensor(_tokens(
-                cfg.vocab_size)[:, :S])}, bundle.make_cache(B, S_MAX))
-        assert logits.shape == (B, 1, cfg.vocab_size)
-        assert torch.isfinite(logits).all()
-        return
-    assert "item 12c" in unported_reason(cfg)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1"):
-        build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1"):
-        params_from_jax(cfg, {})
+    assert unported_reason(cfg) is None
+    bundle = build_model(cfg, device="cpu")
+    batch = {"tokens": torch.as_tensor(_tokens(cfg.vocab_size)[:, :S])}
+    if cfg.is_encdec:
+        batch["frames"] = torch.zeros((B, cfg.encoder_seq, cfg.d_model))
+    elif cfg.cross_attn_period > 0:
+        batch["image_embeds"] = torch.ones((B, cfg.n_image_tokens,
+                                            cfg.d_image))
+    logits, _ = bundle.prefill(bundle.init(0), batch,
+                               bundle.make_cache(B, S_MAX))
+    assert logits.shape == (B, 1, cfg.vocab_size)
+    assert torch.isfinite(logits).all()
 
 
 def test_served_architectures():
     served = [a for a in ARCH_IDS if unported_reason(get_config(a)) is None]
-    assert served == ["falcon-mamba-7b", "qwen2.5-3b", "granite-34b",
-                      "yi-9b", "minicpm-2b", "jamba-1.5-large-398b",
-                      "kimi-k2-1t-a32b", "arctic-480b"]
+    assert served == list(ARCH_IDS) and len(served) == 10
 
 
 def test_params_from_jax_refuses_wrong_shapes():
@@ -307,10 +312,11 @@ def test_cache_overflow_refused():
 
 
 def test_cross_attention_inputs_refused():
+    """A model without cross-attention layers refuses their inputs."""
     cfg = get_config("qwen2.5-3b", smoke=True)
     bundle = build_model(cfg, device="cpu")
     model = bundle.init(0)
-    with pytest.raises(NotImplementedError, match="cross-attention"):
+    with pytest.raises(ValueError, match="no cross-attention"):
         bundle.prefill(model, {"tokens": torch.zeros((1, 2), dtype=torch.long),
                                "frames": torch.zeros((1, 2, 64))},
                        bundle.make_cache(1, 4))
