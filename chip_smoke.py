@@ -14,8 +14,10 @@ then the event engine with the reference's routing, the optimizer and an
 experiment file, whose CTMC points run through the chunk kernel; and at
 the end the paper's own tables (Fig. 2a / 2b and the Table-I sensitivity
 grid) through ``repro_torch.studies.paper_tables`` and the trace-fitting
-CLI (``scripts/torch_fit_hazard.py``); training; the MoE models; and the
-cross-attention models whisper-base and llama-3.2-vision-90b.
+CLI (``scripts/torch_fit_hazard.py``); training; the MoE models; the
+cross-attention models whisper-base and llama-3.2-vision-90b; and the
+mesh steps on a one-rank NCCL mesh (two ranks where there are two
+cards).
 Phases, each of which fails the run loudly:
 
 1. the card's name and power limit; build the nine kernel libraries
@@ -122,7 +124,8 @@ Phases, each of which fails the run loudly:
 18. examples/capacity_planning.py's rack-outage what-if at Table-I width:
     ``OneWaySweep`` over ``rack_shock_rate`` in {0, 2e-6, 5e-6, 1e-5},
     1,024 replicas a point, 40 racks in pods of 8 (45 fault domains, 109
-    servers a rack), ``job_length`` 8 days, its launches counted from 0,
+    servers a rack), ``job_length`` 4 days (the example's 8, halved), its
+    launches counted from 0,
     each the exponential scenario instance's (16 + 45 exponential lanes,
     the campaign residual first); every replica complete, servers
     conserved, shocks growing with the rate; the first chunk against the
@@ -263,6 +266,22 @@ Phases, each of which fails the run loudly:
     (e) ``make_train_step`` on the two smoke configs on the card against
     the CPU on the pipeline's float32 frames and image embeddings, then
     three steps of whisper-base at full size (launches a step).
+31. the mesh steps (``parallel.build_step``) on a one-rank NCCL mesh (a
+    process group of one on a local store), against the one-device
+    paths on the same weights: (a) qwen2.5-3b at full size and
+    falcon-mamba-7b at 4 of 64 layers served as in phase 8 (greedy tokens
+    equal, first logits within the bf16 rule and their bit-different
+    elements counted, the attention and scan launches of the mesh run);
+    (b) one qwen2.5-3b train step at phase 27's shape through
+    ``build_step(kind="train")`` against ``make_train_step`` (loss,
+    grad_norm and every leaf of the updated state); (c) kimi-k2 at 1 of
+    61 layers under ``moe_buffer_mode`` "shard_map" and "ep", every decode
+    step's logits against the off-mesh MoE's; (d) with two or more cards,
+    two NCCL ranks on a (1, 2) mesh, spawned here: each rank's parameter
+    bytes its placements' share, its prefill time and decode ms a step,
+    qwen2.5-3b at 2 layers in float32 held to a one-device float32 run
+    (31a's bf16 models printed beside theirs); with one card a line that
+    says the two-rank run needs two cards.
 
 Prints a ``{"serving": ..., "host_paths": ...}`` line, a ``{"kernels":
 [...]}`` line and, as its last line, ``{"ok": true, "device": {...}}``.  Exits non-zero, with
@@ -324,6 +343,9 @@ SCAN_EDGE_CASES = [(2, 70, 200, 8, 0, False), (2, 45, 100, 16, 0, False),
 SERVE_ARCHS = ("qwen2.5-3b", "falcon-mamba-7b")
 SERVE_BATCH, PROMPT_LEN, GEN_TOKENS = 4, 512, 32
 S_MAX = PROMPT_LEN + GEN_TOKENS        # cache slots: prompt + new tokens
+#: the attention kernels' row log-sum-exp against the plain version's, in
+#: units of 1 + |lse| (a merge's weights are off by about this share)
+ATTN_LSE_TOL = 1e-4
 SEED = 0
 #: float32 A/B of the kernels against the plain versions (PERF.md section
 #: 2 gives the reasons).  Layer by layer, on the same input: the share of
@@ -470,8 +492,10 @@ REPAIR_PARITY = {
 }
 #: phase 18: examples/capacity_planning.py's rack-outage what-if at Table-I
 #: width: 40 racks in pods of 8 (45 fault domains, 109 servers a rack),
-#: job_length cut to 8 days as the example cuts it, a rack_shock_rate grid
-SHOCK_RACKS, SHOCK_RACKS_PER_POD, SHOCK_DAYS = 40, 8, 8
+#: job_length cut to 4 days (the example cuts it to 8; halved to hold the
+#: script's wall: the whole sweep's plain-loop run took 57-69 s at 8 days),
+#: a rack_shock_rate grid
+SHOCK_RACKS, SHOCK_RACKS_PER_POD, SHOCK_DAYS = 40, 8, 4
 SHOCK_RATES = [0.0, 2e-6, 5e-6, 1e-5]
 #: phase 19: benchmarks/engine_perf.py's correlated scenario at Table-I
 #: width (lognormal sigma 1 failures, rack and pod shocks, a kill of rack 3
@@ -842,6 +866,28 @@ def attention_phase(fa, ref):
             print(f"  ragged {shape} {label} {str(dtype)[6:]}: max abs err "
                   f"{err:.3e}")
 
+    # the row log-sum-exp the kernels write on request (the decode over a
+    # sequence-split cache merges the ranks by it), on each route
+    lse_err = 0.0
+    for label, shape, dtype, kw in (
+            ("prefill", (SERVE_BATCH, PROMPT_LEN, PROMPT_LEN, 16, 2, 128),
+             bf16, dict(causal=True)),
+            ("decode", (1, 1, S_MAX, 16, 2, 128), bf16,
+             dict(causal=False, kv_len=S_MAX // 2)),
+            ("decode", (1, 1, S_MAX, 16, 2, 128), torch.float32,
+             dict(causal=False, kv_len=S_MAX // 2))):
+        args = attn_inputs(*shape, dtype, seed=23)
+        _, got = fa.flash_attention_cuda(*args, return_lse=True, **kw)
+        _, want = ref.attention_ref(*args, return_lse=True, **kw)
+        err = float(((got - want).abs() / (1 + want.abs())).max())
+        print(f"  row log-sum-exp, {label} {shape} {str(dtype)[6:]}: max "
+              f"err {err:.3e} (of 1 + |lse|)")
+        if not err <= ATTN_LSE_TOL:
+            fail(f"attention kernel's log-sum-exp at {label} {shape} "
+                 f"{dtype} is {err:.3e} off attention_ref's (tolerance "
+                 f"{ATTN_LSE_TOL})")
+        lse_err = max(lse_err, err)
+
     # registers and spills: phase 1's nvcc report; the bfloat16 kernels'
     # dynamic shared memory is Q's 64 rows and a 2-stage K/V ring of 64
     # rows each, rows padded to d + 8 bf16
@@ -888,7 +934,8 @@ def attention_phase(fa, ref):
           f"{t['decode_plain_ms']} ms; scaled_dot_product_attention "
           f"{t['decode_library_ms']} ms; bound {t['decode_bound_ms']:.6f} "
           f"ms ({t['decode_bound_by']})")
-    return dict(t, max_abs_err=main_err, decode_max_abs_err=dec_err)
+    return dict(t, max_abs_err=main_err, decode_max_abs_err=dec_err,
+                lse_max_err=lse_err)
 
 
 def scan_inputs(B, S, di, N, dtype, seed, dt_rank=0, underflow=False):
@@ -4448,6 +4495,842 @@ def cross_train_phase(fa, ms, card_line):
     return out
 
 
+#: phase 31: the mesh steps on a one-rank NCCL mesh (and two ranks on two
+#: cards): the models, with the depth of phase 27 for falcon-mamba-7b and
+#: of phase 29a for kimi-k2
+MESH_AXES = ("data", "model")
+MESH_SERVE = (("qwen2.5-3b", None), ("falcon-mamba-7b", 4))
+MESH_MOE = ("kimi-k2-1t-a32b", 1)
+MESH_MOE_MODES = ("shard_map", "ep")
+#: the bf16 rule of phases 3 and 29 (close_err: |a-b| <= tol + tol*|b|)
+MESH_BF16_TOL = 2e-2
+MESH_TIMEOUT_S = 300
+
+
+def generate_on_mesh(bundle, mesh, params, prompts, fa, ms, n_new=None,
+                     pcfg=None, keep=False):
+    """``generate`` through the steps of ``parallel.build_step`` on
+    ``mesh``: the whole ``params`` placed by the prefill step's specs, the
+    prompt and the cache by theirs, each new token by the decode step's;
+    with ``keep``, each decode step's last-position logits too."""
+    import torch
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.parallel import build_step, sharding
+    n_new = GEN_TOKENS if n_new is None else n_new
+    B, S = prompts.shape
+    pre = build_step(bundle, mesh, ShapeSpec("prefill", S, B, "prefill"),
+                     pcfg=pcfg)
+    dec = build_step(bundle, mesh, ShapeSpec("decode", S + n_new, B,
+                                             "decode"), pcfg=pcfg)
+    if dec.in_shardings[2] != pre.in_shardings[2]:
+        fail(f"{bundle.cfg.name}: the prefill and decode steps place the "
+             "cache apart")
+    params_l, batch, cache = pre.place(params, {"tokens": prompts},
+                                       bundle.make_cache(B, S + n_new))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = pre.fn(params_l, batch, cache)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    after_prefill = (fa.LAUNCHES, ms.LAUNCHES)
+    logits = pre.gather(logits, pre.out_shardings[0])
+    first = logits[:, -1].float().clone()
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    ids, finite, steps = [tok], torch.isfinite(logits).all(), []
+    t0 = time.perf_counter()
+    for step in range(n_new - 1):
+        logits, cache = dec.fn(params_l, sharding.place(
+            tok, dec.in_shardings[1], mesh), cache, S + step)
+        logits = dec.gather(logits, dec.out_shardings[0])
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        ids.append(tok)
+        finite &= torch.isfinite(logits).all()
+        if keep:
+            steps.append(logits[:, -1].float().clone())
+    torch.cuda.synchronize()
+    return {"prefill_s": prefill_s, "decode_s": time.perf_counter() - t0,
+            "logits": first, "ids": torch.cat(ids, 1).cpu(),
+            "finite": bool(finite), "after_prefill": after_prefill,
+            "after_decode": (fa.LAUNCHES, ms.LAUNCHES), "steps": steps,
+            "param_bytes": sum(t.numel() * t.element_size()
+                               for t in params_l.values())}
+
+
+def generate_steps(bundle, model, prompts, fa, ms, n_new=None):
+    """``generate`` off the mesh, keeping each decode step's last-position
+    logits (the one-device steps phase 31c holds the mesh's to)."""
+    import torch
+    n_new = GEN_TOKENS if n_new is None else n_new
+    B, S = prompts.shape
+    cache = bundle.make_cache(B, S + n_new)
+    logits, cache = bundle.prefill(model, {"tokens": prompts}, cache)
+    first = logits[:, -1].float().clone()
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    ids, steps = [tok], []
+    for step in range(n_new - 1):
+        logits, cache = bundle.decode(model, tok, cache, S + step)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        ids.append(tok)
+        steps.append(logits[:, -1].float().clone())
+    torch.cuda.synchronize()
+    return {"logits": first, "ids": torch.cat(ids, 1).cpu(), "steps": steps}
+
+
+def mesh_serving_case(arch, n_layers, mesh, fa, ms):
+    """Phase 31a for one model: phase 8's serving run off the mesh, then
+    through the mesh steps on the same weights, warm both ways; the
+    greedy tokens equal, the first logits within the bf16 rule (and their
+    bit-different elements), the kernels' launches of the mesh run."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
+    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+    n_attn, n_ssm = kinds.count("attn"), kinds.count("ssm")
+    bundle = build_model(cfg)
+    model = bundle.init(SEED)
+    params = {k: p.detach() for k, p in model.state_dict().items()}
+    prompts = prompts_for(cfg)
+    counts = (fa.LAUNCHES, ms.LAUNCHES)
+    generate(bundle, model, prompts[:, :16], None, fa, ms, n_new=3)
+    one = generate(bundle, model, prompts, None, fa, ms)
+    generate_on_mesh(bundle, mesh, params, prompts[:, :16], fa, ms, n_new=3)
+    fa.LAUNCHES = ms.LAUNCHES = 0            # the mesh path's run
+    run = generate_on_mesh(bundle, mesh, params, prompts, fa, ms)
+    got = (run["after_prefill"], run["after_decode"])
+    fa.LAUNCHES, ms.LAUNCHES = counts
+    want = ((n_attn, n_ssm), (n_attn * GEN_TOKENS, n_ssm))
+    err, within = close_err(run["logits"], one["logits"], MESH_BF16_TOL)
+    n_bits = tensor_bits_apart(run["logits"], one["logits"])
+    same_ids = bool(torch.equal(run["ids"], one["ids"]))
+    steps = GEN_TOKENS - 1
+    rec = {"arch": arch, "n_layers": cfg.n_layers, "mesh": [1, 1],
+           "launches_prefill": list(got[0]), "launches": list(got[1]),
+           "same_ids": same_ids, "logits_max_abs_err": err,
+           "logits_bit_different": n_bits,
+           "prefill_ms": run["prefill_s"] * 1e3,
+           "one_device_prefill_ms": one["prefill_s"] * 1e3,
+           "decode_ms_per_step": run["decode_s"] / steps * 1e3,
+           "one_device_decode_ms_per_step": one["decode_s"] / steps * 1e3,
+           "param_bytes": run["param_bytes"]}
+    print(f"  {arch} ({cfg.n_layers} layers, bf16) on the (1, 1) mesh: "
+          f"prefill {rec['prefill_ms']:.3f} ms (one device "
+          f"{rec['one_device_prefill_ms']:.3f}), decode "
+          f"{rec['decode_ms_per_step']:.3f} ms a step (one device "
+          f"{rec['one_device_decode_ms_per_step']:.3f}); launches "
+          f"(attention, scan) {got[0]} after the prefill, {got[1]} in all; "
+          f"greedy tokens equal: {same_ids}; first logits max abs err "
+          f"{err:.3e}, {n_bits} bit-different elements")
+    if got != want:
+        fail(f"{arch} on the mesh: launches {got}, want {want}")
+    if not (same_ids and within and run["finite"]):
+        fail(f"{arch} on the mesh: tokens equal {same_ids}, logits within "
+             f"{MESH_BF16_TOL} {within}, finite {run['finite']}")
+    del model, params
+    release()
+    return rec, {"ids": one["ids"], "logits": one["logits"].cpu()}
+
+
+def tensor_bits_apart(a, b) -> int:
+    """Elements whose bits differ between two tensors of one dtype."""
+    import torch
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return max(a.numel(), b.numel())
+    w = ints[a.element_size()]
+    return int((a.contiguous().view(w) != b.contiguous().view(w)).sum())
+
+
+#: phases 31b and 31d's train step: qwen2.5-3b at full width and this many
+#: layers, float32.  At full depth in bf16 its random-weight gradient norm
+#: overflows to inf, so the clip scale is 0, the AdamW update is weight
+#: decay alone and a wrong gradient would not show
+MESH_TRAIN_LAYERS = 2
+
+
+def train_step_inputs(bundle, device):
+    """Phases 31b / 31d's train step: its shape, optimizer config and
+    batch (phase 27's, from SEED) on ``device``."""
+    import torch
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
+    from repro_torch.train.optimizer import OptimizerConfig
+    cfg = bundle.cfg
+    shape = ShapeSpec("train", TRAIN_S, TRAIN_B, "train")
+    opt_cfg = OptimizerConfig(learning_rate=1e-4, warmup_steps=1,
+                              total_steps=TRAIN_STEPS)
+    pipe = SyntheticTokenPipeline(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_S + 1,
+        global_batch=TRAIN_B, seed=SEED))
+    batch = {k: torch.as_tensor(v[:, :TRAIN_S]).to(device)
+             for k, v in pipe.batch_at(0).items()}
+    return shape, opt_cfg, batch
+
+
+def compare_train_states(got, want, m_got, m_want):
+    """A train step's updated state and metrics against another's, by
+    tests/test_torch_train_step.py's rule: loss rtol 1e-5, grad_norm rtol
+    1e-4 (both finite), lr rtol 1e-6; each moment within 1e-4 (m) / 2e-4
+    (v) of its leaf's largest magnitude; each parameter within 2 lr, and
+    2e-2 lr where the first moment is resolved (above 1e-2 of its leaf's
+    largest).  Returns the metrics, bit-different elements, the largest
+    differences and the broken rules."""
+    lr = float(m_want["lr"])
+    bits = {"params": 0, "m": 0, "v": 0}
+    worst = {"params": 0.0, "params_resolved": 0.0, "m": 0.0, "v": 0.0}
+    for k, w in want["params"].items():
+        m_ref = want["opt"]["m"][k].float()
+        for part, a, b in (("params", got["params"][k], w),
+                           ("m", got["opt"]["m"][k], want["opt"]["m"][k]),
+                           ("v", got["opt"]["v"][k], want["opt"]["v"][k])):
+            n = tensor_bits_apart(a, b)
+            bits[part] += n
+            if not n:
+                continue
+            diff = (a.float() - b.float()).abs()
+            if part == "params":
+                worst["params"] = max(worst["params"],
+                                      float(diff.max()) / lr)
+                resolved = m_ref.abs() > 1e-2 * float(m_ref.abs().max())
+                if bool(resolved.any()):
+                    worst["params_resolved"] = max(
+                        worst["params_resolved"],
+                        float(diff[resolved].max()) / lr)
+            else:
+                scale = max(float(b.float().abs().max()), 1e-30)
+                worst[part] = max(worst[part], float(diff.max()) / scale)
+    metrics = {k: (float(m_got[k]), float(m_want[k]))
+               for k in ("loss", "grad_norm", "lr")}
+
+    def close(a, b, rel):
+        return math.isfinite(a) and math.isfinite(b) and (
+            a == b or abs(a - b) <= rel * abs(b))
+    broken = [f"{k} {metrics[k]} beyond rtol {rel}"
+              for k, rel in (("loss", 1e-5), ("grad_norm", 1e-4),
+                             ("lr", 1e-6))
+              if not close(*metrics[k], rel)]
+    broken += [f"{k} {worst[k]} beyond {bound}"
+               for k, bound in (("params", 2.0), ("params_resolved", 2e-2),
+                                ("m", 1e-4), ("v", 2e-4))
+               if worst[k] > bound]
+    return {"metrics": metrics, "bit_different": bits, "worst": worst,
+            "broken": broken}
+
+
+def mesh_train_pair(bundle, mesh, fa):
+    """One train step from SEED's state on the same batch through the
+    one-device ``make_train_step`` on the mesh's device and through
+    ``build_step(kind="train")`` on ``mesh``, both warm: their times, the
+    mesh step's attention launches and the two updated states compared
+    (:func:`compare_train_states`)."""
+    import torch
+    from repro_torch.launch.mesh import HostMesh
+    from repro_torch.parallel import build_step, make_train_step
+    from repro_torch.train.optimizer import init_opt_state
+    shape, opt_cfg, batch = train_step_inputs(bundle, mesh.device)
+    params = {k: p.detach() for k, p in bundle.init(SEED).state_dict().items()}
+    # warm (the first backward of a process sets up its kernels): the
+    # forward and backward of both steps' batch, no update
+    leaves = {k: p.detach().clone().requires_grad_()
+              for k, p in params.items()}
+    torch.autograd.grad(bundle.loss(leaves, batch)[0], list(leaves.values()))
+    del leaves
+    release()
+    host = HostMesh(mesh.device)
+    one = {"params": {k: p.clone() for k, p in params.items()}}
+    one["opt"] = init_opt_state(one["params"], opt_cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with host:
+        one, m_one = make_train_step(bundle, host, shape, opt_cfg).fn(one,
+                                                                      batch)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    built = build_step(bundle, mesh, shape, opt_cfg)
+    state = {"params": params, "opt": init_opt_state(params, opt_cfg)}
+    state, batch_l = built.place(state, batch)
+    before = fa.LAUNCHES
+    t0 = time.perf_counter()
+    state, m_mesh = built.fn(state, batch_l)
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t0
+    launches = fa.LAUNCHES - before
+    fa.LAUNCHES = before
+    state = built.gather(state, built.in_shardings[0])
+    rec = compare_train_states(state, one, m_mesh, m_one)
+    del one, state, params, batch_l, built
+    release()
+    return dict(rec, mesh_ms=mesh_s * 1e3, one_device_ms=one_s * 1e3,
+                launches=launches)
+
+
+def one_device_spread(bundle, device):
+    """Phase 31b's witness: the one-device train step from SEED's state,
+    as it is and with its first layer's input perturbed by about one
+    float32 rounding (x + |x| 2^-23 N(0, 1), from SEED), compared by
+    :func:`compare_train_states`: how far the step's own numbers move
+    under the smallest change another summation order makes."""
+    import torch
+    from repro_torch.launch.mesh import HostMesh
+    from repro_torch.models.model_zoo import _skeleton
+    from repro_torch.parallel import make_train_step
+    from repro_torch.train.optimizer import init_opt_state
+    shape, opt_cfg, batch = train_step_inputs(bundle, device)
+    params = {k: p.detach() for k, p in bundle.init(SEED).state_dict().items()}
+    host = HostMesh(device)
+    step = make_train_step(bundle, host, shape, opt_cfg)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def nudge(mod, args):
+        x = args[0]
+        noise = torch.randn(x.shape, generator=gen, device=x.device,
+                            dtype=x.dtype)
+        return (x + x.abs() * 2.0 ** -23 * noise,) + tuple(args[1:])
+    outs = []
+    for perturb in (False, True):
+        state = {"params": {k: p.clone() for k, p in params.items()}}
+        state["opt"] = init_opt_state(state["params"], opt_cfg)
+        hook = (_skeleton(bundle.cfg).stack[0].register_forward_pre_hook(
+            nudge) if perturb else None)
+        try:
+            with host:
+                outs.append(step.fn(state, batch))
+        finally:
+            if hook is not None:
+                hook.remove()
+    (a, m_a), (b, m_b) = outs
+    rec = compare_train_states(b, a, m_b, m_a)
+    del outs, a, b, params
+    release()
+    return rec
+
+
+def mesh_train_case(mesh, fa, card_line):
+    """Phase 31b: one step of qwen2.5-3b at full width, MESH_TRAIN_LAYERS
+    layers, float32 parameters and AdamW state, through
+    ``build_step(kind="train")`` on the mesh against the one-device
+    ``make_train_step`` on the same state and batch: finite metrics and
+    the updated state within tests/test_torch_train_step.py's tolerances
+    (:func:`compare_train_states`; one rank gives them bit for bit).
+    Beside it, the one-device step's own spread under a one-rounding
+    perturbation (:func:`one_device_spread`), which phase 31d's two
+    ranks are read against."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    bundle = mesh_bundle("qwen2.5-3b", MESH_TRAIN_LAYERS, "float32")
+    rec = mesh_train_pair(bundle, mesh, fa)
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    rec["spread"] = one_device_spread(bundle, mesh.device)
+    print(f"  qwen2.5-3b at {MESH_TRAIN_LAYERS} layers, train step "
+          f"{TRAIN_B} x {TRAIN_S}, float32 parameters and AdamW state "
+          f"({card_line}): mesh {rec['mesh_ms']:.1f} ms, one device "
+          f"{rec['one_device_ms']:.1f} ms; (mesh, one device) "
+          f"{rec['metrics']}; bit-different elements "
+          f"{rec['bit_different']}; largest difference (params in lr, "
+          f"moments in their leaf's scale) {rec['worst']}; attention "
+          f"launches {rec['launches']}; peak {rec['peak_gib']:.2f} GiB")
+    sp = rec["spread"]
+    print(f"  the one-device step against itself with its first layer's "
+          f"input perturbed by one float32 rounding: (perturbed, as it is) "
+          f"{sp['metrics']}; largest difference {sp['worst']}; beyond "
+          f"tests/test_torch_train_step.py's tolerances: {sp['broken']}")
+    if rec["broken"]:
+        fail(f"phase 31b: the mesh step is off the one-device step: "
+             f"{rec['broken']}")
+    if rec["launches"] != MESH_TRAIN_LAYERS:
+        fail(f"phase 31b: {rec['launches']} attention launches, not "
+             f"{MESH_TRAIN_LAYERS}")
+    return rec
+
+
+def mesh_moe_case(mesh, fa, ms):
+    """Phase 31c: kimi-k2 at 1 of 61 layers, as phase 29a builds it,
+    through the mesh steps under ``moe_buffer_mode="shard_map"`` and
+    ``"ep"``: every decode step's logits and the greedy tokens against the
+    off-mesh MoE's."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.parallel import ParallelConfig
+    arch, n_layers = MESH_MOE
+    cfg = get_config(arch).replace(n_layers=n_layers)
+    bundle = build_model(cfg)
+    model = bundle.init(SEED)
+    params = {k: p.detach() for k, p in model.state_dict().items()}
+    prompts = prompts_for(cfg)
+    counts = (fa.LAUNCHES, ms.LAUNCHES)
+    one = generate_steps(bundle, model, prompts, fa, ms)
+    out = {}
+    for mode in MESH_MOE_MODES:
+        fa.LAUNCHES = ms.LAUNCHES = 0
+        run = generate_on_mesh(bundle, mesh, params, prompts, fa, ms,
+                               pcfg=ParallelConfig(moe_buffer_mode=mode),
+                               keep=True)
+        errs = [close_err(a, b, MESH_BF16_TOL)
+                for a, b in zip([run["logits"]] + run["steps"],
+                                [one["logits"]] + one["steps"])]
+        bits = sum(tensor_bits_apart(a, b) for a, b in zip(
+            [run["logits"]] + run["steps"], [one["logits"]] + one["steps"]))
+        same = bool(torch.equal(run["ids"], one["ids"]))
+        worst = max(e for e, _ in errs)
+        out[mode] = {"same_ids": same, "max_abs_err": worst,
+                     "bit_different": bits,
+                     "launches": list(run["after_decode"]),
+                     "prefill_ms": run["prefill_s"] * 1e3,
+                     "decode_ms_per_step": run["decode_s"]
+                     / (GEN_TOKENS - 1) * 1e3}
+        print(f"  {arch} at {n_layers} layer, {mode}: the prefill and "
+              f"{GEN_TOKENS - 1} decode steps' logits max abs err "
+              f"{worst:.3e} ({bits} bit-different elements), tokens equal "
+              f"{same}; prefill {out[mode]['prefill_ms']:.3f} ms, decode "
+              f"{out[mode]['decode_ms_per_step']:.3f} ms a step; launches "
+              f"{run['after_decode']}")
+        if not (same and all(w for _, w in errs)):
+            fail(f"phase 31c: {mode} is off the one-device MoE")
+        if run["after_decode"] != (GEN_TOKENS, 0):
+            fail(f"phase 31c: {mode} launches {run['after_decode']}")
+    fa.LAUNCHES, ms.LAUNCHES = counts
+    del model, params
+    release()
+    return out, {"ids": one["ids"], "logits": one["logits"].cpu()}
+
+
+#: phase 31d's serving runs on two ranks: (arch, depth, MoE mode, dtype).
+#: The float32 one at MESH_TRAIN_LAYERS layers is held to a one-device
+#: float32 run; the full-depth float32 one is held layer by layer
+#: (MESH_AB_RUN) and its free-running tokens printed beside a one-device
+#: run perturbed by the size of its first layer's difference; the bf16
+#: ones are printed against 31a / 31c.  At random weights attention is
+#: nearly one-hot, and a summation order's rounding that moves a score
+#: flips heads wholesale, growing with depth
+MESH_RANK_RUNS = (("qwen2.5-3b", None, None, "bfloat16"),
+                  ("qwen2.5-3b", MESH_TRAIN_LAYERS, None, "float32"),
+                  ("qwen2.5-3b", None, None, "float32"),
+                  MESH_MOE + ("shard_map", "bfloat16"))
+MESH_AB_RUN = ("qwen2.5-3b", None, None, "float32")
+#: phase 31d's float32 rule (close_err), the A/B's 1e-3 of phase 9
+MESH_F32_TOL = 1e-3
+
+
+def mesh_bundle(arch, n_layers, dtype, device=None):
+    """The bundle of ``arch`` cut to ``n_layers``, in ``dtype``, on
+    ``device`` (None: the card)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
+    return build_model(cfg, device=device, dtype=getattr(torch, dtype))
+
+
+def smoke_bundle(arch, dtype):
+    """The bundle of ``arch``'s smoke config in ``dtype`` on the card."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    return build_model(get_config(arch, smoke=True),
+                       dtype=getattr(torch, dtype))
+
+
+def run_key(arch, n_layers, dtype) -> str:
+    return f"{arch} {dtype}" + ("" if n_layers is None
+                                else f", {n_layers} layer(s)")
+
+
+def mesh_layerwise_ab(bundle, mesh, model, prompts):
+    """Phase 31d's layer-by-layer A/B: each layer of ``model`` through the
+    mesh steps against the same layer on one device, both fed the same
+    input -- the one-device run's hidden state -- for the prefill and one
+    decode step, as phase 9 feeds the kernels and the plain versions
+    (its rule: ab_stats).  The mesh's layers are fed by hooks on the
+    modules the steps run.  Returns each step's per-layer largest
+    relative difference, the worst share of elements within AB_ELEM_TOL
+    and the RMS of the first layer's prefill difference."""
+    import torch
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.models.model_zoo import _skeleton
+    from repro_torch.parallel import build_step, sharding
+    B, S = prompts.shape
+    params = {k: p.detach() for k, p in model.state_dict().items()}
+    pre = build_step(bundle, mesh, ShapeSpec("prefill", S, B, "prefill"))
+    dec = build_step(bundle, mesh, ShapeSpec("decode", S + 1, B, "decode"))
+    p_l, b_l, cache_l = pre.place(params, {"tokens": prompts},
+                                  bundle.make_cache(B, S + 1))
+    cache = bundle.make_cache(B, S + 1)
+    one_layers = list(model.stack)
+    mesh_layers = list(_skeleton(bundle.cfg).stack)
+    rels, worst_share, first_rms = [], 1.0, None
+    tok = None
+    with torch.no_grad():
+        for step in range(2):
+            ins, outs, got = [], [], []
+
+            def keep(mod, args, out):
+                ins.append(args[0])
+                outs.append(out)
+            hooks = [m.register_forward_hook(keep) for m in one_layers]
+            try:
+                if step == 0:
+                    logits, _ = bundle.prefill(model, {"tokens": prompts},
+                                               cache)
+                else:
+                    logits, _ = bundle.decode(model, tok, cache, S)
+            finally:
+                for h in hooks:
+                    h.remove()
+            hooks = [m.register_forward_pre_hook(
+                lambda mod, a, i=i: (ins[i],) + tuple(a[1:]))
+                for i, m in enumerate(mesh_layers)]
+            hooks += [m.register_forward_hook(lambda mod, a, o: got.append(o))
+                      for m in mesh_layers]
+            try:
+                if step == 0:
+                    pre.fn(p_l, b_l, cache_l)
+                else:
+                    dec.fn(p_l, sharding.place(tok, dec.in_shardings[1],
+                                               mesh), cache_l, S)
+            finally:
+                for h in hooks:
+                    h.remove()
+            if len(got) != len(outs):
+                fail(f"phase 31d: the A/B saw {len(got)} mesh layers, "
+                     f"{len(outs)} one-device layers")
+            row = []
+            for i, (a, b) in enumerate(zip(got, outs)):
+                if a.shape != b.shape:
+                    fail(f"phase 31d: layer {i}'s mesh output {a.shape} is "
+                         f"not the one-device {b.shape}")
+                share, rel, _ = ab_stats({"cuda": a, "ref": b})
+                worst_share = min(worst_share, share)
+                row.append(rel)
+                if step == 0 and i == 0:
+                    first_rms = float((a - b).float().square().mean().sqrt())
+            rels.append(row)
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+    return {"rel_per_layer": rels, "worst_share": worst_share,
+            "worst_rel": max(max(r) for r in rels),
+            "first_layer_rms": first_rms}
+
+
+def mesh_rank(rank, world, work):
+    """Phase 31d, one rank of ``world`` (spawned by the phase), on a (1,
+    world) NCCL mesh: each of MESH_RANK_RUNS from SEED, placed by the
+    steps' specs and served as phase 8 serves, the MESH_AB_RUN also layer
+    by layer (:func:`mesh_layerwise_ab`); float32 train steps of
+    qwen2.5-3b's smoke config and of 31b's cut against the one-device
+    step on this rank's card (:func:`mesh_train_pair`);
+    then on a (world, 1) mesh a batch-1 decode whose caches' positions
+    split over "data".  Writes its tokens, logits, times, parameter bytes
+    and checks' numbers."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import ParallelConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"file://{work}/store",
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_mesh((1, world), MESH_AXES)
+        out = {}
+        for arch, n_layers, mode, dtype in MESH_RANK_RUNS:
+            bundle = mesh_bundle(arch, n_layers, dtype)
+            model = bundle.init(SEED)
+            params = {k: p.detach() for k, p in model.state_dict().items()}
+            pcfg = None if mode is None else ParallelConfig(
+                moe_buffer_mode=mode)
+            prompts = prompts_for(bundle.cfg)
+            generate_on_mesh(bundle, mesh, params, prompts[:, :16], fa, ms,
+                             n_new=3, pcfg=pcfg)
+            run = generate_on_mesh(bundle, mesh, params, prompts, fa, ms,
+                                   pcfg=pcfg)
+            rec = {"ids": run["ids"], "logits": run["logits"].cpu(),
+                   "prefill_s": run["prefill_s"],
+                   "decode_s": run["decode_s"],
+                   "param_bytes": run["param_bytes"],
+                   "full_bytes": sum(p.numel() * p.element_size()
+                                     for p in params.values()),
+                   "coords": mesh.coords}
+            if (arch, n_layers, mode, dtype) == MESH_AB_RUN:
+                rec["layerwise"] = mesh_layerwise_ab(bundle, mesh, model,
+                                                     prompts)
+            out[run_key(arch, n_layers, dtype)] = rec
+            del model, params
+            release()
+        out["train smoke"] = mesh_train_pair(
+            smoke_bundle("qwen2.5-3b", "float32"), mesh, fa)
+        out["train"] = mesh_train_pair(
+            mesh_bundle("qwen2.5-3b", MESH_TRAIN_LAYERS, "float32"), mesh,
+            fa)
+        seq_mesh = make_mesh((world, 1), MESH_AXES)
+        bundle = mesh_bundle("qwen2.5-3b", MESH_TRAIN_LAYERS, "float32")
+        params = {k: p.detach()
+                  for k, p in bundle.init(SEED).state_dict().items()}
+        launches = fa.LAUNCHES
+        run = generate_on_mesh(
+            bundle, seq_mesh, params, prompts_for(bundle.cfg)[:1], fa, ms,
+            pcfg=ParallelConfig(cache_seq_axis=("data",)), keep=True)
+        out["batch1"] = {"ids": run["ids"], "logits": run["logits"].cpu(),
+                         "steps": [t.cpu() for t in run["steps"]],
+                         "launches": fa.LAUNCHES - launches,
+                         "decode_s": run["decode_s"]}
+        torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def first_difference(a, b) -> int:
+    """The first token position at which two (B, T) id tensors differ in
+    any row (T where none does)."""
+    rows = (a != b).any(0).nonzero()
+    return int(rows[0]) if len(rows) else a.shape[1]
+
+
+def perturbed_run(bundle, model, prompts, rms):
+    """``generate_steps`` of ``model`` with Gaussian noise of RMS ``rms``
+    added to its first layer's prefill output (from SEED): one device's
+    answer to a perturbation the size of the two ranks' first-layer
+    difference."""
+    import torch
+    gen = torch.Generator(device=model.embed.device).manual_seed(SEED)
+
+    def add_noise(mod, args, out):
+        if out.shape[1] == 1:
+            return out
+        return out + rms * torch.randn(out.shape, generator=gen,
+                                       device=out.device, dtype=out.dtype)
+    hook = model.stack[0].register_forward_hook(add_noise)
+    try:
+        return generate_steps(bundle, model, prompts, None, None)
+    finally:
+        hook.remove()
+
+
+def mesh_two_ranks(ref, spread):
+    """Phase 31d: two NCCL ranks, one card each, spawned here (see
+    :func:`mesh_rank`), against one-device runs on card 0.  Held: each
+    rank's parameter bytes to its placements' share; qwen2.5-3b at
+    MESH_TRAIN_LAYERS layers in float32 -- the greedy tokens equal and
+    the first logits within MESH_F32_TOL of a one-device run, the train
+    batch-1 decode over sequence-split caches (tokens equal, every step's
+    logits within MESH_F32_TOL); the smoke config's float32 train step
+    within tests/test_torch_train_step.py's tolerances; qwen2.5-3b at full
+    depth in float32, layer by layer, within phase 9's rule.  Printed:
+    the bf16 runs of 31a's qwen2.5-3b and 31c's kimi-k2 against the
+    one-rank runs (``ref``), the full-depth float32 run's tokens and
+    beside them a one-device run perturbed by the size of the first
+    layer's difference, and the train step at 31b's cut beside the
+    one-device step's own spread (``spread``, 31b's witness: at full
+    width random-weight attention is nearly one-hot and the step moves
+    beyond those tolerances under one rounding).  Prints each rank's
+    prefill time and decode ms a step."""
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.parallel import params_shardings, sharding
+    from repro_torch.parallel.steps import param_specs
+    world = 2
+    ref = dict(ref)
+    for arch, n_layers, _, dtype in MESH_RANK_RUNS:
+        if dtype != "float32":
+            continue
+        bundle = mesh_bundle(arch, n_layers, dtype)
+        model = bundle.init(SEED)
+        run = generate_steps(bundle, model, prompts_for(bundle.cfg), None,
+                             None)
+        ref[run_key(arch, n_layers, dtype)] = {
+            "ids": run["ids"], "logits": run["logits"].cpu()}
+        if n_layers == MESH_TRAIN_LAYERS:
+            run = generate_steps(bundle, model, prompts_for(bundle.cfg)[:1],
+                                 None, None)
+            ref["batch1"] = {"ids": run["ids"], "logits": run["logits"].cpu(),
+                             "steps": [t.cpu() for t in run["steps"]]}
+        del bundle, model, run
+        release()
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    ctx = mp.start_processes(mesh_rank, args=(world, work), nprocs=world,
+                             join=False, start_method="spawn")
+    deadline = time.perf_counter() + MESH_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() > deadline:
+                fail(f"phase 31d: the ranks did not finish in "
+                     f"{MESH_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    mesh = AbstractMesh((1, world), MESH_AXES)
+    got = [torch.load(os.path.join(work, f"rank{rank}.pt"),
+                      weights_only=True) for rank in range(world)]
+    out = {}
+    for rank, res in enumerate(got):
+        for arch, n_layers, _, dtype in MESH_RANK_RUNS:
+            key = run_key(arch, n_layers, dtype)
+            rec = res[key]
+            specs = param_specs(mesh_bundle(arch, n_layers, dtype,
+                                            device="cpu"))
+            p_sh = params_shardings(specs, mesh)
+            want = sum(int(np.prod([i.stop - i.start for i in sharding.
+                                    local_slice(p_sh[k], s.shape, mesh,
+                                                rec["coords"])]))
+                       * s.dtype.itemsize for k, s in specs.items())
+            f32 = dtype == "float32"
+            held = f32 and n_layers == MESH_TRAIN_LAYERS
+            w = ref[key if f32 else arch]
+            tol = MESH_F32_TOL if f32 else MESH_BF16_TOL
+            err, within = close_err(rec["logits"], w["logits"], tol)
+            first = first_difference(rec["ids"], w["ids"])
+            steps = GEN_TOKENS - 1
+            row = {"same_ids": first == GEN_TOKENS,
+                   "first_different_token": first,
+                   "logits_max_abs_err": err, "logits_within": within,
+                   "param_bytes": rec["param_bytes"],
+                   "placement_bytes": want, "full_bytes": rec["full_bytes"],
+                   "prefill_ms": rec["prefill_s"] * 1e3,
+                   "decode_ms_per_step": rec["decode_s"] / steps * 1e3}
+            print(f"  rank {rank}, {key}: prefill {row['prefill_ms']:.3f} ms,"
+                  f" decode {row['decode_ms_per_step']:.3f} ms a step; "
+                  f"parameter bytes {rec['param_bytes']:,} of "
+                  f"{rec['full_bytes']:,} (placements: {want:,}); first "
+                  f"logits max abs err {err:.3e} (within {tol}: {within}); "
+                  f"greedy tokens equal to the one-device run's up to token "
+                  f"{first} of {GEN_TOKENS}")
+            if rec["param_bytes"] != want:
+                fail(f"phase 31d: rank {rank} holds {rec['param_bytes']} "
+                     f"bytes of {key}, its placements {want}")
+            if held and not (within and first == GEN_TOKENS):
+                fail(f"phase 31d: rank {rank}'s {key} is off the one-device "
+                     "float32 run")
+            if "layerwise" in rec:
+                ab = rec["layerwise"]
+                row["layerwise"] = ab
+                by_layer = ", ".join(f"{r:.1e}"
+                                     for r in ab["rel_per_layer"][0])
+                print(f"  rank {rank}, {key}, layer by layer on the same "
+                      f"input (prefill + 1 decode step): worst share of "
+                      f"elements within {AB_ELEM_TOL} of the scale "
+                      f"{ab['worst_share'] * 100:.4f}%, largest relative "
+                      f"difference {ab['worst_rel']:.3e} (prefill, by layer:"
+                      f" {by_layer}); first layer's prefill difference RMS "
+                      f"{ab['first_layer_rms']:.3e}")
+                if ab["worst_share"] < AB_ELEM_SHARE:
+                    fail(f"phase 31d: rank {rank}'s layers of {key} are off "
+                         f"the one-device layers (share "
+                         f"{ab['worst_share']} < {AB_ELEM_SHARE})")
+            out[f"{key} rank {rank}"] = row
+        for tag, what in (("train smoke", "qwen2.5-3b's smoke config"),
+                          ("train", f"qwen2.5-3b at {MESH_TRAIN_LAYERS} "
+                                    "layers")):
+            tr = res[tag]
+            print(f"  rank {rank}, {what}, float32 train step: mesh "
+                  f"{tr['mesh_ms']:.1f} ms, one device "
+                  f"{tr['one_device_ms']:.1f} ms; (mesh, one device) "
+                  f"{tr['metrics']}; bit-different elements "
+                  f"{tr['bit_different']}; largest difference {tr['worst']};"
+                  f" beyond tests/test_torch_train_step.py's tolerances: "
+                  f"{tr['broken']}; attention launches {tr['launches']}")
+            out[f"{tag} rank {rank}"] = tr
+        if res["train smoke"]["broken"]:
+            fail(f"phase 31d: rank {rank}'s train step is off the one-device"
+                 f" step: {res['train smoke']['broken']}")
+        print(f"  (31b: the one-device step at {MESH_TRAIN_LAYERS} layers "
+              f"against itself under one rounding: largest difference "
+              f"{spread['worst']}, grad_norm {spread['metrics']['grad_norm']}"
+              f")")
+        b1, w = res["batch1"], ref["batch1"]
+        errs = [close_err(a, b, MESH_F32_TOL) for a, b in zip(
+            [b1["logits"]] + b1["steps"], [w["logits"]] + w["steps"])]
+        first = first_difference(b1["ids"], w["ids"])
+        worst = max(e for e, _ in errs)
+        print(f"  rank {rank}, batch-1 decode on a ({world}, 1) mesh, the "
+              f"caches' positions split over \"data\" (qwen2.5-3b at "
+              f"{MESH_TRAIN_LAYERS} layers, float32): every step's logits "
+              f"max abs err {worst:.3e}, tokens equal up to token {first} "
+              f"of {GEN_TOKENS}; {b1['launches']} attention launches; decode "
+              f"{b1['decode_s'] / (GEN_TOKENS - 1) * 1e3:.3f} ms a step")
+        if first != GEN_TOKENS or not all(ok for _, ok in errs):
+            fail(f"phase 31d: rank {rank}'s batch-1 sequence-split decode is "
+                 "off the one-device run")
+        out[f"batch1 rank {rank}"] = {
+            "max_abs_err": worst, "first_different_token": first,
+            "launches": b1["launches"]}
+    # one device under a perturbation the size of the first layer's
+    # difference, beside the two ranks' full-depth float32 run
+    key = run_key(*MESH_AB_RUN[:2], MESH_AB_RUN[3])
+    rms = got[0][key]["layerwise"]["first_layer_rms"]
+    bundle = mesh_bundle(*MESH_AB_RUN[:2], MESH_AB_RUN[3])
+    model = bundle.init(SEED)
+    pert = perturbed_run(bundle, model, prompts_for(bundle.cfg), rms)
+    err, _ = close_err(pert["logits"].cpu(), ref[key]["logits"],
+                       MESH_F32_TOL)
+    first = first_difference(pert["ids"], ref[key]["ids"])
+    two = out[f"{key} rank 0"]
+    out["perturbed_one_device"] = {
+        "noise_rms": rms, "logits_max_abs_err": err,
+        "first_different_token": first}
+    print(f"  {key} on one device, its first layer's prefill output "
+          f"perturbed by noise of RMS {rms:.3e} (the two ranks' first-layer "
+          f"difference): first logits max abs err {err:.3e}, tokens equal up "
+          f"to token {first} of {GEN_TOKENS}; the two ranks: "
+          f"{two['logits_max_abs_err']:.3e}, up to token "
+          f"{two['first_different_token']}")
+    del bundle, model
+    release()
+    return out
+
+
+def mesh_phase(fa, ms, card_line):
+    """Phase 31: the mesh steps (``parallel.build_step`` on a one-rank
+    NCCL mesh) against the one-device paths: (a) serving, (b) a train
+    step, (c) the MoE modes; (d) two ranks on two cards."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    t0 = time.perf_counter()
+    out, ids = {}, {}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1), MESH_AXES)
+        phase("phase 31a: serving through build_step on a (1, 1) NCCL mesh "
+              f"against phase 8's path: {', '.join(a if n is None else f'{a} at {n} layers' for a, n in MESH_SERVE)}, "
+              f"{SERVE_BATCH} x {PROMPT_LEN} + {GEN_TOKENS} greedy tokens")
+        for arch, n_layers in MESH_SERVE:
+            out[arch], ids[arch] = mesh_serving_case(arch, n_layers, mesh,
+                                                     fa, ms)
+        phase(f"phase 31b: one train step of qwen2.5-3b at "
+              f"{MESH_TRAIN_LAYERS} layers in float32 through build_step on "
+              "the mesh against make_train_step on one device")
+        out["train"] = mesh_train_case(mesh, fa, card_line)
+        phase(f"phase 31c: {MESH_MOE[0]} at {MESH_MOE[1]} layer on the mesh "
+              f"under moe_buffer_mode {MESH_MOE_MODES} against the one-device"
+              " MoE")
+        out["moe"], ids[MESH_MOE[0]] = mesh_moe_case(mesh, fa, ms)
+    finally:
+        dist.destroy_process_group()
+    n_cards = torch.cuda.device_count()
+    phase("phase 31d: two NCCL ranks on a (1, 2) mesh and a (2, 1) mesh, "
+          "one card each")
+    if n_cards < 2:
+        print(f"  the two-rank run needs two cards ({n_cards} visible): "
+              "not run on this machine")
+        out["two_ranks"] = f"needs two cards ({n_cards} visible)"
+    else:
+        out["two_ranks"] = mesh_two_ranks(ids, out["train"]["spread"])
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 31: {out['seconds']:.3f} s")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4967,6 +5850,10 @@ def main() -> int:
     print(f"  phase 30: {host_paths['cross_seconds']:.3f} s ({t30d:.3f} s "
           "of it phase 30d, beside phase 3)")
 
+    # ---- phase 31: the mesh steps ------------------------------------------
+    mesh = mesh_phase(fa, ms, card_line)
+    host_paths["mesh"] = mesh
+
     # the standalone race's record: its launches on the main paths, the
     # single-job (phase 5) and multi-job (phases 20, 20b, 21) ones, where
     # the chunk kernels replaced it (0: each phase fails on a race launch);
@@ -5139,10 +6026,22 @@ def main() -> int:
                       host_paths["cross_train"]["whisper-base"]["steps"]],
                   "cross_regimes": cross_regimes}
                  if name == "flash_attention" else {})
+        mesh_launches = {
+            f"{a} on the (1, 1) mesh": mesh[a]["launches"][
+                0 if name == "flash_attention" else 1]
+            for a, _ in MESH_SERVE}
+        if name == "flash_attention":
+            mesh_launches[f"qwen2.5-3b ({MESH_TRAIN_LAYERS} layers, "
+                          "float32) train step on the mesh"] = \
+                mesh["train"]["launches"]
+            mesh_launches.update({
+                f"{MESH_MOE[0]} ({MESH_MOE[1]} layer, {m}) on the mesh":
+                rec["launches"][0] for m, rec in mesh["moe"].items()})
         kernels.append(dict(t, name=name, route="cuda", source=source,
                             replaces=replaces, launches=launches_,
                             train_launches_per_step=train_launches[arch],
                             moe_serving_launches=moe_paths, **cross,
+                            mesh_launches=mesh_launches,
                             ms=t["call_ms"] if t["ms"] is None else t["ms"]))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, builds "
           "included")

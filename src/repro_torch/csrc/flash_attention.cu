@@ -13,12 +13,14 @@
 //
 // with the fp32 running max m (from -1e30), denominator l and accumulator
 // carried over key tiles, l clamped at 1e-30 at the end -- the TPU kernel's
-// arithmetic.  Keys at or beyond kv_len, and key tiles wholly above the
-// causal diagonal of a block's last row, are never read: the reference
-// gives them weight exp(-1e30 - m) = 0 exactly, because every row sees key
-// 0 (the wrapper refuses kv_len < 1 and q_offset < 0), so skipping them
-// changes nothing.  The finite -1e30 is kept (not -inf) so a masked score
-// inside a read tile behaves as in the reference.
+// arithmetic.  On request each row's log-sum-exp m + log(l) is written
+// beside the output (a decode over a cache split across ranks merges the
+// ranks' partial outputs by it).  Keys at or beyond kv_len, and key tiles
+// wholly above the causal diagonal of a block's last row, are never read:
+// the reference gives them weight exp(-1e30 - m) = 0 exactly, because every
+// row sees key 0 (the wrapper refuses kv_len < 1 and q_offset < 0), so
+// skipping them changes nothing.  The finite -1e30 is kept (not -inf) so a
+// masked score inside a read tile behaves as in the reference.
 //
 // Layout: q (B, Sq, Hq, d), k/v (B, Sk, Hkv, d) with any batch, sequence
 // and head strides (the last dim contiguous), so the decode path reads the
@@ -106,6 +108,7 @@ struct Args {
   int64_t v_sb, v_ss, v_sh;
   void* o;
   float* part;    // decode: (B * Hkv, n_split, rows, D + 2) fp32 partials
+  float* lse;     // optional (B, Sq, Hq) fp32: each row's m + log(l)
   int sq, hq, hkv, group;
   int key_limit;  // min(Sk, kv_len): keys at or past it are never read
   int causal, q_offset;
@@ -216,7 +219,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(Args a) {
     const int row = q0 + warp * kRowsPerWarp + rr;
     if (row >= a.sq) continue;
     const float denom = fmaxf(l[rr], 1e-30f);
-    float* orow = op + ((static_cast<int64_t>(b) * a.sq + row) * a.hq + h) * D;
+    const int64_t at = (static_cast<int64_t>(b) * a.sq + row) * a.hq + h;
+    if (a.lse != nullptr && lane == 0) a.lse[at] = m[rr] + logf(denom);
+    float* orow = op + at * D;
 #pragma unroll
     for (int t = 0; t < kCpl; ++t) {
       const int c = lane + 32 * t;
@@ -617,6 +622,10 @@ __global__ void __launch_bounds__(kMmaThreads) attn_mma_kernel(Args a) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const float inv = 1.0f / fmaxf(l[i], 1e-30f);
+    const int s = q0 + warp * 16 + g + 8 * i;
+    if (a.lse != nullptr && (lane & 3) == 0 && s < a.sq)
+      a.lse[(static_cast<int64_t>(b) * a.sq + s) * a.hq + h] =
+          m[i] + logf(fmaxf(l[i], 1e-30f));
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
       *reinterpret_cast<uint32_t*>(ow + (g + 8 * i) * T::kRow + n * 8 + c2) =
@@ -675,8 +684,10 @@ __global__ void __launch_bounds__(D) attn_merge_kernel(Args a) {
   const int b = bh / a.hkv, hk = bh - b * a.hkv;
   const int s = r / a.group;
   const int h = hk * a.group + (r - s * a.group);
-  static_cast<bf16*>(a.o)[((static_cast<int64_t>(b) * a.sq + s) * a.hq + h)
-                          * D + d] = __float2bfloat16(acc / fmaxf(l, 1e-30f));
+  const int64_t at = (static_cast<int64_t>(b) * a.sq + s) * a.hq + h;
+  static_cast<bf16*>(a.o)[at * D + d] =
+      __float2bfloat16(acc / fmaxf(l, 1e-30f));
+  if (a.lse != nullptr && d == 0) a.lse[at] = m + logf(fmaxf(l, 1e-30f));
 }
 
 // One warp, one tile, through the same fragment loaders as the kernels:
@@ -765,21 +776,26 @@ int launch(const Args& a, int batch, int is_bf16, cudaStream_t stream) {
 // kv_len < 0 means no length mask.  For bfloat16, n_split > 0 takes the
 // split-KV decode path with splits of split_keys keys over `part`, an fp32
 // scratch of B * Hkv * n_split * (Sq * Hq / Hkv) * (head_dim + 2) floats;
-// n_split = 0 takes the tile kernel.  Returns cudaGetLastError() after the
-// launches (0 on success); the caller raises on anything else.
+// n_split = 0 takes the tile kernel.  `lse`, when not null, receives each
+// query row's log-sum-exp of its visible scaled scores, m + log(l), as a
+// contiguous (B, Sq, Hq) fp32 tensor (the weight by which partial
+// attentions over disjoint key blocks are merged).  Returns
+// cudaGetLastError() after the launches (0 on success); the caller raises
+// on anything else.
 extern "C" int flash_attention_launch(
     const void* q, int64_t q_sb, int64_t q_ss, int64_t q_sh,
     const void* k, int64_t k_sb, int64_t k_ss, int64_t k_sh,
     const void* v, int64_t v_sb, int64_t v_ss, int64_t v_sh, void* o,
-    void* part, int batch, int sq, int sk, int hq, int hkv, int head_dim,
-    int causal, int q_offset, int kv_len, int is_bf16, int n_split,
-    int split_keys, void* stream) {
+    void* part, void* lse, int batch, int sq, int sk, int hq, int hkv,
+    int head_dim, int causal, int q_offset, int kv_len, int is_bf16,
+    int n_split, int split_keys, void* stream) {
   Args a;
   a.q = q; a.q_sb = q_sb; a.q_ss = q_ss; a.q_sh = q_sh;
   a.k = k; a.k_sb = k_sb; a.k_ss = k_ss; a.k_sh = k_sh;
   a.v = v; a.v_sb = v_sb; a.v_ss = v_ss; a.v_sh = v_sh;
   a.o = o;
   a.part = static_cast<float*>(part);
+  a.lse = static_cast<float*>(lse);
   a.sq = sq;
   a.hq = hq;
   a.hkv = hkv;

@@ -52,7 +52,7 @@ _GRID_Y_MAX = 65535
 def _bind(lib: ctypes.CDLL) -> None:
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     fn = lib.flash_attention_launch
-    fn.argtypes = ([ptr, i64, i64, i64] * 3 + [ptr, ptr] + [i32] * 12
+    fn.argtypes = ([ptr, i64, i64, i64] * 3 + [ptr, ptr, ptr] + [i32] * 12
                    + [ptr])
     fn.restype = ctypes.c_int
     lib.flash_attention_mma_tile.argtypes = [ptr] * 6
@@ -166,8 +166,11 @@ def check_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, q_offset: int = 0,
-                         kv_len: Optional[int] = None) -> torch.Tensor:
-    """Launch the kernels: ``(B, Sq, Hq, d)`` in q's dtype, contiguous.
+                         kv_len: Optional[int] = None,
+                         return_lse: bool = False):
+    """Launch the kernels: ``(B, Sq, Hq, d)`` in q's dtype, contiguous;
+    with ``return_lse``, also each query row's log-sum-exp of its visible
+    scaled scores, ``(B, Sq, Hq)`` float32, from the same launch.
 
     q (B, Sq, Hq, d), k/v (B, Sk, Hkv, d), CUDA tensors of one dtype
     (float32 or bfloat16) whose last dim is contiguous; batch, sequence
@@ -186,8 +189,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, Sq, Hq, d = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     out = torch.empty((B, Sq, Hq, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, Sq, Hq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     if B == 0 or Sq == 0:
-        return out
+        return (out, lse) if return_lse else out
     key_limit = Sk if kv_len is None else min(kv_len, Sk)
     rows = Sq * (Hq // Hkv)
     part, n_split, split_keys = None, 0, 0
@@ -207,13 +212,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             k.data_ptr(), k.stride(0), k.stride(1), k.stride(2),
             v.data_ptr(), v.stride(0), v.stride(1), v.stride(2),
             out.data_ptr(), None if part is None else part.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             B, Sq, Sk, Hq, Hkv, d, int(causal), q_offset,
             -1 if kv_len is None else key_limit,
             int(q.dtype == torch.bfloat16), n_split, split_keys, stream)
     check_launch(err, f"flash_attention (q {tuple(q.shape)}, k "
                       f"{tuple(k.shape)}, {q.dtype})")
     LAUNCHES += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def mma_tile(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

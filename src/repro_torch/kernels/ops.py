@@ -79,24 +79,30 @@ class _AttentionFn(torch.autograd.Function):
     """The attention kernel forward, the plain version's gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, q_offset, kv_len):
+    def forward(ctx, q, k, v, causal, q_offset, kv_len, return_lse):
         ctx.save_for_backward(q, k, v)
         ctx.args = (causal, q_offset, kv_len)
         # the kernel reads a contiguous head dim and, in bfloat16, rows on
         # 16 bytes: a projection's view may be neither
-        return _attn.flash_attention_cuda(
+        if not return_lse:
+            return _attn.flash_attention_cuda(
+                q.contiguous(), k.contiguous(), v.contiguous(),
+                causal=causal, q_offset=q_offset, kv_len=kv_len)
+        out, lse = _attn.flash_attention_cuda(
             q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
-            q_offset=q_offset, kv_len=kv_len)
+            q_offset=q_offset, kv_len=kv_len, return_lse=True)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, *_):
         causal, q_offset, kv_len = ctx.args
         inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
         with torch.enable_grad():
             out = ref.attention_ref(*inputs, causal=causal,
                                     q_offset=q_offset, kv_len=kv_len)
         grads = torch.autograd.grad(out, inputs, g)
-        return (*grads, None, None, None)
+        return (*grads, None, None, None, None)
 
 
 class _ScanFn(torch.autograd.Function):
@@ -121,7 +127,7 @@ class _ScanFn(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_offset: int = 0,
                     kv_len: Optional[int] = None,
-                    impl: Optional[str] = None) -> torch.Tensor:
+                    impl: Optional[str] = None, return_lse: bool = False):
     """GQA attention. q (B,Sq,Hq,d), k/v (B,Sk,Hkv,d) -> (B,Sq,Hq,d).
 
     See ``csrc/flash_attention.cu`` for what it computes.  ``q_offset``
@@ -134,6 +140,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     queries over float32 encoder states): the math runs in their
     promoted type and the output is in q's, as in the plain version (the
     kernel takes one dtype, so its inputs are cast first).
+
+    ``return_lse``: also return each query row's log-sum-exp of its
+    visible scaled scores, (B, Sq, Hq) float32, which the kernel writes
+    in the same launch (it carries no gradient): partial attentions over
+    disjoint blocks of keys combine by these weights.
     """
     use_kernel = _use_kernel("flash_attention", impl, q)
     q_offset = int(q_offset)
@@ -145,10 +156,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "every query row without a key")
     if not use_kernel:
         return ref.attention_ref(q, k, v, causal=causal, q_offset=q_offset,
-                                 kv_len=kv_len)
+                                 kv_len=kv_len, return_lse=return_lse)
     dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
     out = _AttentionFn.apply(q.to(dt), k.to(dt), v.to(dt), causal, q_offset,
-                             kv_len)
+                             kv_len, return_lse)
+    if return_lse:
+        return out[0].to(q.dtype), out[1]
     return out.to(q.dtype)
 
 

@@ -72,10 +72,12 @@ def event_race_ref(rates: torch.Tensor, residuals: torch.Tensor,
 
 def _attn_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 causal: bool, q_pos: torch.Tensor, k_pos: torch.Tensor,
-                kv_len: Optional[int]) -> torch.Tensor:
+                kv_len: Optional[int], return_lse: bool = False):
     """Full-materialization attention for one query block.
 
-    q: (B, Sq, Hkv, G, d), k/v: (B, Sk, Hkv, d) -> (B, Sq, Hkv, G, d) fp32.
+    q: (B, Sq, Hkv, G, d), k/v: (B, Sk, Hkv, d) -> (B, Sq, Hkv, G, d) fp32
+    (with ``return_lse``, and each row's log-sum-exp of its scores
+    (B, Sq, Hkv, G) fp32).
     """
     scale = 1.0 / torch.sqrt(torch.tensor(float(q.shape[-1])))
     scores = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * scale
@@ -88,13 +90,16 @@ def _attn_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if mask is not None:
         scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
+    if not return_lse:
+        return out
+    return out, torch.logsumexp(scores, -1).permute(0, 3, 1, 2)
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, q_offset: int = 0,
                   kv_len: Optional[int] = None,
-                  q_block: Optional[int] = None) -> torch.Tensor:
+                  q_block: Optional[int] = None, return_lse: bool = False):
     """Grouped-query attention, math in fp32, output in q's dtype.
 
     q: (B, Sq, Hq, d); k/v: (B, Sk, Hkv, d); Hq % Hkv == 0 (GQA by a
@@ -103,7 +108,9 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Masked scores are the finite :data:`NEG_INF`.  ``q_block``: if set,
     smaller than Sq and a divisor of it, queries go through in blocks of
     that size (memory O(q_block * Sk) instead of O(Sq * Sk)), as in the
-    reference.
+    reference.  ``return_lse``: also each query row's log-sum-exp of its
+    scaled, masked scores, (B, Sq, Hq) fp32 -- what the kernel writes on
+    request.
     """
     B, Sq, Hq, d = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
@@ -114,14 +121,19 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     k_pos = torch.arange(Sk, device=q.device)
     q_pos = q_offset + torch.arange(Sq, device=q.device)
     if q_block is None or Sq <= q_block or Sq % q_block:
-        out = _attn_block(qg, k, v, causal=causal, q_pos=q_pos, k_pos=k_pos,
-                          kv_len=kv_len)
+        blocks = [(qg, q_pos)]
     else:
-        out = torch.cat([
-            _attn_block(qg[:, i:i + q_block], k, v, causal=causal,
-                        q_pos=q_pos[i:i + q_block], k_pos=k_pos,
-                        kv_len=kv_len)
-            for i in range(0, Sq, q_block)], dim=1)
+        blocks = [(qg[:, i:i + q_block], q_pos[i:i + q_block])
+                  for i in range(0, Sq, q_block)]
+    parts = [_attn_block(qb, k, v, causal=causal, q_pos=pb, k_pos=k_pos,
+                         kv_len=kv_len, return_lse=return_lse)
+             for qb, pb in blocks]
+    if return_lse:
+        out = torch.cat([o for o, _ in parts], dim=1)
+        lse = torch.cat([l for _, l in parts], dim=1)
+        return (out.reshape(B, Sq, Hq, d).to(q.dtype),
+                lse.reshape(B, Sq, Hq))
+    out = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     return out.reshape(B, Sq, Hq, d).to(q.dtype)
 
 

@@ -1,1 +1,1 @@
-"""Launch helpers: the one-device mesh the training loop runs under."""
+"""Launch helpers: meshes (``mesh``) and the training CLI (``train``)."""

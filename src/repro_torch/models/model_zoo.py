@@ -41,6 +41,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..parallel import context
 from .config import ModelConfig
 from .layers import RMSNorm, embed, promoted_einsum
 from .module import dense_init_, embed_init_, empty_param, tree_paths
@@ -125,6 +126,10 @@ class LM(nn.Module):
             self.encoder = Encoder(cfg, device, dtype)
         if cfg.cross_attn_period > 0 and cfg.d_image not in (0, D):
             self.img_proj = empty_param((cfg.d_image, D), device, dtype)
+        # each module's prefix in the state dict, by which a mesh step's
+        # scope finds its parameters' specs (parallel.context)
+        for name, m in self.named_modules():
+            m._pname = f"{name}." if name else ""
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         """Random weights from ``gen``, with the reference's distributions."""
@@ -154,7 +159,8 @@ class LM(nn.Module):
             return self.encoder(cross_input, impl)
         img = cross_input
         if hasattr(self, "img_proj"):
-            img = promoted_einsum("bnd,de->bne", img, self.img_proj)
+            img = promoted_einsum("bnd,de->bne", img,
+                                  context.full(self, "img_proj"))
         return img.to(self.embed.dtype)
 
     def forward(self, tokens: torch.Tensor, impl: Optional[str] = None,
@@ -165,13 +171,14 @@ class LM(nn.Module):
         MoE layers' aux losses (:func:`forward_train` and :func:`loss_fn`
         run it on a parameter dict).  ``cross_input``: the batch's
         ``frames`` or ``image_embeds``."""
-        x = embed(self.embed, tokens)
+        x = embed(context.full(self, "embed"), tokens)
         x, aux = self.stack(x, caches=None, pos=0, causal=True, impl=impl,
                             cross_src=self.cross_source(cross_input, impl))
         return self.final_norm(x), aux
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        head = self.embed.T if self.cfg.tie_embeddings else self.head
+        head = (context.full(self, "embed").T if self.cfg.tie_embeddings
+                else context.full(self, "head"))
         return x @ head
 
     @torch.no_grad()
@@ -182,7 +189,7 @@ class LM(nn.Module):
         """Process the prompt, filling the caches (the cross caches from
         ``cross_input``, through the encoder for an encoder-decoder).
         Returns last-position logits (B, 1, V) and the cache."""
-        x = embed(self.embed, tokens)
+        x = embed(context.full(self, "embed"), tokens)
         x, _ = self.stack(x, caches=cache, pos=0, causal=True, impl=impl,
                           cross_src=self.cross_source(cross_input, impl))
         x = self.final_norm(x[:, -1:, :])
@@ -194,7 +201,7 @@ class LM(nn.Module):
                     ) -> Tuple[torch.Tensor, List[LayerCache]]:
         """One decode step. token: (B, 1) integer ids; pos: host integer,
         the position of ``token``.  Cross-attention reads its caches."""
-        x = embed(self.embed, token)
+        x = embed(context.full(self, "embed"), token)
         x, _ = self.stack(x, caches=cache, pos=int(pos), causal=True,
                           impl=impl)
         x = self.final_norm(x)
@@ -217,6 +224,33 @@ def _skeleton(cfg: ModelConfig) -> LM:
     return LM(cfg, device="meta")
 
 
+class _Method(nn.Module):
+    """An :class:`LM` method as a module's forward, for
+    ``functional_call``."""
+
+    def __init__(self, lm: LM, method: str):
+        super().__init__()
+        self.lm, self.method = lm, method
+
+    def forward(self, *args, **kwargs):
+        return getattr(self.lm, self.method)(*args, **kwargs)
+
+
+@functools.lru_cache(maxsize=None)
+def _method(cfg: ModelConfig, method: str) -> _Method:
+    return _Method(_skeleton(cfg), method)
+
+
+def call_lm(cfg: ModelConfig, method: str,
+            params: Mapping[str, torch.Tensor], *args, **kwargs):
+    """``LM.<method>(*args, **kwargs)`` of ``cfg`` run on the parameter
+    dict ``params`` (the mesh steps' serving calls: ``"prefill"``,
+    ``"decode_step"``)."""
+    return torch.func.functional_call(
+        _method(cfg, method), {f"lm.{k}": v for k, v in params.items()},
+        args, kwargs, strict=True)
+
+
 def _hidden(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
             batch: Mapping[str, torch.Tensor],
             impl: Optional[str]) -> Tuple[torch.Tensor, Aux]:
@@ -231,7 +265,9 @@ def _hidden(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
 
 
 def _head(params: Mapping[str, torch.Tensor], cfg: ModelConfig):
-    return params["embed"].T if cfg.tie_embeddings else params["head"]
+    if cfg.tie_embeddings:
+        return context.full_param("embed", params["embed"]).T
+    return context.full_param("head", params["head"])
 
 
 def forward_train(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
@@ -275,7 +311,8 @@ def _chunked_ce(head: torch.Tensor, x: torch.Tensor, labels: torch.Tensor,
 def loss_fn(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
             batch: Mapping[str, torch.Tensor], impl: Optional[str] = None,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Mean next-token cross-entropy over the labels >= 0, in fp32, plus
+    """Mean next-token cross-entropy over the labels >= 0, in fp32 (on a
+    mesh, over the global batch), plus
     the MoE aux losses (``MOE_LB_WEIGHT`` x load balance + ``MOE_Z_WEIGHT``
     x z-loss) where the model has MoE layers; the metrics ``{"ce_loss",
     "loss"}`` and the aux losses ``moe_load_balance``, ``moe_z_loss`` and
@@ -283,6 +320,8 @@ def loss_fn(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
     x, aux = _hidden(params, cfg, batch, impl)
     ce_sum, n_tok = _chunked_ce(_head(params, cfg), x, batch["labels"],
                                 CE_CHUNK)
+    # on a mesh: the global batch's sums, each rank's own tokens local
+    ce_sum, n_tok = context.batch_sum(ce_sum), context.batch_sum(n_tok)
     loss = ce_sum / torch.clamp(n_tok, min=1.0)
     metrics = {"ce_loss": loss, **aux}
     if "moe_load_balance" in aux:
@@ -326,6 +365,7 @@ class ModelBundle:
     decode: Callable[..., Tuple[torch.Tensor, List[LayerCache]]]
     make_cache: Callable[[int, int], List[LayerCache]]
     cache_spec: Callable[[int, int], List[Dict[str, Any]]]
+    dtype: Optional[torch.dtype] = None      # weights' and KV caches'
 
 
 def build_model(cfg: ModelConfig, device=None,
@@ -361,7 +401,8 @@ def build_model(cfg: ModelConfig, device=None,
         make_cache=lambda batch, s_max: init_cache(cfg, batch, s_max, dt,
                                                    dev, n_cross),
         cache_spec=lambda batch, s_max: stack_cache_spec(cfg, batch, s_max,
-                                                         dt, n_cross))
+                                                         dt, n_cross),
+        dtype=dt)
 
 
 # ---------------------------------------------------------------------------

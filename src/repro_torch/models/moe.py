@@ -1,15 +1,24 @@
 """Mixture-of-Experts layer: token-choice top-k routing, sort-based dispatch.
 
-Counterpart of ``src/repro/models/moe.py``, one device.  Tokens are
+Counterpart of ``src/repro/models/moe.py``.  Tokens are
 ranked into per-expert capacity slots with a stable argsort over their
 expert assignments (a token whose rank within its expert reaches the
 capacity is dropped; each batch row is a dispatch group), gathered once
 into an (E, B*C, D) buffer, run through the experts as one batched GEMM
 a projection over it -- each expert's weights are read once a call
-whatever B is -- and combined back with their gate weights.  The
-reference's expert-parallel ``moe_shard_map`` and its sharding
-constraints are multi-device (ROADMAP item 12e); off a mesh they are
-no-ops and the reference takes the branch ported here.
+whatever B is -- and combined back with their gate weights.
+
+On a mesh (a step's ``parallel.context`` scope) each rank holds its
+batch groups and, where the experts divide the "model" axis, its block
+of E/tp experts.  ``moe_buffer_mode`` "shard_map", "ep", "ep_local" and
+"dp" all dispatch to the local experts alone (:func:`moe_shard_map`, the
+reference's explicit EP) and sum the (B_l, S, D) partials once over
+"model", in fp32: a token's rank within its expert does not depend on
+the other experts, so ranking every expert's slots and keeping the local
+block, as the reference's GSPMD layouts do, gives the same slots.
+"none" (and experts that do not divide the axis) gathers every expert
+and runs the one-device layer on the local batch.  Every mode is the
+same function.  The aux losses are the global batch's.
 
 Gradients flow through the top-k values, the gathers and the combine
 weights; the integer paths carry none, and a dropped slot has weight 0.
@@ -23,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import context
 from .config import ModelConfig
 from .layers import MLP
 from .module import dense_init_, empty_param
@@ -139,7 +149,8 @@ class MoE(nn.Module):
                          torch.Tensor]:
         """fp32 router logits and probabilities (B, S, E), and each
         token's top-k weights, normalised, and experts (B, S, k)."""
-        logits = torch.einsum("bsd,de->bse", x.float(), self.router)
+        logits = torch.einsum("bsd,de->bse", x.float(),
+                              context.full(self, "router"))
         probs = torch.softmax(logits, dim=-1)
         top_w, top_idx = torch.topk(probs, self.cfg.top_k, dim=-1)
         top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
@@ -151,40 +162,96 @@ class MoE(nn.Module):
         E, k = self.cfg.n_experts, self.cfg.top_k
         C = moe_capacity(self.cfg, S)
         logits, probs, top_w, top_idx = self.route(x)
-        ce = F.one_hot(top_idx[..., 0], E).float().mean((0, 1))
-        aux = {"moe_load_balance": E * torch.sum(probs.mean((0, 1)) * ce),
-               "moe_z_loss": torch.mean(torch.logsumexp(logits, -1) ** 2)}
+        ce = context.batch_mean(F.one_hot(top_idx[..., 0], E).float().mean(
+            (0, 1)))
+        aux = {"moe_load_balance": E * torch.sum(
+                   context.batch_mean(probs.mean((0, 1))) * ce),
+               "moe_z_loss": context.batch_mean(torch.mean(
+                   torch.logsumexp(logits, -1) ** 2))}
 
-        tok_slot, w_slot, slot_of = _slots(top_idx, top_w, 0, E, C)
-        # gathered straight into the experts' (E, B*C, D) layout
-        buf = _gather(x, tok_slot.view(B, E, C).transpose(0, 1)).reshape(
-            E, B * C, D)
-        # the gate runs in fp32 and rounds once, as the dense MLP's
-        gate = F.silu(torch.bmm(buf, self.wg).float()) \
-            * torch.bmm(buf, self.wu).float()
-        y_buf = torch.bmm(gate.to(x.dtype), self.wd).reshape(E * B * C, D)
-
-        # combine: each token's k slots in ascending slot order (the order
-        # in which the reference's scatter-add applies them), gathered
-        # from the (E, B, C) layout, weighted, summed in fp32, rounded once
-        slots = torch.sort(slot_of, dim=-1).values                # (B, S, k)
-        kept = slots < E * C
-        b = torch.arange(B, device=x.device)[:, None, None]
-        rows = torch.where(kept, slots // C * (B * C) + b * C + slots % C, 0)
-        w = torch.gather(w_slot, 1, slots.clamp(max=E * C - 1).reshape(
-            B, S * k)).reshape(B, S, k).to(x.dtype).float()
-        y = None
-        for j in range(k):
-            part = torch.where(kept[..., j, None],
-                               y_buf[rows[..., j]].float() * w[..., j, None],
-                               0.0)
-            y = part if y is None else y + part
-        y = y.to(x.dtype)
+        sc = context.current()
+        tp = None if sc is None else sc.tp
+        if sc is None or sc.pcfg.moe_buffer_mode == "none" or E % tp.size:
+            w = {n: context.full(self, n) for n in ("wg", "wu", "wd")}
+            tok_slot, w_slot, slot_of = _slots(top_idx, top_w, 0, E, C)
+            # gathered straight into the experts' (E, B*C, D) layout
+            buf = _gather(x, tok_slot.view(B, E, C).transpose(0, 1))
+            y = _combine(x, buf.reshape(E, B * C, D), w, w_slot, slot_of,
+                         E, C).to(x.dtype)
+            n_routed = torch.sum((tok_slot < S).float())
+        else:
+            y, n_routed = moe_shard_map(self, x, top_idx, top_w, tp.rank,
+                                        tp.size)
         if self.cfg.n_shared_experts > 0:
             y = y + self.shared(x)
         if self.cfg.dense_residual:
             y = y + self.dense(x)
-
-        n_routed = torch.sum((tok_slot < S).float())
-        aux["moe_drop_fraction"] = 1.0 - n_routed / (B * S * k)
+        aux["moe_drop_fraction"] = 1.0 - context.batch_mean(n_routed) \
+            / (B * S * k)
         return y, aux
+
+
+def _combine(x: torch.Tensor, buf: torch.Tensor,
+             w: Dict[str, torch.Tensor], w_slot: torch.Tensor,
+             slot_of: torch.Tensor, n_local: int, C: int) -> torch.Tensor:
+    """``n_local`` experts, weights ``w``, on their (n_local, B*C, D) slot
+    buffer, combined back into each token's fp32 sum (B, S, D): each
+    token's slots in ascending slot order (the order in which the
+    reference's scatter-add applies them), gathered from the (E, B, C)
+    layout and weighted.  ``slot_of`` (B, S, k) holds each assignment's
+    slot in the local experts' layout (outside ``[0, n_local * C)``:
+    dropped, or another rank's) and ``w_slot`` (B, n_local * C) the gate
+    weight of each local slot."""
+    B, S, D = x.shape
+    k = slot_of.shape[-1]
+    # the gate runs in fp32 and rounds once, as the dense MLP's
+    gate = F.silu(torch.bmm(buf, w["wg"]).float()) \
+        * torch.bmm(buf, w["wu"]).float()
+    y_buf = torch.bmm(gate.to(x.dtype), w["wd"]).reshape(n_local * B * C, D)
+
+    slots = torch.sort(slot_of, dim=-1).values                # (B, S, k)
+    kept = (slots >= 0) & (slots < n_local * C)
+    b = torch.arange(B, device=x.device)[:, None, None]
+    rows = torch.where(kept, slots // C * (B * C) + b * C + slots % C, 0)
+    wt = torch.gather(w_slot, 1, slots.clamp(0, n_local * C - 1).reshape(
+        B, S * k)).reshape(B, S, k).to(x.dtype).float()
+    y = None
+    for j in range(k):
+        part = torch.where(kept[..., j, None],
+                           y_buf[rows[..., j]].float() * wt[..., j, None],
+                           0.0)
+        y = part if y is None else y + part
+    return y
+
+
+def _expert_weights(moe: MoE, r: int, n: int) -> Dict[str, torch.Tensor]:
+    """Rank ``r`` of ``n``'s block of the experts' weights, gathered over
+    the FSDP axes."""
+    ranges = context.ranges_of(r, n, moe.cfg.n_experts)
+    return {name: context.part(moe, name, 0, ranges)
+            for name in ("wg", "wu", "wd")}
+
+
+def moe_shard_map(moe: MoE, x: torch.Tensor, top_idx: torch.Tensor,
+                  top_w: torch.Tensor, r: int, n: int,
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Explicit expert parallelism, the reference's ``moe_shard_map``:
+    rank ``r`` of ``n`` on "model" holds experts ``[r * E/n, (r+1) *
+    E/n)`` and its batch groups' tokens (replicated over "model"); it
+    ranks the tokens into its own experts' slots alone (the local
+    dispatch of :func:`_dispatch_local_experts`, ``e_lo = r * E/n``),
+    runs them with their weights all-gathered over the FSDP axes, and the
+    (B_l, S, D) partials are summed once over "model" in fp32.  Returns
+    the output and the routed count over every expert."""
+    B, S, D = x.shape
+    E = moe.cfg.n_experts
+    C = moe_capacity(moe.cfg, S)
+    E_l = E // n
+    xs, tw = context.enter_split(x), context.enter_split(top_w)
+    tok_slot, w_slot, slot_of = _slots(top_idx, tw, r * E_l, E_l, C)
+    buf = _gather(xs, tok_slot.view(B, E_l, C).transpose(0, 1))
+    y = _combine(xs, buf.reshape(E_l, B * C, D), _expert_weights(moe, r, n),
+                 w_slot, slot_of, E_l, C)
+    routed = context.leave_split(torch.sum((tok_slot < S).float()))
+    return context.leave_split(y).to(x.dtype), routed
+

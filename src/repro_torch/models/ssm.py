@@ -12,6 +12,12 @@ jamba SSM layers):
 Prefill runs the scan through :func:`repro_torch.kernels.ops.selective_scan`
 (the CUDA kernel on the card); decode keeps a (conv window, ssm state)
 cache and takes one plain step a token.
+
+On a mesh whose "model" axis divides ``d_inner``, each rank keeps its
+block of the channels (the conv, the scan and the gate are per channel,
+so the scan kernel runs on the local channels) and the two products
+that sum over them, ``x_proj`` and ``out_proj``, are all-reduced in
+float32; off a mesh the weights are the module's own.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops
+from ..parallel import context
 from .config import ModelConfig
 from .module import TensorSpec, dense_init_, empty_param
 
@@ -112,34 +119,52 @@ class Mamba(nn.Module):
         softplus, the D skip and the z gate) run in fp32 and round to the
         model's dtype once at their end, where XLA's fusions round too.
         """
-        R, N = self.cfg.dt_rank, self.cfg.ssm_state
-        xz = torch.einsum("bsd,de->bse", u, self.in_proj)
+        R, N, di = self.cfg.dt_rank, self.cfg.ssm_state, self.cfg.d_inner
+        split = context.tp_split(di)
+        w = self._weights(split)
+        us = u if split is None else context.enter_split(u)
+
+        def summed(eq, a, b):
+            """A product over the channels (``eq`` None: a matmul):
+            whole, or this rank's channels' partial sum, summed over
+            "model" in fp32."""
+            if split is None:
+                return a @ b if eq is None else torch.einsum(eq, a, b)
+            a32, b32 = a.float(), b.float()
+            part = a32 @ b32 if eq is None else torch.einsum(eq, a32, b32)
+            return context.leave_split(part).to(a.dtype)
+
+        def enter(*ts):
+            return ts if split is None else tuple(context.enter_split(t)
+                                                  for t in ts)
+
+        xz = torch.einsum("bsd,de->bse", us, w["in_proj"])
         x, z = xz.chunk(2, dim=-1)                         # (B, S, di)
-        A = -torch.exp(self.A_log)                         # (di, N) fp32
+        A = -torch.exp(w["A_log"])                         # (di, N) fp32
 
         if cache is None:
             W = self.cfg.ssm_conv
             window = torch.zeros((u.shape[0], W - 1, x.shape[-1]),
                                  dtype=x.dtype, device=x.device)
-            xc, _ = _causal_conv(x, self.conv_w, self.conv_b, window)
+            xc, _ = _causal_conv(x, w["conv_w"], w["conv_b"], window)
             xc = F.silu(xc).to(u.dtype)
-            dbc = torch.einsum("bsd,de->bse", xc, self.x_proj)
-            dt_low, Bm, Cm = torch.split(dbc, [R, N, N], dim=-1)
+            dbc = summed("bsd,de->bse", xc, w["x_proj"])
+            dt_low, Bm, Cm = enter(*torch.split(dbc, [R, N, N], dim=-1))
             dt = softplus(torch.einsum("bsr,rd->bsd", dt_low,
-                                       self.dt_w).float()
-                          + self.dt_b.float()).to(u.dtype)
+                                       w["dt_w"]).float()
+                          + w["dt_b"].float()).to(u.dtype)
             y, _ = ops.selective_scan(xc, dt, A, Bm, Cm, None, impl=impl)
         elif u.shape[1] == 1:
             # ---- decode step: conv from the cached window, one scan step
             window = torch.cat([cache["conv"], x.to(cache["conv"].dtype)],
                                dim=1)                      # (B, W, di)
             xc = (torch.einsum("bwd,wd->bd", window.float(),
-                               self.conv_w.float()) + self.conv_b.float())
+                               w["conv_w"].float()) + w["conv_b"].float())
             xc = F.silu(xc).to(u.dtype)                    # (B, di)
-            dbc = xc @ self.x_proj
-            dt_low, Bm, Cm = torch.split(dbc, [R, N, N], dim=-1)
-            dt = softplus((dt_low @ self.dt_w).float()
-                          + self.dt_b.float()).to(u.dtype)
+            dbc = summed(None, xc, w["x_proj"])
+            dt_low, Bm, Cm = enter(*torch.split(dbc, [R, N, N], dim=-1))
+            dt = softplus((dt_low @ w["dt_w"]).float()
+                          + w["dt_b"].float()).to(u.dtype)
             y, h_new = ops.selective_scan_step(xc, dt, A, Bm, Cm,
                                                cache["ssm"])
             cache["conv"].copy_(window[:, 1:])
@@ -147,19 +172,38 @@ class Mamba(nn.Module):
             y, xc = y[:, None, :], xc[:, None, :]
         else:
             # ---- prefill ----
-            xc, xp = _causal_conv(x, self.conv_w, self.conv_b, cache["conv"])
+            xc, xp = _causal_conv(x, w["conv_w"], w["conv_b"],
+                                  cache["conv"])
             xc = F.silu(xc).to(u.dtype)
-            dbc = torch.einsum("bsd,de->bse", xc, self.x_proj)
-            dt_low, Bm, Cm = torch.split(dbc, [R, N, N], dim=-1)
+            dbc = summed("bsd,de->bse", xc, w["x_proj"])
+            dt_low, Bm, Cm = enter(*torch.split(dbc, [R, N, N], dim=-1))
             dt = softplus(torch.einsum("bsr,rd->bsd", dt_low,
-                                       self.dt_w).float()
-                          + self.dt_b.float()).to(u.dtype)
+                                       w["dt_w"]).float()
+                          + w["dt_b"].float()).to(u.dtype)
             y, h_final = ops.selective_scan(xc, dt, A, Bm, Cm, cache["ssm"],
                                             impl=impl)
             W = self.cfg.ssm_conv
             cache["conv"].copy_(xp[:, xp.shape[1] - (W - 1):])
             cache["ssm"].copy_(h_final)
 
-        out = ((y.float() + xc.float() * self.D) * F.silu(z.float())
+        out = ((y.float() + xc.float() * w["D"]) * F.silu(z.float())
                ).to(u.dtype)
-        return torch.einsum("bse,ed->bsd", out, self.out_proj)
+        return summed("bse,ed->bsd", out, w["out_proj"])
+
+    #: parameter -> the dimension of its d_inner channels
+    _CHANNEL_DIM = {"in_proj": 1, "conv_w": 1, "conv_b": 0, "x_proj": 0,
+                    "dt_w": 1, "dt_b": 0, "A_log": 0, "D": 0, "out_proj": 0}
+
+    def _weights(self, split) -> Dict[str, torch.Tensor]:
+        """The weights this rank computes with: whole (``split`` None),
+        or its block of the channels (``in_proj``'s x and z halves
+        each)."""
+        if split is None:
+            return {n: context.full(self, n) for n in self._CHANNEL_DIM}
+        di = self.cfg.d_inner
+        out = {}
+        for n, dim in self._CHANNEL_DIM.items():
+            offsets = (0, di) if n == "in_proj" else (0,)
+            out[n] = context.part(self, n, dim,
+                                  context.ranges_of(*split, di, offsets))
+        return out

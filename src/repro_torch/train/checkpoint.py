@@ -18,8 +18,9 @@ Layout:
     <dir>/step_000123/
         manifest.json          # tree structure, shapes, dtypes, step
         shard_00000.npz        # flat {path: array} for this host's slice
-Multi-host: each host writes the leaves it owns (addressable shards);
-in this single-process container there is one shard file.  Integrity: the
+On a mesh of ranks the training loop gathers the state and rank 0 writes
+it as the one shard file, which a restore reads whole and places again
+(``train.loop``).  Integrity: the
 manifest carries per-leaf checksums (crc32 of a strided sample) verified
 on load.
 """

@@ -2,9 +2,14 @@
 
 Counterpart of ``src/repro/train/loop.py``: the same control flow (resume,
 inject, restore and re-seek, straggler, cadence, final save) on the
-port's one-device train step, pipeline, checkpoints and fault tolerance.
+port's train step, pipeline, checkpoints and fault tolerance.
 The state is ``{"params": {name: tensor}, "opt": ...}`` on the mesh's
 device; a restore reads the checkpoint to the host and moves it there.
+On a mesh of ranks (``launch.mesh.RankMesh``) each rank holds its parts
+of the state and the batch (the step's ``place``, by
+``params_shardings`` and ``opt_state_shardings``); a checkpoint is the
+gathered state, which rank 0 writes in the one-file format, and a
+restore places it again.
 
 Wires together: sharded train_step (parallel.steps), the seekable data
 pipeline, async checkpointing, failure injection + restart, straggler
@@ -32,8 +37,10 @@ from ..configs.shapes import ShapeSpec
 from ..core.analytical import plan_checkpoints
 from ..core.params import Params as ClusterParams
 from ..data.pipeline import DataConfig, SyntheticTokenPipeline
+from ..launch.mesh import RankMesh
 from ..models.model_zoo import ModelBundle
-from ..parallel.steps import make_train_step
+from ..parallel import sharding
+from ..parallel.steps import BuiltStep, make_train_step
 from .checkpoint import AsyncCheckpointer, latest_step, restore_checkpoint
 from .fault_tolerance import FailureInjector, RecoveryStats, StragglerPolicy
 from .optimizer import OptimizerConfig, init_opt_state
@@ -82,6 +89,40 @@ def _fresh_state(bundle: ModelBundle, seed: int, opt_cfg: OptimizerConfig,
     return {"params": params, "opt": init_opt_state(params, opt_cfg)}
 
 
+def _placed(built: BuiltStep, mesh, state: Dict[str, Any]
+            ) -> Dict[str, Any]:
+    """A whole state as the mesh holds it: this rank's parts on a mesh of
+    ranks (the state is the caller's on one device)."""
+    if isinstance(mesh, RankMesh):
+        (state,) = built.place(state)
+    return state
+
+
+def _restored(built: BuiltStep, mesh, host_state) -> Dict[str, Any]:
+    if isinstance(mesh, RankMesh):
+        (state,) = built.place(host_state)
+        return state
+    return _to_device(host_state, mesh.device)
+
+
+def _save(ckpt: AsyncCheckpointer, built: BuiltStep, mesh, step: int,
+          state: Dict[str, Any]) -> None:
+    """Checkpoint ``state`` at ``step``: on a mesh of ranks every rank
+    gathers it and rank 0 writes it."""
+    if isinstance(mesh, RankMesh):
+        state = built.gather(state, built.in_shardings[0])
+        if mesh.rank != 0:
+            return
+    ckpt.save(step, state, extra={"data_step": step})
+
+
+def _wait(ckpt: AsyncCheckpointer, mesh) -> None:
+    """Every pending write done (on a mesh, rank 0's, for every rank)."""
+    ckpt.wait()
+    if isinstance(mesh, RankMesh):
+        mesh.barrier()
+
+
 def train(bundle: ModelBundle, mesh, shape: ShapeSpec,
           loop_cfg: TrainLoopConfig,
           opt_cfg: OptimizerConfig = OptimizerConfig(),
@@ -104,10 +145,11 @@ def train(bundle: ModelBundle, mesh, shape: ShapeSpec,
         if resume is not None:
             start_step, host_state, extra = restore_checkpoint(
                 loop_cfg.checkpoint_dir)
-            state = _to_device(host_state, device)
+            state = _restored(built, mesh, host_state)
             pipeline.seek(extra.get("data_step", start_step))
         else:
-            state = _fresh_state(bundle, loop_cfg.seed, opt_cfg, device)
+            state = _placed(built, mesh, _fresh_state(
+                bundle, loop_cfg.seed, opt_cfg, device))
             pipeline.seek(0)
 
     injector = FailureInjector(
@@ -130,25 +172,27 @@ def train(bundle: ModelBundle, mesh, shape: ShapeSpec,
         # truncate tokens/labels to seq_len (pipeline emits seq_len+1 grid)
         batch["tokens"] = batch["tokens"][:, :shape.seq_len]
         batch["labels"] = batch["labels"][:, :shape.seq_len]
+        if isinstance(mesh, RankMesh):
+            batch = sharding.place(batch, built.in_shardings[1], mesh)
 
         # ---- simulated failure? restore-from-checkpoint restart ----------
         if injector is not None and injector.check(step) is not None:
             stats.n_failures += 1
             t0 = time.time()
-            ckpt.wait()
+            _wait(ckpt, mesh)
             resume_step = latest_step(loop_cfg.checkpoint_dir)
             if resume_step is not None:
                 _, host_state, extra = restore_checkpoint(
                     loop_cfg.checkpoint_dir)
                 with mesh:
-                    state = _to_device(host_state, device)
+                    state = _restored(built, mesh, host_state)
                 stats.lost_steps += step - resume_step
                 step = resume_step
                 pipeline.seek(extra.get("data_step", resume_step))
             else:  # no checkpoint yet: restart from scratch
                 with mesh:
-                    state = _fresh_state(bundle, loop_cfg.seed, opt_cfg,
-                                         device)
+                    state = _placed(built, mesh, _fresh_state(
+                        bundle, loop_cfg.seed, opt_cfg, device))
                 stats.lost_steps += step
                 step = 0
                 pipeline.seek(0)
@@ -174,11 +218,13 @@ def train(bundle: ModelBundle, mesh, shape: ShapeSpec,
         step += 1
 
         if step - last_ckpt_step >= cadence:
-            ckpt.save(step, state, extra={"data_step": step})
+            _save(ckpt, built, mesh, step, state)
             last_ckpt_step = step
 
-    ckpt.save(step, state, extra={"data_step": step})
+    _save(ckpt, built, mesh, step, state)
     ckpt.close()
+    if isinstance(mesh, RankMesh):
+        mesh.barrier()
     return {
         "history": history,
         "final_loss": history[-1]["loss"] if history else float("nan"),

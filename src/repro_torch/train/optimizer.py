@@ -79,6 +79,7 @@ def global_norm(tree: Params) -> torch.Tensor:
 def adamw_update(params: Params, grads: Params, state: Dict,
                  cfg: OptimizerConfig,
                  decayed: Optional[Collection[str]] = None,
+                 grad_norm: Optional[torch.Tensor] = None,
                  ) -> Tuple[Params, Dict, Dict[str, torch.Tensor]]:
     """One clipped AdamW step; returns ``(params, state, {"grad_norm",
     "lr"})`` with the parameters and moments updated in place.
@@ -86,9 +87,11 @@ def adamw_update(params: Params, grads: Params, state: Dict,
     Weight decay applies to the tensors of two or more dimensions, or to
     the names in ``decayed`` where given: the reference decays the leaves
     of its tree, where a layer's vector is stacked over the superblocks
-    into a matrix (``models.model_zoo.decayed_names``)."""
+    into a matrix (``models.model_zoo.decayed_names``).  ``grad_norm``:
+    the gradients' global norm where ``grads`` are one rank's shards (a
+    mesh step's), else it is theirs."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     lr = lr_at(cfg, step)

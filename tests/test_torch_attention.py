@@ -159,6 +159,68 @@ def test_refusals():
         fa.flash_attention_cuda(q.half(), k.half(), v.half())
 
 
+#: (B, Sq, Sk, Hq, Hkv, d, causal, q_offset, kv_len) for the row
+#: log-sum-exp: the decode route (split keys), the prefill tiles, a
+#: ragged offset and a length mask
+LSE_CASES = [(2, 1, 544, 16, 2, 128, False, 0, 300),
+             (2, 1, 544, 48, 1, 64, False, 0, 17),
+             (2, 70, 150, 8, 2, 64, True, 80, None),
+             (1, 130, 130, 16, 2, 128, True, 0, None),
+             (3, 8, 57, 16, 2, 32, True, 49, 50)]
+
+
+def _lse_want(q, k, causal, q_offset, kv_len):
+    """Each query row's log-sum-exp of its scaled, masked scores,
+    computed apart from the attention code."""
+    B, Sq, Hq, d = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    qg = q.float().reshape(B, Sq, Hkv, Hq // Hkv, d)
+    s = torch.einsum("bqhgd,bkhd->bqhgk", qg, k.float()) / np.sqrt(d)
+    keep = torch.ones(Sq, Sk, dtype=torch.bool)
+    if causal:
+        keep &= torch.arange(Sk)[None] <= q_offset + torch.arange(Sq)[:, None]
+    if kv_len is not None:
+        keep &= torch.arange(Sk)[None] < kv_len
+    s = s.masked_fill(~keep[None, :, None, None, :], -np.inf)
+    return torch.logsumexp(s, -1).reshape(B, Sq, Hq)
+
+
+@pytest.mark.parametrize("case", LSE_CASES)
+def test_lse_is_each_rows_logsumexp(case):
+    """``return_lse`` on the plain path: the attention output unchanged,
+    and the rows' log-sum-exp of their visible scores."""
+    B, Sq, Sk, Hq, Hkv, d, causal, q_offset, kv_len = case
+    q, k, v = _to_torch(_inputs(B, Sq, Sk, Hq, Hkv, d, seed=6), "float32")
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
+    out, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+    assert torch.equal(out, ops.flash_attention(q, k, v, **kw))
+    assert lse.dtype == torch.float32 and lse.shape == (B, Sq, Hq)
+    torch.testing.assert_close(lse, _lse_want(q, k, causal, q_offset,
+                                              kv_len), rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", LSE_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_lse_matches_ref(case, dtype):
+    """The row log-sum-exp the kernels write beside the output, on every
+    route, against the plain version's, from the same one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    B, Sq, Sk, Hq, Hkv, d, causal, q_offset, kv_len = case
+    q, k, v = (t.cuda() for t in _to_torch(
+        _inputs(B, Sq, Sk, Hq, Hkv, d, seed=6), dtype))
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
+    before = fa.LAUNCHES
+    out, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+    assert fa.LAUNCHES == before + 1
+    want_out, want = attention_ref(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    _assert_close(out.cpu(), want_out.float().cpu().numpy(),
+                  DTYPES[dtype][2])
+    assert float(((lse - want).abs() / (1 + want.abs())).max()) <= 1e-4
+
+
 def test_kernel_library_named_by_source_hash():
     path = fa.LIBRARY.library_path()
     assert path.parent.name == "repro_torch"
