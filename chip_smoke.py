@@ -104,8 +104,8 @@ Phases, each of which fails the run loudly:
     step), its launches counted from 0: steps, launches, sweep wall, every
     replica completed, the first chunk held exactly against the plain
     step loop with its times and bound, the chunk kernel's device time a
-    launch over a traced sweep; then the whole Weibull sweep through the
-    plain step loop, held as in phase 6;
+    launch over a traced sweep (the whole Weibull sweep through the plain
+    loop is no longer run: the first chunk is the comparison);
 15. run parity on tests/test_nonexp.py's and tests/test_empirical.py's
     configs and a lognormal: the CTMC engine on the card (768 replicas)
     against the event engine on the host (40), every compared metric
@@ -115,8 +115,7 @@ Phases, each of which fails the run loudly:
     repair shape), each through the slot instance of the chunk kernel (a
     warp a row, the row's repair-slot lane in shared memory, 16 rates x 4
     residuals, 9 uniforms a step), held as in phase 14 with the slot
-    lane's width and overflows (none allowed); then the whole Weibull-
-    repair sweep through the plain step loop, held as in phase 6;
+    lane's width and overflows (none allowed);
 17. run parity on tests/test_repair_dist.py's configs and
     tests/test_empirical.py's empirical repairs: the CTMC engine on the
     card (768 replicas) against the event engine on the host (40), every
@@ -222,12 +221,14 @@ Phases, each of which fails the run loudly:
     36 layers and falcon-mamba-7b at 4 of its 64 (its full depth's
     weights and AdamW state, ~84 GB, exceed one card), bf16 parameters,
     float32 AdamW state, batch 2 x 512, three steps: each step's wall,
-    loss and kernel launches (one a layer), the peak memory, and the
+    loss and kernel launches (one a layer, two under a remat policy that
+    recomputes the forward), the peak memory, and the
     first step's loss and grad norm against ``impl="ref"``;
 28. ``train.loop.train`` at examples/torch_train_with_failures.py's 100m
-    preset and cluster, 20 steps with a failure at step 13 (checkpoints in
+    preset and cluster, 12 steps with a failure at step 9 (checkpoints in
     a temporary folder, removed; 40 steps and step 25 before phase 30
-    took its time), against the same run without
+    took its time, 20 and 13 before phase 32), against the same run
+    without
     injection: the recovery stats, the Young/Daly cadence, the loss
     falling, and the largest difference of the final parameters;
 29. the MoE layers: (a) kimi-k2-1t-a32b at 1 of its 61 layers and
@@ -282,6 +283,23 @@ Phases, each of which fails the run loudly:
     qwen2.5-3b at 2 layers in float32 held to a one-device float32 run
     (31a's bf16 models printed beside theirs); with one card a line that
     says the two-rank run needs two cards.
+32. the dry run and the roofline: (a) ``launch.dryrun.run_cell`` on
+    qwen2.5-3b x train_4k x 2x16x16 and falcon-mamba-7b x long_500k x
+    16x16 and ``launch.perf.run_variant`` baseline on the second, in a
+    subprocess that sees no card (fake tensors, a fake process group),
+    started after the builds, each record's terms printed; (b) qwen2.5-3b
+    at full width on one card, ``impl="ref"``: a prefill of 4 x 512 into
+    a cache of 544 slots and one decode step, each step's FLOPs, bytes
+    and collectives equal to its fake trace's (CPU fakes, as the dry run
+    makes them), its peak memory
+    within 10% of the trace's arguments + temporaries (the peak above
+    the step's own baseline printed beside the temporaries);
+    (c) the plain path's and the kernel path's walls of the same steps
+    at or above the plain and the kernelized bounds (attention launches
+    counted); (d) qwen2.5-3b at 2 layers in float32, one train step of 2
+    x 512 under remat "nothing", "dots" and "full": loss, grad_norm and
+    every leaf bit for bit, the peak of each.  ``--dryrun-only`` runs
+    phases 1 and 32 alone.
 
 Prints a ``{"serving": ..., "host_paths": ...}`` line, a ``{"kernels":
 [...]}`` line and, as its last line, ``{"ok": true, "device": {...}}``.  Exits non-zero, with
@@ -291,6 +309,7 @@ are missing.
 
 from __future__ import annotations
 
+import atexit
 import concurrent.futures
 import gc
 import json
@@ -302,16 +321,15 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-
-#: H100 SXM peaks from NVIDIA's data sheet (dense, at the 700 W limit)
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-BF16_OPS_PER_S = 989e12
-#: special-function results (exp2, log2, rcp) a second: 16 a clock on each
-#: of the 132 SMs (the CUDA C++ Programming Guide's throughput table for
-#: compute capability 9.0) at the 1.98 GHz maximum SM clock
-#: (nvidia-smi clocks.max.sm)
-SFU_OPS_PER_S = 132 * 16 * 1.98e9
+sys.path.insert(0, os.path.join(ROOT, "src"))
+try:
+    #: H100 SXM peaks from NVIDIA's data sheet (dense, at the 700 W
+    #: limit): the roofline's constants
+    from repro_torch.roofline.analysis import FP32_FLOPS as FP32_OPS_PER_S
+    from repro_torch.roofline.analysis import HBM_BW as HBM_BYTES_PER_S
+    from repro_torch.roofline.analysis import PEAK_FLOPS as BF16_OPS_PER_S
+except ImportError as exc:
+    sys.exit(f"chip_smoke: the repository's sources are missing ({exc})")
 
 TPU_KERNEL = "src/repro/kernels/des_step.py:46"
 KERNEL_SOURCE = "src/repro_torch/csrc/event_race.cu"
@@ -782,20 +800,13 @@ def attn_inputs(B, Sq, Sk, Hq, Hkv, d, dtype, seed, scales=(1, 1, 1)):
 def attn_bound_ms(q, k, causal, q_offset=0, kv_len=None):
     """Least time for one attention call on these inputs: q, the k/v rows
     it needs and the output moved once; 4 d operations per visible
-    (query, key) pair at the inputs' peak."""
+    (query, key) pair at the inputs' peak
+    (``roofline.kernel_adjust.attention_bound_s``)."""
+    from repro_torch.roofline.kernel_adjust import attention_bound_s
     B, Sq, Hq, d = q.shape
-    Hkv = k.shape[2]
-    limit = k.shape[1] if kv_len is None else min(kv_len, k.shape[1])
-    rows = range(q_offset, q_offset + Sq)
-    visible = [min(limit, r + 1) if causal else limit for r in rows]
-    pairs = B * Hq * sum(visible)
-    nbytes = q.element_size() * (2 * B * Sq * Hq * d
-                                 + 2 * B * max(visible) * Hkv * d)
-    peak = BF16_OPS_PER_S if q.element_size() == 2 else FP32_OPS_PER_S
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = 4 * d * pairs / peak * 1e3
-    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms \
-        else "operations"
+    s, by = attention_bound_s(B, Sq, k.shape[1], Hq, k.shape[2], d,
+                              q.element_size(), causal, q_offset, kv_len)
+    return s * 1e3, by
 
 
 def attention_phase(fa, ref):
@@ -967,15 +978,12 @@ def scan_bound_ms(x, Bm, N):
     once and y, h_final written once; 7 fp32 operations per (b, t, c, n)
     (dt*A, exp, decay*h, drive, add, and y's multiply-add) plus dt*x at
     the fp32 peak, or the one exp per (b, t, c, n) at the special-function
-    units' rate, whichever takes longer."""
+    units' rate, whichever takes longer
+    (``roofline.kernel_adjust.scan_bound_s``)."""
+    from repro_torch.roofline.kernel_adjust import scan_bound_s
     B, S, di = x.shape
-    nbytes = (x.element_size() * (3 * B * S * di + 2 * B * S * N)
-              + 4 * (di * N + 2 * B * di * N))
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = max(B * S * di * (7 * N + 1) / FP32_OPS_PER_S,
-                 B * S * di * N / SFU_OPS_PER_S) * 1e3
-    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms \
-        else "operations"
+    s, by = scan_bound_s(B, S, di, N, x.element_size())
+    return s * 1e3, by
 
 
 def ptxas_report(log: str, kernel: str):
@@ -1395,6 +1403,15 @@ def cross_inputs_for(cfg, dtype):
              else (SERVE_BATCH, cfg.n_image_tokens, cfg.d_image))
     return {key: (torch.randn(shape, generator=seeded(SEED), device="cuda")
                   * 0.1).to(dtype)}
+
+
+def train_launches(cfg, forward):
+    """Kernel launches of a train step whose forward launches
+    ``forward``: where the config's remat policy checkpoints the
+    superblocks (``models.transformer.REMAT_POLICIES``), the backward
+    runs every superblock's forward again, kernels included."""
+    from repro_torch.models.transformer import REMAT_POLICIES
+    return forward * (2 if cfg.remat_policy in REMAT_POLICIES else 1)
 
 
 def attention_launches(cfg):
@@ -1925,41 +1942,6 @@ def family_phase(core, cc, vectorized, name, overrides, twin=False):
               f"({t['live_rows']} live rows)")
     return dict(t, kind=kind, rkind=rkind, launches=launches, steps=steps,
                 wall_s=wall, final=final, base=base, overflow=overflow)
-
-
-def family_identity(core, cc, vectorized, rec):
-    """Phase 14's A/B: a family's whole sweep through the plain step loop
-    (``event_race_impl="ref"``) on the same uniforms, held exactly."""
-    import torch
-    sweep = core.OneWaySweep("plain", "warm_standbys", SWEEP_VALUES,
-                             n_replications=N_REPLICAS,
-                             base_params=rec["base"].replace(
-                                 event_race_impl="ref"), device="cuda")
-    run, restore = capture_final_states(vectorized)
-    try:
-        counts = (cc.LAUNCHES, cc.STEPS)
-        t0 = time.perf_counter()
-        sweep.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        restore()
-    if (cc.LAUNCHES, cc.STEPS) != counts:
-        fail("impl='ref' launched the chunk kernel")
-    frac, hist_same, worst_rel, bits = sweep_identity(rec["final"],
-                                                      run["states"][0])
-    label = f"{rec['kind']} failures, {rec['rkind']} repairs"
-    print(f"  {label} sweep through the plain step loop: wall "
-          f"{wall:.3f} s ({run['steps']} steps); replicas with identical "
-          f"integer metrics {frac * 100:.3f}%; histograms identical "
-          f"{hist_same}; float lanes: largest relative difference "
-          f"{worst_rel:.3e}, bit-different elements {bits}")
-    if frac < 1.0 or not hist_same or worst_rel > 1e-6:
-        fail(f"the sweep of {label} through the chunk kernel differs from "
-             "the plain loop's")
-    return {"identical_share": frac, "histograms_identical": hist_same,
-            "float_max_rel": worst_rel, "bit_different": bits,
-            "plain_wall_s": wall}
 
 
 def nonexp_parity_phase(core, cc, table):
@@ -3749,9 +3731,10 @@ def train_step_phase(fa, ms, card_line):
               f"{tail_ref:.6e} (rel err {tail_err:.3e})")
         if not all(math.isfinite(st["loss"]) for st in steps):
             fail(f"{arch}: a training loss is not finite")
-        if any(st["launches"] != cfg.n_layers for st in steps):
+        want = train_launches(cfg, cfg.n_layers)
+        if any(st["launches"] != want for st in steps):
             fail(f"{arch}: {kernel} launched {[st['launches'] for st in steps]}"
-                 f" times in the steps, not {cfg.n_layers} a step")
+                 f" times in the steps, not {want} a step")
         if loss_err > 2e-2 or tail_err > 5e-2:
             fail(f"{arch}: the first step's loss or its last layer's "
                  "gradient norm is off impl='ref' by more than the bf16 "
@@ -3772,8 +3755,8 @@ def train_step_phase(fa, ms, card_line):
 
 #: phase 28: examples/torch_train_with_failures.py's 100m preset and
 #: cluster, TRAIN_LOOP_STEPS steps, one deterministic failure
-TRAIN_LOOP_STEPS = 20
-TRAIN_LOOP_FAILURE = 13
+TRAIN_LOOP_STEPS = 12
+TRAIN_LOOP_FAILURE = 9
 #: no clipping: the random init's gradient explodes through the layers
 #: (its norm is printed), and a unit clip scales every gradient below
 #: AdamW's eps, so nothing would learn in these steps
@@ -4115,7 +4098,8 @@ def moe_train_phase(fa, ms):
               f"drops {got['moe_drop_fraction']:.6f}; largest relative "
               f"difference card against CPU {max(rel.values()):.3e} "
               f"({max(rel, key=rel.get)}); launches {launches}")
-        want_launches = {"cuda": (kinds.count("attn"), kinds.count("ssm")),
+        want_launches = {"cuda": (train_launches(cfg, kinds.count("attn")),
+                                  train_launches(cfg, kinds.count("ssm"))),
                          "cpu": (0, 0)}
         if (sorted(got) != sorted(want) or "moe_z_loss" not in got
                 or max(rel.values()) > MOE_TRAIN_REL
@@ -4437,7 +4421,8 @@ def cross_train_phase(fa, ms, card_line):
         rel = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-6)
                for k in want}
         launches = {d: r[1] for d, r in runs.items()}
-        want_launches = {"cuda": attention_launches(cfg)[0], "cpu": 0}
+        want_launches = {"cuda": train_launches(
+            cfg, attention_launches(cfg)[0]), "cpu": 0}
         print(f"  {cfg.name} smoke: loss {got['loss']:.6f} (cpu "
               f"{want['loss']:.6f}), grad_norm {got['grad_norm']:.6f} (cpu "
               f"{want['grad_norm']:.6f}); relative difference card against "
@@ -4483,7 +4468,7 @@ def cross_train_phase(fa, ms, card_line):
         print(f"    step {i}: wall {st['wall_s'] * 1e3:.1f} ms, loss "
               f"{st['loss']:.5f}, grad_norm {st['grad_norm']:.4f}, "
               f"attention launches {st['launches']}")
-    want = attention_launches(cfg)[0]
+    want = train_launches(cfg, attention_launches(cfg)[0])
     if not all(math.isfinite(st["loss"]) for st in steps) or any(
             st["launches"] != want for st in steps):
         fail(f"{cfg.name}: losses {[st['loss'] for st in steps]}, attention"
@@ -4839,9 +4824,10 @@ def mesh_train_case(mesh, fa, card_line):
     if rec["broken"]:
         fail(f"phase 31b: the mesh step is off the one-device step: "
              f"{rec['broken']}")
-    if rec["launches"] != MESH_TRAIN_LAYERS:
+    want = train_launches(bundle.cfg, MESH_TRAIN_LAYERS)
+    if rec["launches"] != want:
         fail(f"phase 31b: {rec['launches']} attention launches, not "
-             f"{MESH_TRAIN_LAYERS}")
+             f"{want}")
     return rec
 
 
@@ -5331,6 +5317,311 @@ def mesh_phase(fa, ms, card_line):
     return out
 
 
+#: phase 32: the dry run's cells, run on the card machine's host in a
+#: subprocess (a fake world of 512 / 256 ranks, fake tensors, no card),
+#: started after the builds and read here: (arch, shape, multi_pod); and
+#: perf.py's baseline variant on the second
+DRYRUN_CELLS = (("qwen2.5-3b", "train_4k", True),
+                ("falcon-mamba-7b", "long_500k", False))
+DRYRUN_PERF = ("falcon-mamba-7b", "long_500k", "baseline")
+#: phase 32b: the card's peak above the phase's baseline against the
+#: trace's arguments + temporaries, within this share
+DRYRUN_MEM_TOL = 0.10
+#: phase 32c: calls a wall is the least of
+DRYRUN_REPS = 3
+#: phase 32d: the remat policies held bit for bit against each other
+REMAT_CHECKED = ("nothing", "dots", "full")
+_DRYRUN_CHILD = """
+import json, sys
+from repro_torch.launch import dryrun, perf
+cells, variant = json.loads(sys.argv[1])
+recs = [dryrun.run_cell(a, s, m, verbose=False) for a, s, m in cells]
+print(json.dumps({"cells": recs, "perf": perf.run_variant(*variant)}))
+"""
+
+
+def start_dryrun_cells():
+    """Phase 32a's subprocess, started early: the dry run needs no card
+    (it sees none) and runs on the host beside the card phases."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   [os.path.join(ROOT, "src"),
+                    os.environ.get("PYTHONPATH", "")]))
+    return subprocess.Popen(
+        [sys.executable, "-c", _DRYRUN_CHILD,
+         json.dumps([DRYRUN_CELLS, DRYRUN_PERF])], env=env, cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def roofline_terms(r):
+    return (f"compute {r['compute_s'] * 1e3:.3f} ms, memory "
+            f"{r['memory_s'] * 1e3:.3f} ms, collective "
+            f"{r['collective_s'] * 1e3:.3f} ms; bottleneck "
+            f"{r['bottleneck']}, bound {r['step_time_bound_s'] * 1e3:.3f} "
+            f"ms, roofline fraction {r['roofline_fraction']:.4f}")
+
+
+def dryrun_cells_phase(proc):
+    """Phase 32a: the subprocess's records, their terms printed."""
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    if proc.returncode != 0:
+        fail(f"phase 32a: the dry run's process exited {proc.returncode}: "
+             f"{err[-3000:]}")
+    res = json.loads(out.strip().splitlines()[-1])
+    for rec in res["cells"]:
+        label = f"{rec['arch']} x {rec['shape']} x {rec['mesh']}"
+        if rec["status"] != "OK":
+            fail(f"phase 32a: {label} is {rec['status']}: "
+                 f"{rec.get('traceback', rec.get('reason'))}")
+        r = rec["roofline"]
+        print(f"  {label} (computed, {rec['n_chips']} ranks, traced in "
+              f"{rec['trace_s']} s): {rec['counted_flops']:.4e} FLOP and "
+              f"{rec['counted_bytes']:.4e} B a rank; args "
+              f"{rec['arg_bytes'] / 1e9:.3f} GB + temporaries "
+              f"{rec['temp_bytes'] / 1e9:.3f} GB, fits 80 GB "
+              f"{r['fits_hbm']}; collectives {rec['collectives']}; "
+              f"useful ratio {r['useful_ratio']:.4f}; {roofline_terms(r)}")
+    p = res["perf"]
+    print(f"  perf.py {p['arch']} x {p['shape']} [{p['variant']}]: traced "
+          f"{roofline_terms(p['roofline'])}; kernelized "
+          f"{roofline_terms(p['kernelized'])}")
+    return res
+
+
+def fake_like(args):
+    """Fake tensors of ``args``' shapes and dtypes on the CPU, as the dry
+    run makes them, under a new FakeTensorMode."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils._pytree import tree_map
+    mode = FakeTensorMode(allow_non_fake_inputs=True)
+
+    def one(t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        with mode:
+            return torch.empty(t.shape, dtype=t.dtype, device="cpu")
+    return mode, tree_map(one, args)
+
+
+def step_counts(dryrun, step, args, label, base0):
+    """Phase 32b for one step: its fake trace as the dry run takes it (CPU
+    fakes) and the real step's on the card, held exactly (FLOPs, bytes,
+    collectives, and on a difference the ops that differ); the card's
+    memory after a warm call (cuBLAS allocates its 32 MiB workspace
+    through the caching allocator at its first product): the peak above
+    ``base0`` (the memory before the weights and the cache were made)
+    within DRYRUN_MEM_TOL of the trace's arguments + temporaries, and the
+    peak above the step's own baseline printed beside the temporaries
+    (kernels' internal scratch, which no op returns, is not in the
+    trace).  Returns (real trace, fake trace, step peak, resident)."""
+    import torch
+    mode, fargs = fake_like(args)
+    with mode:
+        fk = dryrun.trace_step(step.fn, fargs)
+    step.fn(*args)            # warm: the library's workspaces allocated
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    real = dryrun.trace_step(step.fn, args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    same = (real.flops, real.nbytes, real.collectives) == \
+        (fk.flops, fk.nbytes, fk.collectives)
+    print(f"  {label}: real {real.flops:,} FLOP, {real.nbytes:,} B; fake "
+          f"(cpu) {fk.flops:,} FLOP, {fk.nbytes:,} B: "
+          f"{'equal' if same else 'DIFFERENT'}")
+    if not same:
+        ops = sorted(k for k in set(real.by_op) | set(fk.by_op)
+                     if real.by_op.get(k) != fk.by_op.get(k))
+        fail(f"phase 32b: {label}'s real counts differ from its fake trace "
+             f"in {ops}")
+    resident = torch.cuda.max_memory_allocated() - base0
+    predicted = fk.arg_bytes + fk.temp_bytes
+    print(f"    resident: peak above the phase's baseline "
+          f"{resident / 1e9:.4f} GB against the trace's args + temporaries "
+          f"{predicted / 1e9:.4f} GB ({(resident - predicted) / predicted:+.3%}"
+          f"); peak above the step's baseline {peak / 1e9:.4f} GB against "
+          f"the temporaries {fk.temp_bytes / 1e9:.4f} GB "
+          f"({(peak - fk.temp_bytes) / max(fk.temp_bytes, 1):+.2%})")
+    if abs(resident - predicted) > DRYRUN_MEM_TOL * predicted:
+        fail(f"phase 32b: {label}'s resident {resident} is beyond "
+             f"{DRYRUN_MEM_TOL:.0%} of the trace's {predicted}")
+    return real, fk, peak, resident
+
+
+def best_wall(fn, reps=DRYRUN_REPS):
+    import torch
+    best = float("inf")
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def dryrun_card_phase(fa, card_line):
+    """Phase 32b-c: qwen2.5-3b at full width on one card (bf16, random
+    weights from SEED), a prefill of SERVE_BATCH x PROMPT_LEN into a
+    cache of S_MAX slots and one decode step at PROMPT_LEN: the dry run's
+    counts of each step held to the real step's; the walls of the plain
+    and the kernel paths above their bounds."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import HostMesh
+    from repro_torch.models import build_model
+    from repro_torch.parallel import build_step
+    from repro_torch.roofline.analysis import analyze
+    from repro_torch.roofline.kernel_adjust import kernelized_roofline
+    cfg = get_config("qwen2.5-3b")
+    dev = torch.device("cuda")
+    mesh = HostMesh(dev)
+    torch.cuda.synchronize()
+    base0 = torch.cuda.memory_allocated()
+    bundle = build_model(cfg, device=dev)
+    params = dict(bundle.init(SEED).state_dict())
+    cache = bundle.make_cache(SERVE_BATCH, S_MAX)
+    prompts = prompts_for(cfg)
+    # the bounds' shapes: the prompt, then one query over PROMPT_LEN + 1
+    # keys (the cache's first slots)
+    shapes = {"prefill": ShapeSpec("prefill", PROMPT_LEN, SERVE_BATCH,
+                                   "prefill"),
+              "decode": ShapeSpec("decode", PROMPT_LEN + 1, SERVE_BATCH,
+                                  "decode")}
+    builds = {kind: {impl: build_step(bundle, mesh, ShapeSpec(
+        kind, PROMPT_LEN if kind == "prefill" else S_MAX, SERVE_BATCH, kind),
+        impl=impl) for impl in ("ref", None)} for kind in shapes}
+    out = {"card": card_line}
+    logits = None
+    for kind in ("prefill", "decode"):
+        if kind == "prefill":
+            args = (params, {"tokens": prompts}, cache)
+        else:
+            tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            args = (params, tok, cache, PROMPT_LEN)
+        real, fake, peak, resident = step_counts(
+            dryrun, builds[kind]["ref"], args, f"{kind} (impl='ref')", base0)
+        logits = real.outputs[0]
+        roof = analyze(cfg.name, kind, "1", 1, cfg, shapes[kind], [],
+                       fake.flops, fake.nbytes,
+                       fake.arg_bytes + fake.temp_bytes)
+        kern = kernelized_roofline(roof, cfg, shapes[kind])
+        plain_s = best_wall(lambda: builds[kind]["ref"].fn(*args))
+        fa.LAUNCHES = 0
+        kernel_s = best_wall(lambda: builds[kind][None].fn(*args))
+        launches = fa.LAUNCHES
+        print(f"    wall: plain {plain_s * 1e3:.3f} ms against its bound "
+              f"{roof.step_time_bound_s * 1e3:.3f} ms ({roof.bottleneck}); "
+              f"kernels {kernel_s * 1e3:.3f} ms against the kernelized "
+              f"bound {kern['step_time_bound_s'] * 1e3:.3f} ms "
+              f"({kern['bottleneck']}); {launches} attention launches in "
+              f"{DRYRUN_REPS} calls")
+        if roof.step_time_bound_s > plain_s:
+            fail(f"phase 32c: the plain bound of {kind} is above its wall")
+        if kern["step_time_bound_s"] > kernel_s:
+            fail(f"phase 32c: the kernelized bound of {kind} is above its "
+                 "wall")
+        if launches != DRYRUN_REPS * cfg.n_layers:
+            fail(f"phase 32c: {launches} attention launches in the kernel "
+                 f"path's {kind}, not {DRYRUN_REPS * cfg.n_layers}")
+        out[kind] = {
+            "flops": real.flops, "bytes": real.nbytes,
+            "fake_equal": True, "arg_bytes": real.arg_bytes,
+            "temp_bytes": fake.temp_bytes, "peak_bytes": peak,
+            "resident_bytes": resident,
+            "plain_ms": plain_s * 1e3,
+            "plain_bound_ms": roof.step_time_bound_s * 1e3,
+            "plain_bound_by": roof.bottleneck, "kernel_ms": kernel_s * 1e3,
+            "kernelized_bound_ms": kern["step_time_bound_s"] * 1e3,
+            "kernelized_bound_by": kern["bottleneck"],
+            "launches": launches}
+    del params, cache, builds, logits, args
+    release()
+    return out
+
+
+def remat_phase(card_line):
+    """Phase 32d: qwen2.5-3b at MESH_TRAIN_LAYERS layers in float32, one
+    train step of TRAIN_B x TRAIN_S under each remat policy from the same
+    state: loss, grad_norm and every leaf bit for bit; the peak of each."""
+    import torch
+    from repro_torch.launch.mesh import HostMesh
+    from repro_torch.parallel import make_train_step
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    res = {}
+    for policy in REMAT_CHECKED:
+        bundle = build_model(get_config("qwen2.5-3b").replace(
+            n_layers=MESH_TRAIN_LAYERS, remat_policy=policy),
+            dtype=torch.float32)
+        shape, opt_cfg, batch = train_step_inputs(bundle, "cuda")
+        step = make_train_step(bundle, HostMesh(torch.device("cuda")),
+                               shape, opt_cfg)
+        params = dict(bundle.init(SEED).state_dict())
+        state = {"params": params, "opt": init_opt_state(params, opt_cfg)}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        state, metrics = step.fn(state, batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        res[policy] = (state, metrics, peak)
+        print(f"  {policy}: loss {float(metrics['loss']):.6f}, grad_norm "
+              f"{float(metrics['grad_norm']):.4f}, peak above the state "
+              f"{peak / 1e9:.4f} GB")
+    ref_state, ref_m, _ = res["full"]
+    out = {"peak_bytes": {p: r[2] for p, r in res.items()}}
+    for policy, (state, metrics, _) in res.items():
+        bits = sum(tensor_bits_apart(state[part][k], ref_state[part][k])
+                   for part in ("params",) for k in ref_state[part])
+        bits += sum(tensor_bits_apart(state["opt"][m][k],
+                                      ref_state["opt"][m][k])
+                    for m in ("m", "v") for k in ref_state["opt"][m])
+        bits += sum(tensor_bits_apart(metrics[k], ref_m[k])
+                    for k in ("loss", "grad_norm"))
+        out[policy] = bits
+        if bits or not math.isfinite(float(metrics["grad_norm"])):
+            fail(f"phase 32d: remat policy {policy!r} is {bits} elements "
+                 "off the no-remat step (or its grad_norm is not finite)")
+    print(f"  every policy bit for bit the no-remat step; card {card_line}")
+    del res
+    release()
+    return out
+
+
+def dryrun_phases(proc, fa, card_line):
+    """Phase 32 (a)-(d)."""
+    t0 = time.perf_counter()
+    phase(f"phase 32b-c: qwen2.5-3b at full width on one card, impl='ref': "
+          f"prefill {SERVE_BATCH} x {PROMPT_LEN} into {S_MAX} slots and one "
+          "decode step, the dry run's counts against the real step's; the "
+          "plain and kernel paths' walls against their bounds")
+    out = {"card": dryrun_card_phase(fa, card_line)}
+    phase(f"phase 32d: qwen2.5-3b at {MESH_TRAIN_LAYERS} layers in float32, "
+          f"a train step of {TRAIN_B} x {TRAIN_S} under remat "
+          f"{', '.join(REMAT_CHECKED)}")
+    out["remat"] = remat_phase(card_line)
+    phase("phase 32a: the dry run's cells (computed on the host, no card): "
+          + "; ".join(f"{a} x {s} x {'2x16x16' if m else '16x16'}"
+                      for a, s, m in DRYRUN_CELLS)
+          + f"; perf.py {DRYRUN_PERF[2]} on {DRYRUN_PERF[0]}")
+    out["cells"] = dryrun_cells_phase(proc)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 32: {out['seconds']:.3f} s (32a's subprocess ran from "
+          "phase 1 on)")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -5363,6 +5654,18 @@ def main() -> int:
     build_kernels([des_step.LIBRARY, cc.LIBRARY, cc.LIBRARY64, mjc.LIBRARY,
                    fa.LIBRARY, ms.LIBRARY, cc.LIBRARY_WIDE,
                    cc.LIBRARY_WIDE64, mjc.LIBRARY_RT])
+    # phase 32a's dry run runs on the host meanwhile; stopped on any exit
+    dry_proc = start_dryrun_cells()
+    atexit.register(lambda: dry_proc.poll() is None and dry_proc.kill())
+    if "--dryrun-only" in sys.argv[1:]:
+        dryrun_out = dryrun_phases(dry_proc, fa, card_line)
+        print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, builds "
+              "included")
+        print(json.dumps({"host_paths": {"dryrun": dryrun_out}}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # ---- phase 2: kernel against plain version ----------------------------
     phase("phase 2: event_race kernel vs plain PyTorch version")
@@ -5623,8 +5926,6 @@ def main() -> int:
               f"({FAMILY_SWEEPS[name]['distribution_kwargs']})")
         families[name] = family_phase(core, cc, vectorized, name,
                                       FAMILY_SWEEPS[name])
-    phase("phase 14: the whole weibull sweep through the plain step loop")
-    identity = family_identity(core, cc, vectorized, families["weibull"])
     secs14 = time.perf_counter() - t14
     print(f"  phase 14: {secs14:.3f} s")
     phase(f"phase 15: run parity of the families, CTMC on the card "
@@ -5633,7 +5934,7 @@ def main() -> int:
     nonexp_parity = nonexp_parity_phase(core, cc, NONEXP_PARITY)
     print(f"  phases 14-15: {secs14 + nonexp_parity['seconds']:.3f} s")
     host_paths["families"] = {
-        "seconds": secs14, "weibull_plain_identity": identity,
+        "seconds": secs14,
         **{name: {k: rec[k] for k in ("launches", "steps", "wall_s",
                                        "sweep_ms_per_launch", "live_rows")}
            for name, rec in families.items()}}
@@ -5646,10 +5947,6 @@ def main() -> int:
         phase(f"phase 16: {name} repairs, phase 5's sweep "
               f"({kw.get('distribution_kwargs', {})})")
         repairs[name] = family_phase(core, cc, vectorized, name, kw)
-    phase("phase 16: the whole weibull-repair sweep through the plain step "
-          "loop")
-    repair_identity = family_identity(core, cc, vectorized,
-                                      repairs["weibull"])
     secs16 = time.perf_counter() - t16
     print(f"  phase 16: {secs16:.3f} s")
     phase(f"phase 17: run parity of the repair families, CTMC on the card "
@@ -5658,7 +5955,7 @@ def main() -> int:
     repair_parity = nonexp_parity_phase(core, cc, REPAIR_PARITY)
     print(f"  phases 16-17: {secs16 + repair_parity['seconds']:.3f} s")
     host_paths["repairs"] = {
-        "seconds": secs16, "weibull_plain_identity": repair_identity,
+        "seconds": secs16,
         **{name: {k: rec[k] for k in ("launches", "steps", "wall_s",
                                        "sweep_ms_per_launch", "live_rows",
                                        "n_slots", "overflow")}
@@ -5854,6 +6151,9 @@ def main() -> int:
     mesh = mesh_phase(fa, ms, card_line)
     host_paths["mesh"] = mesh
 
+    # ---- phase 32: the dry run and the roofline ----------------------------
+    host_paths["dryrun"] = dryrun_phases(dry_proc, fa, card_line)
+
     # the standalone race's record: its launches on the main paths, the
     # single-job (phase 5) and multi-job (phases 20, 20b, 21) ones, where
     # the chunk kernels replaced it (0: each phase fails on a race launch);
@@ -6037,6 +6337,11 @@ def main() -> int:
             mesh_launches.update({
                 f"{MESH_MOE[0]} ({MESH_MOE[1]} layer, {m}) on the mesh":
                 rec["launches"][0] for m, rec in mesh["moe"].items()})
+        if name == "flash_attention":
+            dry = host_paths["dryrun"]["card"]
+            cross["dryrun_check_launches"] = {
+                f"qwen2.5-3b {k}, kernel path, {DRYRUN_REPS} calls":
+                dry[k]["launches"] for k in ("prefill", "decode")}
         kernels.append(dict(t, name=name, route="cuda", source=source,
                             replaces=replaces, launches=launches_,
                             train_launches_per_step=train_launches[arch],

@@ -10,6 +10,16 @@ the activations between superblocks is a no-op off a mesh and is left
 out.  The same :class:`Stack` runs an encoder-decoder's encoder (its
 ``encoder_config``: attention and MLP layers, ``causal=False``, no
 cache).
+
+The training forward remats as the reference's scan body does: each
+superblock (``superblock_size`` consecutive layers) runs under
+``torch.utils.checkpoint`` when ``REMAT_POLICIES`` holds the config's
+``remat_policy`` -- ``"nothing"`` saves nothing and recomputes the
+superblock in the backward, ``"dots"`` saves the matmul outputs
+(``mm``, ``addmm``, ``bmm``, ``baddbmm``), ``"dots_no_batch"`` those
+without batch dimensions (``mm``, ``addmm``); any other name
+(``"full"``) keeps every activation.  The numbers are the same under
+every policy; the memory and the FLOPs are not.
 """
 
 from __future__ import annotations
@@ -18,7 +28,11 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
+from ..parallel import context
 from .config import ModelConfig
 from .layers import MLP, Attention, RMSNorm, attn_cache_spec
 from .module import TensorSpec
@@ -87,6 +101,54 @@ class Layer(nn.Module):
         return x
 
 
+_aten = torch.ops.aten
+_MM = (_aten.mm.default, _aten.addmm.default)
+_BMM = (_aten.bmm.default, _aten.baddbmm.default)
+
+#: remat policy -> the aten ops whose outputs a superblock saves (the
+#: reference's ``jax.checkpoint_policies``: ``nothing_saveable``,
+#: ``checkpoint_dots``, ``checkpoint_dots_with_no_batch_dims``)
+REMAT_POLICIES = {"nothing": (), "dots": _MM + _BMM, "dots_no_batch": _MM}
+
+
+def _saving(ops):
+    """``checkpoint``'s ``context_fn`` that saves the outputs of ``ops``
+    and recomputes the rest (none: a plain checkpoint)."""
+    if not ops:
+        return noop_context_fn
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in ops
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return lambda: create_selective_checkpoint_contexts(policy)
+
+
+class Superblock(nn.ModuleList):
+    """``superblock_size`` consecutive layers of a :class:`Stack` (the
+    same modules, not copies): the reference's scan body, the unit of
+    remat."""
+
+    def forward(self, x: torch.Tensor, **kw) -> Tuple[torch.Tensor,
+                                                       List[Aux]]:
+        """The layers in turn; each MoE layer's aux losses in a dict of
+        their own (a recompute runs this again and must not add them
+        twice)."""
+        auxes: List[Aux] = []
+        for layer in self:
+            auxes.append({})
+            x = layer(x, aux=auxes[-1], **kw)
+        return x, auxes
+
+
+def _remat_superblock(block: Superblock, scope, names, x, *tensors, **kw):
+    """``block`` on its parameters ``tensors`` (by ``names``), under the
+    mesh step's ``scope``: what a checkpoint recomputes in the backward,
+    after the step's ``functional_call`` and scope have ended."""
+    with context.activation_sharding_scope(scope):
+        return torch.func.functional_call(
+            block, dict(zip(names, tensors)), (x,), kw, strict=True)
+
+
 class Stack(nn.ModuleList):
     """The decoder's ``n_layers`` layers, in superblock-pattern order."""
 
@@ -98,6 +160,11 @@ class Stack(nn.ModuleList):
         super().__init__(
             Layer(cfg, pattern[i % len(pattern)], device, dtype)
             for i in range(cfg.n_layers))
+        self.remat_policy = cfg.remat_policy
+        n = len(pattern)
+        # kept off the module tree: the layers' names stay "stack.{i}...."
+        object.__setattr__(self, "_superblocks", [
+            Superblock(list(self)[i:i + n]) for i in range(0, len(self), n)])
 
     def forward(self, x: torch.Tensor, *,
                 caches: Optional[List[LayerCache]], pos: int = 0,
@@ -112,9 +179,27 @@ class Stack(nn.ModuleList):
         as the reference's ``apply_stack`` divides ({} without MoE
         layers)."""
         aux: Aux = {}
-        for layer, cache in zip(self, caches or [None] * len(self)):
-            x = layer(x, cache=cache, pos=pos, causal=causal, impl=impl,
-                      aux=aux, cross_src=cross_src)
+        if caches is not None:
+            for layer, cache in zip(self, caches):
+                x = layer(x, cache=cache, pos=pos, causal=causal, impl=impl,
+                          aux=aux, cross_src=cross_src)
+            return x, {k: v / len(self) for k, v in aux.items()}
+        kw = dict(cache=None, pos=pos, causal=causal, impl=impl,
+                  cross_src=cross_src)
+        ops = REMAT_POLICIES.get(self.remat_policy)
+        remat = ops is not None and torch.is_grad_enabled()
+        for block in self._superblocks:
+            if remat:
+                names, tensors = zip(*block.named_parameters())
+                x, auxes = checkpoint(
+                    _remat_superblock, block, context.current(), names, x,
+                    *tensors, use_reentrant=False, context_fn=_saving(ops),
+                    **kw)
+            else:
+                x, auxes = block(x, **kw)
+            for layer_aux in auxes:
+                for k, v in layer_aux.items():
+                    aux[k] = aux[k] + v if k in aux else v
         return x, {k: v / len(self) for k, v in aux.items()}
 
 

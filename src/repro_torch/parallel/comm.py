@@ -10,24 +10,88 @@ backward reduce-scatters the gradient (``"sum"``: the ranks computed on
 different data or different slices) or takes this rank's slice of it
 (``"slice"``: they computed the same thing).  gloo has no reduce-scatter,
 so there it is an all-reduce and a slice.
+
+Every collective a step issues goes through :func:`_collective`, which
+appends a :class:`Collective` to the list that :func:`recording` installs
+(the kind the schedule asks for: gloo's reduce-scatter still records as
+one) and marks the ops it runs as the collective's own
+(:func:`inside_collective`), which the roofline's byte counter leaves to
+the collective term.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+from typing import Iterator, List, NamedTuple
+
 import torch
 import torch.distributed as dist
 
-#: all-gather into one tensor (renamed ``all_gather_single`` in newer
-#: PyTorch, which warns on the old name)
+#: all-gather into one tensor and reduce-scatter out of one (renamed
+#: ``all_gather_single`` / ``reduce_scatter_single`` in newer PyTorch,
+#: which warns on the old names)
 _gather_into = getattr(dist, "all_gather_single", None) \
     or dist.all_gather_into_tensor
+_scatter_from = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
+
+
+class Collective(NamedTuple):
+    """One collective on this rank: its kind (the reference's HLO names:
+    ``all-gather``, ``reduce-scatter``, ``all-reduce``), its result's
+    bytes on this rank and the size of its group."""
+    kind: str
+    nbytes: int
+    group_size: int
+
+
+_RECORD: contextvars.ContextVar = contextvars.ContextVar("collectives",
+                                                         default=None)
+_INSIDE: contextvars.ContextVar = contextvars.ContextVar("in_collective",
+                                                         default=False)
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[List[Collective]]:
+    """The list of the collectives issued in the block, in order."""
+    out: List[Collective] = []
+    token = _RECORD.set(out)
+    try:
+        yield out
+    finally:
+        _RECORD.reset(token)
+
+
+def inside_collective() -> bool:
+    """Whether the caller runs inside a collective of this module."""
+    return _INSIDE.get()
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+@contextlib.contextmanager
+def _collective(kind: str, nbytes: int, size: int):
+    """Record a collective of ``nbytes`` result bytes over ``size`` ranks
+    and mark the block as its own."""
+    rec = _RECORD.get()
+    if rec is not None:
+        rec.append(Collective(kind, nbytes, size))
+    token = _INSIDE.set(True)
+    try:
+        yield
+    finally:
+        _INSIDE.reset(token)
 
 
 def _all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
-    x = x.movedim(dim, 0).contiguous()
-    out = x.new_empty((group.size * x.shape[0],) + tuple(x.shape[1:]))
-    _gather_into(out, x, group=group.pg)
-    return out.movedim(0, dim)
+    with _collective("all-gather", _nbytes(x) * group.size, group.size):
+        x = x.movedim(dim, 0).contiguous()
+        out = x.new_empty((group.size * x.shape[0],) + tuple(x.shape[1:]))
+        _gather_into(out, x, group=group.pg)
+        return out.movedim(0, dim)
 
 
 def _chunk(x: torch.Tensor, dim: int, group) -> torch.Tensor:
@@ -35,14 +99,25 @@ def _chunk(x: torch.Tensor, dim: int, group) -> torch.Tensor:
 
 
 def _reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
-    if dist.get_backend(group.pg) == "gloo":
-        x = x.contiguous()
-        dist.all_reduce(x, group=group.pg)
-        return _chunk(x, dim, group).contiguous()
-    x = x.movedim(dim, 0).contiguous()
-    out = x.new_empty((x.shape[0] // group.size,) + tuple(x.shape[1:]))
-    dist.reduce_scatter_tensor(out, x, group=group.pg)
-    return out.movedim(0, dim)
+    with _collective("reduce-scatter", _nbytes(x) // group.size,
+                     group.size):
+        if dist.get_backend(group.pg) == "gloo":
+            x = x.contiguous()
+            dist.all_reduce(x, group=group.pg)
+            return _chunk(x, dim, group).contiguous()
+        x = x.movedim(dim, 0).contiguous()
+        out = x.new_empty((x.shape[0] // group.size,) + tuple(x.shape[1:]))
+        _scatter_from(out, x, group=group.pg)
+        return out.movedim(0, dim)
+
+
+def all_reduce(x: torch.Tensor, pg, size: int) -> torch.Tensor:
+    """The sum of ``x`` over the process group ``pg`` (None: the default
+    group) of ``size`` ranks, without a gradient: a new tensor."""
+    with _collective("all-reduce", _nbytes(x), size):
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=pg)
+        return x
 
 
 class _Gather(torch.autograd.Function):
@@ -62,9 +137,7 @@ class _Gather(torch.autograd.Function):
 class _ReduceFrom(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
-        x = x.contiguous().clone()
-        dist.all_reduce(x, group=group.pg)
-        return x
+        return all_reduce(x, group.pg, group.size)
 
     @staticmethod
     def backward(ctx, g):
@@ -79,9 +152,7 @@ class _CopyTo(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group.pg)
-        return g, None
+        return all_reduce(g, ctx.group.pg, ctx.group.size), None
 
 
 def gather_along(x: torch.Tensor, dim: int, group,

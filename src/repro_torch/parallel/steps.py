@@ -25,7 +25,6 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 
 from ..configs.shapes import ShapeSpec
 from ..launch.mesh import RankMesh
@@ -34,7 +33,7 @@ from ..models.model_zoo import (LM, ModelBundle, _cross_input, call_lm,
                                 decayed_names)
 from ..models.module import TensorSpec
 from ..train.optimizer import OptimizerConfig, adamw_update
-from . import sharding
+from . import comm, sharding
 from .context import Scope, activation_sharding_scope
 from .sharding import (ParallelConfig, batch_shardings, batch_spec,
                        cache_shardings, params_shardings, spec_axes)
@@ -195,8 +194,7 @@ def _global_norm(grads: Params, p_sh: Dict[str, Any],
                    / mesh.size)
                 for k, g in grads.items())
     if mesh.size > 1:
-        total = total.contiguous()
-        dist.all_reduce(total)
+        total = comm.all_reduce(total, None, mesh.size)
     return torch.sqrt(total)
 
 
