@@ -4704,12 +4704,14 @@ def compare_train_states(got, want, m_got, m_want):
             "broken": broken}
 
 
-def mesh_train_pair(bundle, mesh, fa):
+def mesh_train_pair(bundle, mesh, fa, pcfg=None, keep=False):
     """One train step from SEED's state on the same batch through the
     one-device ``make_train_step`` on the mesh's device and through
-    ``build_step(kind="train")`` on ``mesh``, both warm: their times, the
-    mesh step's attention launches and the two updated states compared
-    (:func:`compare_train_states`)."""
+    ``build_step(kind="train")`` on ``mesh`` (under ``pcfg``; None: the
+    default, sequence parallelism on), both warm: their times, the mesh
+    step's attention launches and the two updated states compared
+    (:func:`compare_train_states`); with ``keep``, the mesh step's
+    gathered state and metrics too (on the card)."""
     import torch
     from repro_torch.launch.mesh import HostMesh
     from repro_torch.parallel import build_step, make_train_step
@@ -4733,7 +4735,7 @@ def mesh_train_pair(bundle, mesh, fa):
                                                                       batch)
     torch.cuda.synchronize()
     one_s = time.perf_counter() - t0
-    built = build_step(bundle, mesh, shape, opt_cfg)
+    built = build_step(bundle, mesh, shape, opt_cfg, pcfg)
     state = {"params": params, "opt": init_opt_state(params, opt_cfg)}
     state, batch_l = built.place(state, batch)
     before = fa.LAUNCHES
@@ -4745,10 +4747,13 @@ def mesh_train_pair(bundle, mesh, fa):
     fa.LAUNCHES = before
     state = built.gather(state, built.in_shardings[0])
     rec = compare_train_states(state, one, m_mesh, m_one)
+    rec = dict(rec, mesh_ms=mesh_s * 1e3, one_device_ms=one_s * 1e3,
+               launches=launches)
+    if keep:
+        rec["kept"] = (state, m_mesh)
     del one, state, params, batch_l, built
     release()
-    return dict(rec, mesh_ms=mesh_s * 1e3, one_device_ms=one_s * 1e3,
-                launches=launches)
+    return rec
 
 
 def one_device_spread(bundle, device):
@@ -4932,13 +4937,15 @@ def mesh_layerwise_ab(bundle, mesh, model, prompts):
     input -- the one-device run's hidden state -- for the prefill and one
     decode step, as phase 9 feeds the kernels and the plain versions
     (its rule: ab_stats).  The mesh's layers are fed by hooks on the
-    modules the steps run.  Returns each step's per-layer largest
-    relative difference, the worst share of elements within AB_ELEM_TOL
-    and the RMS of the first layer's prefill difference."""
+    modules the steps run; under sequence parallelism a mesh layer takes
+    and gives this rank's positions, and is held to the one-device
+    layer's there.  Returns each step's per-layer largest relative
+    difference, the worst share of elements within AB_ELEM_TOL and the
+    RMS of the first layer's prefill difference."""
     import torch
     from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.models.model_zoo import _skeleton
-    from repro_torch.parallel import build_step, sharding
+    from repro_torch.parallel import build_step, context, sharding
     B, S = prompts.shape
     params = {k: p.detach() for k, p in model.state_dict().items()}
     pre = build_step(bundle, mesh, ShapeSpec("prefill", S, B, "prefill"))
@@ -4952,11 +4959,20 @@ def mesh_layerwise_ab(bundle, mesh, model, prompts):
     tok = None
     with torch.no_grad():
         for step in range(2):
-            ins, outs, got = [], [], []
+            ins, outs, got, tp = [], [], [], []
 
             def keep(mod, args, out):
                 ins.append(args[0])
                 outs.append(out)
+
+            def own(x, n):
+                """``x``'s positions that this rank's layer of ``n``
+                positions holds."""
+                if x.shape[1] == n:
+                    return x
+                if not tp:
+                    tp.append(context.current().tp)
+                return x.chunk(tp[0].size, 1)[tp[0].rank]
             hooks = [m.register_forward_hook(keep) for m in one_layers]
             try:
                 if step == 0:
@@ -4968,8 +4984,8 @@ def mesh_layerwise_ab(bundle, mesh, model, prompts):
                 for h in hooks:
                     h.remove()
             hooks = [m.register_forward_pre_hook(
-                lambda mod, a, i=i: (ins[i],) + tuple(a[1:]))
-                for i, m in enumerate(mesh_layers)]
+                lambda mod, a, i=i: (own(ins[i], a[0].shape[1]),)
+                + tuple(a[1:])) for i, m in enumerate(mesh_layers)]
             hooks += [m.register_forward_hook(lambda mod, a, o: got.append(o))
                       for m in mesh_layers]
             try:
@@ -4986,6 +5002,7 @@ def mesh_layerwise_ab(bundle, mesh, model, prompts):
                      f"{len(outs)} one-device layers")
             row = []
             for i, (a, b) in enumerate(zip(got, outs)):
+                b = own(b, a.shape[1])
                 if a.shape != b.shape:
                     fail(f"phase 31d: layer {i}'s mesh output {a.shape} is "
                          f"not the one-device {b.shape}")
@@ -5001,16 +5018,102 @@ def mesh_layerwise_ab(bundle, mesh, model, prompts):
             "first_layer_rms": first_rms}
 
 
+#: phase 31d's sequence-parallel A/B: MESH_RANK_RUNS's run whose prefill
+#: (under SP, the default) is also run under no_sp, and whose train step
+#: is taken under both
+MESH_SP_RUN = ("qwen2.5-3b", MESH_TRAIN_LAYERS, None, "float32")
+
+
+def mesh_sp_ab(bundle, mesh, params, prompts, fa, ms):
+    """Phase 31d's sequence-parallel A/B on this rank of ``mesh``,
+    MESH_SP_RUN's part beside its SP prefill: the prefill under ``no_sp``
+    (``shard_sequence=False``; its first logits, time and attention /
+    scan launches), the train step (:func:`mesh_train_pair`) under SP and
+    under ``no_sp``, and the largest differences of the two steps'
+    metrics and updated parameters."""
+    from repro_torch.parallel import ParallelConfig
+    no_sp = ParallelConfig(shard_sequence=False)
+    before = (fa.LAUNCHES, ms.LAUNCHES)
+    run = generate_on_mesh(bundle, mesh, params, prompts, fa, ms, n_new=1,
+                           pcfg=no_sp)
+    fa.LAUNCHES, ms.LAUNCHES = before
+    out = {"no_sp": {"prefill_s": run["prefill_s"],
+                     "logits": run["logits"].cpu(),
+                     "launches": [run["after_prefill"][i] - before[i]
+                                  for i in range(2)]}}
+    del run
+    kept = {}
+    for name, pcfg in (("train", None), ("train no_sp", no_sp)):
+        tr = mesh_train_pair(bundle, mesh, fa, pcfg, keep=True)
+        kept[name] = tr.pop("kept")
+        out[name] = tr
+    (a, ma), (b, mb) = kept["train"], kept["train no_sp"]
+    out["train_sp_vs_no_sp"] = {
+        "metrics": {k: abs(float(ma[k]) - float(mb[k]))
+                    for k in ("loss", "grad_norm")},
+        "params": max(float((a["params"][k].float() - b["params"][k]
+                             .float()).abs().max()) for k in a["params"])}
+    del a, b, kept
+    release()
+    return out
+
+
+def report_sp_ab(rank, res, ref, card_line):
+    """Phase 31d's SP A/B of one rank (:func:`mesh_sp_ab`), printed and
+    held: the no_sp prefill's first logits within MESH_F32_TOL of the
+    one-device run's (``ref``; the SP prefill is held in MESH_RANK_RUNS's
+    loop), each train step's loss and grad_norm within MESH_F32_TOL
+    (relative) of the one-device step's, the prefill's attention and scan
+    launches the same under both.  Returns the printed numbers."""
+    key = run_key(*MESH_SP_RUN[:2], MESH_SP_RUN[3])
+    sp = res[key]
+    no_sp = sp["sp_ab"]["no_sp"]
+    err, within = close_err(no_sp["logits"], ref[key]["logits"],
+                            MESH_F32_TOL)
+    print(f"  rank {rank}, {key}, no_sp: prefill "
+          f"{no_sp['prefill_s'] * 1e3:.3f} ms (SP "
+          f"{sp['prefill_s'] * 1e3:.3f} ms), attention / scan launches "
+          f"{no_sp['launches']} (SP {sp['prefill_launches']}), first logits "
+          f"max abs err {err:.3e} against one device (within "
+          f"{MESH_F32_TOL}: {within}) [{card_line}]")
+    if not within:
+        fail(f"phase 31d: rank {rank}'s no_sp prefill is off the one-device "
+             "run")
+    if no_sp["launches"] != sp["prefill_launches"]:
+        fail(f"phase 31d: rank {rank}'s prefill launches "
+             f"{sp['prefill_launches']} under SP, {no_sp['launches']} "
+             "without")
+    for tag in ("train", "train no_sp"):
+        m = res[tag]["metrics"]
+        rel = {k: abs(a - b) / max(abs(b), 1e-30)
+               for k, (a, b) in m.items() if k in ("loss", "grad_norm")}
+        if not all(v <= MESH_F32_TOL for v in rel.values()):
+            fail(f"phase 31d: rank {rank}'s {tag} step is off the "
+                 f"one-device step: {rel}")
+    logits = float((sp["logits"] - no_sp["logits"]).abs().max())
+    train = sp["sp_ab"]["train_sp_vs_no_sp"]
+    print(f"  rank {rank}, {key}: largest difference SP - no_sp: first "
+          f"logits {logits:.3e}; train step metrics {train['metrics']}, "
+          f"parameters {train['params']:.3e} [{card_line}]")
+    return {"logits_sp_vs_no_sp": logits, "train_sp_vs_no_sp": train,
+            "no_sp_logits_max_abs_err": err,
+            "no_sp_prefill_ms": no_sp["prefill_s"] * 1e3,
+            "sp_prefill_ms": sp["prefill_s"] * 1e3,
+            "launches": no_sp["launches"]}
+
+
 def mesh_rank(rank, world, work):
     """Phase 31d, one rank of ``world`` (spawned by the phase), on a (1,
     world) NCCL mesh: each of MESH_RANK_RUNS from SEED, placed by the
     steps' specs and served as phase 8 serves, the MESH_AB_RUN also layer
-    by layer (:func:`mesh_layerwise_ab`); float32 train steps of
-    qwen2.5-3b's smoke config and of 31b's cut against the one-device
-    step on this rank's card (:func:`mesh_train_pair`);
-    then on a (world, 1) mesh a batch-1 decode whose caches' positions
-    split over "data".  Writes its tokens, logits, times, parameter bytes
-    and checks' numbers."""
+    by layer (:func:`mesh_layerwise_ab`), the MESH_SP_RUN also under
+    no_sp (:func:`mesh_sp_ab`: its prefill, and 31b's cut's float32 train
+    step under SP and no_sp against the one-device step on this rank's
+    card); a float32 train step of qwen2.5-3b's smoke config against
+    the one-device step (:func:`mesh_train_pair`); then on a (world, 1)
+    mesh a batch-1 decode whose caches' positions split over "data".
+    Writes its tokens, logits, times, parameter bytes and checks'
+    numbers."""
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import torch
     import torch.distributed as dist
@@ -5034,6 +5137,7 @@ def mesh_rank(rank, world, work):
             prompts = prompts_for(bundle.cfg)
             generate_on_mesh(bundle, mesh, params, prompts[:, :16], fa, ms,
                              n_new=3, pcfg=pcfg)
+            before = (fa.LAUNCHES, ms.LAUNCHES)
             run = generate_on_mesh(bundle, mesh, params, prompts, fa, ms,
                                    pcfg=pcfg)
             rec = {"ids": run["ids"], "logits": run["logits"].cpu(),
@@ -5042,18 +5146,22 @@ def mesh_rank(rank, world, work):
                    "param_bytes": run["param_bytes"],
                    "full_bytes": sum(p.numel() * p.element_size()
                                      for p in params.values()),
-                   "coords": mesh.coords}
+                   "coords": mesh.coords,
+                   "prefill_launches": [run["after_prefill"][i] - before[i]
+                                        for i in range(2)]}
             if (arch, n_layers, mode, dtype) == MESH_AB_RUN:
                 rec["layerwise"] = mesh_layerwise_ab(bundle, mesh, model,
                                                      prompts)
+            if (arch, n_layers, mode, dtype) == MESH_SP_RUN:
+                ab = mesh_sp_ab(bundle, mesh, params, prompts, fa, ms)
+                out["train"] = ab.pop("train")
+                out["train no_sp"] = ab.pop("train no_sp")
+                rec["sp_ab"] = ab
             out[run_key(arch, n_layers, dtype)] = rec
             del model, params
             release()
         out["train smoke"] = mesh_train_pair(
             smoke_bundle("qwen2.5-3b", "float32"), mesh, fa)
-        out["train"] = mesh_train_pair(
-            mesh_bundle("qwen2.5-3b", MESH_TRAIN_LAYERS, "float32"), mesh,
-            fa)
         seq_mesh = make_mesh((world, 1), MESH_AXES)
         bundle = mesh_bundle("qwen2.5-3b", MESH_TRAIN_LAYERS, "float32")
         params = {k: p.detach()
@@ -5098,7 +5206,7 @@ def perturbed_run(bundle, model, prompts, rms):
         hook.remove()
 
 
-def mesh_two_ranks(ref, spread):
+def mesh_two_ranks(ref, spread, card_line):
     """Phase 31d: two NCCL ranks, one card each, spawned here (see
     :func:`mesh_rank`), against one-device runs on card 0.  Held: each
     rank's parameter bytes to its placements' share; qwen2.5-3b at
@@ -5115,7 +5223,8 @@ def mesh_two_ranks(ref, spread):
     one-device step's own spread (``spread``, 31b's witness: at full
     width random-weight attention is nearly one-hot and the step moves
     beyond those tolerances under one rounding).  Prints each rank's
-    prefill time and decode ms a step."""
+    prefill time and decode ms a step, and its SP A/B
+    (:func:`report_sp_ab`)."""
     import numpy as np
     import torch
     import torch.multiprocessing as mp
@@ -5215,7 +5324,9 @@ def mesh_two_ranks(ref, spread):
             out[f"{key} rank {rank}"] = row
         for tag, what in (("train smoke", "qwen2.5-3b's smoke config"),
                           ("train", f"qwen2.5-3b at {MESH_TRAIN_LAYERS} "
-                                    "layers")):
+                                    "layers (SP)"),
+                          ("train no_sp", f"qwen2.5-3b at {MESH_TRAIN_LAYERS}"
+                                          " layers (no_sp)")):
             tr = res[tag]
             print(f"  rank {rank}, {what}, float32 train step: mesh "
                   f"{tr['mesh_ms']:.1f} ms, one device "
@@ -5249,6 +5360,7 @@ def mesh_two_ranks(ref, spread):
         out[f"batch1 rank {rank}"] = {
             "max_abs_err": worst, "first_different_token": first,
             "launches": b1["launches"]}
+        out[f"sp rank {rank}"] = report_sp_ab(rank, res, ref, card_line)
     # one device under a perturbation the size of the first layer's
     # difference, beside the two ranks' full-depth float32 run
     key = run_key(*MESH_AB_RUN[:2], MESH_AB_RUN[3])
@@ -5305,13 +5417,15 @@ def mesh_phase(fa, ms, card_line):
         dist.destroy_process_group()
     n_cards = torch.cuda.device_count()
     phase("phase 31d: two NCCL ranks on a (1, 2) mesh and a (2, 1) mesh, "
-          "one card each")
+          "one card each, with the SP A/B (sequence parallelism against "
+          "no_sp)")
     if n_cards < 2:
         print(f"  the two-rank run needs two cards ({n_cards} visible): "
               "not run on this machine")
         out["two_ranks"] = f"needs two cards ({n_cards} visible)"
     else:
-        out["two_ranks"] = mesh_two_ranks(ids, out["train"]["spread"])
+        out["two_ranks"] = mesh_two_ranks(ids, out["train"]["spread"],
+                                          card_line)
     out["seconds"] = time.perf_counter() - t0
     print(f"  phase 31: {out['seconds']:.3f} s")
     return out
@@ -5320,10 +5434,13 @@ def mesh_phase(fa, ms, card_line):
 #: phase 32: the dry run's cells, run on the card machine's host in a
 #: subprocess (a fake world of 512 / 256 ranks, fake tensors, no card),
 #: started after the builds and read here: (arch, shape, multi_pod); and
-#: perf.py's baseline variant on the second
+#: perf.py's variants: the baseline on the second, and qwen2.5-3b
+#: train_4k on 16x16 with and without sequence parallelism
 DRYRUN_CELLS = (("qwen2.5-3b", "train_4k", True),
                 ("falcon-mamba-7b", "long_500k", False))
-DRYRUN_PERF = ("falcon-mamba-7b", "long_500k", "baseline")
+DRYRUN_PERF = (("falcon-mamba-7b", "long_500k", "baseline"),
+               ("qwen2.5-3b", "train_4k", "baseline"),
+               ("qwen2.5-3b", "train_4k", "no_sp"))
 #: phase 32b: the card's peak above the phase's baseline against the
 #: trace's arguments + temporaries, within this share
 DRYRUN_MEM_TOL = 0.10
@@ -5334,9 +5451,10 @@ REMAT_CHECKED = ("nothing", "dots", "full")
 _DRYRUN_CHILD = """
 import json, sys
 from repro_torch.launch import dryrun, perf
-cells, variant = json.loads(sys.argv[1])
+cells, variants = json.loads(sys.argv[1])
 recs = [dryrun.run_cell(a, s, m, verbose=False) for a, s, m in cells]
-print(json.dumps({"cells": recs, "perf": perf.run_variant(*variant)}))
+print(json.dumps({"cells": recs,
+                  "perf": [perf.run_variant(*v) for v in variants]}))
 """
 
 
@@ -5361,8 +5479,10 @@ def roofline_terms(r):
             f"ms, roofline fraction {r['roofline_fraction']:.4f}")
 
 
-def dryrun_cells_phase(proc):
-    """Phase 32a: the subprocess's records, their terms printed."""
+def dryrun_cells_phase(proc, card_line):
+    """Phase 32a: the subprocess's records, their terms printed; fails
+    unless qwen2.5-3b train_4k's ``baseline`` (sequence parallelism) and
+    ``no_sp`` records are both there and differ."""
     try:
         out, err = proc.communicate(timeout=600)
     finally:
@@ -5386,10 +5506,25 @@ def dryrun_cells_phase(proc):
               f"{rec['temp_bytes'] / 1e9:.3f} GB, fits 80 GB "
               f"{r['fits_hbm']}; collectives {rec['collectives']}; "
               f"useful ratio {r['useful_ratio']:.4f}; {roofline_terms(r)}")
-    p = res["perf"]
-    print(f"  perf.py {p['arch']} x {p['shape']} [{p['variant']}]: traced "
-          f"{roofline_terms(p['roofline'])}; kernelized "
-          f"{roofline_terms(p['kernelized'])}")
+    by = {}
+    for p in res["perf"]:
+        by[(p["arch"], p["shape"], p["variant"])] = p
+        print(f"  perf.py {p['arch']} x {p['shape']} x {p['mesh']} "
+              f"[{p['variant']}] (computed, traced in {p['trace_s']} s): "
+              f"resident {p['per_device_resident_gb']} GB a rank; "
+              f"collective link bytes {p['roofline']['collectives']}; traced "
+              f"{roofline_terms(p['roofline'])}; kernelized "
+              f"{roofline_terms(p['kernelized'])} [{card_line}]")
+    sp, no_sp = (by.get(("qwen2.5-3b", "train_4k", v))
+                 for v in ("baseline", "no_sp"))
+    if sp is None or no_sp is None:
+        fail("phase 32a: qwen2.5-3b train_4k's baseline or no_sp record is "
+             "missing")
+    if ({k: v for k, v in sp.items() if k not in ("variant", "trace_s")}
+            == {k: v for k, v in no_sp.items()
+                if k not in ("variant", "trace_s")}):
+        fail("phase 32a: qwen2.5-3b train_4k's baseline and no_sp records "
+             "are equal")
     return res
 
 
@@ -5614,8 +5749,9 @@ def dryrun_phases(proc, fa, card_line):
     phase("phase 32a: the dry run's cells (computed on the host, no card): "
           + "; ".join(f"{a} x {s} x {'2x16x16' if m else '16x16'}"
                       for a, s, m in DRYRUN_CELLS)
-          + f"; perf.py {DRYRUN_PERF[2]} on {DRYRUN_PERF[0]}")
-    out["cells"] = dryrun_cells_phase(proc)
+          + "; perf.py " + "; ".join(f"{v} on {a} x {s}"
+                                     for a, s, v in DRYRUN_PERF))
+    out["cells"] = dryrun_cells_phase(proc, card_line)
     out["seconds"] = time.perf_counter() - t0
     print(f"  phase 32: {out['seconds']:.3f} s (32a's subprocess ran from "
           "phase 1 on)")

@@ -3,7 +3,12 @@
 Counterpart of ``src/repro/launch/perf.py``.  Each variant traces a cell
 again with a configuration change (sharding knob, remat policy, MoE
 buffer layout, optimizer dtype) and reports the three roofline terms next
-to the baseline, into results/torch/perf.json.  Every record carries the
+to the baseline, into results/torch/perf.json.  The baseline takes the
+mesh steps' sequence parallelism (the activation between sublayers
+sharded along the sequence over "model", all-gathered into each
+sublayer and reduce-scattered out of it); ``no_sp`` traces the cell with
+``shard_sequence=False``: the activation whole over "model", the
+sublayers' partials all-reduced.  Every record carries the
 'kernelized' terms too: the traced terms with the CUDA kernels' own
 traffic in place of the plain attention and scan
 (``roofline.kernel_adjust``).  Like the dry run it allocates nothing and
@@ -50,13 +55,6 @@ VARIANTS: Dict[str, Dict] = {
     "capacity_1_0": {"model": {"capacity_factor": 1.0}},
 }
 
-#: variants the port's schedule cannot express yet
-UNSUPPORTED = {
-    "no_sp": "the port's schedule does not take the reference's sequence "
-             "sharding between superblocks (Megatron SP), so turning it "
-             "off changes nothing: ROADMAP item 12g ports it",
-}
-
 
 def run_variant(arch: str, shape_name: str, variant: str,
                 multi_pod: bool = False) -> Dict:
@@ -65,8 +63,6 @@ def run_variant(arch: str, shape_name: str, variant: str,
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; known: "
                          f"{sorted(VARIANTS)}")
-    if variant in UNSUPPORTED:
-        raise ValueError(f"variant {variant!r}: {UNSUPPORTED[variant]}")
     shape = SHAPES[shape_name]
     cfg = get_config(arch)
     spec = VARIANTS[variant]

@@ -15,9 +15,12 @@ the pair.
 On a mesh (a step's :mod:`repro_torch.parallel.context` scope) the
 weights come through ``context.full`` / ``context.part``, and attention
 and the MLP keep their heads and columns local over "model" where they
-divide it, summing the out-projection's partials once in float32; off a
-mesh those return the module's own tensors and the code is the
-one-device path.
+divide it, summing the out-projection's partials once in float32
+(``context.enter_sublayer`` / ``leave_sublayer``: under sequence
+parallelism the input's shards are all-gathered along the sequence and
+the partials reduce-scattered back to them; a sublayer that does not
+split computes whole and keeps its rank's positions); off a mesh those
+return the module's own tensors and the code is the one-device path.
 """
 
 from __future__ import annotations
@@ -68,7 +71,9 @@ class RMSNorm(nn.Module):
             self.scale.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return rmsnorm(context.full(self, "scale"), x, self.eps)
+        # under SP the norm runs on the rank's positions
+        return rmsnorm(context.full(self, "scale", partial=True), x,
+                       self.eps)
 
 
 # ---------------------------------------------------------------------------
@@ -149,11 +154,14 @@ class Attention(nn.Module):
 
     def _weights(self, lay) -> Dict[str, torch.Tensor]:
         """The projections this rank computes with: whole (``lay`` None),
-        or its query heads and, where they split, its kv heads."""
+        or its query heads and, where they split, its kv heads.  Under
+        SP the whole weights see only this rank's share of the gradient
+        (``partial``), except a cross-attention's kv projections, which
+        read the whole source."""
         names = ["wq", "wk", "wv", "wo"] + (
             ["bq", "bk", "bv"] if self.cfg.qkv_bias else [])
         if lay is None:
-            return {n: context.full(self, n) for n in names}
+            return {n: context.full(self, n, partial=True) for n in names}
         q, kv, kv_split = lay
         dims = {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "bq": 0, "bk": 0,
                 "bv": 0}
@@ -164,7 +172,7 @@ class Attention(nn.Module):
             elif kv_split:
                 out[n] = context.part(self, n, dims[n], [kv])
             else:
-                out[n] = context.full(self, n)
+                out[n] = context.full(self, n, partial=not self.cross)
         return out
 
     def _kv(self, src: torch.Tensor, w: Dict[str, torch.Tensor], lay,
@@ -181,22 +189,29 @@ class Attention(nn.Module):
         return k, v
 
     @staticmethod
-    def _heads(t: torch.Tensor, lay) -> torch.Tensor:
+    def _heads(t: torch.Tensor, lay, own: bool = False) -> torch.Tensor:
         """The kv heads this rank's query heads read, of a tensor holding
-        every kv head (its keys or values, or a cache)."""
+        every kv head (its keys or values, or a cache).  ``own``: keys or
+        values of the layer's own input, which under SP is gathered along
+        the sequence with each rank's gradient its share -- the heads are
+        then taken plainly, where a ``copy_to`` would count the other
+        ranks' heads' gradients on every rank."""
         if lay is None or lay[2]:
             return t
         lo, hi = lay[1]
+        if own and context.sharded():
+            return t[:, :, lo:hi]
         return context.enter_split(t)[:, :, lo:hi]
 
     def _out(self, out: torch.Tensor, x: torch.Tensor,
              w: Dict[str, torch.Tensor], lay) -> torch.Tensor:
         if lay is None:
-            return promoted_einsum("bshk,hkd->bsd", out.to(x.dtype), w["wo"])
+            return context.leave_sublayer(promoted_einsum(
+                "bshk,hkd->bsd", out.to(x.dtype), w["wo"]), False)
         dt = torch.promote_types(x.dtype, w["wo"].dtype)
         part = torch.einsum("bshk,hkd->bsd", out.to(x.dtype).float(),
                             w["wo"].float())
-        return context.leave_split(part).to(dt)
+        return context.leave_sublayer(part, True).to(dt)
 
     def forward(self, x: torch.Tensor, *, cache: Optional[Cache],
                 pos: int = 0, causal: bool = True,
@@ -216,7 +231,7 @@ class Attention(nn.Module):
         """
         lay = self._layout()
         w = self._weights(lay)
-        xs = x if lay is None else context.enter_split(x)
+        x, xs = context.enter_sublayer(x, lay is not None)
         q = promoted_einsum("bsd,dhk->bshk", xs, w["wq"])
         if self.cfg.qkv_bias:
             q = q + w["bq"]
@@ -228,9 +243,9 @@ class Attention(nn.Module):
         q = apply_rope(q, positions, self.cfg.rope_theta)
         k = apply_rope(k, positions, self.cfg.rope_theta)
         if cache is None:
-            out = ops.flash_attention(q, self._heads(k, lay),
-                                      self._heads(v, lay), causal=causal,
-                                      q_offset=pos, impl=impl)
+            out = ops.flash_attention(q, self._heads(k, lay, True),
+                                      self._heads(v, lay, True),
+                                      causal=causal, q_offset=pos, impl=impl)
             return self._out(out, x, w, lay)
 
         seq = context.seq_split()
@@ -248,9 +263,9 @@ class Attention(nn.Module):
             out = ops.flash_attention(q, ck, cv, causal=False,
                                       kv_len=pos + 1, impl=impl)
         else:
-            out = ops.flash_attention(q, self._heads(k, lay),
-                                      self._heads(v, lay), causal=causal,
-                                      q_offset=0, impl=impl)
+            out = ops.flash_attention(q, self._heads(k, lay, True),
+                                      self._heads(v, lay, True),
+                                      causal=causal, q_offset=0, impl=impl)
         return self._out(out, x, w, lay)
 
     def _cross_attention(self, q: torch.Tensor, x: torch.Tensor,
@@ -279,6 +294,10 @@ class Attention(nn.Module):
                 out = _seq_attention(q, k, v, k.shape[1], seq, impl)
                 return self._out(out, x, w, lay)
         else:
+            if lay is None and context.sharded():
+                # the query rows are the rank's alone: so is the source's
+                # gradient, summed over "model"
+                kv_src = context.enter_split(kv_src)
             src_s = None if lay is None else context.enter_split(kv_src)
             k, v = self._kv(kv_src, w, lay, src_s)
             if cache is not None:
@@ -385,18 +404,19 @@ class MLP(nn.Module):
         split = context.tp_split(self.width)
         cols = None if split is None else context.ranges_of(*split,
                                                             self.width)
-        xs = x if split is None else context.enter_split(x)
+        _, xs = context.enter_sublayer(x, split is not None)
 
         def w(name, dim):
             if split is None:
-                return context.full(self, name)
+                return context.full(self, name, partial=True)
             return context.part(self, name, dim, cols)
 
         def down(h, wd):
             if split is None:
-                return promoted_einsum("bsf,fd->bsd", h, wd)
-            return context.leave_split(torch.einsum(
-                "bsf,fd->bsd", h.float(), wd.float()))
+                return context.leave_sublayer(
+                    promoted_einsum("bsf,fd->bsd", h, wd), False)
+            return context.leave_sublayer(torch.einsum(
+                "bsf,fd->bsd", h.float(), wd.float()), True)
 
         if self.gelu:
             wi = w("wi", 1)
@@ -404,10 +424,13 @@ class MLP(nn.Module):
             h = F.gelu(promoted_einsum("bsd,df->bsf", xs, wi).float()
                        + w("bi", 0).float(), approximate="tanh")
             out = down(h.to(dt), w("wo_mlp", 0)).float()
-            return (out + context.full(self, "bo").float()).to(dt)
+            # the bias is added on the rank's positions under SP
+            bo = context.full(self, "bo", partial=True)
+            return (out + bo.float()).to(dt)
         gate = F.silu((xs @ w("wg", 1)).float()) * (xs @ w("wu", 1)).float()
         if split is None:
-            return gate.to(x.dtype) @ w("wd", 0)
+            return context.leave_sublayer(gate.to(x.dtype) @ w("wd", 0),
+                                          False)
         return down(gate.to(x.dtype), w("wd", 0)).to(x.dtype)
 
 

@@ -104,8 +104,12 @@ class Encoder(nn.Module):
 
     def forward(self, frames: torch.Tensor,
                 impl: Optional[str] = None) -> torch.Tensor:
-        h, _ = self.stack(frames, caches=None, causal=False, impl=impl)
-        return self.final_norm(h)
+        # on a mesh with sequence parallelism, by the encoder's own length;
+        # the output, the cross-attention source, is whole
+        with context.sequence_sharded(frames.shape[1]):
+            h, _ = self.stack(context.shard_sequence(frames), caches=None,
+                              causal=False, impl=impl)
+            return context.gather_sequence(self.final_norm(h))
 
 
 class LM(nn.Module):
@@ -172,9 +176,14 @@ class LM(nn.Module):
         run it on a parameter dict).  ``cross_input``: the batch's
         ``frames`` or ``image_embeds``."""
         x = embed(context.full(self, "embed"), tokens)
-        x, aux = self.stack(x, caches=None, pos=0, causal=True, impl=impl,
-                            cross_src=self.cross_source(cross_input, impl))
-        return self.final_norm(x), aux
+        cross = self.cross_source(cross_input, impl)
+        # sequence parallelism: the stack and the final norm on the rank's
+        # positions, the head on the whole sequence
+        with context.sequence_sharded(x.shape[1]):
+            x, aux = self.stack(context.shard_sequence(x), caches=None,
+                                pos=0, causal=True, impl=impl,
+                                cross_src=cross)
+            return context.gather_sequence(self.final_norm(x)), aux
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         head = (context.full(self, "embed").T if self.cfg.tie_embeddings
@@ -190,8 +199,13 @@ class LM(nn.Module):
         ``cross_input``, through the encoder for an encoder-decoder).
         Returns last-position logits (B, 1, V) and the cache."""
         x = embed(context.full(self, "embed"), tokens)
-        x, _ = self.stack(x, caches=cache, pos=0, causal=True, impl=impl,
-                          cross_src=self.cross_source(cross_input, impl))
+        cross = self.cross_source(cross_input, impl)
+        # under sequence parallelism the last position is the last rank's
+        # last row: each rank's last row gathered
+        with context.sequence_sharded(x.shape[1]):
+            x, _ = self.stack(context.shard_sequence(x), caches=cache,
+                              pos=0, causal=True, impl=impl, cross_src=cross)
+            x = context.gather_sequence(x[:, -1:])
         x = self.final_norm(x[:, -1:, :])
         return self._logits(x), cache
 

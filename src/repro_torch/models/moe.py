@@ -20,6 +20,16 @@ block, as the reference's GSPMD layouts do, gives the same slots.
 and runs the one-device layer on the local batch.  Every mode is the
 same function.  The aux losses are the global batch's.
 
+Under sequence parallelism the layer's input shards are all-gathered
+along the sequence first (``context.enter_sublayer``): the router, the
+capacity and the drops are the whole sequence's, as without it (routing
+a shard would change C).  The split modes' partials are reduce-scattered
+back to the shards; "none" keeps the rank's positions of its output.
+The router runs alike on every rank and its aux losses are every rank's,
+so its gradient reaches the gathered input at the rank's own positions
+alone (``context.replicated``) and its gate weights enter the experts'
+computation summed over "model" (``context.enter_split``).
+
 Gradients flow through the top-k values, the gathers and the combine
 weights; the integer paths carry none, and a dropped slot has weight 0.
 """
@@ -158,10 +168,14 @@ class MoE(nn.Module):
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, Aux]:
         """x: (B, S, D) -> (y (B, S, D), aux losses)."""
-        B, S, D = x.shape
         E, k = self.cfg.n_experts, self.cfg.top_k
+        sc = context.current()
+        split = not (sc is None or sc.pcfg.moe_buffer_mode == "none"
+                     or E % sc.tp.size)
+        xw, xs = context.enter_sublayer(x, split)
+        B, S, D = xw.shape
         C = moe_capacity(self.cfg, S)
-        logits, probs, top_w, top_idx = self.route(x)
+        logits, probs, top_w, top_idx = self.route(context.replicated(xw))
         ce = context.batch_mean(F.one_hot(top_idx[..., 0], E).float().mean(
             (0, 1)))
         aux = {"moe_load_balance": E * torch.sum(
@@ -169,19 +183,20 @@ class MoE(nn.Module):
                "moe_z_loss": context.batch_mean(torch.mean(
                    torch.logsumexp(logits, -1) ** 2))}
 
-        sc = context.current()
-        tp = None if sc is None else sc.tp
-        if sc is None or sc.pcfg.moe_buffer_mode == "none" or E % tp.size:
-            w = {n: context.full(self, n) for n in ("wg", "wu", "wd")}
-            tok_slot, w_slot, slot_of = _slots(top_idx, top_w, 0, E, C)
+        if not split:
+            w = {n: context.full(self, n, partial=True)
+                 for n in ("wg", "wu", "wd")}
+            tw = context.enter_split(top_w) if context.sharded() else top_w
+            tok_slot, w_slot, slot_of = _slots(top_idx, tw, 0, E, C)
             # gathered straight into the experts' (E, B*C, D) layout
-            buf = _gather(x, tok_slot.view(B, E, C).transpose(0, 1))
-            y = _combine(x, buf.reshape(E, B * C, D), w, w_slot, slot_of,
-                         E, C).to(x.dtype)
+            buf = _gather(xw, tok_slot.view(B, E, C).transpose(0, 1))
+            y = context.leave_sublayer(_combine(
+                xw, buf.reshape(E, B * C, D), w, w_slot, slot_of, E,
+                C).to(x.dtype), False)
             n_routed = torch.sum((tok_slot < S).float())
         else:
-            y, n_routed = moe_shard_map(self, x, top_idx, top_w, tp.rank,
-                                        tp.size)
+            y, n_routed = moe_shard_map(self, xs, top_idx, top_w, sc.tp.rank,
+                                        sc.tp.size)
         if self.cfg.n_shared_experts > 0:
             y = y + self.shared(x)
         if self.cfg.dense_residual:
@@ -232,26 +247,28 @@ def _expert_weights(moe: MoE, r: int, n: int) -> Dict[str, torch.Tensor]:
             for name in ("wg", "wu", "wd")}
 
 
-def moe_shard_map(moe: MoE, x: torch.Tensor, top_idx: torch.Tensor,
+def moe_shard_map(moe: MoE, xs: torch.Tensor, top_idx: torch.Tensor,
                   top_w: torch.Tensor, r: int, n: int,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Explicit expert parallelism, the reference's ``moe_shard_map``:
     rank ``r`` of ``n`` on "model" holds experts ``[r * E/n, (r+1) *
-    E/n)`` and its batch groups' tokens (replicated over "model"); it
-    ranks the tokens into its own experts' slots alone (the local
-    dispatch of :func:`_dispatch_local_experts`, ``e_lo = r * E/n``),
-    runs them with their weights all-gathered over the FSDP axes, and the
-    (B_l, S, D) partials are summed once over "model" in fp32.  Returns
-    the output and the routed count over every expert."""
-    B, S, D = x.shape
+    E/n)`` and its batch groups' tokens ``xs`` (the layer's input
+    entering the split: replicated over "model", or gathered along the
+    sequence under SP); it ranks the tokens into its own experts' slots
+    alone (the local dispatch of :func:`_dispatch_local_experts`, ``e_lo
+    = r * E/n``), runs them with their weights all-gathered over the FSDP
+    axes, and the (B_l, S, D) partials are summed once over "model" in
+    fp32 (``context.leave_sublayer``).  Returns the output and the routed
+    count over every expert."""
+    B, S, D = xs.shape
     E = moe.cfg.n_experts
     C = moe_capacity(moe.cfg, S)
     E_l = E // n
-    xs, tw = context.enter_split(x), context.enter_split(top_w)
+    tw = context.enter_split(top_w)
     tok_slot, w_slot, slot_of = _slots(top_idx, tw, r * E_l, E_l, C)
     buf = _gather(xs, tok_slot.view(B, E_l, C).transpose(0, 1))
     y = _combine(xs, buf.reshape(E_l, B * C, D), _expert_weights(moe, r, n),
                  w_slot, slot_of, E_l, C)
     routed = context.leave_split(torch.sum((tok_slot < S).float()))
-    return context.leave_split(y).to(x.dtype), routed
+    return context.leave_sublayer(y, True).to(xs.dtype), routed
 

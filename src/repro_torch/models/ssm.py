@@ -16,8 +16,11 @@ cache and takes one plain step a token.
 On a mesh whose "model" axis divides ``d_inner``, each rank keeps its
 block of the channels (the conv, the scan and the gate are per channel,
 so the scan kernel runs on the local channels) and the two products
-that sum over them, ``x_proj`` and ``out_proj``, are all-reduced in
-float32; off a mesh the weights are the module's own.
+that sum over them, ``x_proj`` and ``out_proj``, are summed in float32:
+``x_proj``'s all-reduced, ``out_proj``'s the block's exit
+(``context.leave_sublayer``: reduce-scattered along the sequence under
+sequence parallelism, whose gathered input gives the conv and the scan
+the whole sequence); off a mesh the weights are the module's own.
 """
 
 from __future__ import annotations
@@ -122,17 +125,20 @@ class Mamba(nn.Module):
         R, N, di = self.cfg.dt_rank, self.cfg.ssm_state, self.cfg.d_inner
         split = context.tp_split(di)
         w = self._weights(split)
-        us = u if split is None else context.enter_split(u)
+        _, us = context.enter_sublayer(u, split is not None)
 
-        def summed(eq, a, b):
+        def summed(eq, a, b, last=False):
             """A product over the channels (``eq`` None: a matmul):
             whole, or this rank's channels' partial sum, summed over
-            "model" in fp32."""
+            "model" in fp32; ``last``: the block's output."""
             if split is None:
-                return a @ b if eq is None else torch.einsum(eq, a, b)
+                y = a @ b if eq is None else torch.einsum(eq, a, b)
+                return context.leave_sublayer(y, False) if last else y
             a32, b32 = a.float(), b.float()
             part = a32 @ b32 if eq is None else torch.einsum(eq, a32, b32)
-            return context.leave_split(part).to(a.dtype)
+            part = (context.leave_sublayer(part, True) if last
+                    else context.leave_split(part))
+            return part.to(a.dtype)
 
         def enter(*ts):
             return ts if split is None else tuple(context.enter_split(t)
@@ -154,7 +160,7 @@ class Mamba(nn.Module):
                                        w["dt_w"]).float()
                           + w["dt_b"].float()).to(u.dtype)
             y, _ = ops.selective_scan(xc, dt, A, Bm, Cm, None, impl=impl)
-        elif u.shape[1] == 1:
+        elif us.shape[1] == 1:
             # ---- decode step: conv from the cached window, one scan step
             window = torch.cat([cache["conv"], x.to(cache["conv"].dtype)],
                                dim=1)                      # (B, W, di)
@@ -188,7 +194,7 @@ class Mamba(nn.Module):
 
         out = ((y.float() + xc.float() * w["D"]) * F.silu(z.float())
                ).to(u.dtype)
-        return summed("bse,ed->bsd", out, w["out_proj"])
+        return summed("bse,ed->bsd", out, w["out_proj"], last=True)
 
     #: parameter -> the dimension of its d_inner channels
     _CHANNEL_DIM = {"in_proj": 1, "conv_w": 1, "conv_b": 0, "x_proj": 0,
@@ -199,7 +205,8 @@ class Mamba(nn.Module):
         or its block of the channels (``in_proj``'s x and z halves
         each)."""
         if split is None:
-            return {n: context.full(self, n) for n in self._CHANNEL_DIM}
+            return {n: context.full(self, n, partial=True)
+                    for n in self._CHANNEL_DIM}
         di = self.cfg.d_inner
         out = {}
         for n, dim in self._CHANNEL_DIM.items():

@@ -6,8 +6,14 @@ and runs them with ``lax.scan``; here the stack is an ``nn.ModuleList``
 of ``n_layers`` layers in pattern order (layer ``i`` follows
 ``pattern[i % superblock_size]``), run by a Python loop, and the cache is
 a list with one dict per layer.  The reference's sharding constraint on
-the activations between superblocks is a no-op off a mesh and is left
-out.  The same :class:`Stack` runs an encoder-decoder's encoder (its
+the activations between superblocks (``constrain_activations``: the
+sequence over "model", Megatron SP) is the mesh steps' sequence
+parallelism: its caller (``model_zoo``) hands the stack the rank's
+positions inside ``context.sequence_sharded``, and every sublayer
+gathers and scatters them itself, so the inner boundaries of a
+superblock (jamba's 8 layers, llama-vision's 5) are sharded too -- the
+same function.  Off a mesh the stack sees the whole sequence.  The same
+:class:`Stack` runs an encoder-decoder's encoder (its
 ``encoder_config``: attention and MLP layers, ``causal=False``, no
 cache).
 
@@ -143,7 +149,9 @@ class Superblock(nn.ModuleList):
 def _remat_superblock(block: Superblock, scope, names, x, *tensors, **kw):
     """``block`` on its parameters ``tensors`` (by ``names``), under the
     mesh step's ``scope``: what a checkpoint recomputes in the backward,
-    after the step's ``functional_call`` and scope have ended."""
+    after the step's ``functional_call`` and scope have ended (under
+    sequence parallelism the sharded scope, so the recompute gathers its
+    saved shard again)."""
     with context.activation_sharding_scope(scope):
         return torch.func.functional_call(
             block, dict(zip(names, tensors)), (x,), kw, strict=True)

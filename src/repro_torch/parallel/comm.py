@@ -5,11 +5,16 @@ rank: the tensor itself, both ways).  The tensor-parallel pair is
 Megatron's: :func:`reduce_from` sums the partial results of a split
 computation (all-reduce forward, identity backward) and :func:`copy_to`
 enters one (identity forward, all-reduce of the gradients backward).
-:func:`gather_along` all-gathers a sharded weight before use; its
-backward reduce-scatters the gradient (``"sum"``: the ranks computed on
-different data or different slices) or takes this rank's slice of it
-(``"slice"``: they computed the same thing).  gloo has no reduce-scatter,
-so there it is an all-reduce and a slice.
+:func:`gather_along` all-gathers a sharded weight, or a sequence-sharded
+activation, before use; its backward reduce-scatters the gradient
+(``"sum"``: the ranks computed on different data or different slices)
+or takes this rank's slice of it (``"slice"``: they computed the same
+thing).  Megatron's sequence parallelism adds the other two ends:
+:func:`reduce_scatter_along` sums a split computation's partials into
+this rank's shard (all-gather of the gradient backward) and
+:func:`split_along` cuts a whole tensor to this rank's shard (the same
+all-gather backward).  gloo has no reduce-scatter, so there it is an
+all-reduce and a slice.
 
 Every collective a step issues goes through :func:`_collective`, which
 appends a :class:`Collective` to the list that :func:`recording` installs
@@ -102,13 +107,16 @@ def _reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     with _collective("reduce-scatter", _nbytes(x) // group.size,
                      group.size):
         if dist.get_backend(group.pg) == "gloo":
-            x = x.contiguous()
+            # a copy: the input may be a gradient another branch reads
+            x = x.clone(memory_format=torch.contiguous_format)
             dist.all_reduce(x, group=group.pg)
             return _chunk(x, dim, group).contiguous()
-        x = x.movedim(dim, 0).contiguous()
-        out = x.new_empty((x.shape[0] // group.size,) + tuple(x.shape[1:]))
+        # rank-major: each rank's block of ``dim`` a contiguous chunk, so
+        # the result is this rank's block, contiguous
+        x = x.unflatten(dim, (group.size, -1)).movedim(dim, 0).contiguous()
+        out = x.new_empty(tuple(x.shape[1:]))
         _scatter_from(out, x, group=group.pg)
-        return out.movedim(0, dim)
+        return out
 
 
 def all_reduce(x: torch.Tensor, pg, size: int) -> torch.Tensor:
@@ -132,6 +140,46 @@ class _Gather(torch.autograd.Function):
         if backward == "sum":
             return _reduce_scatter(g, dim, group), None, None, None
         return _chunk(g, dim, group).contiguous(), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.args = (dim, group)
+        return _reduce_scatter(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, group = ctx.args
+        return _all_gather(g, dim, group), None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.args = (dim, group)
+        return _chunk(x, dim, group).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, group = ctx.args
+        return _all_gather(g, dim, group), None, None
+
+
+class _KeepChunk(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.args = (dim, group)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, group = ctx.args
+        n = g.shape[dim] // group.size
+        out = torch.zeros_like(g)
+        out.narrow(dim, group.rank * n, n).copy_(
+            g.narrow(dim, group.rank * n, n))
+        return out, None, None
 
 
 class _ReduceFrom(torch.autograd.Function):
@@ -161,6 +209,33 @@ def gather_along(x: torch.Tensor, dim: int, group,
     if group.size == 1:
         return x
     return _Gather.apply(x, dim, group, backward)
+
+
+def reduce_scatter_along(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's shard along ``dim`` of the sum of ``x`` over ``group``
+    (forward); the gradient all-gathered along ``dim``."""
+    if group.size == 1:
+        return x
+    return _ReduceScatter.apply(x, dim, group)
+
+
+def split_along(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's shard along ``dim`` of ``x``, which every rank of
+    ``group`` holds alike (forward); the gradient all-gathered along
+    ``dim``."""
+    if group.size == 1:
+        return x
+    return _Split.apply(x, dim, group)
+
+
+def keep_chunk_grad(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """``x`` unchanged (forward); of its gradient, this rank's chunk along
+    ``dim`` alone, zeros elsewhere: a whole gradient that a
+    :func:`gather_along` ``"sum"`` upstream reduce-scatters then counts
+    each chunk once, as ``"slice"`` would (no collective)."""
+    if group.size == 1:
+        return x
+    return _KeepChunk.apply(x, dim, group)
 
 
 def reduce_from(x: torch.Tensor, group) -> torch.Tensor:

@@ -13,10 +13,14 @@ On a :class:`launch.mesh.HostMesh` a step is the one-device step.  On a
 :class:`launch.mesh.RankMesh` every rank calls ``fn`` on its own parts
 (plain local tensors) inside the step's ``parallel.context`` scope: the
 layers all-gather their FSDP-sharded weights before use, keep heads,
-columns, channels and experts local over "model" and all-reduce the
-partial sums (see ``parallel.context``).  The train step's gradients flow
-through those collectives; its gradient norm is the global one.  A
-one-rank mesh computes what the one-device step computes, bit for bit.
+columns, channels and experts local over "model" and sum the partial
+sums over it -- in the train and prefill steps, under
+``ParallelConfig.shard_sequence`` (the default), with the activation
+between sublayers sharded along the sequence over "model" (Megatron SP:
+all-gather in, reduce-scatter out), and otherwise all-reduced (see
+``parallel.context``).  The train step's gradients flow through those
+collectives; its gradient norm is the global one.  A one-rank mesh
+computes what the one-device step computes, bit for bit.
 """
 
 from __future__ import annotations
@@ -121,10 +125,12 @@ def _scope(mesh, shape: ShapeSpec, pcfg: ParallelConfig,
     seq = any(spec[1] is not None for layer in (c_sh or [])
               for kind, entries in layer.items() if kind != "ssm"
               for spec in entries.values())
+    # the reference installs its sequence sharding in train and prefill
     return Scope(
         mesh=mesh, pcfg=pcfg, specs=p_sh,
         batch_axes=spec_axes(batch_spec(mesh, shape.global_batch, pcfg)[0]),
-        cache_seq=seq)
+        cache_seq=seq,
+        seq_parallel=pcfg.shard_sequence and shape.kind != "decode")
 
 
 def _logits_spec(mesh, shape: ShapeSpec, pcfg: ParallelConfig):

@@ -14,12 +14,18 @@
 - The (1, 2) decode of qwen2.5-3b all-gathers the 622 MB embedding twice
   a step (the lookup and the tied head).
 - ``perf.run_variant`` writes the traced and the kernelized terms;
-  ``no_sp`` is refused, naming ROADMAP item 12g.
+  ``no_sp`` (the mesh steps without sequence parallelism) writes its
+  record: qwen2.5-3b train_4k on 16x16 holds more a rank than the
+  baseline, and its forward (a 2-layer cut traced as a prefill of the
+  cell's 16 x 4,096 rows a rank) all-reduces each split sublayer's
+  float32 partials where the baseline reduce-scatters them and
+  all-gathers the bf16 activation.
 
 Every fake world is torn down by the dry run's context manager; the
 fixture below fails a test that leaves a process group behind.
 """
 
+import collections
 import json
 import os
 import subprocess
@@ -36,7 +42,7 @@ from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.launch import dryrun, perf
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import build_model
-from repro_torch.parallel import build_step
+from repro_torch.parallel import ParallelConfig, build_step
 
 MESH = ((2, 2), ("data", "model"))
 SHAPES_SMOKE = {"train": ShapeSpec("tiny_train", 16, 4, "train"),
@@ -222,7 +228,27 @@ def test_perf_baseline_and_kernelized():
 
 
 def test_perf_refuses_no_sp():
-    with pytest.raises(ValueError, match="12g"):
-        perf.run_variant("qwen2.5-3b", "train_4k", "no_sp")
+    """What replaced the refusal: ``no_sp``'s record and its forward."""
+    base = perf.run_variant("qwen2.5-3b", "train_4k", "baseline")
+    rec = perf.run_variant("qwen2.5-3b", "train_4k", "no_sp")
+    assert (rec["arch"], rec["shape"], rec["variant"], rec["mesh"]) == (
+        "qwen2.5-3b", "train_4k", "no_sp", "16x16")
+    assert rec["per_device_resident_gb"] > base["per_device_resident_gb"]
+    assert rec["roofline"]["collectives"] != base["roofline"]["collectives"]
+    cfg = get_config("qwen2.5-3b").replace(n_layers=2)
+    fwd = ShapeSpec("fwd", SHAPES["train_4k"].seq_len,
+                    SHAPES["train_4k"].global_batch, "prefill")
+    b_l = fwd.global_batch // 16
+    act = b_l * fwd.seq_len * cfg.d_model           # a rank's (B_l, S, D)
+    traced = {sp: collections.Counter(map(tuple, dryrun.trace_rank(
+        cfg, fwd, "16x16", ParallelConfig(shard_sequence=sp)).collectives))
+        for sp in (True, False)}
+    # two split sublayers a layer (attention, MLP); the gathers one each,
+    # and at the stack's exit one of each rank's last row
+    assert traced[False] - traced[True] == {("all-reduce", act * 4, 16): 4}
+    assert traced[True] - traced[False] == {
+        ("reduce-scatter", act * 4 // 16, 16): 4,
+        ("all-gather", act * 2, 16): 4,
+        ("all-gather", b_l * 16 * cfg.d_model * 2, 16): 1}
     with pytest.raises(ValueError, match="unknown variant"):
         perf.run_variant("qwen2.5-3b", "train_4k", "no_such_variant")
